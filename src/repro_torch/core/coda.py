@@ -7,21 +7,29 @@ The training state is a plain dict
      "ref_duals": {field: [K]}}
 
 where every parameter leaf carries a leading worker axis K (``params[k]`` is
-machine k's replica).  A local step runs every worker at once: one batched
+machine k's replica), plus ``opt`` for a stateful optimizer
+(``core/optimizer.py``: never averaged, never in the payload) and, with
+``stream_bins > 0``, the streaming sketch ``sk_acc`` / ``sk_new`` /
+``sk_loc`` ({"pos", "neg"}: [K, bins] fp32 counts; see
+``metrics/streaming.py``).  A local step runs every worker at once: one batched
 forward over ``[K, B, ...]`` inputs, one ``auc_loss`` launch over the
 ``[K, B]`` scores, autograd of ``losses.sum()`` (the workers are
 independent, so the sum gives each worker its own gradient — a mean would
-scale them by 1/K), then one ``prox_update`` launch per parameter leaf.
-The periodic averaging is a mean over axis 0, broadcast back.
+scale them by 1/K), then the optimizer's update: one ``prox_update``
+launch per parameter leaf (sgd, shampoo_blocked) or one ``opt_update``
+launch per leaf (momentum, sm3).  The periodic averaging is a mean over
+axis 0, broadcast back; with the sketch on it also folds the per-worker
+deltas into the accumulator.
 
 Updates are out of place: every step returns new tensors and never writes
 into the old ones, so ``ref_params`` may share buffers with ``params``
 after ``stage_end`` (``init_state`` still gives it its own copy, as the
 reference does).
 
-Ported in this slice: ``algorithm="coda"`` with the ``auc`` objective, the
-``sgd`` optimizer, plain or int8-compressed averaging, and the
-worker-batched executor (the reference's ``VmapExecutor``).  Every other
+Ported: ``algorithm="coda"`` with the ``auc`` objective, every optimizer
+(sgd, momentum, sm3, shampoo_blocked), the streaming sketch, plain or
+int8-compressed averaging, and the worker-batched executor (the
+reference's ``VmapExecutor``).  Every other
 ``CoDAConfig`` feature raises ``NotImplementedError`` naming its ROADMAP
 item — it never silently trains plain CoDA.
 """
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import objective, optimizer, schedules
+from repro_torch.metrics import streaming
 from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -159,10 +168,6 @@ class CoDAConfig:
              "Queue 1 item 8 (CODASCA)"),
             (self.objective != "auc", f"objective={self.objective!r}",
              "Queue 1 item 3 (objectives)"),
-            (self.optimizer != "sgd", f"optimizer={self.optimizer!r}",
-             "Queue 1 item 7 (optimizer seam)"),
-            (self.stream_bins != 0, f"stream_bins={self.stream_bins}",
-             "Queue 1 item 6 (streaming metrics)"),
             (self.faults_enabled or self.max_staleness != 0
              or self.straggler_windows != 1 or self.staleness_discount != 0.5
              or self.fault_seed != 0,
@@ -192,19 +197,31 @@ def _stack(params, K: int):
 def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
                generator: torch.Generator | None = None,
                device: str | torch.device = "cpu") -> CoDAState:
-    """A fresh state: one replica of ``M.init_params`` stacked K times, and
-    ``ref_params`` in buffers of its own."""
+    """A fresh state: one replica of ``M.init_params`` stacked K times,
+    ``ref_params`` in buffers of its own, the zero sketch counts when
+    ``stream_bins > 0``, and the optimizer's initial state."""
     params = M.init_params(mcfg, generator=generator, dtype=ccfg.param_dtype,
                            device=device)
     K = ccfg.n_workers
     obj = objective.for_config(ccfg)
     duals = obj.init_duals(K, device)
-    return {
+    state = {
         "params": _stack(params, K),
         "duals": duals,
         "ref_params": _stack(params, K),
         "ref_duals": {f: torch.zeros_like(duals[f]) for f in obj.prox_refs},
     }
+    if ccfg.stream_bins:
+        # sk_acc: the replicated global counts; sk_new: each worker's delta
+        # since the last average; sk_loc: each worker's own merged deltas
+        z = lambda: torch.zeros((K, ccfg.stream_bins), dtype=torch.float32,
+                                device=device)
+        for k in ("sk_acc", "sk_new", "sk_loc"):
+            state[k] = {"pos": z(), "neg": z()}
+    opt = optimizer.for_config(ccfg).init(ccfg, state["params"])
+    if opt is not None:
+        state["opt"] = opt
+    return state
 
 
 # --------------------------------------------------------------------------
@@ -257,9 +274,21 @@ def local_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, batch,
                eta) -> tuple:
     """One local primal-dual update on every worker (no communication).
     ``batch``: leading [K, per_worker_batch, ...] axes.  Returns
-    (new_state, per-worker losses [K])."""
-    losses, grads, _ = grad_step_scores(mcfg, ccfg, state, batch)
-    return apply_grads(ccfg, state, grads, eta), losses
+    (new_state, per-worker losses [K]).  With the sketch on, the scores the
+    loss already computed go into the per-worker deltas."""
+    losses, grads, hs = grad_step_scores(mcfg, ccfg, state, batch)
+    new = apply_grads(ccfg, state, grads, eta)
+    if "sk_new" in state:
+        new["sk_new"] = sketch_update(ccfg, state["sk_new"], hs, batch["labels"])
+    return new, losses
+
+
+def sketch_update(ccfg: CoDAConfig, sk, hs, labels):
+    """Scatter one local step's scores [K, B] into the per-worker sketch
+    deltas ({"pos": [K, bins], "neg": [K, bins]})."""
+    lo, hi = ccfg.stream_range
+    pos, neg = streaming.update_counts(sk["pos"], sk["neg"], hs, labels, lo, hi)
+    return {"pos": pos, "neg": neg}
 
 
 def int8_quantize(xf, red_axes):
@@ -290,6 +319,20 @@ def average(state: CoDAState, compress: str | None = None) -> CoDAState:
     new = dict(state)
     new["params"] = tree_map(avg, state["params"])
     new["duals"] = {k: avg(v) for k, v in state["duals"].items()}
+    if "sk_new" in state:
+        new = merge_sketch(new)
+    return new
+
+
+def merge_sketch(state: CoDAState) -> CoDAState:
+    """Fold the per-worker sketch deltas into the replicated accumulator at
+    a window average: sk_acc += Σ_k sk_new[k], sk_loc[k] += sk_new[k], then
+    reset the deltas.  Exact: integer-valued fp32 counts below 2²⁴."""
+    new = dict(state)
+    new["sk_acc"] = {k: state["sk_acc"][k] + state["sk_new"][k].sum(0, keepdim=True)
+                     for k in ("pos", "neg")}
+    new["sk_loc"] = {k: state["sk_loc"][k] + state["sk_new"][k] for k in ("pos", "neg")}
+    new["sk_new"] = {k: torch.zeros_like(v) for k, v in state["sk_new"].items()}
     return new
 
 
@@ -363,10 +406,24 @@ def model_bytes(state: CoDAState, compress: str | None = None) -> int:
     return sum(l.numel() // l.shape[0] * l.element_size() for l in leaves)
 
 
+def opt_state_bytes(state: CoDAState) -> int:
+    """Per-worker optimizer-state bytes (``state["opt"]``; 0 for sgd).
+    Local bytes only: never in a window payload."""
+    return optimizer.state_bytes(state.get("opt"))
+
+
+def streaming_payload_bytes(state: CoDAState) -> int:
+    """Extra fp32 bytes the sketch adds to the window collective: the
+    per-worker deltas ``sk_new`` (2·stream_bins·4); 0 when it is off."""
+    if "sk_new" not in state:
+        return 0
+    return sum(l.numel() // l.shape[0] * 4 for l in state["sk_new"].values())
+
+
 def window_payload_bytes(state: CoDAState, compress: str | None = None) -> int:
-    """Bytes one worker ships in the single window all-reduce (CoDA:
-    exactly ``model_bytes``)."""
-    return model_bytes(state, compress)
+    """Bytes one worker ships in the single window all-reduce: CoDA's
+    ``model_bytes`` plus the sketch deltas when the sketch is on."""
+    return model_bytes(state, compress) + streaming_payload_bytes(state)
 
 
 def stage_payload_bytes(ccfg: CoDAConfig) -> int:
@@ -426,6 +483,8 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
         sched: schedules.ScheduleConfig, n_stages: int,
         sample_window: Callable[[int], Any],
         sample_alpha_batch: Callable[[int], Any], *,
+        eval_every: int = 0,
+        eval_fn: Callable[[CoDAState], float] | None = None,
         executor: Any = "vmap") -> FitResult:
     """Run CoDA for ``n_stages`` proximal-point stages from ``state`` (the
     reference draws its state from a PRNG key in this place; here it comes
@@ -435,6 +494,10 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
     ``sample_alpha_batch(m)`` one with [K, m, ...].  They are called in the
     reference's order (each window, then one alpha batch per stage), so a
     caller can replay the reference's draws.
+
+    ``eval_fn(state)`` runs after every ``eval_every``-th window of each
+    stage, and its value is appended to ``history`` after that window's
+    loss, as the reference does.
 
     ``step_seconds`` records, per window, its host time over its local steps,
     taken after the per-window loss readout (which synchronises with the
@@ -447,7 +510,7 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
     rounds = iters = 0
     for st in stage_list:
         n_windows = -(-st.T // st.I)
-        for _ in range(n_windows):
+        for w in range(1, n_windows + 1):
             t0 = time.perf_counter()
             wb = sample_window(st.I)
             state, losses = exe.window_step(state, wb, st.eta)
@@ -455,6 +518,8 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
             iters += st.I
             history.append((st.s, iters, float(torch.mean(losses))))
             step_seconds.append((time.perf_counter() - t0) / st.I)
+            if eval_fn is not None and eval_every and w % eval_every == 0:
+                history.append((st.s, iters, float(eval_fn(state))))
         state = exe.stage_end(state, sample_alpha_batch(st.m))
         rounds += 1
     return FitResult(state, history, rounds, iters, step_seconds)

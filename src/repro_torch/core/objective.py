@@ -1,8 +1,9 @@
 """Min-max objectives for the CoDA executors (counterpart of
 ``repro.core.objective``).
 
-This slice ports the ``auc`` objective (the paper's eq. 2 with duals
-a, b, α) and the ``Objective`` seam it plugs into; ``pauc_dro`` and ``bce``
+Ported: the ``auc`` objective (the paper's eq. 2 with duals a, b, α), the
+``Objective`` seam it plugs into with its ``metric`` factory, and the
+evaluation metrics ``roc_auc`` / ``partial_auc``; ``pauc_dro`` and ``bce``
 come later (ROADMAP Queue 1, item 3).
 
 The worker axis is written out: ``loss`` takes scores ``h [K, T]``, labels
@@ -17,6 +18,7 @@ Function ever needs vmapping:
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
@@ -79,6 +81,31 @@ def roc_auc(scores, labels) -> float:
     return float(auc)
 
 
+def partial_auc(scores, labels, beta: float = 0.3) -> float:
+    """One-way partial AUC at FPR ≤ ``beta``, normalized to [0, 1]: the
+    positives ranked against the hardest ⌈β·n⁻⌉ negatives, ties 1/2, in
+    float64 NumPy (``repro.core.objective.partial_auc``, objective.py:135,
+    line for line).  Single-class inputs return 0.0."""
+    s = np.asarray(scores, np.float64)
+    y = np.asarray(labels, np.float64)
+    sp = s[y > 0.5]
+    sn = s[y <= 0.5]
+    if len(sp) == 0 or len(sn) == 0:
+        return 0.0
+    k = max(1, int(np.ceil(beta * len(sn))))
+    hard = np.sort(sn)[::-1][:k]        # hardest k negatives by score
+    pooled = np.concatenate([sp, hard])
+    order = np.argsort(pooled, kind="mergesort")
+    sorted_ = pooled[order]
+    first = np.searchsorted(sorted_, sorted_, side="left") + 1
+    last = np.searchsorted(sorted_, sorted_, side="right")
+    ranks = np.empty_like(pooled)
+    ranks[order] = 0.5 * (first + last)
+    n_pos = float(len(sp))
+    sum_pos_ranks = float(ranks[:len(sp)].sum())
+    return float((sum_pos_ranks - n_pos * (n_pos + 1) / 2) / (n_pos * k))
+
+
 class Objective:
     """One min-max objective: dual state + loss + update/boundary rules
     (see ``repro.core.objective.Objective``)."""
@@ -86,6 +113,7 @@ class Objective:
     name: str = ""
     prox_refs: tuple[str, ...] = ()     # duals under proximal regularization
     stage_fields: tuple[str, ...] = ()  # duals re-estimated at stage ends
+    metric_name: str = "auc"            # what ``metric`` reports
 
     def init_duals(self, K: int, device) -> dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -111,6 +139,14 @@ class Objective:
         """Closed-form re-estimates for ``stage_fields``, one value per
         worker ([K]); the caller worker-means them."""
         return {}
+
+    def metric(self, backend: str = "exact", **kw):
+        """This objective's reporting metric as a mergeable
+        ``repro_torch.metrics.streaming.Metric`` (``backend`` ∈ {exact,
+        sketch}; sketch kwargs ``bins``/``lo``/``hi`` pass through)."""
+        from repro_torch.metrics import streaming  # deferred: metrics finalizes here
+
+        return streaming.make_metric(self.metric_name, backend, **kw)
 
 
 class AUCObjective(Objective):

@@ -3,6 +3,7 @@
 //
 //   coda_auc_loss        replaces repro/kernels/auc_loss.py::auc_loss (Pallas)
 //   coda_prox_update_*   replaces repro/kernels/prox_update.py::prox_update
+//   coda_opt_update      replaces repro/kernels/opt_update.py::opt_update
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() so the wrapper can
@@ -161,6 +162,109 @@ int launch_prox(const void* v, const void* g, const void* v0, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// opt_update: the fused local-optimizer step, one pass over a flat leaf.
+//
+// Replaces repro/kernels/opt_update.py::opt_update (Pallas, pallas_call at
+// :86).  Per element it reads v, g, v0 and the buffer and writes v' and the
+// new buffer:
+//   momentum: m = coef·m + g, d = m; m is stored in the buffer's dtype,
+//             bf16 through the reference's hash-based stochastic rounding;
+//   precond:  ν = cover + g², d = g · (1/√(ν + coef)); ν is stored in fp32;
+// then the prox step of prox_update: v' = (γ(v − ηd) + ηv₀) / (η + γ).
+//
+// What bounds it on the card: bytes.  4 reads and 2 writes per element —
+// 24 B in fp32, 20 B with a bf16 momentum buffer — against about 10 fp32
+// operations and a 5-step integer hash.  The design is the plain grid-stride
+// pass of prox_update: one coalesced read of each input and one write of
+// each output, fp32 master math, η, γ, coef as runtime arguments.
+//
+// Bitwise agreement with the plain version (kernels/ref.py) is the point:
+//   * every fp32 operation is an explicitly rounded intrinsic in the plain
+//     version's order, so no FMA contraction changes a bit, and coef = 0
+//     with an fp32 buffer is prox_update bitwise;
+//   * 1/√x is __fsqrt_rn then __fdiv_rn — two correctly rounded steps that
+//     plain PyTorch repeats exactly on the CPU and on CUDA (__frsqrt_rn
+//     would be one step, which no PyTorch operation reproduces);
+//   * the hash runs in native uint32 arithmetic, which wraps mod 2³²;
+//   * the seed is read from device memory (one int64 holding a uint32), so
+//     the caller never has to bring the step counter to the host.
+// ---------------------------------------------------------------------------
+constexpr int kOptThreads = 256;
+constexpr int kModeMomentum = 0;
+constexpr int kModePrecond = 1;
+
+__device__ __forceinline__ unsigned mix_bits(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// The new momentum buffer: fp32 as is; bf16 by adding 16 hashed low bits and
+// truncating.  A NaN left after the truncation becomes the quiet NaN with
+// its sign (0x7FC0 / 0xFFC0), as the reference's fp32→bf16 conversion gives.
+__device__ __forceinline__ void store_buf(float* p, float acc, unsigned) { *p = acc; }
+__device__ __forceinline__ void store_buf(__nv_bfloat16* p, float acc, unsigned seed) {
+  const unsigned xi = __float_as_uint(acc);
+  const unsigned r = mix_bits(xi ^ seed) & 0xFFFFu;
+  const unsigned yi = (xi + r) & 0xFFFF0000u;
+  unsigned short hi = static_cast<unsigned short>(yi >> 16);
+  if ((yi & 0x7FFFFFFFu) > 0x7F800000u) hi = (yi >> 31) ? 0xFFC0 : 0x7FC0;
+  *reinterpret_cast<unsigned short*>(p) = hi;
+}
+
+template <int kMode, typename T, typename B>
+__global__ void __launch_bounds__(kOptThreads)
+opt_update_kernel(const T* __restrict__ v, const T* __restrict__ g,
+                  const T* __restrict__ v0, const B* __restrict__ buf,
+                  T* __restrict__ out_v, B* __restrict__ out_buf, long long n,
+                  float eta, float gamma, float coef,
+                  const long long* __restrict__ seed_p) {
+  const unsigned seed = static_cast<unsigned>(*seed_p);
+  const float denom = __fadd_rn(eta, gamma);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const float vf = to_f32(v[i]);
+    const float gf = to_f32(g[i]);
+    const float v0f = to_f32(v0[i]);
+    const float bf = to_f32(buf[i]);
+    float d;
+    if (kMode == kModeMomentum) {
+      const float acc = __fadd_rn(__fmul_rn(coef, bf), gf);
+      d = acc;
+      store_buf(out_buf + i, acc, seed);
+    } else {
+      const float acc = __fadd_rn(bf, __fmul_rn(gf, gf));
+      d = __fmul_rn(gf, __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(acc, coef))));
+      store_buf(out_buf + i, acc, seed);
+    }
+    const float num = __fadd_rn(__fmul_rn(gamma, __fsub_rn(vf, __fmul_rn(eta, d))),
+                                __fmul_rn(eta, v0f));
+    store(out_v + i, __fdiv_rn(num, denom));
+  }
+}
+
+template <int kMode, typename T, typename B>
+int launch_opt(const void* v, const void* g, const void* v0, const void* buf,
+               void* out_v, void* out_buf, long long n, float eta, float gamma,
+               float coef, const void* seed, void* stream) {
+  if (n > 0) {
+    long long blocks = (n + kOptThreads - 1) / kOptThreads;
+    if (blocks > 132LL * 16) blocks = 132LL * 16;  // 16 blocks per SM, then stride
+    opt_update_kernel<kMode, T, B><<<static_cast<unsigned>(blocks), kOptThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(v), static_cast<const T*>(g),
+        static_cast<const T*>(v0), static_cast<const B*>(buf),
+        static_cast<T*>(out_v), static_cast<B*>(out_buf), n, eta, gamma, coef,
+        static_cast<const long long*>(seed));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -198,6 +302,30 @@ int coda_prox_update_f32(const void* v, const void* g, const void* v0, void* out
 int coda_prox_update_bf16(const void* v, const void* g, const void* v0, void* out,
                           long long n, float eta, float gamma, void* stream) {
   return launch_prox<__nv_bfloat16>(v, g, v0, out, n, eta, gamma, stream);
+}
+
+// mode: 0 momentum, 1 precond; v_bf16 / buf_bf16: 0 fp32, 1 bf16 (v, g, v0
+// share one dtype; precond takes an fp32 buffer only).  seed: one int64 on
+// the device holding a uint32.  Out of place: out_v, out_buf are the
+// caller's fresh tensors of v's and buf's shape and dtype.
+int coda_opt_update(int mode, int v_bf16, int buf_bf16, const void* v,
+                    const void* g, const void* v0, const void* buf, void* out_v,
+                    void* out_buf, long long n, float eta, float gamma,
+                    float coef, const void* seed, void* stream) {
+#define CODA_OPT(M, T, B) \
+  launch_opt<M, T, B>(v, g, v0, buf, out_v, out_buf, n, eta, gamma, coef, seed, stream)
+  if (mode == kModeMomentum) {
+    if (!v_bf16 && !buf_bf16) return CODA_OPT(kModeMomentum, float, float);
+    if (!v_bf16 && buf_bf16) return CODA_OPT(kModeMomentum, float, __nv_bfloat16);
+    if (v_bf16 && !buf_bf16) return CODA_OPT(kModeMomentum, __nv_bfloat16, float);
+    return CODA_OPT(kModeMomentum, __nv_bfloat16, __nv_bfloat16);
+  }
+  if (mode == kModePrecond && !buf_bf16) {
+    if (!v_bf16) return CODA_OPT(kModePrecond, float, float);
+    return CODA_OPT(kModePrecond, __nv_bfloat16, float);
+  }
+#undef CODA_OPT
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* coda_error_string(int err) {

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import auc_loss as _auc_mod
+from repro_torch.kernels import opt_update as _opt_mod
 from repro_torch.kernels import prox_update as _prox_mod
 from repro_torch.kernels import ref
 from repro_torch.tree import tree_map
@@ -42,6 +43,22 @@ def auc_loss(h, y, a, b, alpha, p: float, *, impl: str = "auto"):
     if dispatch(impl, h.device):
         return _auc_mod.auc_loss(h, y, a, b, alpha, p)
     return ref.auc_loss_ref(h, y, a, b, alpha, p)
+
+
+def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,
+               mode: str, impl: str = "auto"):
+    """Fused optimizer update of one parameter leaf (the
+    ``core/optimizer.py`` seam): accumulator update + preconditioned step +
+    prox projection in one pass, returning ``(new_v, new_buf)``.
+
+    ``mode="momentum"``: buf is the momentum buffer (m ← coef·m + g, d = m;
+    a bf16 buffer is re-stored with stochastic rounding under ``seed``).
+    ``mode="precond"``: buf is the fp32 accumulator cover (ν = cover + g²,
+    d = g/√(ν+coef), ν returned fp32 for the caller's axis reductions)."""
+    if dispatch(impl, v.device):
+        return _opt_mod.opt_update(v, g, v0, buf, eta, gamma, coef, seed,
+                                   mode=mode)
+    return ref.opt_update_ref(v, g, v0, buf, eta, gamma, coef, seed, mode=mode)
 
 
 def prox_update_tree(v_tree, g_tree, v0_tree, eta: float, gamma: float, *,

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the ported kernels — the semantics the CUDA
 kernels are held to (counterpart of ``repro.kernels.ref``).
 
-Both repeat the reference's arithmetic in the same order; every scalar is
+Each repeats the reference's arithmetic in the same order; every scalar is
 an fp32 0-dim tensor so each operation rounds in fp32, as the JAX oracle
 and the CUDA kernels do.
 """
@@ -9,9 +9,21 @@ from __future__ import annotations
 
 import torch
 
+_U32 = 0xFFFFFFFF
+
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def rsqrt(x):
+    """1/√x as two correctly rounded fp32 operations (IEEE sqrt, then IEEE
+    division), the same on the CPU, in CUDA's default math and in the
+    kernel (``__fsqrt_rn``, ``__fdiv_rn``).  ``torch.rsqrt`` is not used: on
+    CUDA it is the approximate ``rsqrtf``.  ``jax.lax.rsqrt`` on the CPU is
+    itself within 1 ulp of the correctly rounded value, not equal to it,
+    so against the reference this differs by at most 2 ulp."""
+    return torch.reciprocal(torch.sqrt(x))
 
 
 def auc_loss_ref(h, y, a, b, alpha, p: float):
@@ -53,3 +65,82 @@ def prox_update_ref(v, g, v0, eta: float, gamma: float):
     denom = torch.full((), (eta + gamma).item(), dtype=torch.float32,
                        device=out.device)
     return (out / denom).to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# fused optimizer update: hash-based stochastic rounding + opt_update_ref
+# --------------------------------------------------------------------------
+def _mul_u32(x, c: int):
+    """(x · c) mod 2³² for int64 tensors holding uint32 values.  x·c can
+    pass 2⁶³ when c ≥ 2³¹, so c is split into 16-bit halves: x·c_lo < 2⁴⁸
+    and the high half only matters mod 2¹⁶, so every step is exact."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _mix_bits(x):
+    """The reference's uint32 avalanche hash (``repro.kernels.ref._mix_bits``,
+    ref.py:191-200), with uint32 emulated in int64 and ``& 0xFFFFFFFF``."""
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def stochastic_round(x, seed, dtype):
+    """fp32 → ``dtype`` with the reference's hash-based stochastic rounding
+    (``repro.kernels.ref.stochastic_round``, ref.py:203-218), bitwise.
+
+    ``seed`` is a uint32 value as a Python int or an int64 tensor (one
+    element, on x's device).  float32 is the identity.  For bf16 the hash of
+    the value's own bits xor the seed gives 16 random low bits; they are
+    added and the result truncated to its high 16 bits.  A NaN left after
+    the truncation becomes the quiet NaN with its sign (0x7FC0 / 0xFFC0),
+    as the reference's fp32→bf16 conversion gives; torch's own conversion
+    would not (it drops the sign)."""
+    if dtype == torch.float32:
+        return x.to(torch.float32)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"stochastic_round: float32 or bfloat16, got {dtype}")
+    xi = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _U32
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(()).to(torch.int64)
+    r = _mix_bits(xi ^ seed) & 0xFFFF
+    yi = (xi + r) & 0xFFFF0000
+    hi = yi >> 16
+    is_nan = (yi & 0x7FFFFFFF) > 0x7F800000
+    hi = torch.where(is_nan, torch.where(yi >= 1 << 31, 0xFFC0, 0x7FC0), hi)
+    hi = torch.where(hi >= 1 << 15, hi - (1 << 16), hi)     # as int16 bits
+    return hi.to(torch.int16).view(torch.bfloat16)
+
+
+def opt_update_ref(v, g, v0, buf, eta: float, gamma: float, coef: float,
+                   seed, *, mode: str):
+    """The fused optimizer update in the reference's order
+    (``repro.kernels.ref.opt_update_ref``, ref.py:221-248).
+
+    mode="momentum": m = coef·m + g, d = m, the new buffer stochastically
+        rounded to ``buf.dtype``; coef = 0 with an fp32 buffer is
+        ``prox_update_ref`` bitwise.
+    mode="precond": buf is the fp32 cover; ν = cover + g², d = g/√(ν+coef)
+        (``rsqrt`` above), ν returned in fp32.
+    Both end in the proximal step.  Returns (new_v, new_buf)."""
+    eta, gamma, coef = _f32(eta), _f32(gamma), _f32(coef)
+    vf = v.to(torch.float32)
+    gf = g.to(torch.float32)
+    bf = buf.to(torch.float32)
+    if mode == "momentum":
+        acc = coef * bf + gf
+        d = acc
+        new_buf = stochastic_round(acc, seed, buf.dtype)
+    elif mode == "precond":
+        acc = bf + gf * gf
+        d = gf * rsqrt(acc + coef)
+        new_buf = acc
+    else:
+        raise ValueError(f"unknown opt_update mode {mode!r}")
+    out = gamma * (vf - eta * d) + eta * v0.to(torch.float32)
+    denom = torch.full((), (eta + gamma).item(), dtype=torch.float32,
+                       device=out.device)
+    return (out / denom).to(v.dtype), new_buf

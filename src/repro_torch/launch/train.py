@@ -1,10 +1,18 @@
 """CoDA training launcher (counterpart of ``repro.launch.train``).
 
-Runs the CoDA main path on one device: the K workers are a batched tensor
-axis (the reference's ``--executor vmap``), every local step launches the
-hand-written ``auc_loss`` kernel once and ``prox_update`` once per
-parameter leaf.  It takes the reference's flags; those of features not
-ported yet are rejected with the ROADMAP item that will bring them.
+Runs CoDA on one device: the K workers are a batched tensor axis (the
+reference's ``--executor vmap``).  Every local step launches the
+hand-written ``auc_loss`` kernel once, then per parameter leaf one
+``prox_update`` (``--optimizer sgd``, the default, and ``shampoo_blocked``)
+or one ``opt_update`` (``momentum``, ``sm3``).  It takes the reference's
+flags; those of features not ported yet are rejected with the ROADMAP item
+that will bring them.
+
+Metric reporting, as the reference's: ``--metrics exact`` scores the
+held-out split every ``--metric-interval`` windows; ``--metrics sketch``
+turns on the in-training streaming sketch (``CoDAConfig.stream_bins =
+--metric-bins``), whose report line shows the training-stream AUC with its
+resolution bound and the per-worker AUC skew.
 
 The device is ``cuda`` unless ``--device cpu`` is given; asking for
 ``cuda`` without a card raises.
@@ -15,6 +23,10 @@ Examples:
       --stages 1 --t0 16 --interval 8
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch resnet50 --smoke --stages 1 --t0 4 --interval 2 --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --optimizer momentum --opt-dtype bf16
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --metrics sketch --metric-interval 4
 """
 from __future__ import annotations
 
@@ -27,12 +39,18 @@ import torch
 
 from repro_torch import disable_tf32, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, mlp_config
-from repro_torch.core import coda, objective, schedules
+from repro_torch.core import coda, objective, optimizer, schedules
 from repro_torch.data import DataConfig, ShardedDataset
+from repro_torch.kernels import auc_loss as _auc_mod
+from repro_torch.kernels import opt_update as _opt_mod
+from repro_torch.kernels import prox_update as _prox_mod
+from repro_torch.metrics import report as metric_report
+from repro_torch.metrics import streaming
 from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map
 
-DEFAULT_BINS = 2048   # repro.metrics.streaming.DEFAULT_BINS (flag default only)
+KERNELS = {"auc_loss": _auc_mod, "prox_update": _prox_mod,
+           "opt_update": _opt_mod}
 
 
 def data_config_for(mcfg, p_pos: float) -> DataConfig:
@@ -73,12 +91,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--objective", default="auc")
     ap.add_argument("--pauc-beta", type=float, default=0.3)
     ap.add_argument("--server-momentum", type=float, default=0.0)
-    ap.add_argument("--optimizer", default="sgd")
-    ap.add_argument("--opt-dtype", default="fp32")
-    ap.add_argument("--opt-beta", type=float, default=0.9)
-    ap.add_argument("--opt-eps", type=float, default=1e-6)
-    ap.add_argument("--shampoo-block", type=int, default=32)
-    ap.add_argument("--precond-every", type=int, default=1)
+    ap.add_argument("--optimizer", choices=list(optimizer.names()),
+                    default="sgd",
+                    help="local primal optimizer (core/optimizer.py "
+                         "registry); its state stays local, never on the "
+                         "wire")
+    ap.add_argument("--opt-dtype", choices=["fp32", "bf16"], default="fp32",
+                    help="storage dtype for optimizer accumulators; bf16 "
+                         "halves optimizer-state bytes (fp32 master math, "
+                         "stochastically rounded stores)")
+    ap.add_argument("--opt-beta", type=float, default=0.9,
+                    help="momentum coefficient (--optimizer momentum)")
+    ap.add_argument("--opt-eps", type=float, default=1e-6,
+                    help="preconditioner damping (sm3 / shampoo_blocked)")
+    ap.add_argument("--shampoo-block", type=int, default=32,
+                    help="block size b of shampoo_blocked's [b, b] "
+                         "statistics")
+    ap.add_argument("--precond-every", type=int, default=1,
+                    help="recompute the shampoo inverse root every N local "
+                         "steps")
     ap.add_argument("--participation", type=float, default=1.0)
     ap.add_argument("--straggler-prob", type=float, default=0.0)
     ap.add_argument("--straggler-windows", type=int, default=1)
@@ -92,9 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--overlap-chunks", type=int, default=4)
     ap.add_argument("--force-host-devices", type=int, default=0)
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--metrics", default="exact")
-    ap.add_argument("--metric-interval", type=int, default=0)
-    ap.add_argument("--metric-bins", type=int, default=DEFAULT_BINS)
+    metric_report.add_metric_args(ap)
     return ap
 
 
@@ -104,12 +133,6 @@ UNPORTED_FLAGS = {
     "objective": "Queue 1 item 3 (objectives)",
     "pauc_beta": "Queue 1 item 3 (objectives)",
     "server_momentum": "Queue 1 item 8 (server momentum)",
-    "optimizer": "Queue 1 item 7 (optimizer seam)",
-    "opt_dtype": "Queue 1 item 7 (optimizer seam)",
-    "opt_beta": "Queue 1 item 7 (optimizer seam)",
-    "opt_eps": "Queue 1 item 7 (optimizer seam)",
-    "shampoo_block": "Queue 1 item 7 (optimizer seam)",
-    "precond_every": "Queue 1 item 7 (optimizer seam)",
     "participation": "Queue 1 item 8 (faults)",
     "straggler_prob": "Queue 1 item 8 (faults)",
     "straggler_windows": "Queue 1 item 8 (faults)",
@@ -124,9 +147,6 @@ UNPORTED_FLAGS = {
     "overlap_chunks": "Queue 1 item 10 (distributed executor)",
     "force_host_devices": "Queue 1 item 10 (distributed executor)",
     "multi_pod": "Queue 1 item 10 (distributed executor)",
-    "metrics": "Queue 1 item 6 (streaming metrics)",
-    "metric_interval": "Queue 1 item 6 (streaming metrics)",
-    "metric_bins": "Queue 1 item 6 (streaming metrics)",
 }
 
 
@@ -139,7 +159,8 @@ def reject_unported(ap: argparse.ArgumentParser, args) -> None:
 
 def main(argv=None) -> dict:
     """Parse ``argv``, train, print the reference's summary lines, and
-    return a summary dict (used by ``chip_smoke.py``)."""
+    return a summary dict (used by ``chip_smoke.py``), with the kernel
+    launches made during training under ``launches``."""
     ap = build_parser()
     args = ap.parse_args(argv)
     reject_unported(ap, args)
@@ -166,7 +187,16 @@ def main(argv=None) -> dict:
               f"[{pp.min():.2f}, {pp.max():.2f}] (std {pp.std():.3f})")
 
     ccfg = coda.CoDAConfig(n_workers=args.workers, p_pos=ds.p_pos,
-                           avg_compress=args.compress)
+                           avg_compress=args.compress,
+                           stream_bins=args.metric_bins
+                           if args.metrics == "sketch" else 0,
+                           optimizer=args.optimizer,
+                           opt_dtype=torch.bfloat16
+                           if args.opt_dtype == "bf16" else torch.float32,
+                           opt_beta=args.opt_beta,
+                           opt_eps=args.opt_eps,
+                           shampoo_block=args.shampoo_block,
+                           precond_every=args.precond_every)
     sched = schedules.ScheduleConfig(n_workers=args.workers, eta0=args.eta0,
                                      T0=args.t0, I0=args.interval,
                                      p_pos=ds.p_pos)
@@ -176,6 +206,10 @@ def main(argv=None) -> dict:
     n_params = sum(l.numel() for l in leaves) // args.workers
     print(f"model: {mcfg.name} params/worker={n_params:,} leaves={len(leaves)} "
           f"device={device}")
+    if args.optimizer != "sgd":
+        print(f"optimizer: {args.optimizer} ({args.opt_dtype}) "
+              f"state={optimizer.abstract_state_bytes(ccfg, state['params']):,} "
+              "B/worker (local only — never on the wire)")
 
     test = ds.full(2048)
 
@@ -187,20 +221,53 @@ def main(argv=None) -> dict:
                   for i in range(0, test["labels"].shape[0], chunk)]
         return torch.cat(hs)
 
+    # the eval hook reports through the shared metric plumbing: sketch mode
+    # lifts the in-training accumulator (state["sk_acc"]) to the host; exact
+    # mode scores the held-out split
+    obj = objective.for_config(ccfg)
+    lo, hi = ccfg.stream_range
+    met = obj.metric("sketch", bins=args.metric_bins, lo=lo, hi=hi) \
+        if args.metrics == "sketch" else obj.metric("exact")
+    n_evals = [0]
+
+    def report(tick, mstate, n_seen: int) -> float:
+        print(metric_report.metric_line("train", tick, met, mstate, n_seen=n_seen))
+        return met.finalize(mstate)
+
+    def eval_fn(st) -> float:
+        n_evals[0] += 1
+        if args.metrics == "sketch":
+            sk = streaming.sketch_from_rows(st["sk_acc"], lo, hi)
+            out = report(f"eval {n_evals[0]}", sk, int(sk.count))
+            print(metric_report.worker_skew_line(
+                "train", f"eval {n_evals[0]}", met, st["sk_loc"], lo, hi))
+            return out
+        ms = met.update(met.init(), test_scores(st), test["labels"])
+        return report(f"eval {n_evals[0]}", ms, int(test["labels"].numel()))
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    before = {k: m.launches for k, m in KERNELS.items()}
     t0 = time.perf_counter()
     res = coda.fit(state, mcfg, ccfg, sched, args.stages,
                    sample_window=lambda i: ds.sample_window(i, args.batch),
                    sample_alpha_batch=lambda m: ds.sample_alpha_batch(m),
+                   eval_every=args.metric_interval,
+                   eval_fn=eval_fn if args.metric_interval else None,
                    executor=args.executor)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
+    launches = {k: m.launches - before[k] for k, m in KERNELS.items()}
     h_test = test_scores(res.state)
     auc = objective.roc_auc(h_test, test["labels"])
     print(f"done: {res.iterations} iters, {res.comm_rounds} comm rounds, "
           f"{dt:.1f}s, test AUC={auc:.4f}")
+    if args.metrics == "sketch":
+        sk = streaming.sketch_from_rows(res.state["sk_acc"], lo, hi)
+        report("final train-stream", sk, int(sk.count))
+        print(metric_report.worker_skew_line("train", "final", met,
+                                             res.state["sk_loc"], lo, hi))
     compress = args.compress or None
     stage_list = schedules.stages(sched, args.stages)
     total = coda.comm_bytes(stage_list, res.state, compress,
@@ -213,7 +280,8 @@ def main(argv=None) -> dict:
     ms_per_step = 1e3 * statistics.median(steady)
     return {"auc": auc, "iterations": res.iterations, "history": res.history,
             "ms_per_local_step": ms_per_step, "leaves": len(leaves),
-            "state": res.state, "test_scores": h_test}
+            "state": res.state, "test_scores": h_test, "launches": launches,
+            "opt_state_bytes": coda.opt_state_bytes(res.state)}
 
 
 if __name__ == "__main__":

@@ -7,6 +7,12 @@ axis K in both packages.  The only layout change is the convolution
 weights of the ``cnn`` family: HWIO ``[K, kh, kw, cin, cout]`` in the
 reference, OIHW ``[K, cout, cin, kh, kw]`` here.  The mlp keeps its
 ``[d_in, d_out]`` matmul layout.  bf16 leaves travel through their bits.
+
+The optimizer state follows suit: a momentum buffer has its parameter's
+layout (HWIO ↔ OIHW as above); SM3 keeps its per-axis accumulators in the
+reference's axis order and Shampoo its statistics over the reference's
+flattening (``core/optimizer.py`` works through ``ref_order``), so neither
+is permuted here.  The streaming-sketch counts are layout-free.
 """
 from __future__ import annotations
 
@@ -14,6 +20,20 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+
+
+# A convolution weight [K, O, I, kh, kw] (the port's OIHW) read in the
+# reference's HWIO order [K, kh, kw, I, O]: ``w.permute(TO_REF)``; and back.
+TO_REF = (0, 3, 4, 2, 1)
+FROM_REF = (0, 4, 3, 1, 2)
+
+
+def ref_order(leaf: torch.Tensor) -> tuple[int, ...]:
+    """The permutation that puts a stacked parameter leaf in the
+    reference's axis order: ``leaf.permute(ref_order(leaf))``.  In the
+    ported families every 5-D leaf is a convolution weight, and no other
+    leaf differs in layout."""
+    return TO_REF if leaf.dim() == 5 else tuple(range(leaf.dim()))
 
 
 def _to_torch(x, device) -> torch.Tensor:
@@ -40,44 +60,81 @@ def _map(tree, f, conv: bool):
     return f(tree, conv)
 
 
+def _conv_from_ref(mcfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    if mcfg.family == "cnn" and t.dim() == 5:
+        return t.permute(FROM_REF).contiguous()   # HWIO → OIHW
+    return t
+
+
+def _conv_to_ref(mcfg: ModelConfig, t: torch.Tensor) -> np.ndarray:
+    if mcfg.family == "cnn" and t.dim() == 5:
+        t = t.permute(TO_REF)                     # OIHW → HWIO
+    return _to_numpy(t)
+
+
 def from_jax_params(mcfg: ModelConfig, tree, device="cpu"):
     """Reference parameter tree (numpy leaves, leading K axis) → the port's
     tree of tensors on ``device``."""
-    def leaf(x, conv):
-        t = _to_torch(x, device)
-        if conv and mcfg.family == "cnn" and t.dim() == 5:
-            t = t.permute(0, 4, 3, 1, 2).contiguous()   # HWIO → OIHW
-        return t
-
-    return _map(tree, leaf, False)
+    return _map(tree, lambda x, conv: _conv_from_ref(mcfg, _to_torch(x, device))
+                if conv else _to_torch(x, device), False)
 
 
 def to_jax_params(mcfg: ModelConfig, tree):
     """The port's parameter tree → numpy leaves in the reference's layout."""
-    def leaf(t, conv):
-        if conv and mcfg.family == "cnn" and t.dim() == 5:
-            t = t.permute(0, 3, 4, 2, 1)                 # OIHW → HWIO
-        return _to_numpy(t)
+    return _map(tree, lambda t, conv: _conv_to_ref(mcfg, t) if conv
+                else _to_numpy(t), False)
 
-    return _map(tree, leaf, False)
+
+def _opt_from_jax(mcfg, ccfg, opt, device):
+    leaves = opt["leaves"]
+    if ccfg.optimizer == "momentum":   # buffers have their parameters' layout
+        leaves = [_conv_from_ref(mcfg, _to_torch(x, device)) for x in leaves]
+    else:
+        leaves = _map(leaves, lambda x, _: _to_torch(x, device), False)
+    return {"t": _to_torch(opt["t"], device), "leaves": leaves}
+
+
+def _opt_to_jax(mcfg, ccfg, opt):
+    leaves = opt["leaves"]
+    if ccfg.optimizer == "momentum":
+        leaves = [_conv_to_ref(mcfg, t) for t in leaves]
+    else:
+        leaves = _map(leaves, lambda t, _: _to_numpy(t), False)
+    return {"t": _to_numpy(opt["t"]), "leaves": leaves}
+
+
+_SKETCH = ("sk_acc", "sk_new", "sk_loc")
 
 
 def state_from_jax(mcfg: ModelConfig, ccfg, state, device="cpu"):
-    """A whole reference CoDA state (params, duals, ref_params, ref_duals
-    as numpy) → the port's state.  ``ccfg`` is accepted for symmetry with
-    the reference's state builders; the layout depends on ``mcfg`` only."""
-    del ccfg
+    """A whole reference CoDA state as numpy (params, duals, ref_params,
+    ref_duals, and where present the optimizer state ``opt`` and the sketch
+    trees) → the port's state.  ``ccfg.optimizer`` says how ``opt`` is laid
+    out."""
     duals = lambda d: {k: _to_torch(v, device) for k, v in d.items()}
-    return {"params": from_jax_params(mcfg, state["params"], device),
-            "duals": duals(state["duals"]),
-            "ref_params": from_jax_params(mcfg, state["ref_params"], device),
-            "ref_duals": duals(state["ref_duals"])}
+    out = {"params": from_jax_params(mcfg, state["params"], device),
+           "duals": duals(state["duals"]),
+           "ref_params": from_jax_params(mcfg, state["ref_params"], device),
+           "ref_duals": duals(state["ref_duals"])}
+    for k in _SKETCH:
+        if k in state:
+            out[k] = duals(state[k])
+    if "opt" in state:
+        out["opt"] = _opt_from_jax(mcfg, ccfg, state["opt"], device)
+    return out
 
 
-def state_to_jax(mcfg: ModelConfig, state):
-    """The port's CoDA state → numpy in the reference's layout."""
+def state_to_jax(mcfg: ModelConfig, state, ccfg=None):
+    """The port's CoDA state → numpy in the reference's layout (``ccfg`` is
+    needed only for a state with ``opt``)."""
     duals = lambda d: {k: _to_numpy(v) for k, v in d.items()}
-    return {"params": to_jax_params(mcfg, state["params"]),
-            "duals": duals(state["duals"]),
-            "ref_params": to_jax_params(mcfg, state["ref_params"]),
-            "ref_duals": duals(state["ref_duals"])}
+    out = {"params": to_jax_params(mcfg, state["params"]),
+           "duals": duals(state["duals"]),
+           "ref_params": to_jax_params(mcfg, state["ref_params"]),
+           "ref_duals": duals(state["ref_duals"])}
+    for k in _SKETCH:
+        if k in state:
+            out[k] = duals(state[k])
+    if "opt" in state:
+        out["opt"] = _opt_to_jax(mcfg, ccfg, state["opt"])
+    return out

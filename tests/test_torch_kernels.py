@@ -2,10 +2,15 @@
 kernels (interpret mode), and — on a card — the CUDA kernels vs their plain
 versions.
 
-Tolerances are those of tests/test_kernels_auc_prox.py: auc_loss atol 1e-5,
-rtol 1e-4 (the per-worker sums run in another order); prox_update 1e-6 in
-fp32 (same operations in the same order) and 2e-2 in bf16 (one bf16 ulp
-near 2-4 where a double rounding could land on the other side).
+Tolerances against the reference are those of
+tests/test_kernels_auc_prox.py: auc_loss atol 1e-5, rtol 1e-4 (the
+per-worker sums run in another order); prox_update 1e-6 in fp32 (same
+operations in the same order) and 2e-2 in bf16 (one bf16 ulp near 2-4
+where a double rounding could land on the other side).  On the card,
+prox_update and opt_update equal their plain versions bitwise: each kernel
+repeats its plain version's fp32 operations in order with explicitly
+rounded intrinsics (opt_update_ref's own tests against the reference are in
+tests/test_torch_optimizer.py).
 
 The card cases need no jax, so the one command that runs them on the card
 is ``PYTHONPATH=src python -m pytest --noconftest -q -m cuda
@@ -121,8 +126,49 @@ def test_prox_kernel_matches_plain_on_card(cuda_device, N, dtype):
     got = prox_update(v, g, v0, 0.05, 0.5)
     want = ref.prox_update_ref(v, g, v0, 0.05, 0.5)
     assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=2e-2 if dtype == torch.bfloat16 else 1e-6)
+    assert torch.equal(got, want)
+
+
+def _opt_case(n, mode, v_dtype, buf_dtype, device):
+    g_ = torch.Generator().manual_seed(n)
+    v, g, v0, b = (torch.randn(n, generator=g_) for _ in range(4))
+    if mode == "precond":
+        b = b.abs()
+    return [t.to(device, v_dtype) for t in (v, g, v0)] + [b.to(device, buf_dtype)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [5, 1000, 4097, 1 << 20])
+@pytest.mark.parametrize("mode,v_dtype,buf_dtype", [
+    ("momentum", torch.float32, torch.float32),
+    ("momentum", torch.float32, torch.bfloat16),
+    ("momentum", torch.bfloat16, torch.bfloat16),
+    ("precond", torch.float32, torch.float32),
+    ("precond", torch.bfloat16, torch.float32),
+])
+def test_opt_kernel_matches_plain_on_card(cuda_device, N, mode, v_dtype, buf_dtype):
+    """Bitwise, the bf16 buffer's stochastic-rounding bits included; the
+    seed is a uint32 above 2³¹ held in a device int64."""
+    from repro_torch.kernels.opt_update import opt_update
+    args = _opt_case(N, mode, v_dtype, buf_dtype, cuda_device)
+    coef = 0.9 if mode == "momentum" else 1e-6
+    seed = torch.tensor([0x9E3779B9], dtype=torch.int64, device=cuda_device)
+    got = opt_update(*args, 0.05, 0.5, coef, seed, mode=mode)
+    want = ref.opt_update_ref(*args, 0.05, 0.5, coef, seed, mode=mode)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+                           w.view(torch.int16) if w.dtype == torch.bfloat16 else w)
+
+
+@pytest.mark.cuda
+def test_opt_kernel_coef0_is_prox_kernel_on_card(cuda_device):
+    from repro_torch.kernels.opt_update import opt_update
+    from repro_torch.kernels.prox_update import prox_update
+    v, g, v0, _ = _opt_case(4097, "momentum", torch.float32, torch.float32, cuda_device)
+    seed = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    nv, nm = opt_update(v, g, v0, torch.zeros_like(v), 0.05, 0.5, 0.0, seed, mode="momentum")
+    assert torch.equal(nv, prox_update(v, g, v0, 0.05, 0.5)) and torch.equal(nm, g)
 
 
 @pytest.mark.cuda
@@ -131,7 +177,10 @@ def test_ops_auto_launches_on_card(cuda_device):
     from repro_torch.kernels import prox_update as prox_mod
     h, y, a, b, alpha = (torch.from_numpy(x).to(cuda_device)
                          for x in _auc_case(4, 32, 0.71))
-    n0, m0 = auc_mod.launches, prox_mod.launches
+    from repro_torch.kernels import opt_update as opt_mod
+    n0, m0, o0 = auc_mod.launches, prox_mod.launches, opt_mod.launches
     ops.auc_loss(h, y, a, b, alpha, 0.71, impl="auto")
     ops.prox_update_tree({"w": h}, {"w": y}, {"w": h}, 0.1, 0.5, impl="auto")
-    assert (auc_mod.launches, prox_mod.launches) == (n0 + 1, m0 + 1)
+    seed = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    ops.opt_update(h, y, h, y, 0.1, 0.5, 0.9, seed, mode="momentum", impl="auto")
+    assert (auc_mod.launches, prox_mod.launches, opt_mod.launches) == (n0 + 1, m0 + 1, o0 + 1)

@@ -42,14 +42,56 @@ def test_launcher_runs_on_cpu(args, leaves):
         assert f"bytes/round/worker={(24961 + 3) * 4:,} " in out.stdout
 
 
+# state bytes per worker for the mlp defaults, as the reference prints them
+# for the same flags: momentum = 24,961 params + the int32 step counter;
+# sm3 = one accumulator per trailing axis; shampoo = [nb, 32, 32] stats and
+# preconditioners per leaf
+@pytest.mark.parametrize("args,line", [
+    (("--optimizer", "momentum", "--opt-dtype", "bf16"),
+     "optimizer: momentum (bf16) state=49,926 B/worker (local only — never on the wire)"),
+    (("--optimizer", "sm3"),
+     "optimizer: sm3 (fp32) state=3,340 B/worker (local only — never on the wire)"),
+    (("--optimizer", "shampoo_blocked"),
+     "optimizer: shampoo_blocked (fp32) state=6,389,772 B/worker (local only — never on the wire)"),
+])
+def test_launcher_runs_each_optimizer_on_cpu(args, line):
+    out = _run("--stages", "1", "--t0", "8", "--interval", "4", "--n-data", "512", *args)
+    assert out.returncode == 0, out.stderr
+    assert line in out.stdout.splitlines(), out.stdout
+    assert re.search(r"^done: 8 iters, 3 comm rounds, [\d.]+s, test AUC=\d\.\d+$",
+                     out.stdout, re.M), out.stdout
+    assert f"bytes/round/worker={(24961 + 3) * 4:,} " in out.stdout  # never the opt state
+
+
+@pytest.mark.parametrize("backend", ["sketch", "exact"])
+def test_launcher_metric_reports_on_cpu(backend):
+    """``--metrics`` with an eval every window: the reference's report lines;
+    the sketch adds its 2·bins·4 bytes to the window payload."""
+    out = _run("--stages", "1", "--t0", "8", "--interval", "4", "--n-data", "512",
+               "--metrics", backend, "--metric-interval", "1")
+    assert out.returncode == 0, out.stderr
+    evals = re.findall(r"^\[train\] eval (\d): streaming auc=\d\.\d{4}(?: ±\d\.\d{4})? "
+                       rf"\({backend}\) n=(\d+) state=(\d+)B$", out.stdout, re.M)
+    if backend == "sketch":
+        # 4 local steps × K=4 workers × B=32 scores per window
+        assert evals == [("1", "512", "16384"), ("2", "1024", "16384")], out.stdout
+        assert re.search(r"^\[train\] final train-stream: streaming auc=\d\.\d{4} "
+                         r"±\d\.\d{4} \(sketch\) n=1024 state=16384B", out.stdout, re.M)
+        assert re.search(r"^\[train\] final: worker auc \[(\S+ ){3}\S+\] spread=",
+                         out.stdout, re.M)
+        assert f"bytes/round/worker={(24961 + 3) * 4 + 2 * 2048 * 4:,} " in out.stdout
+    else:
+        assert [e[0] for e in evals] == ["1", "2"], out.stdout
+
+
 @pytest.mark.parametrize("flag,item", [
     (("--algorithm", "codasca"), "Queue 1 item 8"),
     (("--objective", "pauc_dro"), "Queue 1 item 3"),
-    (("--optimizer", "sm3"), "Queue 1 item 7"),
+    (("--server-momentum", "0.5"), "Queue 1 item 8"),
     (("--executor", "shard_map"), "Queue 1 item 10"),
     (("--participation", "0.5"), "Queue 1 item 8"),
     (("--ckpt-dir", "ck"), "Queue 1 item 9"),
-    (("--metrics", "sketch"), "Queue 1 item 6"),
+    (("--resume",), "Queue 1 item 9"),
     (("--overlap",), "Queue 1 item 10"),
 ])
 def test_launcher_rejects_unported_flags(flag, item, capsys):
