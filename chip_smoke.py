@@ -32,11 +32,33 @@ last line):
      device time, the top kernels;
   7. the mlp paths again with ``--device cpu``: each test AUC within 0.01 of
      the card's;
+  8. K4 flash_attention against its plain version (``ref.attention_full``)
+     on the card, fp32 within atol 2e-5 + rtol 2e-5 and bf16 within one
+     bf16 ulp (rtol 2^-7) + atol 1e-4,
+     at stablelm-1.6b's training shape [128, 64, 32, 64] and prefill shape
+     [4, 2048, 32, 64] (causal, and with window 256), qwen2.5-14b's GQA
+     [1, 2048, 40/8, 128], MQA, non-causal S=512 against Skv=2048 and a
+     ragged S=1000; each timed with CUDA events and the profiler beside
+     its bound, the plain version and SDPA; the backward against autograd
+     through the plain version at the training shape;
+  9. stablelm-1.6b prefill at full width and full depth (24 layers, one
+     replica, 1,644,369,921 fp32 parameters on the card): ``prefill_step``
+     on [B=4, S=2048] tokens with the kernel and with ``impl="ref"``
+     (scores, last logits and bf16 caches compared), exactly 24 K4
+     launches per prefill, ms per prefill, tokens/s, peak memory and a
+     profile of one prefill;
+ 10. stablelm-1.6b CoDA training at full width, depth cut to 2 layers
+     (K=4, B=32, S=64, sgd, one stage of 16 local steps) through
+     ``train.main`` with exact launch counts of auc_loss, prox_update and
+     flash_attention, and a profiled window; and ``--arch stablelm-1.6b
+     --smoke`` on the card, its test AUC within 0.01 of the same command
+     with ``--device cpu`` (run with the mlp paths' CPU twins);
 then the ``{"kernels": [...]}`` line, nvidia-smi's line, and the
 ``{"ok": true, ...}`` line.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -54,6 +76,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (operations/s) by card, from NVIDIA's data sheets (SXM part at 700 W).
 CARDS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# dense bf16 tensor-core peak (operations/s), the bound for bf16 inputs
+BF16_PEAK = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12, "H200": 989e12}
 AUC_OPS_PER_SCORE = 40      # fp32 operations per score in the auc_loss kernel
 PROX_OPS_PER_ELEMENT = 6    # 3 mul, 1 sub, 1 add, 1 div
 # fp32 operations per element of opt_update: momentum = 1 mul + 1 add + the
@@ -94,11 +118,13 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn):
+def device_profile(fn, counts: dict | None = None):
     """Run ``fn`` once under torch.profiler.  Returns (host wall ms, device
-    busy ms, {kernel name: device ms summed over its launches}).  Busy time
-    is the union of the kernels' intervals: cuDNN may run kernels of one
-    grouped convolution concurrently, so the per-kernel sum can exceed it."""
+    busy ms, {kernel name: device ms summed over its launches}); ``counts``,
+    if given, receives the number of recorded launches per kernel name.
+    Busy time is the union of the kernels' intervals: cuDNN may run kernels
+    of one grouped convolution concurrently, so the per-kernel sum can
+    exceed it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -112,6 +138,8 @@ def device_profile(fn):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             per[e.name] = per.get(e.name, 0.0) + e.device_time_total / 1e3
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
             spans.append((e.time_range.start, e.time_range.end))
     busy, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
@@ -121,16 +149,35 @@ def device_profile(fn):
     return wall, busy / 1e3, per
 
 
-def kernel_device_ms(fn, tag: str, calls: int = 20) -> float:
+def kernel_device_ms(fn, tag: str, calls: int = 20, launches_per_call: int = 1) -> float:
     """Device time per call of the kernels whose names contain ``tag``,
-    from the profiler (no host time in it); 0.0 if the profiler saw none."""
-    _, _, per = device_profile(lambda: [fn() for _ in range(calls)])
-    return sum(v for k, v in per.items() if tag in k) / calls
+    from the profiler (no host time in it), over the launches it recorded:
+    it has been seen to miss some, so a short count is profiled once more
+    and the fuller record kept; 0.0 if it saw none."""
+    want = calls * launches_per_call
+    best = (-1, 0.0)
+    for _ in range(2):
+        n: dict[str, int] = {}
+        _, _, per = device_profile(lambda: [fn() for _ in range(calls)], n)
+        seen = sum(c for k, c in n.items() if tag in k)
+        best = max(best, (seen, sum(v for k, v in per.items() if tag in k)))
+        if seen == want:
+            break
+        print(f"profiler: recorded {seen} of {want} launches of {tag}")
+    seen, total = best
+    return total * launches_per_call / max(seen, 1)
 
 
 def bound_ms(n_bytes: float, n_ops: float, rates) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / rates[0] * 1e3, n_ops / rates[1] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_peak(name: str) -> float:
+    for key, rate in BF16_PEAK.items():   # most specific names first
+        if key in name:
+            return rate
+    raise SystemExit(f"no bf16 peak on record for {name!r}")
 
 
 def check_auc_loss(dev, rates, gen):
@@ -156,7 +203,8 @@ def check_auc_loss(dev, rates, gen):
                              f"version: max_abs_err={err} stable={stable}")
         ms = cuda_ms(lambda: auc_loss(h, y, a, b, al, 0.71))
         plain = cuda_ms(lambda: ref.auc_loss_ref(h, y, a, b, al, 0.71))
-        dev_ms = kernel_device_ms(lambda: auc_loss(h, y, a, b, al, 0.71), "auc_loss")
+        dev_ms = kernel_device_ms(lambda: auc_loss(h, y, a, b, al, 0.71), "auc_loss",
+                                  launches_per_call=2)    # block partials + finish
         bnd, by = bound_ms(12 * K * T + 28 * K, AUC_OPS_PER_SCORE * K * T, rates)
         rows.append({"shape": [K, T], "max_abs_err": err, "ms": ms,
                      "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bnd,
@@ -203,7 +251,8 @@ def check_prox_update(dev, rates, gen):
     sweep = lambda fn: [fn(v, g, v0, 0.05, 0.5) for v, g, v0 in leaves]
     ms = cuda_ms(lambda: sweep(prox_update), iters=10)
     plain = cuda_ms(lambda: sweep(ref.prox_update_ref), iters=10)
-    dev_ms = kernel_device_ms(lambda: sweep(prox_update), "prox_update", calls=5)
+    dev_ms = kernel_device_ms(lambda: sweep(prox_update), "prox_update", calls=5,
+                              launches_per_call=len(leaf_sizes))
     n = K * sum(leaf_sizes)
     bnd, by = bound_ms(16 * n, PROX_OPS_PER_ELEMENT * n, rates)
     rows.append({"shape": [n], "dtype": "float32",
@@ -288,7 +337,8 @@ def check_opt_update(dev, rates, gen):
                             for v, g, v0, b in leaves]
         ms = cuda_ms(lambda: sweep(opt_update), iters=10)
         plain = cuda_ms(lambda: sweep(ref.opt_update_ref), iters=3, warmup=1)
-        dev_ms = kernel_device_ms(lambda: sweep(opt_update), "opt_update", calls=5)
+        dev_ms = kernel_device_ms(lambda: sweep(opt_update), "opt_update", calls=5,
+                                  launches_per_call=len(leaf_sizes))
         n = K * sum(leaf_sizes)
         bnd, by = bound_ms(n * (16 + 2 * torch.finfo(bdt).bits // 8),
                            OPT_OPS_PER_ELEMENT[mode] * n, rates)
@@ -302,6 +352,125 @@ def check_opt_update(dev, rates, gen):
               f"{plain:.3f} ms, bound {bnd:.3f} ms ({by})")
         del leaves
     return rows
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# (label, B, S, H, KV, Skv, hd, causal, window, dtype): stablelm-1.6b's
+# training shape (K·B = 128 sequences of 64 tokens) and prefill shape,
+# qwen2.5-14b's GQA, MQA, cross-shaped and ragged cases
+ATTN_CASES = [
+    ("stablelm_train", 128, 64, 32, 32, 64, 64, True, None, F32),
+    ("stablelm_train_bf16", 128, 64, 32, 32, 64, 64, True, None, BF16),
+    ("stablelm_prefill", 4, 2048, 32, 32, 2048, 64, True, None, F32),
+    ("stablelm_prefill_bf16", 4, 2048, 32, 32, 2048, 64, True, None, BF16),
+    ("stablelm_prefill_window256", 4, 2048, 32, 32, 2048, 64, True, 256, F32),
+    ("qwen_gqa", 1, 2048, 40, 8, 2048, 128, True, None, F32),
+    ("qwen_gqa_bf16", 1, 2048, 40, 8, 2048, 128, True, None, BF16),
+    ("mqa", 2, 1024, 16, 1, 1024, 64, True, None, F32),
+    ("noncausal_skv2048", 2, 512, 8, 8, 2048, 64, False, None, F32),
+    ("ragged_s1000", 2, 1000, 8, 8, 1000, 64, True, None, F32),
+]
+# (atol, rtol): fp32 is the reference's own; in bf16 kernel and plain
+# version both compute in fp32 and round once, so one bf16 ulp (≤ 2^-7 of
+# the value) plus fp32 noise near zero
+ATTN_TOL = {F32: (2e-5, 2e-5), BF16: (1e-4, 2 ** -7)}
+LSE_ATOL = 1e-4                      # log-sum-exp of O(10) values in fp32
+ATTN_BWD_TOL = 5e-5                  # atol = rtol, as tests/test_torch_attention.py
+
+
+def attn_pairs(S: int, Skv: int, causal: bool, window) -> int:
+    """(query, key) pairs inside the mask: the work this call's data needs."""
+    from repro_torch.kernels import ref
+    return int(ref._mask(torch.arange(S), torch.arange(Skv), causal, window).sum())
+
+
+def sdpa_fn(q, k, v, causal: bool, window):
+    """One ``scaled_dot_product_attention`` call on the same inputs (heads
+    second; ``enable_gqa`` for GQA; an explicit boolean mask for the
+    window).  Timed as the library yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=gqa)
+    pos = lambda n: torch.arange(n, device=q.device)
+    mask = ref._mask(pos(q.shape[1]), pos(k.shape[1]), causal, window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=gqa)
+
+
+def check_flash_attention(dev, rates, bf16_rate, gen):
+    """K4 against its plain version at each case: output within ATTN_TOL,
+    log-sum-exp within LSE_ATOL; CUDA-event time, device time, bound, the
+    plain version's time and SDPA's.  Then the backward at the training
+    shape against autograd through the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    rows = []
+    for label, B, S, H, KV, Skv, hd, causal, window, dt in ATTN_CASES:
+        q = torch.randn((B, S, H, hd), generator=gen).to(dev, dt)
+        k, v = (torch.randn((B, Skv, KV, hd), generator=gen).to(dev, dt) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        want, want_lse = ref.attention_full(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[dt]
+        diff = (o.float() - want.float()).abs()
+        err = float(diff.max())
+        lse_err = float((lse - want_lse).abs().max())
+        if not (bool((diff <= atol + rtol * want.float().abs()).all()) and lse_err <= LSE_ATOL):
+            raise SystemExit(f"flash_attention {label} disagrees with its plain version: "
+                             f"max_abs_err={err} (atol {atol}, rtol {rtol}), lse err {lse_err}")
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), iters=20)
+        dev_ms = kernel_device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                                  "flash_fwd", calls=5)
+        plain = cuda_ms(lambda: ref.attention_full(q, k, v, **kw), iters=5, warmup=2)
+        lib_ms = cuda_ms(sdpa_fn(q, k, v, causal, window), iters=20)
+        pairs = attn_pairs(S, Skv, causal, window)
+        es = q.element_size()
+        n_bytes = es * (2 * B * S * H * hd + 2 * B * Skv * KV * hd) + 4 * B * H * S
+        n_ops = 4 * B * H * hd * pairs        # q·k and p·v, 2 operations a product
+        bnd, by = bound_ms(n_bytes, n_ops, (rates[0], rates[1] if dt == F32 else bf16_rate))
+        dname = str(dt).replace("torch.", "")
+        rows.append({"case": label, "shape": [B, S, H, KV, Skv, hd], "causal": causal,
+                     "window": window, "dtype": dname, "max_abs_err": err,
+                     "lse_max_abs_err": lse_err, "atol": atol, "rtol": rtol, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
+                     "bound_by": by, "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6})
+        print(f"flash_attention {label} [B={B}, S={S}, H={H}, KV={KV}, Skv={Skv}, hd={hd}] "
+              f"{'causal' if causal else 'full'} window={window} {dname}: max_abs_err="
+              f"{err:.3g} (atol {atol:g}, rtol {rtol:g}), lse err {lse_err:.3g}; kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms), plain {plain:.4f} ms, SDPA {lib_ms:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by}: {n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+        del q, k, v, o, lse, want, want_lse, diff
+    # the backward (plain tensor code over the kernel's saved log-sum-exp) at
+    # the training shape, against autograd through the plain version
+    q = torch.randn((128, 64, 32, 64), generator=gen).to(dev).requires_grad_()
+    k, v = (torch.randn((128, 64, 32, 64), generator=gen).to(dev).requires_grad_()
+            for _ in range(2))
+    do = torch.randn((128, 64, 32, 64), generator=gen).to(dev)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, causal=True), (q, k, v), do)
+    want = torch.autograd.grad(ref.attention_full(q, k, v, causal=True), (q, k, v), do)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    ok = all(bool(((g - w).abs() <= ATTN_BWD_TOL * (1 + w.abs())).all())
+             for g, w in zip(got, want))
+    fwd = lambda: fa.flash_attention(q, k, v, causal=True)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), do), iters=10)
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        ref.attention_full(q, k, v, causal=True), (q, k, v), do), iters=10)
+    bwd = {"case": "stablelm_train backward", "shape": [128, 64, 32, 32, 64, 64],
+           "max_abs_err": max(errs), "errs_dq_dk_dv": errs, "tol": ATTN_BWD_TOL,
+           "fwd_bwd_ms": bwd_ms, "plain_fwd_bwd_ms": plain_bwd_ms}
+    print(f"flash_attention backward at the training shape: dq/dk/dv max_abs_err "
+          f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (atol=rtol={ATTN_BWD_TOL}); forward "
+          f"+ backward {bwd_ms:.4f} ms with the kernel, {plain_bwd_ms:.4f} ms through "
+          "the plain version")
+    if not ok:
+        raise SystemExit("flash_attention's backward disagrees with autograd through "
+                         "the plain version")
+    return rows, bwd
 
 
 STEP_OPTIMIZERS = [("sgd", torch.float32), ("momentum", torch.bfloat16),
@@ -340,10 +509,13 @@ def check_step(dev):
 
 
 def run_main_path(label: str, argv: list[str], leaves_per_step: int,
-                  per_leaf: str = "prox_update"):
+                  per_leaf: str = "prox_update", attn_layers: int = 0):
     """Drive ``train.main(argv)`` with every launch counter set to 0 just
     before and read just after; ``per_leaf`` is the kernel launched once per
-    parameter leaf per local step (the other per-leaf kernel must stay 0)."""
+    parameter leaf per local step (the other per-leaf kernel must stay 0).
+    ``flash_attention`` runs once per attention layer in every forward: each
+    local step and each stage-end α batch inside ``fit``, then each chunk of
+    the held-out split the launcher scores after it."""
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
     for mod in train.KERNELS.values():
@@ -366,11 +538,14 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
         raise SystemExit(f"{label}: non-finite loss in {losses}")
     if out["leaves"] != leaves_per_step:
         raise SystemExit(f"{label}: {out['leaves']} leaves, expected {leaves_per_step}")
-    want = {"auc_loss": steps, "prox_update": 0, "opt_update": 0}
+    want = {"auc_loss": steps, "prox_update": 0, "opt_update": 0,
+            "flash_attention": attn_layers * (steps + out["stages"])}
     want[per_leaf] = steps * leaves_per_step
-    if counts != want or out["launches"] != want:
-        raise SystemExit(f"{label}: launch counts {counts} (main's {out['launches']}), "
-                         f"expected {want}")
+    chunks = math.ceil(out["n_test"] / train.TEST_CHUNK)
+    want_all = dict(want, flash_attention=want["flash_attention"] + attn_layers * chunks)
+    if counts != want_all or out["launches"] != want:
+        raise SystemExit(f"{label}: launch counts {counts} (fit's {out['launches']}), "
+                         f"expected {want_all} (fit's {want})")
     scores = out["test_scores"]
     if not (scores.dim() == 1 and bool(torch.isfinite(scores).all())):
         raise SystemExit(f"{label}: test scores not a finite vector")
@@ -390,6 +565,16 @@ RN_PATHS = [
     ("resnet50_momentum", ["--optimizer", "momentum", "--opt-dtype", "bf16"], "opt_update"),
     ("resnet50_sm3", ["--optimizer", "sm3"], "opt_update"),
 ]
+# stablelm-1.6b: full width with the depth cut to 2 of 24 layers (K=4 replicas,
+# their references, gradients and the step's new copy: ~33 GB at 2 layers,
+# ~105 GB at 24); and the launcher's smoke config, whose test AUC is held
+# against the same command with --device cpu
+DENSE_LEAVES, TRAIN_LAYERS = 17, 2
+LM_TRAIN_ARGS = ["--arch", "stablelm-1.6b", "--n-layers", str(TRAIN_LAYERS), "--stages", "1",
+                 "--t0", "16", "--n-data", "1024"]
+LM_SMOKE = ("stablelm_smoke", ["--arch", "stablelm-1.6b", "--smoke", "--stages", "2",
+                               "--t0", "30"], "prox_update")
+TWIN_PATHS = MLP_PATHS + [LM_SMOKE]
 
 
 class CpuTwins:
@@ -448,25 +633,29 @@ class CpuTwins:
                 self._proc.wait()
 
 
-def profile_window(label: str, arch: str, state, dev, **ccfg_kw) -> dict:
+KERNEL_TAGS = {"auc_loss": "auc_loss", "prox_update": "prox_update",
+               "opt_update": "opt_update", "flash_attention": "flash_fwd"}
+
+
+def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
     """Where one window (I=8 local steps + the average) of a main path spends
     its time: host wall time, device busy time, the hand-written kernels'
     share, and the kernels that take the most device time."""
-    from repro_torch.configs import get_config, mlp_config
     from repro_torch.core import coda
-    mcfg = mlp_config() if arch == "mlp" else get_config(arch)
     ccfg = coda.CoDAConfig(n_workers=4, p_pos=0.71, **ccfg_kw)
     g = torch.Generator().manual_seed(2)
     y = (torch.rand((8, 4, 32), generator=g) < 0.71).float()
     if mcfg.family == "mlp":
         wb = {"features": torch.randn((8, 4, 32, 64), generator=g)}
+    elif mcfg.family == "dense":
+        wb = {"tokens": torch.randint(0, mcfg.vocab_size, (8, 4, 32, 64), generator=g)}
     else:
         wb = {"images": torch.randn((8, 4, 32, 32 * 32, 3), generator=g)}
     wb = {k: v.to(dev) for k, v in wb.items()} | {"labels": y.to(dev)}
     coda.window_step(mcfg, ccfg, state, wb, 0.5)          # warm-up
     wall, busy, per = device_profile(lambda: coda.window_step(mcfg, ccfg, state, wb, 0.5))
-    ours = {tag: sum(v for k, v in per.items() if tag in k)
-            for tag in ("auc_loss", "prox_update", "opt_update")}
+    ours = {name: sum(v for k, v in per.items() if tag in k)
+            for name, tag in KERNEL_TAGS.items()}
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     out = {"path": label, "local_steps": 8, "wall_ms": wall, "device_busy_ms": busy,
            "kernel_sum_ms": sum(per.values()), "idle_share": 1.0 - busy / wall,
@@ -476,8 +665,123 @@ def profile_window(label: str, arch: str, state, dev, **ccfg_kw) -> dict:
           f"(idle share {1.0 - busy / wall:.3f}; kernel time summed "
           f"{sum(per.values()):.3f} ms), auc_loss {ours['auc_loss']:.4f} ms, "
           f"prox_update {ours['prox_update']:.4f} ms, opt_update "
-          f"{ours['opt_update']:.4f} ms")
+          f"{ours['opt_update']:.4f} ms, flash_attention {ours['flash_attention']:.4f} ms")
     print(json.dumps({"profile": out}))
+    return out
+
+
+PREFILL_B, PREFILL_S = 4, 2048
+PREFILL_PARAMS = 1_644_369_921
+# prefill with the kernel vs impl="ref" on the card, 24 layers deep in fp32:
+# sigmoid scores, O(1) last-position logits, and the bf16 caches (one bf16
+# ulp, 2⁻⁷ relative, on top of the fp32 noise)
+PREFILL_TOL = {"scores": 1e-5, "logits": 1e-4, "cache_rtol": 2 ** -7, "cache_atol": 1e-4}
+
+
+def run_prefill(dev, rates) -> dict:
+    """stablelm-1.6b at full width and depth, one replica: ``prefill_step``
+    on [B=4, S=2048] tokens with the kernels (exactly one K4 launch per
+    layer) and with ``impl="ref"``, compared; ms per prefill, tokens/s,
+    peak memory, and one profiled prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("stablelm-1.6b")
+    print(f"stablelm_prefill: reduced: prefill_32k [B=32, S=32768] cut to [B={PREFILL_B}, "
+          f"S={PREFILL_S}], one replica (K=1); full width and depth ({cfg.n_layers} layers)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n = sum(l.numel() for l in tree_leaves(params))
+    print(f"stablelm_prefill: init_params on the card in {time.perf_counter() - t0:.2f} s: "
+          f"{n:,} fp32 parameters ({4 * n / 1e9:.2f} GB) in {len(tree_leaves(params))} leaves")
+    if n != PREFILL_PARAMS:
+        raise SystemExit(f"stablelm_prefill: {n:,} parameters, expected {PREFILL_PARAMS:,}")
+    params = tree_map(lambda x: x[None], params)               # K = 1 (views)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_B, PREFILL_S),
+                                     generator=g, device=dev)}
+    prefill = lambda impl="auto": M.prefill_step(cfg, params, batch, impl=impl)
+    with torch.no_grad():
+        prefill()                                               # warm-up
+        torch.cuda.synchronize()
+        for mod in train.KERNELS.values():
+            mod.launches = 0
+        s, logits, (kc, vc) = prefill()
+        torch.cuda.synchronize()
+        counts = {k: mod.launches for k, mod in train.KERNELS.items()}
+        want = {"auc_loss": 0, "prox_update": 0, "opt_update": 0,
+                "flash_attention": cfg.n_layers}
+        if counts != want:
+            raise SystemExit(f"stablelm_prefill: launch counts {counts}, expected {want}")
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        ms = sorted(times)[1]
+        rs, rlogits, (rk, rv) = prefill("ref")
+        torch.cuda.synchronize()
+        ref_ms = []
+        for _ in range(2):
+            t = time.perf_counter()
+            prefill("ref")
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        errs = {"scores": float((s - rs).abs().max()),
+                "logits": float((logits - rlogits).abs().max()),
+                "k_cache": float((kc.float() - rk.float()).abs().max()),
+                "v_cache": float((vc.float() - rv.float()).abs().max())}
+        cache_ok = all(bool(((a.float() - b.float()).abs() <= PREFILL_TOL["cache_atol"]
+                             + PREFILL_TOL["cache_rtol"] * b.float().abs()).all())
+                       for a, b in ((kc, rk), (vc, rv)))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (s, logits, kc, vc))
+        shapes_ok = (tuple(s.shape) == (1, PREFILL_B)
+                     and tuple(logits.shape) == (1, PREFILL_B, cfg.vocab_size)
+                     and tuple(kc.shape) == (1, cfg.n_layers, PREFILL_B, PREFILL_S,
+                                             cfg.n_kv_heads, cfg.head_dim)
+                     and kc.dtype == vc.dtype == torch.bfloat16)
+        print(f"stablelm_prefill: kernels vs impl='ref' on the card: scores max_abs_err "
+              f"{errs['scores']:.3g} (atol {PREFILL_TOL['scores']}), last logits "
+              f"{errs['logits']:.3g} (atol {PREFILL_TOL['logits']}), bf16 caches k "
+              f"{errs['k_cache']:.3g} v {errs['v_cache']:.3g} (rtol 2^-7 + atol "
+              f"{PREFILL_TOL['cache_atol']}); shapes {'ok' if shapes_ok else 'WRONG'}, "
+              f"finite {finite}")
+        if not (finite and shapes_ok and cache_ok and errs["scores"] <= PREFILL_TOL["scores"]
+                and errs["logits"] <= PREFILL_TOL["logits"]):
+            raise SystemExit("stablelm_prefill: the prefill with kernels disagrees with "
+                             "impl='ref'")
+        del rs, rlogits, rk, rv
+        wall, busy, per = device_profile(prefill)
+    total = sum(per.values())
+    k4 = sum(v for k, v in per.items() if KERNEL_TAGS["flash_attention"] in k)
+    gemm = sum(v for k, v in per.items() if "gemm" in k.lower())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    tokens = PREFILL_B * PREFILL_S
+    out = {"path": "stablelm_prefill", "ms_per_prefill": ms, "ms_runs": times,
+           "ref_ms_per_prefill": sorted(ref_ms)[0], "tokens_per_s": tokens / ms * 1e3,
+           "peak_bytes": peak, "launches": counts, "errs": errs,
+           "profile": {"wall_ms": wall, "device_busy_ms": busy, "kernel_sum_ms": total,
+                       "idle_share": 1.0 - busy / wall, "flash_attention_ms": k4,
+                       "gemm_ms": gemm, "flash_attention_share": k4 / total,
+                       "gemm_share": gemm / total,
+                       "top_kernels_ms": {k[:90]: v for k, v in top}}}
+    print(f"stablelm_prefill: {ms:.2f} ms per prefill (median of {times}), "
+          f"{tokens / ms * 1e3:,.0f} tokens/s, impl='ref' {sorted(ref_ms)[0]:.2f} ms; "
+          f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    print(f"profile stablelm_prefill: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+          f"share {1.0 - busy / wall:.3f}), kernel time {total:.2f} ms: flash_attention "
+          f"{k4:.2f} ms ({100 * k4 / total:.1f} %, {cfg.n_layers} launches), GEMMs "
+          f"{gemm:.2f} ms ({100 * gemm / total:.1f} %)")
+    print(json.dumps({"profile": out["profile"] | {"path": "stablelm_prefill"}}))
+    del params, batch, s, logits, kc, vc
+    torch.cuda.empty_cache()
     return out
 
 
@@ -492,27 +796,30 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| count {torch.cuda.device_count()}")
-    rates = card_rates(torch.cuda.get_device_name(0))
+    name = torch.cuda.get_device_name(0)
+    rates, bf16_rate = card_rates(name), bf16_peak(name)
     dev = torch.device("cuda:0")
     disable_tf32()
 
     t0 = time.perf_counter()
-    lib_path = _build.build(verbose=True)
-    print(f"build: {os.path.relpath(lib_path, ROOT)} in "
+    lib = _build.build(verbose=True)        # one nvcc, both sources
+    print(f"build: {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    twins = CpuTwins(MLP_PATHS).start()
+    twins = CpuTwins(TWIN_PATHS).start()
     try:
-        return run_phases(dev, rates, twins)
+        return run_phases(dev, rates, bf16_rate, twins)
     finally:
         twins.stop()
 
 
-def run_phases(dev, rates, twins) -> int:
+def run_phases(dev, rates, bf16_rate, twins) -> int:
+    from repro_torch.configs import get_config, mlp_config
     gen = torch.Generator().manual_seed(0)
     auc_rows = check_auc_loss(dev, rates, gen)
     prox_rows = check_prox_update(dev, rates, gen)
     opt_rows = check_opt_update(dev, rates, gen)
+    attn_rows, attn_bwd = check_flash_attention(dev, rates, bf16_rate, gen)
     check_step(dev)
 
     runs, counts = {}, {}
@@ -528,22 +835,43 @@ def run_phases(dev, rates, twins) -> int:
           f"(local steps × K × B = {want:,})")
     if n_scored != want:
         raise SystemExit("main path mlp_sketch: sketch count disagrees")
-    profile_window("mlp", "mlp", runs["mlp"]["state"], dev)
+    profile_window("mlp", mlp_config(), runs["mlp"]["state"], dev)
     for label, args, per_leaf in RN_PATHS:
         runs[label], counts[label] = run_main_path(f"main path {label}", RN_ARGS + args,
                                                    RN_LEAVES, per_leaf)
-    profile_window("resnet50", "resnet50", runs["resnet50"]["state"], dev)
-    prof = profile_window("resnet50_momentum", "resnet50", runs["resnet50_momentum"]["state"],
-                          dev, optimizer="momentum", opt_dtype=torch.bfloat16)
+    profile_window("resnet50", get_config("resnet50"), runs["resnet50"]["state"], dev)
+    prof = profile_window("resnet50_momentum", get_config("resnet50"),
+                          runs["resnet50_momentum"]["state"], dev, optimizer="momentum",
+                          opt_dtype=torch.bfloat16)
     n_step = 4 * sum(resnet_leaf_sizes())
     k3_bound, _ = bound_ms(20 * n_step, OPT_OPS_PER_ELEMENT["momentum"] * n_step, rates)
     print(f"profile resnet50_momentum: opt_update {prof['hand_written_ms']['opt_update'] / 8:.4f} "
           f"ms of device time per local step ({RN_LEAVES} launches) against a bound of "
           f"{k3_bound:.4f} ms (20 B per element, bf16 buffer)")
 
-    # the mlp paths on the CPU, same commands: test AUC within 0.01
+    for label, _, _ in RN_PATHS:
+        runs[label].pop("state")                 # free the card for stablelm
+
+    # stablelm-1.6b: prefill at full width and depth; CoDA training at full
+    # width, 2 layers; the smoke config (its CPU twin runs in the background)
+    prefill = run_prefill(dev, rates)
+    counts["stablelm_prefill"] = prefill["launches"]
+    print(f"main path stablelm_train: reduced: {TRAIN_LAYERS} of 24 layers (full width "
+          "d=2048, 32 heads, d_ff 5632, vocab 100,352), K=4, B=32, S=64, one stage of 16 "
+          "local steps")
+    label = "stablelm_train"
+    runs[label], counts[label] = run_main_path(f"main path {label}", LM_TRAIN_ARGS,
+                                               DENSE_LEAVES, attn_layers=TRAIN_LAYERS)
+    lm_cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
+    profile_window(label, lm_cfg, runs[label].pop("state"), dev)
+    torch.cuda.empty_cache()
+    label, args, per_leaf = LM_SMOKE
+    runs[label], counts[label] = run_main_path(f"main path {label}", args, DENSE_LEAVES,
+                                               per_leaf, attn_layers=2)
+
+    # the same commands on the CPU: test AUC within 0.01
     twins.wait()
-    for label, _, _ in MLP_PATHS:
+    for label, _, _ in TWIN_PATHS:
         card, cpu = runs[label]["auc"], twins.auc[label]
         print(f"main path {label}: test AUC {card:.4f} on the card, {cpu:.4f} with "
               f"--device cpu (|diff| {abs(card - cpu):.4f}, limit 0.01)")
@@ -586,6 +914,30 @@ def run_phases(dev, rates, twins) -> int:
             "bitwise (0): v and buffer in every mode and dtype, bf16 rounding bits "
             "included; coef=0 equals prox_update bitwise"),
     ]
+    # flash_attention: headline at stablelm-1.6b's prefill shape in fp32, the
+    # shape where the prefill path spends its attention time
+    h = next(r for r in attn_rows if r["case"] == "stablelm_prefill")
+    by_path = {label: c["flash_attention"] for label, c in counts.items()}
+    f32_err = max(r["max_abs_err"] for r in attn_rows if r["dtype"] == "float32")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "wrapper": "src/repro_torch/kernels/flash_attention.py",
+        "replaces": "src/repro/kernels/flash_attention.py:94",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": f32_err,
+        "max_abs_err_bf16": max(r["max_abs_err"] for r in attn_rows
+                                if r["dtype"] == "bfloat16"),
+        "tol": (f"(atol, rtol) fp32 {ATTN_TOL[F32]}, bf16 {ATTN_TOL[BF16]}; "
+                f"lse atol {LSE_ATOL}"),
+        "shape": h["shape"], "ms": h["ms"], "device_ms": h["device_ms"],
+        "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"], "library": "torch.nn.functional."
+        "scaled_dot_product_attention", "max_err": f32_err,
+        "kernel_us": h["ms"] * 1e3, "plain_us": h["plain_ms"] * 1e3,
+        "bound_us": h["bound_ms"] * 1e3, "shapes": attn_rows, "backward": attn_bwd,
+        "prefill": {k: prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
+                                            "tokens_per_s", "peak_bytes", "errs")}})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

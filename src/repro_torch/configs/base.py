@@ -1,8 +1,8 @@
 """Jax-free copy of ``repro.configs.base``'s ``ModelConfig`` and
 ``mlp_config`` (the reference module imports jax).
 
-Only the fields the ported families (``mlp``, ``cnn``) read are used; the
-rest are kept so a config reads the same in both packages.
+Only the fields the ported families (``mlp``, ``cnn``, ``dense``) read
+are used; the rest are kept so a config reads the same in both packages.
 """
 from __future__ import annotations
 

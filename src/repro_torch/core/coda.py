@@ -26,8 +26,10 @@ into the old ones, so ``ref_params`` may share buffers with ``params``
 after ``stage_end`` (``init_state`` still gives it its own copy, as the
 reference does).
 
-Ported: ``algorithm="coda"`` with the ``auc`` objective, every optimizer
-(sgd, momentum, sm3, shampoo_blocked), the streaming sketch, plain or
+Ported: ``algorithm="coda"`` with the ``auc`` objective over the mlp, cnn
+and dense families (token batches ``[K, B, S]``; ``use_window`` and
+``impl`` reach ``M.score`` as in the reference), every optimizer (sgd,
+momentum, sm3, shampoo_blocked), the streaming sketch, plain or
 int8-compressed averaging, and the worker-batched executor (the
 reference's ``VmapExecutor``).  Every other
 ``CoDAConfig`` feature raises ``NotImplementedError`` naming its ROADMAP
@@ -229,7 +231,8 @@ def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
 # --------------------------------------------------------------------------
 def _worker_loss(mcfg, ccfg, obj, params, duals, batch):
     inputs = {k: v for k, v in batch.items() if k != "labels"}
-    h, aux = M.score(mcfg, params, inputs)
+    h, aux = M.score(mcfg, params, inputs, use_window=ccfg.use_window,
+                     train=True, impl=ccfg.impl)
     f = obj.loss(h, batch["labels"], duals, impl=ccfg.impl)
     return f + ccfg.moe_aux_coef * aux, h
 
@@ -237,17 +240,19 @@ def _worker_loss(mcfg, ccfg, obj, params, duals, batch):
 def grad_step_scores(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
                      batch):
     """Per-worker losses [K], raw primal/dual gradients (gp, gduals), and
-    the batch scores h [K, B]."""
+    the batch scores h [K, B].  A leaf the loss does not reach (the dense
+    family's ``lm_head``) gets a zero gradient, as ``jax.grad`` gives it."""
     obj = objective.for_config(ccfg)
     leaves = [l.detach().requires_grad_(True)
               for l in tree_leaves(state["params"])]
     params = tree_unflatten(state["params"], leaves)
     duals = {k: v.detach().requires_grad_(True)
              for k, v in state["duals"].items()}
+    wrt = leaves + list(duals.values())
     with torch.enable_grad():
         losses, hs = _worker_loss(mcfg, ccfg, obj, params, duals, batch)
-        grads = torch.autograd.grad(losses.sum(),
-                                    leaves + list(duals.values()))
+        grads = torch.autograd.grad(losses.sum(), wrt, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
     gp = tree_unflatten(state["params"], grads[:len(leaves)])
     gd = dict(zip(duals, grads[len(leaves):]))
     return losses.detach(), (gp, gd), hs.detach()
@@ -365,7 +370,8 @@ def estimate_stage_duals(mcfg: ModelConfig, ccfg: CoDAConfig, params, duals,
         return {}
     inputs = {k: v for k, v in batch.items() if k != "labels"}
     with torch.no_grad():
-        h, _ = M.score(mcfg, params, inputs)
+        h, _ = M.score(mcfg, params, inputs, use_window=ccfg.use_window,
+                       train=False, impl=ccfg.impl)
     return obj.stage_duals(h, batch["labels"], duals)
 
 

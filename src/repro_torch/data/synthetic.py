@@ -1,9 +1,9 @@
 """Synthetic imbalanced binary-classification data with a planted signal
 (counterpart of ``repro.data.synthetic``), drawn from numpy generators.
 
-Two of the reference's three modalities are ported, matching the ported
-model families: ``features`` (mlp) and ``images`` (cnn); ``tokens`` arrives
-with the model zoo (ROADMAP Queue 1, item 11).  The batch setting is the
+The reference's three modalities are ported, matching the ported model
+families: ``features`` (mlp), ``images`` (cnn) and ``tokens`` (dense:
+positive sequences over-sample a motif token set).  The batch setting is the
 reference's: a fixed dataset, negatives dropped to reach the target
 positive ratio, then partitioned across K workers (IID or Dirichlet(α)
 label skew), and machine k only ever draws from shard k.
@@ -20,15 +20,20 @@ import dataclasses
 import numpy as np
 import torch
 
+# the fraction of the vocabulary that is "motif" tokens (the reference's
+# ``DataConfig.motif_frac`` default; no ported caller sets another)
+MOTIF_FRAC = 0.1
+
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """The reference's ``DataConfig`` fields that the ported kinds read
-    (``tokens`` and the hard-negative mix come with the model zoo and
-    ``pauc_dro``)."""
+    (the hard-negative mix comes with ``pauc_dro``)."""
 
-    kind: str = "features"     # features | images
+    kind: str = "features"     # features | images | tokens
     p_pos: float = 0.5
+    vocab_size: int = 512
+    seq_len: int = 64
     image_hw: int = 32
     n_features: int = 64
     signal: float = 1.0        # planted signal strength
@@ -37,14 +42,22 @@ class DataConfig:
 def _draw(rng: np.random.Generator, dcfg: DataConfig, labels: np.ndarray) -> dict:
     """labels: [n] float32 → input dict with a leading [n] axis."""
     n = labels.shape[0]
+    if dcfg.kind == "tokens":
+        # positives take a motif token with probability signal·0.25
+        # (``repro/data/synthetic.py:59-67``)
+        n_motif = max(1, int(dcfg.vocab_size * MOTIF_FRAC))
+        base = rng.integers(0, dcfg.vocab_size, (n, dcfg.seq_len))
+        motif = rng.integers(0, n_motif, (n, dcfg.seq_len))
+        use = rng.random((n, dcfg.seq_len)) < (dcfg.signal * 0.25 * labels[:, None])
+        return {"tokens": np.where(use, motif, base).astype(np.int64)}
     if dcfg.kind == "images":
         hw = dcfg.image_hw
         x = rng.standard_normal((n, hw * hw, 3), dtype=np.float32)
         x += ((labels * 2 - 1) * dcfg.signal * 0.2)[:, None, None].astype(np.float32)
         return {"images": x}
     if dcfg.kind != "features":
-        raise NotImplementedError(f"data kind {dcfg.kind!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 11, model zoo)")
+        raise ValueError(f"unknown data kind {dcfg.kind!r} "
+                         "(want features | images | tokens)")
     x = rng.standard_normal((n, dcfg.n_features), dtype=np.float32)
     x += ((labels * 2 - 1) * dcfg.signal * 0.3)[:, None].astype(np.float32)
     return {"features": x}

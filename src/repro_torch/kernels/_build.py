@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels: nvcc → shared library → ctypes.
 
-The source ``csrc/coda_kernels.cu`` has a plain C interface, so nvcc
-compiles it in seconds (no PyTorch headers, no ninja).  The library goes to
-``<repo>/build/repro_torch_kernels/libcoda_<hash>.so``, keyed on a hash of
-the source and the flags, and is built at first use: importing this module
+The sources ``csrc/coda_kernels.cu`` (auc_loss, prox_update, opt_update)
+and ``csrc/flash_attention.cu`` (K4) have a plain C interface, so nvcc
+compiles them in seconds (no PyTorch headers, no ninja).  One nvcc builds
+both into ``<repo>/build/repro_torch_kernels/libcoda_<hash>.so``, keyed on a
+hash of the sources and the flags, at first use: importing this module
 builds nothing.  There is no fallback — a failed build raises.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import tempfile
 from pathlib import Path
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "coda_kernels.cu"
+ATTN_SOURCE = SOURCE.with_name("flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -36,6 +38,11 @@ _SIGNATURES = {
                                        ctypes.c_float, ctypes.c_float,
                                        ctypes.c_float, _P, _P]),
     "coda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    "flash_attention_forward": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, _P]),
+    "flash_attention_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
 }
 
 
@@ -52,7 +59,8 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    text = SOURCE.read_bytes() + ATTN_SOURCE.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libcoda_{digest.hexdigest()[:16]}.so"
 
 
@@ -67,7 +75,7 @@ def build(verbose: bool = False) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
+           "-o", tmp, str(SOURCE), str(ATTN_SOURCE)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

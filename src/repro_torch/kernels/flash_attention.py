@@ -1,0 +1,165 @@
+"""K4 flash attention: CUDA kernel wrapper, its autograd function, and the
+plain backward.
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
+flash_attention`` (lines 94-145, ``pallas_call`` at :120): GQA attention
+over q ``[B, S, H, hd]`` and k/v ``[B, Skv, KV, hd]`` with causal and static
+sliding-window masks, online softmax in fp32, KV tiles outside the band
+skipped, query head h reading KV head ``h // G``.  Output in q's dtype
+(fp32 or bf16).  The kernel also writes each row's log-sum-exp (fp32
+``[B, H, S]``), which the backward reuses.
+
+What bounds it on the card, and the design: see ``csrc/flash_attention.cu``
+— one block per (64-row query tile, head, batch row), a loop over the KV
+tiles of the band, fp32 FFMA.  At the prefill shape fp32 arithmetic bounds
+it, at the training shape (64-token sequences) bytes.
+
+The Pallas kernel has no VJP: the reference differentiates attention by
+XLA autodiff outside any kernel.  Here ``FlashAttention`` is a
+``torch.autograd.Function`` whose forward is K4 and whose backward is plain
+tensor code (``attention_bwd``): P recomputed from the saved log-sum-exp,
+then D = rowsum(dO∘O), dS = P∘(dP − D), and dQ, dK, dV with dK and dV
+summed over the G query heads of each KV head.
+
+The wrapper computes the plain version (``ref.attention_full``) for CPU
+tensors, and launches the kernel or raises for CUDA tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+# Kernel launches through this wrapper (one per call that reaches the card).
+launches = 0
+
+BLOCK_Q = BLOCK_K = 64
+THREADS = 256
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int) -> dict:
+    """Static launch geometry of one call (the counterpart of the Pallas
+    kernel's ``launch_geometry``): grid = (query tiles, H, B), 256 threads,
+    dynamic shared memory for the transposed q tile, one K and one V tile
+    and the probability tile.  Unlike the Pallas kernel, S and Skv need not
+    divide by the tiles: the ragged edge is masked, and the KV tiles are a
+    loop inside the block, so Skv does not enter the grid."""
+    del Skv
+    smem_floats = hd * (BLOCK_Q + 4) + BLOCK_K * (hd + 1) + BLOCK_K * hd \
+        + BLOCK_K * (BLOCK_Q + 4)
+    return {"bq": BLOCK_Q, "bk": BLOCK_K, "G": H // KV, "threads": THREADS,
+            "grid": (math.ceil(S / BLOCK_Q), H, B), "smem_bytes": 4 * smem_floats}
+
+
+def normalize_window(window):
+    """None or a negative window means full attention (None); otherwise a
+    Python int."""
+    if window is None or int(window) < 0:
+        return None
+    return int(window)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention wants q [B,S,H,hd], k/v [B,Skv,KV,hd]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (same B and hd, H % KV == 0)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention wants q, k, v all float32 or all "
+                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention inputs lie on several devices")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
+    """Returns (o [B, S, H, hd] in q's dtype, lse [B, H, S] fp32)."""
+    _check(q, k, v)
+    window = normalize_window(window)
+    if q.device.type == "cpu":
+        return ref.attention_full(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, got {q.device}")
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention is built for head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention's grid takes B, H <= 65535; got {B}, {H}")
+    global launches
+    lib = _build.load()
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_forward(
+        int(q.dtype == torch.bfloat16), hd, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H, Skv, KV,
+        int(bool(causal)), -1 if window is None else window, hd ** -0.5, stream)
+    _build.check(err, "flash_attention launch")
+    launches += 1
+    return o, lse
+
+
+def attention_bwd(q, k, v, o, lse, do, causal: bool, window):
+    """Gradients (dq, dk, dv) of attention given the forward's output o and
+    per-row log-sum-exp ``lse [B, H, S]``, in plain tensor code: P =
+    exp(s − lse) with the forward's masked scores s, D = rowsum(dO∘O),
+    dS = P∘(dP − D), dq = dS·k·hd^-½, dk = dSᵀ·q·hd^-½, dv = Pᵀ·dO — dk and
+    dv summed over the G query heads that share a KV head.  fp32
+    throughout, each result in its input's dtype."""
+    window = normalize_window(window)
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    qg = ref._grouped_q(q, KV)                                  # scaled
+    kf, vf = k.to(f32), v.to(f32)
+    dog = do.reshape(B, S, KV, G, hd).to(f32)
+    og = o.reshape(B, S, KV, G, hd).to(f32)
+    s = torch.einsum("bskgh,bckh->bskgc", qg, kf)
+    pos = lambda n: torch.arange(n, device=q.device)
+    valid = ref._mask(pos(S), pos(Skv), causal, window)
+    s = torch.where(valid[None, :, None, None, :], s, ref.NEG_INF)
+    lse_g = lse.transpose(1, 2).reshape(B, S, KV, G)
+    p = torch.exp(s - lse_g[..., None])
+    dv = torch.einsum("bskgc,bskgh->bckh", p, dog)
+    dp = torch.einsum("bskgh,bckh->bskgc", dog, vf)
+    D = (dog * og).sum(dim=-1, keepdim=True)
+    ds = p * (dp - D)
+    scale = hd ** -0.5
+    dq = torch.einsum("bskgc,bckh->bskgh", ds, kf) * scale
+    dk = torch.einsum("bskgc,bskgh->bckh", ds, qg)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is K4 (on CUDA tensors; the plain version on
+    CPU tensors) and whose backward is ``attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q: [B, S, H, hd]; k/v: [B, Skv, KV, hd] -> [B, S, H, hd] in q's
+    dtype, differentiable.  ``window`` None or negative means full."""
+    return FlashAttention.apply(q, k, v, causal, normalize_window(window))

@@ -15,12 +15,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import auc_loss as _auc_mod
+from repro_torch.kernels import flash_attention as _fa_mod
 from repro_torch.kernels import opt_update as _opt_mod
 from repro_torch.kernels import prox_update as _prox_mod
 from repro_torch.kernels import ref
 from repro_torch.tree import tree_map
 
 IMPLS = ("auto", "ref", "kernel")
+
+# Above this many KV positions the plain version switches from materialised
+# scores to the chunked online softmax (memory O(S·chunk)), as the
+# reference's ``ops.py:35`` does.
+_FULL_ATTN_MAX_KV = 8192
 
 
 def dispatch(impl: str, device: torch.device) -> bool:
@@ -34,6 +40,22 @@ def dispatch(impl: str, device: torch.device) -> bool:
     if impl == "auto":
         return device.type == "cuda"
     raise ValueError(f"unknown impl {impl!r} (want auto | ref | kernel)")
+
+
+def attention(q, k, v, *, causal: bool = True, window=None, impl: str = "auto"):
+    """GQA attention.  q: [B,S,H,hd], k/v: [B,Skv,KV,hd] -> [B,S,H,hd].
+
+    ``window``: None or -1 = full, else a Python int.  On the card the K4
+    kernel runs in every call (its backward is plain tensor code); the
+    reference reaches its Pallas kernel only for a static window, which its
+    scanned layer stacks never pass (their windows are traced), while the
+    port runs the layers in a Python loop and always knows the window."""
+    window = _fa_mod.normalize_window(window)
+    if dispatch(impl, q.device):
+        return _fa_mod.flash_attention(q, k, v, causal=causal, window=window)
+    if k.shape[1] <= _FULL_ATTN_MAX_KV:
+        return ref.attention_full(q, k, v, causal=causal, window=window)
+    return ref.attention_chunked(q, k, v, causal=causal, window=window)
 
 
 def auc_loss(h, y, a, b, alpha, p: float, *, impl: str = "auto"):

@@ -1,15 +1,22 @@
 """Plain PyTorch versions of the ported kernels — the semantics the CUDA
 kernels are held to (counterpart of ``repro.kernels.ref``).
 
-Each repeats the reference's arithmetic in the same order; every scalar is
-an fp32 0-dim tensor so each operation rounds in fp32, as the JAX oracle
-and the CUDA kernels do.
+The elementwise ones (auc_loss, prox_update, opt_update) repeat the
+reference's arithmetic in the same order; every scalar is an fp32 0-dim
+tensor so each operation rounds in fp32, as the JAX oracle and the CUDA
+kernels do.  Attention (``_mask``, ``attention_full``,
+``attention_chunked``) sums in another order than the kernel's online
+softmax and is held to it at a stated tolerance.
 """
 from __future__ import annotations
 
 import torch
 
 _U32 = 0xFFFFFFFF
+
+# The attention mask's sentinel, as the reference's: a finite -1e30, not
+# -inf (exp(-inf - -inf) is NaN where a row has no valid key yet).
+NEG_INF = -1e30
 
 
 def _f32(x) -> torch.Tensor:
@@ -144,3 +151,84 @@ def opt_update_ref(v, g, v0, buf, eta: float, gamma: float, coef: float,
     denom = torch.full((), (eta + gamma).item(), dtype=torch.float32,
                        device=out.device)
     return (out / denom).to(v.dtype), new_buf
+
+
+# --------------------------------------------------------------------------
+# attention (GQA, causal / sliding window): K4 flash_attention's plain version
+# --------------------------------------------------------------------------
+def _mask(q_pos, kv_pos, causal: bool, window):
+    """[S, Skv] validity (``repro.kernels.ref._mask``, ref.py:15-23).
+    ``window`` None or negative means full attention."""
+    valid = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                       device=q_pos.device)
+    if causal:
+        valid &= kv_pos[None, :] <= q_pos[:, None]
+    if window is not None and int(window) >= 0:
+        valid &= kv_pos[None, :] > (q_pos[:, None] - int(window))
+    return valid
+
+
+def _grouped_q(q, KV: int):
+    """q [B, S, H, hd] → fp32 [B, S, KV, G, hd] scaled by hd^-0.5: query
+    head h = kv·G + g reads KV head kv = h // G."""
+    B, S, H, hd = q.shape
+    return q.reshape(B, S, KV, H // KV, hd).to(torch.float32) * hd ** -0.5
+
+
+def attention_full(q, k, v, *, causal: bool = True, window=None,
+                   return_lse: bool = False):
+    """q: [B, S, H, hd]; k/v: [B, Skv, KV, hd] -> [B, S, H, hd] in q's dtype
+    (``repro.kernels.ref.attention_full``, ref.py:26-38): materialised fp32
+    scores, masked with -1e30, softmax, then the values.
+
+    ``return_lse=True`` also returns the per-row log-sum-exp of the masked
+    scores as fp32 ``[B, H, S]``, the second output of the K4 kernel."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qg = _grouped_q(q, KV)
+    s = torch.einsum("bskgh,bckh->bskgc", qg, k.to(torch.float32))
+    pos = lambda n: torch.arange(n, device=q.device)
+    valid = _mask(pos(S), pos(Skv), causal, window)
+    s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bskgc,bckh->bskgh", w, v.to(torch.float32))
+    o = o.reshape(B, S, H, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).reshape(B, S, H).transpose(1, 2)
+    return o, lse.contiguous()
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, window=None,
+                      chunk: int = 512):
+    """Online-softmax attention over KV chunks, O(S·chunk) scores
+    (``repro.kernels.ref.attention_chunked``, ref.py:41-82): the running
+    max m, denominator l and accumulator stay fp32, l is floored at 1e-30.
+    Used where the KV length passes 8,192 on the CPU (``ops.attention``)."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    C = min(chunk, Skv)
+    if Skv % C:
+        raise ValueError(f"attention_chunked: Skv={Skv} is not a multiple of "
+                         f"the chunk {C}")
+    qg = _grouped_q(q, KV)
+    dev = q.device
+    q_pos = torch.arange(S, device=dev)
+    m = torch.full((B, S, KV, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, S, KV, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, S, KV, G, hd), dtype=torch.float32, device=dev)
+    for j in range(Skv // C):
+        kj = k[:, j * C:(j + 1) * C].to(torch.float32)
+        vj = v[:, j * C:(j + 1) * C].to(torch.float32)
+        s = torch.einsum("bskgh,bckh->bskgc", qg, kj)
+        valid = _mask(q_pos, j * C + torch.arange(C, device=dev), causal, window)
+        s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bskgc,bckh->bskgh", p, vj)
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return o.reshape(B, S, H, hd).to(q.dtype)

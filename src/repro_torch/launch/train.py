@@ -4,9 +4,13 @@ Runs CoDA on one device: the K workers are a batched tensor axis (the
 reference's ``--executor vmap``).  Every local step launches the
 hand-written ``auc_loss`` kernel once, then per parameter leaf one
 ``prox_update`` (``--optimizer sgd``, the default, and ``shampoo_blocked``)
-or one ``opt_update`` (``momentum``, ``sm3``).  It takes the reference's
-flags; those of features not ported yet are rejected with the ROADMAP item
-that will bring them.
+or one ``opt_update`` (``momentum``, ``sm3``); the dense transformers
+(``--arch stablelm-1.6b | qwen2.5-14b | phi3-medium-14b | chatglm3-6b``,
+on the reference's ``tokens`` data at ``seq_len=64``) also launch
+``flash_attention`` once per attention layer in every forward.  It takes
+the reference's flags; those of features not ported yet are rejected with
+the ROADMAP item that will bring them.  ``--n-layers`` (the port's own)
+cuts a dense config's depth so a full-width model trains on one card.
 
 Metric reporting, as the reference's: ``--metrics exact`` scores the
 held-out split every ``--metric-interval`` windows; ``--metrics sketch``
@@ -27,10 +31,15 @@ Examples:
       --optimizer momentum --opt-dtype bf16
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --metrics sketch --metric-interval 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch stablelm-1.6b --smoke --stages 2 --t0 30 --interval 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --n-layers 2 --stages 1 --t0 16 --n-data 1024     # full width, 2 layers
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import time
 
@@ -38,10 +47,11 @@ import numpy as np
 import torch
 
 from repro_torch import disable_tf32, resolve_device
-from repro_torch.configs import get_config, get_smoke_config, mlp_config
+from repro_torch.configs import DENSE_ARCHS, get_config, get_smoke_config, mlp_config
 from repro_torch.core import coda, objective, optimizer, schedules
 from repro_torch.data import DataConfig, ShardedDataset
 from repro_torch.kernels import auc_loss as _auc_mod
+from repro_torch.kernels import flash_attention as _fa_mod
 from repro_torch.kernels import opt_update as _opt_mod
 from repro_torch.kernels import prox_update as _prox_mod
 from repro_torch.metrics import report as metric_report
@@ -50,7 +60,11 @@ from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map
 
 KERNELS = {"auc_loss": _auc_mod, "prox_update": _prox_mod,
-           "opt_update": _opt_mod}
+           "opt_update": _opt_mod, "flash_attention": _fa_mod}
+
+# the held-out split is scored in chunks of this many examples (one
+# forward, and for the dense family one flash_attention per layer, each)
+TEST_CHUNK = 512
 
 
 def data_config_for(mcfg, p_pos: float) -> DataConfig:
@@ -58,15 +72,22 @@ def data_config_for(mcfg, p_pos: float) -> DataConfig:
         return DataConfig(kind="features", p_pos=p_pos, n_features=mcfg.n_features)
     if mcfg.family == "cnn":
         return DataConfig(kind="images", p_pos=p_pos, image_hw=32)
+    if mcfg.family == "dense":
+        return DataConfig(kind="tokens", p_pos=p_pos, vocab_size=mcfg.vocab_size,
+                          seq_len=64)
     raise NotImplementedError(f"family {mcfg.family!r} is not ported yet "
                               "(ROADMAP Queue 1 item 11, model zoo)")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="mlp", help="mlp | resnet50")
+    ap.add_argument("--arch", default="mlp",
+                    help=f"mlp | resnet50 | {' | '.join(DENSE_ARCHS)}")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut a dense config's depth to this many layers "
+                         "(0 = the config's own; widths stay as they are)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless you ask for cpu)")
     ap.add_argument("--workers", type=int, default=4)
@@ -174,6 +195,11 @@ def main(argv=None) -> dict:
         mcfg = get_smoke_config(args.arch)
     else:
         mcfg = get_config(args.arch)
+    if args.n_layers:
+        if mcfg.family != "dense":
+            ap.error(f"--n-layers cuts a dense config's depth; {args.arch} is "
+                     f"{mcfg.family}")
+        mcfg = dataclasses.replace(mcfg, n_layers=args.n_layers)
 
     dcfg = data_config_for(mcfg, args.p_pos)
     ds = ShardedDataset(dcfg, args.n_data, args.workers, seed=args.seed,
@@ -213,9 +239,9 @@ def main(argv=None) -> dict:
 
     test = ds.full(2048)
 
-    def test_scores(st, chunk: int = 512):
+    def test_scores(st, chunk: int = TEST_CHUNK):
         params0 = tree_map(lambda x: x[:1], st["params"])
-        key = "features" if mcfg.family == "mlp" else "images"
+        key = next(k for k in test if k != "labels")
         with torch.no_grad():
             hs = [M.score(mcfg, params0, {key: test[key][i:i + chunk][None]})[0][0]
                   for i in range(0, test["labels"].shape[0], chunk)]
@@ -281,6 +307,7 @@ def main(argv=None) -> dict:
     return {"auc": auc, "iterations": res.iterations, "history": res.history,
             "ms_per_local_step": ms_per_step, "leaves": len(leaves),
             "state": res.state, "test_scores": h_test, "launches": launches,
+            "n_test": int(test["labels"].shape[0]), "stages": len(stage_list),
             "opt_state_bytes": coda.opt_state_bytes(res.state)}
 
 

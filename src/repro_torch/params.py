@@ -5,8 +5,11 @@ module takes that tree as numpy arrays (no jax import) and returns the
 port's tree, and back.  Every parameter leaf carries the leading worker
 axis K in both packages.  The only layout change is the convolution
 weights of the ``cnn`` family: HWIO ``[K, kh, kw, cin, cout]`` in the
-reference, OIHW ``[K, cout, cin, kh, kw]`` here.  The mlp keeps its
-``[d_in, d_out]`` matmul layout.  bf16 leaves travel through their bits.
+reference, OIHW ``[K, cout, cin, kh, kw]`` here.  The mlp and the dense
+transformers keep their ``[d_in, d_out]`` matmul layouts, and a dense
+model's layers stay stacked ``[K, L, ...]`` as ``blocks.init_stack``
+stacks them (no 5-D leaf, so ``ref_order`` leaves them alone).  bf16
+leaves travel through their bits.
 
 The optimizer state follows suit: a momentum buffer has its parameter's
 layout (HWIO ↔ OIHW as above); SM3 keeps its per-axis accumulators in the

@@ -23,20 +23,22 @@ def tree_leaves(t) -> list:
     return [t]
 
 
+def _rebuild(t, it):
+    if isinstance(t, dict):
+        out = {k: _rebuild(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}  # keep the caller's key order
+    if isinstance(t, (list, tuple)):
+        return type(t)(_rebuild(c, it) for c in t)
+    return next(it)
+
+
 def tree_unflatten(like, leaves) -> Any:
     """Rebuild ``like``'s structure from ``leaves`` (in ``tree_leaves``
-    order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}  # keep the caller's key order
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(c) for c in t)
-        return next(it)
-
-    return build(like)
+    order).  A module-level recursion, not a nested function that calls
+    itself: such a closure is a reference cycle that would keep ``leaves``
+    (whole parameter trees on the card) alive until the cyclic garbage
+    collector happens to run."""
+    return _rebuild(like, iter(leaves))
 
 
 def tree_map(f: Callable, t, *rest) -> Any:

@@ -1,0 +1,323 @@
+"""repro_torch attention (K4 flash_attention's plain version, its backward,
+and the dispatch) vs the reference's oracles and its Pallas kernel in
+interpret mode; and — on a card — the CUDA kernel vs its plain version.
+
+Tolerances:
+  * forward vs ``repro.kernels.ref.attention_full`` and vs the Pallas
+    kernel (interpret mode): atol 2e-5, rtol 2e-5, the reference's own
+    (tests/test_kernels_attention.py:39) — fp32 sums in another order;
+    bf16 (here and on the card): one bf16 ulp of the output (rtol 2^-7)
+    plus atol 1e-4 — both sides compute in fp32 and round once;
+  * the log-sum-exp vs ``jax.nn.logsumexp`` of the reference's masked
+    scores: atol 2e-5;
+  * ``attention_bwd`` vs ``jax.vjp`` of ``ref.attention_full``: atol 5e-5,
+    rtol 5e-5 (dq, dk, dv are sums of S·Skv products, summed in another
+    order; dk and dv also over the G query heads of a KV head).
+
+The card cases need no jax: ``PYTHONPATH=src python -m pytest --noconftest
+-q -m cuda tests/test_torch_attention.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as fa
+
+TOL = {"atol": 2e-5, "rtol": 2e-5}
+BWD_TOL = {"atol": 5e-5, "rtol": 5e-5}
+# bf16 output: both sides compute in fp32 and round once to bf16, so they
+# may differ by one bf16 ulp (≤ 2^-7 of the value) plus fp32 noise near zero
+BF16_TOL = {"atol": 1e-4, "rtol": 2 ** -7}
+
+# the reference's shape table (tests/test_kernels_attention.py:22-28):
+# B, S, H, KV, hd and the Pallas kernel's block_q, block_k
+SHAPES = [
+    (1, 128, 4, 4, 32, 64, 64),
+    (2, 256, 4, 2, 16, 64, 128),   # GQA 2:1
+    (1, 128, 8, 1, 64, 32, 32),    # MQA
+    (2, 64, 2, 2, 128, 64, 64),    # single q block
+    (1, 192, 3, 1, 8, 64, 64),     # odd head count, 3 kv blocks
+]
+
+
+@pytest.fixture(scope="module")
+def jref():
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref as jax_ref
+    from repro.kernels.flash_attention import flash_attention as pallas_flash
+    return jax, jax.numpy, jax_ref, pallas_flash
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _qkv(seed, B, S, H, KV, hd, Skv=None):
+    rng = np.random.default_rng(seed)
+    Skv = S if Skv is None else Skv
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, Skv, KV, hd)).astype(np.float32))
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bk", SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_reference_and_pallas(jref, B, S, H, KV, hd, bq, bk, causal):
+    _, jnp, jax_ref, pallas_flash = jref
+    q, k, v = _qkv(B * S + H, B, S, H, KV, hd)
+    got = ref.attention_full(*_t(q, k, v), causal=causal).numpy()
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    np.testing.assert_allclose(got, np.asarray(jax_ref.attention_full(jq, jk, jv, causal=causal)),
+                               **TOL)
+    np.testing.assert_allclose(got, np.asarray(pallas_flash(
+        jq, jk, jv, causal=causal, block_q=bq, block_k=bk, interpret=True)), **TOL)
+
+
+@pytest.mark.parametrize("window", [16, 64, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_window_matches_reference_and_pallas(jref, window, causal):
+    _, jnp, jax_ref, pallas_flash = jref
+    q, k, v = _qkv(7, 1, 256, 4, 2, 32)
+    got = ref.attention_full(*_t(q, k, v), causal=causal, window=window).numpy()
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    np.testing.assert_allclose(got, np.asarray(jax_ref.attention_full(
+        jq, jk, jv, causal=causal, window=window)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(pallas_flash(
+        jq, jk, jv, causal=causal, window=window, block_q=64, block_k=64,
+        interpret=True)), **TOL)
+
+
+def test_plain_bf16_matches_reference(jref):
+    _, jnp, jax_ref, _ = jref
+    q, k, v = _qkv(3, 2, 128, 4, 4, 32)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    # both sides start from the same bf16 values
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32)).bfloat16() for x in (jq, jk, jv))
+    got = ref.attention_full(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jax_ref.attention_full(jq, jk, jv), np.float32),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_lse_matches_reference_scores(jref, causal, window):
+    """The plain version's second output: logsumexp over the masked fp32
+    scores, laid out [B, H, S]."""
+    jax, jnp, jax_ref, _ = jref
+    B, S, H, KV, hd = 2, 96, 4, 2, 16
+    q, k, v = _qkv(11, B, S, H, KV, hd)
+    o, lse = ref.attention_full(*_t(q, k, v), causal=causal, window=window,
+                                return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    qg = jnp.asarray(q).reshape(B, S, KV, H // KV, hd) * hd ** -0.5
+    s = jnp.einsum("bskgh,bckh->bskgc", qg, jnp.asarray(k))
+    valid = jax_ref._mask(jnp.arange(S), jnp.arange(S), causal, window)
+    s = jnp.where(valid[None, :, None, None, :], s, -1e30)
+    want = jnp.moveaxis(jax.nn.logsumexp(s, axis=-1).reshape(B, S, H), 1, 2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), atol=2e-5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jax_ref.attention_full(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=causal, window=window)), **TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 48)])
+def test_chunked_matches_reference(jref, causal, window):
+    _, jnp, jax_ref, _ = jref
+    q, k, v = _qkv(5, 2, 256, 4, 2, 32)
+    got = ref.attention_chunked(*_t(q, k, v), causal=causal, window=window, chunk=64)
+    want = jax_ref.attention_chunked(*(jnp.asarray(x) for x in (q, k, v)),
+                                     causal=causal, window=window, chunk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ops_takes_chunked_beyond_8192_kv_positions(jref, monkeypatch):
+    """On the CPU, KV longer than 8,192 positions goes to the chunked online
+    softmax, as the reference's ops.attention does (ops.py:73-75)."""
+    _, jnp, jax_ref, _ = jref
+    q, k, v = _qkv(13, 1, 32, 2, 1, 16, Skv=8704)     # 17 chunks of 512
+    want = jax_ref.attention_chunked(*(jnp.asarray(x) for x in (q, k, v)), causal=False)
+
+    def boom(*a, **kw):
+        raise AssertionError("materialised scores beyond 8192 KV positions")
+
+    monkeypatch.setattr(ref, "attention_full", boom)
+    got = ops.attention(*_t(q, k, v), causal=False, impl="auto")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (2, 64, 4, 2, 16, True, None),     # GQA, causal
+    (1, 96, 4, 1, 32, True, 24),       # MQA, sliding window
+    (2, 48, 2, 2, 16, False, None),    # full, non-causal
+])
+def test_attention_bwd_matches_jax_vjp(jref, B, S, H, KV, hd, causal, window):
+    jax, jnp, jax_ref, _ = jref
+    q, k, v = _qkv(17 + S, B, S, H, KV, hd)
+    do = np.random.default_rng(S).standard_normal((B, S, H, hd)).astype(np.float32)
+    o, vjp = jax.vjp(lambda a, b, c: jax_ref.attention_full(a, b, c, causal=causal,
+                                                            window=window),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = _t(q, k, v)
+    to, lse = ref.attention_full(tq, tk, tv, causal=causal, window=window, return_lse=True)
+    got = fa.attention_bwd(tq, tk, tv, to, lse, torch.from_numpy(do), causal, window)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL, err_msg=name)
+
+
+def test_autograd_function_matches_autograd_through_plain():
+    """``FlashAttention`` on CPU tensors (plain forward, ``attention_bwd``
+    backward) gives torch autograd's gradients through ``attention_full``."""
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(19, 2, 80, 6, 2, 16))
+    do = torch.randn((2, 80, 6, 16), generator=torch.Generator().manual_seed(0))
+    o = fa.flash_attention(q, k, v, causal=True, window=40)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    want = torch.autograd.grad(ref.attention_full(q, k, v, causal=True, window=40),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+
+
+@pytest.mark.parametrize("kernel,Skv,want", [
+    (True, 64, "kernel"), (True, 9216, "kernel"),      # the card: K4 at any length
+    (False, 64, "full"), (False, 8192, "full"), (False, 8704, "chunked"),
+])
+def test_attention_routes_by_dispatch_and_length(monkeypatch, kernel, Skv, want):
+    """``ops.attention`` sends what ``dispatch`` gives the kernel to K4
+    (with the window normalised), and the rest to the materialised plain
+    version up to 8,192 KV positions, to the chunked one beyond."""
+    seen = []
+    monkeypatch.setattr(ops, "dispatch", lambda impl, device: kernel)
+    monkeypatch.setattr(ops._fa_mod, "flash_attention",
+                        lambda *a, **kw: seen.append(("kernel", kw["window"])))
+    monkeypatch.setattr(ref, "attention_full",
+                        lambda *a, **kw: seen.append(("full", kw["window"])))
+    monkeypatch.setattr(ref, "attention_chunked",
+                        lambda *a, **kw: seen.append(("chunked", kw["window"])))
+    q = torch.zeros((1, 4, 2, 16))
+    k = torch.zeros((1, Skv, 2, 16))
+    ops.attention(q, k, k, window=-1)
+    ops.attention(q, k, k, window=32)
+    assert seen == [(want, None), (want, 32)]
+
+
+def test_attention_on_cpu_never_builds_and_rejects_kernel(monkeypatch):
+    def boom(*a, **kw):
+        raise AssertionError("CPU attention reached the CUDA build")
+
+    monkeypatch.setattr(_build, "build", boom)
+    monkeypatch.setattr(_build, "load", boom)
+    q, k, v = _t(*_qkv(23, 1, 40, 4, 2, 16))
+    n0 = fa.launches
+    want = ref.attention_full(q, k, v, causal=True)
+    for impl in ("auto", "ref"):
+        torch.testing.assert_close(ops.attention(q, k, v, impl=impl), want, rtol=0, atol=0)
+    # -1 means full attention, as in the reference
+    torch.testing.assert_close(ops.attention(q, k, v, window=-1), want, rtol=0, atol=0)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)      # the wrapper itself
+    torch.testing.assert_close(o, want, rtol=0, atol=0)
+    assert fa.launches == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(q, k, v, impl="kernel")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.attention(q, k, v, impl="pallas")
+
+
+def test_wrapper_checks_its_inputs():
+    q, k, v = _t(*_qkv(29, 1, 16, 4, 2, 16))
+    with pytest.raises(ValueError, match=r"q \[B,S,H,hd\]"):
+        fa.flash_attention_fwd(q[0], k, v)
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_attention_fwd(q, k[..., :8], v[..., :8])
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_attention_fwd(q[:, :, :3], k, v)          # H % KV != 0
+    with pytest.raises(ValueError, match="float32 or all"):
+        fa.flash_attention_fwd(q, k.double(), v.double())
+
+
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,grid,smem", [
+    (128, 64, 32, 32, 64, 64, (1, 32, 128), 67_840),      # stablelm training
+    (4, 2048, 32, 32, 2048, 64, (32, 32, 4), 67_840),     # stablelm prefill
+    (1, 2048, 40, 8, 2048, 128, (32, 40, 1), 118_016),    # qwen GQA
+    (1, 1000, 8, 8, 1000, 64, (16, 8, 1), 67_840),        # ragged S
+])
+def test_launch_geometry(B, S, H, KV, Skv, hd, grid, smem):
+    geo = fa.launch_geometry(B, S, H, KV, Skv, hd)
+    assert geo["grid"] == grid and geo["smem_bytes"] == smem
+    assert geo["threads"] == 256 and geo["G"] == H // KV
+    assert geo["smem_bytes"] <= 232_448        # a block's shared memory on Hopper
+
+
+def test_build_knows_both_libraries(tmp_path, monkeypatch):
+    """K4's source and the CoDA kernels' source build one library whose
+    hash-keyed name changes when either source changes."""
+    src, attn = tmp_path / "k.cu", tmp_path / "fa.cu"
+    src.write_text("// one")
+    attn.write_text("// one")
+    monkeypatch.setattr(_build, "SOURCE", src)
+    monkeypatch.setattr(_build, "ATTN_SOURCE", attn)
+    first = _build.library_path()
+    attn.write_text("// two")
+    second = _build.library_path()
+    src.write_text("// two")
+    assert len({first, second, _build.library_path()}) == 3
+    assert first.name.startswith("libcoda_") and first.suffix == ".so"
+    assert {"coda_error_string", "flash_attention_forward",
+            "flash_attention_smem_bytes"} <= set(_build._SIGNATURES)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+CARD_SHAPES = [
+    # B, S, H, KV, Skv, hd, causal, window
+    (3, 64, 4, 4, 64, 64, True, None),
+    (2, 200, 8, 2, 200, 32, True, None),       # GQA, ragged
+    (1, 1000, 8, 1, 1000, 64, True, 256),      # MQA, window, ragged
+    (2, 96, 4, 4, 300, 128, False, None),      # Skv != S
+    (2, 130, 2, 2, 130, 16, False, 50),        # window without causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,causal,window", CARD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
+                                      window, dtype):
+    q, k, v = (t.to(cuda_device, dtype) for t in _t(*_qkv(S + hd, B, S, H, KV, hd, Skv)))
+    n0 = fa.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    assert fa.launches == n0 + 1 and o.dtype == dtype
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(o.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_launch_geometry_matches_the_kernel_on_card(cuda_device, hd):
+    """The shared memory ``launch_geometry`` reports is what the built
+    kernel asks for."""
+    lib = _build.load()
+    assert lib.flash_attention_smem_bytes(hd) == fa.launch_geometry(1, 64, 1, 1, 64, hd)["smem_bytes"]
+
+
+@pytest.mark.cuda
+def test_kernel_backward_matches_autograd_on_card(cuda_device):
+    q, k, v = (t.to(cuda_device).requires_grad_() for t in _t(*_qkv(31, 4, 64, 8, 2, 64)))
+    do = torch.randn_like(q)
+    got = torch.autograd.grad(ops.attention(q, k, v, causal=True), (q, k, v), do)
+    want = torch.autograd.grad(ref.attention_full(q, k, v, causal=True), (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)

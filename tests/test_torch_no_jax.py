@@ -1,7 +1,8 @@
 """repro_torch and chip_smoke.py never import jax or the reference package.
 
 Two checks: a subprocess that imports repro_torch and runs one CPU local
-step must leave ``jax`` and ``repro`` out of ``sys.modules``; and an AST
+step of the mlp and one of the dense transformer (and a prefill) must leave
+``jax`` and ``repro`` out of ``sys.modules``; and an AST
 scan of every module of the port and of chip_smoke.py finds no import of
 either (imports of ``repro_torch`` itself are allowed).
 """
@@ -29,6 +30,19 @@ st = coda.init_state(mcfg, ccfg, generator=torch.Generator().manual_seed(0))
 batch = {k: v[0] for k, v in ds.sample_window(1, 8).items()}
 st, losses = coda.local_step(mcfg, ccfg, st, batch, 0.1)
 assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
+# the dense family: a transformer local step through attention (K4's plain
+# version on the CPU) and one prefill
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import model as M
+tcfg = get_smoke_config("stablelm-1.6b")
+ds = ShardedDataset(DataConfig(kind="tokens", vocab_size=tcfg.vocab_size, seq_len=8),
+                    64, 2, target_p=0.7)
+st = coda.init_state(tcfg, ccfg, generator=torch.Generator().manual_seed(0))
+batch = {k: v[0] for k, v in ds.sample_window(1, 4).items()}
+st, losses = coda.local_step(tcfg, ccfg, st, batch, 0.1)
+assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
+s, logits, (kc, vc) = M.prefill_step(tcfg, st["params"], {"tokens": batch["tokens"]})
+assert kc.shape == (2, 2, 4, 8, 4, 64) and logits.shape == (2, 4, 512)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
