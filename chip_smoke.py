@@ -30,7 +30,7 @@ last line):
   6. one more window under torch.profiler of mlp, ResNet50 and ResNet50 +
      momentum: device busy time, idle share, the hand-written kernels'
      device time, the top kernels;
-  7. the mlp paths again with ``--device cpu``: each test AUC within 0.01 of
+  7. the smoke paths again with ``--device cpu``: each test AUC within 0.01 of
      the card's;
   8. K4 flash_attention against its plain version (``ref.attention_full``)
      on the card, fp32 within atol 2e-5 + rtol 2e-5 and bf16 within one
@@ -53,21 +53,49 @@ last line):
      flash_attention, and a profiled window; and ``--arch stablelm-1.6b
      --smoke`` on the card, its test AUC within 0.01 of the same command
      with ``--device cpu`` (run with the mlp paths' CPU twins);
-then the ``{"kernels": [...]}`` line, nvidia-smi's line, and the
-``{"ok": true, ...}`` line.  It imports nothing of JAX.
+ 11. K5 grouped_matmul against its plain version (``ref.grouped_matmul_ref``)
+     on the card, fp32 within atol = rtol = 5e-5 and bf16 within one bf16
+     ulp + atol 1e-4, at dbrx-132b's decode (N=16) and prefill (N=8192)
+     expert shapes in fp32, arctic-480b's (128 experts, N=8 and 4096) in
+     bf16, K-folded strided weights, and the reference's edge tables; group
+     sizes from a seeded top-k routing; each timed beside its bound (the hit
+     experts' bytes or the operations), the plain version and
+     torch._grouped_mm where the installed torch takes the inputs (run with
+     the kernel checks of phase 3);
+ 12. dbrx-132b at full width with 2 of 40 layers (7,751,337,985 fp32
+     parameters, one replica): ``prefill_step`` on [B=2, S=1024] with the
+     kernels and with ``impl="ref"`` (2 K4 and 6 K5 launches per prefill,
+     scores, logits and caches compared, a profile with the K5, K4 and
+     cuBLAS shares); then the same parameters through ``ServingEngine``
+     (4 slots, max_len 64, chunk 8, a batch trace of 8 requests) with
+     ``impl="auto"`` and ``"ref"``: tokens equal (a flip only at a printed
+     near tie), scores within 1e-4, K5 launches = 3 × 2 × serve steps; ms
+     per prefill and decode tick, tokens/s, TTFT and latency, a profiled
+     decode tick against K5's bound;
+ 13. ``--arch dbrx-132b --smoke`` training (K5 only in eval forwards) and
+     ``launch/serve.py --arch dbrx-132b --labeled --metrics sketch`` on the
+     card with exact launch counts, against their ``--device cpu`` twins:
+     test AUC within 0.01; the printed requests' tokens equal and the served
+     AUC within 0.01;
+then the ``{"kernels": [...]}`` line (all five kernels), nvidia-smi's line,
+and the ``{"ok": true, ...}`` line.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -509,13 +537,15 @@ def check_step(dev):
 
 
 def run_main_path(label: str, argv: list[str], leaves_per_step: int,
-                  per_leaf: str = "prox_update", attn_layers: int = 0):
+                  per_leaf: str = "prox_update", attn_layers: int = 0, moe_layers: int = 0):
     """Drive ``train.main(argv)`` with every launch counter set to 0 just
     before and read just after; ``per_leaf`` is the kernel launched once per
     parameter leaf per local step (the other per-leaf kernel must stay 0).
     ``flash_attention`` runs once per attention layer in every forward: each
     local step and each stage-end α batch inside ``fit``, then each chunk of
-    the held-out split the launcher scores after it."""
+    the held-out split the launcher scores after it.  ``grouped_matmul``
+    runs three times per moe layer in every eval forward (the stage-end α
+    batches and the held-out chunks) and never in a local step."""
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
     for mod in train.KERNELS.values():
@@ -539,10 +569,12 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     if out["leaves"] != leaves_per_step:
         raise SystemExit(f"{label}: {out['leaves']} leaves, expected {leaves_per_step}")
     want = {"auc_loss": steps, "prox_update": 0, "opt_update": 0,
-            "flash_attention": attn_layers * (steps + out["stages"])}
+            "flash_attention": attn_layers * (steps + out["stages"]),
+            "grouped_matmul": 3 * moe_layers * out["stages"]}
     want[per_leaf] = steps * leaves_per_step
     chunks = math.ceil(out["n_test"] / train.TEST_CHUNK)
-    want_all = dict(want, flash_attention=want["flash_attention"] + attn_layers * chunks)
+    want_all = dict(want, flash_attention=want["flash_attention"] + attn_layers * chunks,
+                    grouped_matmul=want["grouped_matmul"] + 3 * moe_layers * chunks)
     if counts != want_all or out["launches"] != want:
         raise SystemExit(f"{label}: launch counts {counts} (fit's {out['launches']}), "
                          f"expected {want_all} (fit's {want})")
@@ -574,18 +606,26 @@ LM_TRAIN_ARGS = ["--arch", "stablelm-1.6b", "--n-layers", str(TRAIN_LAYERS), "--
                  "--t0", "16", "--n-data", "1024"]
 LM_SMOKE = ("stablelm_smoke", ["--arch", "stablelm-1.6b", "--smoke", "--stages", "2",
                                "--t0", "30"], "prox_update")
-TWIN_PATHS = MLP_PATHS + [LM_SMOKE]
+MOE_SMOKE = ("dbrx_smoke", ["--arch", "dbrx-132b", "--smoke", "--stages", "2", "--t0", "30"],
+             "prox_update")
+MOE_LEAVES = 18
+# (label, launcher module, arguments): the commands run again with --device cpu
+TWIN_PATHS = ([(label, "train", args) for label, args, _ in MLP_PATHS + [LM_SMOKE, MOE_SMOKE]]
+              + [("dbrx_serve_smoke", "serve", ["--arch", "dbrx-132b", "--labeled",
+                                                "--metrics", "sketch"])])
 
 
 class CpuTwins:
-    """The mlp paths' commands again with ``--device cpu``, one process after
-    another in a background thread at the lowest CPU priority (``nice``), so
-    the CPU runs overlap the card's phases; ``stop`` ends the running
-    process, whatever state the script is in."""
+    """The smoke paths' commands again with ``--device cpu``, one process
+    after another in a background thread at the lowest CPU priority
+    (``nice``), so the CPU runs overlap the card's phases; ``stop`` ends the
+    running process, whatever state the script is in.  A training twin
+    gives its test AUC, a serving twin its output."""
 
     def __init__(self, paths, threads: int = 6):
         self.paths, self.threads = paths, threads
         self.auc: dict[str, float] = {}
+        self.out: dict[str, str] = {}
         self.errors: list[str] = []
         self._lock = threading.Lock()
         self._proc = None
@@ -599,31 +639,33 @@ class CpuTwins:
     def _run(self):
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                    OMP_NUM_THREADS=str(self.threads))
-        for label, args, _ in self.paths:
+        for label, module, args in self.paths:
             with self._lock:
                 if self._stopped:
                     return
                 self._proc = subprocess.Popen(
-                    ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.train",
+                    ["nice", "-n", "19", sys.executable, "-m", f"repro_torch.launch.{module}",
                      "--device", "cpu", *args], cwd=ROOT, env=env,
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             out, err = self._proc.communicate()
             found = re.search(r"^done: .* test AUC=(\d\.\d+)$", out, re.M)
-            if self._proc.returncode != 0 or not found:
+            if self._proc.returncode != 0 or (module == "train" and not found):
                 self.errors.append(f"{label}: exit {self._proc.returncode}\n"
                                    f"{out[-1500:]}{err[-1500:]}")
             else:
-                self.auc[label] = float(found.group(1))
+                self.out[label] = out
+                if found:
+                    self.auc[label] = float(found.group(1))
 
     def wait(self, timeout: float = 900.0):
         t0 = time.perf_counter()
         self._thread.join(timeout)
         if self._thread.is_alive():
-            raise SystemExit(f"the CPU runs of the mlp paths took over {timeout:.0f} s")
+            raise SystemExit(f"the CPU runs of the smoke paths took over {timeout:.0f} s")
         if self.errors:
-            raise SystemExit("a CPU run of an mlp path failed:\n" + "\n".join(self.errors))
+            raise SystemExit("a CPU run of a smoke path failed:\n" + "\n".join(self.errors))
         print(f"cpu runs: waited {time.perf_counter() - t0:.1f} s for the --device cpu "
-              "runs of the mlp paths")
+              "runs of the smoke paths")
 
     def stop(self):
         with self._lock:
@@ -634,7 +676,8 @@ class CpuTwins:
 
 
 KERNEL_TAGS = {"auc_loss": "auc_loss", "prox_update": "prox_update",
-               "opt_update": "opt_update", "flash_attention": "flash_fwd"}
+               "opt_update": "opt_update", "flash_attention": "flash_fwd",
+               "grouped_matmul": "gmm_"}
 
 
 def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
@@ -715,7 +758,7 @@ def run_prefill(dev, rates) -> dict:
         torch.cuda.synchronize()
         counts = {k: mod.launches for k, mod in train.KERNELS.items()}
         want = {"auc_loss": 0, "prox_update": 0, "opt_update": 0,
-                "flash_attention": cfg.n_layers}
+                "flash_attention": cfg.n_layers, "grouped_matmul": 0}
         if counts != want:
             raise SystemExit(f"stablelm_prefill: launch counts {counts}, expected {want}")
         times = []
@@ -785,6 +828,436 @@ def run_prefill(dev, rates) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# K5 grouped_matmul, the dbrx-132b prefill and serving paths
+# --------------------------------------------------------------------------
+# (atol, rtol): fp32 sums of up to d_ff = 10,752 products in another order;
+# bf16 one bf16 ulp (2^-7 of the value) + fp32 noise near zero, as K4
+GMM_TOL = {F32: (5e-5, 5e-5), BF16: (1e-4, 2 ** -7)}
+
+
+def routed_sizes(seed: int, T: int, E: int, k: int, R: int = 1):
+    """Group sizes [R·E] of a seeded top-k routing of T tokens per replica
+    over random router logits (numpy), rows sorted by (replica, expert)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((R, T, E))
+    top = np.argsort(-logits, axis=-1, kind="stable")[..., :k]
+    return np.concatenate([np.bincount(top[r].ravel(), minlength=E) for r in range(R)])
+
+
+def grouped_mm_fn(x, w, sizes):
+    """One ``torch._grouped_mm`` call on the same inputs, where the installed
+    torch offers one for them (the library yardstick; the port never calls
+    it).  Returns (fn or None, why not)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    if w.dim() != 3:
+        return None, "torch._grouped_mm takes a [G, K, N] weight, not a strided K-fold view"
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    fn = lambda: torch._grouped_mm(x, w, offs=offs, out_dtype=x.dtype)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except Exception as e:     # the yardstick only: the port's path has no try
+        return None, f"torch._grouped_mm refused {x.dtype}: {type(e).__name__}: {str(e)[:160]}"
+    return fn, ""
+
+
+def gmm_bound(x, w, sizes, rates, bf16_rate):
+    """The least time for one call on this routing, the larger of: x read,
+    the hit groups' weights read and out written (bytes); 2·N·Kd·F
+    operations."""
+    N, Kd = x.shape
+    F = w.shape[-1]
+    es = x.element_size()
+    hit = int((sizes > 0).sum())
+    n_bytes = es * (N * Kd + hit * Kd * F + N * F)
+    n_ops = 2 * N * Kd * F
+    bnd, by = bound_ms(n_bytes, n_ops, (rates[0], rates[1] if x.dtype == F32 else bf16_rate))
+    return bnd, by, n_bytes, n_ops
+
+
+def check_grouped_matmul(dev, rates, bf16_rate) -> list:
+    """K5 against its plain version on the card at dbrx-132b's and
+    arctic-480b's full-width expert shapes (decode and prefill), with
+    K-folded strided weights, and at the reference's edge tables: within
+    GMM_TOL; CUDA-event time, device time, the bound, the plain version's
+    time and torch._grouped_mm's."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+
+    def case(label, x, w, sizes_np, iters):
+        sizes = torch.from_numpy(np.asarray(sizes_np, np.int64)).to(dev)
+        atol, rtol = GMM_TOL[x.dtype]
+        got = md.grouped_matmul(x, w, sizes)
+        want = ref.grouped_matmul_ref(x, w, sizes)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if not bool((diff <= atol + rtol * want.float().abs()).all()):
+            raise SystemExit(f"grouped_matmul {label} disagrees with its plain version: "
+                             f"max_abs_err={err} (atol {atol}, rtol {rtol})")
+        fn = lambda: md.grouped_matmul(x, w, sizes)
+        ms = cuda_ms(fn, iters=iters, warmup=1)
+        dev_ms = kernel_device_ms(fn, "gmm_", calls=max(2, iters // 4), launches_per_call=2)
+        plain = cuda_ms(lambda: ref.grouped_matmul_ref(x, w, sizes), iters=max(2, iters // 2),
+                        warmup=1)
+        lib, why = grouped_mm_fn(x, w, sizes)
+        lib_ms = cuda_ms(lib, iters=iters, warmup=1) if lib is not None else None
+        bnd, by, n_bytes, n_ops = gmm_bound(x, w, sizes, rates, bf16_rate)
+        G, hit = ref.n_groups(w), int((sizes > 0).sum())
+        kernel = md.launch_geometry(x.shape[0], x.shape[1], G, w.shape[-1])["kernel"]
+        dname = str(x.dtype).replace("torch.", "")
+        rows.append({"case": label, "N": x.shape[0], "Kd": x.shape[1], "F": w.shape[-1],
+                     "groups": G, "hit_groups": hit, "dtype": dname, "kernel": kernel,
+                     "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib_ms,
+                     "library_note": why, "bound_ms": bnd, "bound_by": by,
+                     "gbytes": n_bytes / 1e9, "gflop": n_ops / 1e9})
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"
+        print(f"grouped_matmul {label} [N={x.shape[0]}, Kd={x.shape[1]}, F={w.shape[-1]}, "
+              f"G={G}, {hit} hit] {dname} {kernel}: max_abs_err={err:.3g} (atol {atol:g}, "
+              f"rtol {rtol:g}); kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+              f"{plain:.4f} ms, torch._grouped_mm {lib_txt}, bound {bnd:.4f} ms ({by}: "
+              f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP)")
+
+    def randn(shape, dt=F32, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale).to(dt)
+
+    # every weight at the model's init scale, Kd^-0.5 (moe.py:58-61), so the
+    # outputs are O(1) as in the MoE layer and the tolerances are those of it
+
+    # dbrx-132b: 16 experts, top-4, d 6144, d_ff 10752, fp32 (the model's dtype)
+    d, ff, E = 6144, 10752, 16
+    w_up, w_down = randn((E, d, ff), scale=d ** -0.5), randn((E, ff, d), scale=ff ** -0.5)
+    for label, T, iters in (("dbrx_decode", 4, 20), ("dbrx_prefill", 2048, 3)):
+        sizes = routed_sizes(1, T, E, 4)
+        case(f"{label}_gate", randn((T * 4, d)), w_up, sizes, iters)
+        case(f"{label}_down", randn((T * 4, ff)), w_down, sizes, iters)
+    del w_up, w_down
+    torch.cuda.empty_cache()
+    # arctic-480b: 128 experts, top-2, d 7168, d_ff 4864, bf16 (8.9 GB of weights)
+    d, ff, E = 7168, 4864, 128
+    w = randn((E, d, ff), BF16, d ** -0.5)
+    for label, T, iters in (("arctic_decode_bf16", 4, 20), ("arctic_prefill_bf16", 2048, 3)):
+        case(label, randn((T * 2, d), BF16), w, routed_sizes(2, T, E, 2), iters)
+    del w
+    torch.cuda.empty_cache()
+    # K-folded groups: 4 replicas × 16 experts, a strided layer slice of a
+    # [4, 2, 16, d, ff] stack at dbrx's smoke width
+    stack = randn((4, 2, 16, 128, 256), scale=128 ** -0.5)
+    sizes = routed_sizes(3, 64, 16, 4, R=4)
+    case("kfold_4x16_strided", randn((int(sizes.sum()), 128)), stack[:, 1], sizes, 20)
+    # edges: the reference's group tables with Kd and F off the tiles, N = 1,
+    # the 64-row kernel on ragged segments in both dtypes
+    for i, gs in enumerate(([3, 0, 6, 1], [0, 0, 10, 0], [10, 0, 0, 0], [1, 2, 3, 4])):
+        case(f"table{i}_{'_'.join(map(str, gs))}", randn((sum(gs), 130)),
+             randn((4, 130, 515), scale=130 ** -0.5), gs, 10)
+    case("n1", randn((1, 6144)), randn((4, 6144, 1000), scale=6144 ** -0.5), [0, 1, 0, 0], 10)
+    for dt in (F32, BF16):
+        case(f"tiles_ragged_{str(dt)[6:]}", randn((273, 96), dt),
+             randn((4, 96, 300), dt, 96 ** -0.5), [70, 0, 200, 3], 10)
+    return rows
+
+
+DBRX_LAYERS = 2
+DBRX_PARAMS = 7_751_337_985
+DBRX_B, DBRX_S = 2, 1024
+# prefill with the kernels vs impl="ref" on the card, 2 layers in fp32
+DBRX_TOL = {"scores": 1e-5, "logits": 1e-4, "cache_rtol": 2 ** -7, "cache_atol": 1e-4}
+SERVE_KW = dict(slots=4, max_len=64, prefill_chunk=8)
+SERVE_TRACE = dict(kind="batch", n_requests=8, prompt_len=(8, 33), max_new=(8, 9), seed=0)
+SERVE_SCORE_ATOL = 1e-4          # score-head logits after 2 fp32 layers
+SERVE_GAP_TOL = 1e-4             # top-2 logit gap below which a token may flip
+
+
+def zero_counts():
+    from repro_torch.launch import train
+    for mod in train.KERNELS.values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.launch import train
+    return {k: mod.launches for k, mod in train.KERNELS.items()}
+
+
+def run_dbrx_prefill(dev):
+    """dbrx-132b at full width, depth cut to 2 of 40 layers, one replica:
+    ``prefill_step`` on [B=2, S=1024] tokens with the kernels (2 K4 and 6
+    K5 launches per prefill) and with ``impl="ref"``, compared; ms per
+    prefill, tokens/s, peak memory, and a profiled prefill.  Returns (the
+    record, cfg, params): the serving phase reuses the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=DBRX_LAYERS)
+    print(f"dbrx_prefill: reduced: {DBRX_LAYERS} of 40 layers (full width: d=6144, 48/8 "
+          "heads of 128, 16 experts top-4, d_ff 10752, vocab 100,352), one replica (K=1); "
+          f"prefill_32k [B=32, S=32768] cut to [B={DBRX_B}, S={DBRX_S}]")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    n = sum(l.numel() for l in tree_leaves(params))
+    print(f"dbrx_prefill: init_params on the card in {time.perf_counter() - t0:.2f} s: "
+          f"{n:,} fp32 parameters ({4 * n / 1e9:.2f} GB) in {len(tree_leaves(params))} leaves")
+    if n != DBRX_PARAMS:
+        raise SystemExit(f"dbrx_prefill: {n:,} parameters, expected {DBRX_PARAMS:,}")
+    params = tree_map(lambda x: x[None], params)               # K = 1 (views)
+    gt = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, DBRX_B, DBRX_S), generator=gt,
+                                     device=dev)}
+    prefill = lambda impl="auto": M.prefill_step(cfg, params, batch, impl=impl)
+    with torch.no_grad():
+        prefill()                                               # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        s, logits, (kc, vc) = prefill()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0) | {"flash_attention": DBRX_LAYERS,
+                                           "grouped_matmul": 3 * DBRX_LAYERS}
+        if counts != want:
+            raise SystemExit(f"dbrx_prefill: launch counts {counts}, expected {want}")
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        ms = sorted(times)[1]
+        rs, rlogits, (rk, rv) = prefill("ref")
+        torch.cuda.synchronize()
+        ref_ms = []
+        for _ in range(2):
+            t = time.perf_counter()
+            prefill("ref")
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        errs = {"scores": float((s - rs).abs().max()),
+                "logits": float((logits - rlogits).abs().max()),
+                "k_cache": float((kc.float() - rk.float()).abs().max()),
+                "v_cache": float((vc.float() - rv.float()).abs().max())}
+        cache_ok = all(bool(((a.float() - b.float()).abs() <= DBRX_TOL["cache_atol"]
+                             + DBRX_TOL["cache_rtol"] * b.float().abs()).all())
+                       for a, b in ((kc, rk), (vc, rv)))
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (s, logits, kc, vc))
+        shapes_ok = (tuple(s.shape) == (1, DBRX_B)
+                     and tuple(logits.shape) == (1, DBRX_B, cfg.vocab_size)
+                     and tuple(kc.shape) == (1, DBRX_LAYERS, DBRX_B, DBRX_S, cfg.n_kv_heads,
+                                             cfg.head_dim)
+                     and kc.dtype == vc.dtype == torch.bfloat16)
+        print(f"dbrx_prefill: kernels vs impl='ref' on the card: scores max_abs_err "
+              f"{errs['scores']:.3g} (atol {DBRX_TOL['scores']}), last logits "
+              f"{errs['logits']:.3g} (atol {DBRX_TOL['logits']}), bf16 caches k "
+              f"{errs['k_cache']:.3g} v {errs['v_cache']:.3g} (rtol 2^-7 + atol "
+              f"{DBRX_TOL['cache_atol']}); shapes {'ok' if shapes_ok else 'WRONG'}, "
+              f"finite {finite}")
+        if not (finite and shapes_ok and cache_ok and errs["scores"] <= DBRX_TOL["scores"]
+                and errs["logits"] <= DBRX_TOL["logits"]):
+            raise SystemExit("dbrx_prefill: the prefill with kernels disagrees with "
+                             "impl='ref'")
+        del rs, rlogits, rk, rv
+        wall, busy, per = device_profile(prefill)
+    total = sum(per.values())
+    k5 = sum(v for k, v in per.items() if "gmm_" in k)
+    k4 = sum(v for k, v in per.items() if "flash_fwd" in k)
+    gemm = sum(v for k, v in per.items() if "gemm" in k.lower())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    tokens = DBRX_B * DBRX_S
+    out = {"path": "dbrx_prefill", "ms_per_prefill": ms, "ms_runs": times,
+           "ref_ms_per_prefill": sorted(ref_ms)[0], "tokens_per_s": tokens / ms * 1e3,
+           "peak_bytes": peak, "launches": counts, "errs": errs,
+           "profile": {"wall_ms": wall, "device_busy_ms": busy, "kernel_sum_ms": total,
+                       "idle_share": 1.0 - busy / wall, "grouped_matmul_ms": k5,
+                       "flash_attention_ms": k4, "cublas_gemm_ms": gemm,
+                       "grouped_matmul_share": k5 / total,
+                       "flash_attention_share": k4 / total, "cublas_share": gemm / total,
+                       "top_kernels_ms": {k[:90]: v for k, v in top}}}
+    print(f"dbrx_prefill: {ms:.2f} ms per prefill (median of "
+          f"{[round(t, 2) for t in times]}), {tokens / ms * 1e3:,.0f} tokens/s, impl='ref' "
+          f"{sorted(ref_ms)[0]:.2f} ms; peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    print(f"profile dbrx_prefill: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share "
+          f"{1.0 - busy / wall:.3f}), kernel time {total:.2f} ms: grouped_matmul {k5:.2f} ms "
+          f"({100 * k5 / total:.1f} %), flash_attention {k4:.2f} ms ({100 * k4 / total:.1f} "
+          f"%), cuBLAS GEMMs {gemm:.2f} ms ({100 * gemm / total:.1f} %)")
+    print(json.dumps({"profile": out["profile"] | {"path": "dbrx_prefill"}}))
+    del batch, s, logits, kc, vc
+    return out, cfg, params
+
+
+def _top2_gap(cfg, params, prompt, generated, j) -> float:
+    """The impl='ref' top-2 logit gap at generated step j of one request,
+    served alone (rows are independent through the model)."""
+    from repro_torch.serving import decode as D
+    seq = list(prompt) + list(generated[:j])
+    dev = params["lm_head"].device
+    toks = torch.tensor([seq], dtype=torch.int64, device=dev)
+    cache = D.init_cache(cfg, 1, len(seq), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        _, logits = D.prefill(cfg, params, cache, toks, impl="ref")
+    top = torch.topk(logits[0], 2).values
+    return float(top[0] - top[1])
+
+
+def _serve(cfg, params, impl, tick_log=None):
+    """One engine over SERVE_TRACE; ``tick_log`` receives (serve steps, host
+    ms) per tick — each tick ends in the engine's read of its tokens."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import loadgen as LG
+    eng = ServingEngine(cfg, params, impl=impl, **SERVE_KW)
+    on_step = None
+    if tick_log is not None:
+        last = [time.perf_counter(), 0]
+
+        def on_step(e):
+            now = time.perf_counter()
+            tick_log.append((e.steps - last[1], (now - last[0]) * 1e3))
+            last[:] = [now, e.steps]
+    trace = LG.make_trace(LG.TraceConfig(**SERVE_TRACE), cfg.vocab_size)
+    reqs, wall = LG.run_trace(eng, trace, on_step=on_step)
+    return eng, reqs, wall
+
+
+def run_dbrx_serve(rates, cfg, params) -> dict:
+    """The dbrx-132b parameters (2 full-width layers) through the
+    continuous-batching engine: a batch trace of 8 requests with
+    impl='auto', then a second engine with impl='ref'; tokens equal (a flip
+    allowed only at a near tie of the ref run, printed), scores within
+    SERVE_SCORE_ATOL, exactly 3 × 2 K5 launches per serve step; ms per
+    prefill and per decode tick, tokens/s, TTFT and latency; one profiled
+    decode tick."""
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import loadgen as LG
+    print(f"dbrx_serve: the dbrx_prefill parameters; engine {SERVE_KW}; trace {SERVE_TRACE}")
+    with torch.no_grad():
+        warm = ServingEngine(cfg, params, **SERVE_KW)          # allocator warm-up
+        warm.add_request(Request(uid=-1, prompt=list(range(1, 12)), max_new_tokens=2))
+        warm.run()
+        torch.cuda.synchronize()
+        zero_counts()
+        ticks = []
+        eng, reqs, wall = _serve(cfg, params, "auto", ticks)
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0) | {"grouped_matmul": 3 * DBRX_LAYERS * eng.steps}
+        if counts != want:
+            raise SystemExit(f"dbrx_serve: launch counts {counts}, expected {want} (3 × "
+                             f"{DBRX_LAYERS} layers × {eng.steps} serve steps)")
+        summary = LG.summarize(reqs, wall, eng)
+        _, rreqs, _ = _serve(cfg, params, "ref")
+    flips = []
+    for r, rr in zip(reqs, rreqs, strict=True):
+        if r.status != "done" or rr.status != "done":
+            raise SystemExit(f"dbrx_serve: request {r.uid} ended {r.status}/{rr.status}")
+        if r.generated != rr.generated:
+            j = next(i for i, (a, b) in enumerate(zip(r.generated, rr.generated)) if a != b)
+            gap = _top2_gap(cfg, params, r.prompt_used, rr.generated, j)
+            flips.append({"uid": r.uid, "step": j, "gap": gap})
+            print(f"dbrx_serve: request {r.uid} differs from impl='ref' first at generated "
+                  f"step {j} ({r.generated[j]} vs {rr.generated[j]}); the ref run's top-2 "
+                  f"logit gap there is {gap:.3g} (limit {SERVE_GAP_TOL})")
+            if not gap < SERVE_GAP_TOL:
+                raise SystemExit("dbrx_serve: tokens differ from impl='ref' away from a tie")
+    score_err = max(abs(r.score - rr.score) for r, rr in zip(reqs, rreqs))
+    if not score_err <= SERVE_SCORE_ATOL:
+        raise SystemExit(f"dbrx_serve: scores differ from impl='ref' by {score_err}")
+    pre = [ms for c, ms in ticks if c == SERVE_KW["prefill_chunk"]]
+    dec = [ms for c, ms in ticks if c == 1]
+    print(f"dbrx_serve: {len(reqs)} requests, {eng.ticks} ticks ({len(pre)} prefill, "
+          f"{len(dec)} decode), {eng.steps} serve steps; tokens equal to impl='ref' in "
+          f"{len(reqs) - len(flips)} of {len(reqs)} requests, scores max_abs_err "
+          f"{score_err:.3g} (atol {SERVE_SCORE_ATOL}); launches {counts}")
+    print(f"dbrx_serve: {statistics.median(pre):.2f} ms per prefill tick (median), "
+          f"{statistics.median(dec):.2f} ms per decode tick (median), "
+          f"{summary['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 {summary['ttft_p50_ms']:.1f}/"
+          f"{summary['ttft_p99_ms']:.1f} ms, latency p50/p99 {summary['latency_p50_ms']:.1f}/"
+          f"{summary['latency_p99_ms']:.1f} ms")
+    # one decode tick under the profiler: 4 requests past their one-tick
+    # prefill; K5's calls are recorded to bound them by the experts they hit
+    seen = []
+    real = md.grouped_matmul
+
+    def recording(x, w, sizes):
+        seen.append((tuple(x.shape), w.shape[-1], x.element_size(), sizes.clone()))
+        return real(x, w, sizes)
+
+    with torch.no_grad():
+        peng = ServingEngine(cfg, params, **SERVE_KW)
+        for i in range(4):
+            peng.add_request(Request(uid=i, prompt=[7 + i] * 8, max_new_tokens=4))
+        peng.step()
+        torch.cuda.synchronize()
+        md.grouped_matmul = recording
+        try:
+            wall_t, busy_t, per = device_profile(peng.step)
+        finally:
+            md.grouped_matmul = real
+    k5 = sum(v for k, v in per.items() if "gmm_" in k)
+    bound = 0.0
+    for (N, Kd), F, es, sizes in seen:
+        hit = int((sizes > 0).sum())
+        bound += bound_ms(es * (N * Kd + hit * Kd * F + N * F), 2 * N * Kd * F, rates)[0]
+    total = sum(per.values())
+    prof = {"wall_ms": wall_t, "device_busy_ms": busy_t, "idle_share": 1.0 - busy_t / wall_t,
+            "kernel_sum_ms": total, "grouped_matmul_ms": k5,
+            "grouped_matmul_calls": len(seen), "grouped_matmul_bound_ms": bound,
+            "grouped_matmul_share": k5 / total,
+            "top_kernels_ms": {k[:90]: v for k, v in
+                               sorted(per.items(), key=lambda kv: -kv[1])[:6]}}
+    print(f"profile dbrx_serve decode tick: wall {wall_t:.2f} ms, device busy {busy_t:.2f} "
+          f"ms (idle share {1.0 - busy_t / wall_t:.3f}); grouped_matmul {k5:.3f} ms over "
+          f"{len(seen)} calls against a bound of {bound:.3f} ms (bytes of the hit experts), "
+          f"{100 * k5 / total:.1f} % of kernel time")
+    print(json.dumps({"profile": prof | {"path": "dbrx_serve_decode_tick"}}))
+    return {"path": "dbrx_serve", "launches": counts, "steps": eng.steps, "ticks": eng.ticks,
+            "ms_per_prefill_tick": statistics.median(pre),
+            "ms_per_decode_tick": statistics.median(dec), "flips": flips,
+            "score_max_abs_err": score_err, "profile": prof,
+            **{k: summary[k] for k in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                                       "latency_p50_ms", "latency_p99_ms",
+                                       "generated_tokens", "wall_s")}}
+
+
+SERVE_SMOKE = ("dbrx_serve_smoke", ["--arch", "dbrx-132b", "--labeled", "--metrics",
+                                    "sketch"])
+
+
+def run_serve_smoke() -> tuple[dict, dict, str]:
+    """``launch/serve.py --arch dbrx-132b --labeled --metrics sketch`` on the
+    card, every counter set to 0 just before: exactly 3 × 2 K5 launches per
+    serve step and no other kernel."""
+    from repro_torch.launch import serve
+    label, args = SERVE_SMOKE
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(args)
+    text = buf.getvalue()
+    print(text, end="")
+    counts = read_counts()
+    steps = out["engine"].steps
+    want = dict.fromkeys(counts, 0) | {"grouped_matmul": 3 * 2 * steps}
+    print(f"main path {label}: {out['completed']} requests, {steps} serve steps, "
+          f"launches {counts}")
+    if counts != want:
+        raise SystemExit(f"{label}: launch counts {counts}, expected {want}")
+    return out, counts, text
+
+
+def serve_lines(text: str):
+    """The ``req …`` lines and the final streaming AUC of serve.py's output."""
+    reqs = re.findall(r"^req \d+: .*$", text, re.M)
+    auc = re.search(r"^\[serve\] final .*streaming auc=(\d\.\d+)", text, re.M)
+    return reqs, float(auc.group(1)) if auc else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -820,6 +1293,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     prox_rows = check_prox_update(dev, rates, gen)
     opt_rows = check_opt_update(dev, rates, gen)
     attn_rows, attn_bwd = check_flash_attention(dev, rates, bf16_rate, gen)
+    gmm_rows = check_grouped_matmul(dev, rates, bf16_rate)
     check_step(dev)
 
     runs, counts = {}, {}
@@ -868,10 +1342,36 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     label, args, per_leaf = LM_SMOKE
     runs[label], counts[label] = run_main_path(f"main path {label}", args, DENSE_LEAVES,
                                                per_leaf, attn_layers=2)
+    torch.cuda.empty_cache()
 
-    # the same commands on the CPU: test AUC within 0.01
+    # dbrx-132b: prefill and the serving engine at full width, 2 layers;
+    # then the launchers' smoke configs (their CPU twins run in the background)
+    dbrx_prefill, dbrx_cfg, dbrx_params = run_dbrx_prefill(dev)
+    counts["dbrx_prefill"] = dbrx_prefill["launches"]
+    dbrx_serve = run_dbrx_serve(rates, dbrx_cfg, dbrx_params)
+    counts["dbrx_serve"] = dbrx_serve["launches"]
+    del dbrx_params
+    torch.cuda.empty_cache()
+    label, args, per_leaf = MOE_SMOKE
+    runs[label], counts[label] = run_main_path(f"main path {label}", args, MOE_LEAVES,
+                                               per_leaf, attn_layers=2, moe_layers=2)
+    _, counts["dbrx_serve_smoke"], serve_text = run_serve_smoke()
+
+    # the same commands on the CPU: test AUC within 0.01; the served tokens
+    # equal and the served AUC within 0.01
     twins.wait()
-    for label, _, _ in TWIN_PATHS:
+    card_reqs, card_auc = serve_lines(serve_text)
+    cpu_reqs, cpu_auc = serve_lines(twins.out["dbrx_serve_smoke"])
+    print(f"main path dbrx_serve_smoke: {len(card_reqs)} printed requests, equal to "
+          f"--device cpu: {card_reqs == cpu_reqs}; served AUC {card_auc} on the card, "
+          f"{cpu_auc} with --device cpu (limit 0.01)")
+    if not (card_reqs and card_reqs == cpu_reqs and card_auc is not None
+            and cpu_auc is not None and abs(card_auc - cpu_auc) <= 0.01):
+        raise SystemExit("main path dbrx_serve_smoke: the card and the CPU served "
+                         f"differently:\n{card_reqs}\n{cpu_reqs}")
+    for label, module, _ in TWIN_PATHS:
+        if module != "train":
+            continue
         card, cpu = runs[label]["auc"], twins.auc[label]
         print(f"main path {label}: test AUC {card:.4f} on the card, {cpu:.4f} with "
               f"--device cpu (|diff| {abs(card - cpu):.4f}, limit 0.01)")
@@ -938,6 +1438,29 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "bound_us": h["bound_ms"] * 1e3, "shapes": attn_rows, "backward": attn_bwd,
         "prefill": {k: prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
                                             "tokens_per_s", "peak_bytes", "errs")}})
+    # grouped_matmul: headline at dbrx-132b's decode gate/up shape in fp32,
+    # the call every moe layer of every served token makes twice
+    h = next(r for r in gmm_rows if r["case"] == "dbrx_decode_gate")
+    by_path = {label: c["grouped_matmul"] for label, c in counts.items()}
+    kernels.append({
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+        "wrapper": "src/repro_torch/kernels/moe_dispatch.py",
+        "replaces": "src/repro/kernels/moe_dispatch.py:71",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in gmm_rows if r["dtype"] == "float32"),
+        "max_abs_err_bf16": max(r["max_abs_err"] for r in gmm_rows
+                                if r["dtype"] == "bfloat16"),
+        "tol": f"(atol, rtol) fp32 {GMM_TOL[F32]}, bf16 {GMM_TOL[BF16]}",
+        "shape": [h["N"], h["Kd"], h["F"], h["groups"]], "ms": h["ms"],
+        "device_ms": h["device_ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+        "library": "torch._grouped_mm", "library_note": h["library_note"],
+        "max_err": h["max_abs_err"], "kernel_us": h["ms"] * 1e3,
+        "plain_us": h["plain_ms"] * 1e3, "bound_us": h["bound_ms"] * 1e3, "shapes": gmm_rows,
+        "prefill": {k: dbrx_prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
+                                                 "tokens_per_s", "peak_bytes", "errs")},
+        "serve": {k: v for k, v in dbrx_serve.items() if k != "profile"}})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

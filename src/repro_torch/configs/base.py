@@ -1,12 +1,38 @@
 """Jax-free copy of ``repro.configs.base``'s ``ModelConfig`` and
 ``mlp_config`` (the reference module imports jax).
 
-Only the fields the ported families (``mlp``, ``cnn``, ``dense``) read
-are used; the rest are kept so a config reads the same in both packages.
+Only the fields the ported families (``mlp``, ``cnn``, ``dense``,
+``moe``) read are used; the rest are kept so a config reads the same in
+both packages.  ``MoEConfig`` is the reference's, field for field.
 """
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration (``repro.configs.base``).
+
+    ``dispatch`` selects the eval/decode dispatch (training always uses
+    capacity dispatch, which drops over-capacity tokens):
+      * "sorted"   — dropless sort-based dispatch: [T·k, d] rows sorted by
+                     expert and the ragged grouped GEMM (K5) over them;
+      * "capacity" — the padded [E, C = T, d] scatter dispatch.
+    """
+
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # Arctic keeps a dense (always-on) residual MLP next to the experts.
+    dense_residual: bool = False
+    dense_d_ff: int = 0
+    dispatch: str = "sorted"
+
+    def __post_init__(self):
+        if self.dispatch not in ("sorted", "capacity"):
+            raise ValueError(
+                f"unknown moe dispatch {self.dispatch!r} (want sorted | capacity)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +58,7 @@ class ModelConfig:
     window: int = 4096
     window_mode: str = "none"
     global_attn_every: int = 0
+    moe: MoEConfig | None = None
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_conv: int = 4

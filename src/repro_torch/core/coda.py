@@ -26,12 +26,14 @@ into the old ones, so ``ref_params`` may share buffers with ``params``
 after ``stage_end`` (``init_state`` still gives it its own copy, as the
 reference does).
 
-Ported: ``algorithm="coda"`` with the ``auc`` objective over the mlp, cnn
-and dense families (token batches ``[K, B, S]``; ``use_window`` and
-``impl`` reach ``M.score`` as in the reference), every optimizer (sgd,
-momentum, sm3, shampoo_blocked), the streaming sketch, plain or
-int8-compressed averaging, and the worker-batched executor (the
-reference's ``VmapExecutor``).  Every other
+Ported: ``algorithm="coda"`` with the ``auc`` objective over the mlp, cnn,
+dense and moe families (token batches ``[K, B, S]``; ``use_window`` and
+``impl`` reach ``M.score`` as in the reference; an moe local step adds
+``moe_aux_coef`` times the load-balance loss and dispatches by capacity,
+its stage-end α batches by ``cfg.moe.dispatch`` through K5), every
+optimizer (sgd, momentum, sm3, shampoo_blocked; moe: sgd and momentum),
+the streaming sketch, plain or int8-compressed averaging, and the
+worker-batched executor (the reference's ``VmapExecutor``).  Every other
 ``CoDAConfig`` feature raises ``NotImplementedError`` naming its ROADMAP
 item — it never silently trains plain CoDA.
 """
@@ -202,6 +204,12 @@ def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
     """A fresh state: one replica of ``M.init_params`` stacked K times,
     ``ref_params`` in buffers of its own, the zero sketch counts when
     ``stream_bins > 0``, and the optimizer's initial state."""
+    if mcfg.family == "moe" and ccfg.optimizer in ("sm3", "shampoo_blocked"):
+        # their state follows the reference's axis order through
+        # params.ref_order, which reads every 5-D leaf as a convolution
+        raise NotImplementedError(
+            f"optimizer {ccfg.optimizer!r} on the moe family is not ported yet "
+            "(ROADMAP Queue 1 item 11: the expert leaves' axis order)")
     params = M.init_params(mcfg, generator=generator, dtype=ccfg.param_dtype,
                            device=device)
     K = ccfg.n_workers

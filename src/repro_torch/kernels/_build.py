@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels: nvcc → shared library → ctypes.
 
-The sources ``csrc/coda_kernels.cu`` (auc_loss, prox_update, opt_update)
-and ``csrc/flash_attention.cu`` (K4) have a plain C interface, so nvcc
-compiles them in seconds (no PyTorch headers, no ninja).  One nvcc builds
-both into ``<repo>/build/repro_torch_kernels/libcoda_<hash>.so``, keyed on a
-hash of the sources and the flags, at first use: importing this module
-builds nothing.  There is no fallback — a failed build raises.
+The sources ``csrc/coda_kernels.cu`` (auc_loss, prox_update, opt_update),
+``csrc/flash_attention.cu`` (K4) and ``csrc/moe_dispatch.cu`` (K5) have a
+plain C interface, so nvcc compiles them in seconds (no PyTorch headers,
+no ninja).  One nvcc builds all three into
+``<repo>/build/repro_torch_kernels/libcoda_<hash>.so``, keyed on a hash of
+the sources and the flags, at first use: importing this module builds
+nothing.  There is no fallback — a failed build raises.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from pathlib import Path
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "coda_kernels.cu"
 ATTN_SOURCE = SOURCE.with_name("flash_attention.cu")
+MOE_SOURCE = SOURCE.with_name("moe_dispatch.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -43,6 +45,11 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, _P]),
     "flash_attention_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
+    "grouped_matmul": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, _P]),
+    "grouped_matmul_geometry": (None, [_P]),
 }
 
 
@@ -58,8 +65,13 @@ def nvcc() -> str:
     return str(path)
 
 
+def sources() -> tuple[Path, ...]:
+    """The CUDA sources of the one library (read at call time)."""
+    return (SOURCE, ATTN_SOURCE, MOE_SOURCE)
+
+
 def library_path() -> Path:
-    text = SOURCE.read_bytes() + ATTN_SOURCE.read_bytes()
+    text = b"".join(src.read_bytes() for src in sources())
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libcoda_{digest.hexdigest()[:16]}.so"
 
@@ -75,7 +87,7 @@ def build(verbose: bool = False) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE), str(ATTN_SOURCE)]
+           "-o", tmp, *map(str, sources())]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import auc_loss as _auc_mod
 from repro_torch.kernels import flash_attention as _fa_mod
+from repro_torch.kernels import moe_dispatch as _moe_mod
 from repro_torch.kernels import opt_update as _opt_mod
 from repro_torch.kernels import prox_update as _prox_mod
 from repro_torch.kernels import ref
@@ -65,6 +66,16 @@ def auc_loss(h, y, a, b, alpha, p: float, *, impl: str = "auto"):
     if dispatch(impl, h.device):
         return _auc_mod.auc_loss(h, y, a, b, alpha, p)
     return ref.auc_loss_ref(h, y, a, b, alpha, p)
+
+
+def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
+    """Ragged grouped GEMM of the sorted MoE dispatch: ``out[i] = x[i] @
+    w[g(i)]`` for rows of x [N, Kd] sorted by group, w [G, Kd, F] or
+    [R, E, Kd, F] (R·E groups), group_sizes [G].  On the card "auto"
+    launches K5 (forward only); the plain version is differentiable."""
+    if dispatch(impl, x.device):
+        return _moe_mod.grouped_matmul(x, w, group_sizes)
+    return ref.grouped_matmul_ref(x, w, group_sizes)
 
 
 def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,

@@ -6,7 +6,9 @@ reference's arithmetic in the same order; every scalar is an fp32 0-dim
 tensor so each operation rounds in fp32, as the JAX oracle and the CUDA
 kernels do.  Attention (``_mask``, ``attention_full``,
 ``attention_chunked``) sums in another order than the kernel's online
-softmax and is held to it at a stated tolerance.
+softmax and is held to it at a stated tolerance.  The grouped GEMM
+(``grouped_layout``, ``grouped_matmul_ref``) is K5's plain version: one
+fp32 matmul per row segment.
 """
 from __future__ import annotations
 
@@ -232,3 +234,79 @@ def attention_chunked(q, k, v, *, causal: bool = True, window=None,
         m = m_new
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# ragged grouped GEMM (sorted dropless MoE dispatch): K5's plain version
+# --------------------------------------------------------------------------
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def grouped_layout(group_sizes, n_rows: int, block_rows: int):
+    """The reference's tile-aligned row mapping (``repro.kernels.ref.
+    grouped_layout``, ref.py:115-144), with the same integers: each group's
+    row segment padded up to a multiple of ``block_rows`` so that every row
+    tile belongs to one group.  Returns ``(dst [N], tile_gid [n_tiles],
+    n_padded)``: sorted row i lands at ``dst[i]``, tile t is owned by group
+    ``tile_gid[t]``, and ``n_padded = round_up(N, bm) + min(E, N)·bm`` is
+    the static bound (one tile of slack per non-empty group).  The K5
+    kernel's grid uses the same bound."""
+    E = group_sizes.shape[0]
+    gs = group_sizes.to(torch.int64)
+    inc = torch.cumsum(gs, 0)
+    exc = inc - gs
+    pc = (gs + block_rows - 1) // block_rows * block_rows
+    pinc = torch.cumsum(pc, 0)
+    pexc = pinc - pc
+    rows = torch.arange(n_rows, dtype=torch.int64, device=gs.device)
+    g_row = torch.clamp(torch.searchsorted(inc, rows, right=True), 0, E - 1)
+    dst = pexc[g_row] + (rows - exc[g_row])
+    n_padded = _round_up(max(n_rows, 1), block_rows) + min(E, max(n_rows, 1)) * block_rows
+    tile_starts = torch.arange(n_padded // block_rows, dtype=torch.int64,
+                               device=gs.device) * block_rows
+    tile_gid = torch.clamp(torch.searchsorted(pinc, tile_starts, right=True), 0, E - 1)
+    return dst.to(torch.int32), tile_gid.to(torch.int32), n_padded
+
+
+def expert_weight(w, g: int):
+    """Group ``g``'s ``[Kd, F]`` block of a grouped weight: ``w [G, Kd, F]``,
+    or ``w [R, E, Kd, F]`` with G = R·E groups, g = r·E + e (the worker axis
+    folded into the groups).  A view: nothing is copied."""
+    if w.dim() == 3:
+        return w[g]
+    return w[g // w.shape[1], g % w.shape[1]]
+
+
+def n_groups(w) -> int:
+    return w.shape[0] if w.dim() == 3 else w.shape[0] * w.shape[1]
+
+
+def grouped_matmul_ref(x, w, group_sizes):
+    """out[i] = x[i] @ w[g(i)] for rows of ``x`` sorted by group: x [N, Kd],
+    w [G, Kd, F] (or [R, E, Kd, F], see ``expert_weight``), group_sizes [G]
+    with ``sum == N``.  Returns [N, F] in x's dtype, summed in fp32.
+
+    One matmul per non-empty row segment (the reference scans tile-aligned
+    blocks, ``repro.kernels.ref.grouped_matmul_ref``, ref.py:147-173; the
+    products are the same, summed in another order).  Differentiable with
+    respect to x and w.  The segment sizes are read on the host: this is
+    the plain version, not the kernel's path."""
+    N, Kd = x.shape
+    G = n_groups(w)
+    F = w.shape[-1]
+    if w.shape[-2] != Kd or group_sizes.shape != (G,):
+        raise ValueError(f"grouped_matmul: x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"group_sizes {tuple(group_sizes.shape)} do not fit")
+    sizes = [int(n) for n in group_sizes.tolist()]
+    if min(sizes, default=0) < 0 or sum(sizes) != N:
+        raise ValueError(f"grouped_matmul: group sizes {sizes} do not tile {N} rows")
+    outs, start = [], 0
+    for g, n in enumerate(sizes):
+        if n:
+            outs.append(torch.matmul(x[start:start + n].to(torch.float32),
+                                     expert_weight(w, g).to(torch.float32)))
+            start += n
+    if not outs:
+        return x.new_zeros((0, F))
+    return torch.cat(outs).to(x.dtype)

@@ -7,10 +7,14 @@ hand-written ``auc_loss`` kernel once, then per parameter leaf one
 or one ``opt_update`` (``momentum``, ``sm3``); the dense transformers
 (``--arch stablelm-1.6b | qwen2.5-14b | phi3-medium-14b | chatglm3-6b``,
 on the reference's ``tokens`` data at ``seq_len=64``) also launch
-``flash_attention`` once per attention layer in every forward.  It takes
-the reference's flags; those of features not ported yet are rejected with
-the ROADMAP item that will bring them.  ``--n-layers`` (the port's own)
-cuts a dense config's depth so a full-width model trains on one card.
+``flash_attention`` once per attention layer in every forward, and the MoE
+transformers (``--arch dbrx-132b | arctic-480b``) ``grouped_matmul`` three
+times per moe layer in every eval forward (the stage-end α batches and the
+held-out chunks; local steps dispatch by capacity and launch none).  It
+takes the reference's flags; those of features not ported yet are rejected
+with the ROADMAP item that will bring them.  ``--n-layers`` (the port's
+own) cuts a dense or moe config's depth so a full-width model trains on
+one card.
 
 Metric reporting, as the reference's: ``--metrics exact`` scores the
 held-out split every ``--metric-interval`` windows; ``--metrics sketch``
@@ -35,6 +39,8 @@ Examples:
       --arch stablelm-1.6b --smoke --stages 2 --t0 30 --interval 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
       --n-layers 2 --stages 1 --t0 16 --n-data 1024     # full width, 2 layers
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch dbrx-132b --smoke --stages 2 --t0 30 --interval 8
 """
 from __future__ import annotations
 
@@ -47,11 +53,12 @@ import numpy as np
 import torch
 
 from repro_torch import disable_tf32, resolve_device
-from repro_torch.configs import DENSE_ARCHS, get_config, get_smoke_config, mlp_config
+from repro_torch.configs import DENSE_ARCHS, MOE_ARCHS, get_config, get_smoke_config, mlp_config
 from repro_torch.core import coda, objective, optimizer, schedules
 from repro_torch.data import DataConfig, ShardedDataset
 from repro_torch.kernels import auc_loss as _auc_mod
 from repro_torch.kernels import flash_attention as _fa_mod
+from repro_torch.kernels import moe_dispatch as _moe_mod
 from repro_torch.kernels import opt_update as _opt_mod
 from repro_torch.kernels import prox_update as _prox_mod
 from repro_torch.metrics import report as metric_report
@@ -60,10 +67,12 @@ from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map
 
 KERNELS = {"auc_loss": _auc_mod, "prox_update": _prox_mod,
-           "opt_update": _opt_mod, "flash_attention": _fa_mod}
+           "opt_update": _opt_mod, "flash_attention": _fa_mod,
+           "grouped_matmul": _moe_mod}
 
 # the held-out split is scored in chunks of this many examples (one
-# forward, and for the dense family one flash_attention per layer, each)
+# forward each: per layer one flash_attention, and three grouped_matmul in
+# an moe layer)
 TEST_CHUNK = 512
 
 
@@ -72,7 +81,7 @@ def data_config_for(mcfg, p_pos: float) -> DataConfig:
         return DataConfig(kind="features", p_pos=p_pos, n_features=mcfg.n_features)
     if mcfg.family == "cnn":
         return DataConfig(kind="images", p_pos=p_pos, image_hw=32)
-    if mcfg.family == "dense":
+    if mcfg.family in M.LM_FAMILIES:
         return DataConfig(kind="tokens", p_pos=p_pos, vocab_size=mcfg.vocab_size,
                           seq_len=64)
     raise NotImplementedError(f"family {mcfg.family!r} is not ported yet "
@@ -82,12 +91,12 @@ def data_config_for(mcfg, p_pos: float) -> DataConfig:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="mlp",
-                    help=f"mlp | resnet50 | {' | '.join(DENSE_ARCHS)}")
+                    help=f"mlp | resnet50 | {' | '.join(DENSE_ARCHS + MOE_ARCHS)}")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
     ap.add_argument("--n-layers", type=int, default=0,
-                    help="cut a dense config's depth to this many layers "
-                         "(0 = the config's own; widths stay as they are)")
+                    help="cut a dense or moe config's depth to this many "
+                         "layers (0 = the config's own; widths stay as they are)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless you ask for cpu)")
     ap.add_argument("--workers", type=int, default=4)
@@ -196,9 +205,9 @@ def main(argv=None) -> dict:
     else:
         mcfg = get_config(args.arch)
     if args.n_layers:
-        if mcfg.family != "dense":
-            ap.error(f"--n-layers cuts a dense config's depth; {args.arch} is "
-                     f"{mcfg.family}")
+        if mcfg.family not in M.LM_FAMILIES:
+            ap.error(f"--n-layers cuts a dense or moe config's depth; {args.arch} "
+                     f"is {mcfg.family}")
         mcfg = dataclasses.replace(mcfg, n_layers=args.n_layers)
 
     dcfg = data_config_for(mcfg, args.p_pos)

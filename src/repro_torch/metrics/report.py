@@ -97,3 +97,32 @@ def worker_skew_line(label: str, tick, metric: streaming.Metric,
         parts.append(f"spread={spread:.4f}")
     return " ".join(parts)
 
+
+
+class IntervalReporter:
+    """Cadenced printing of a metric state (``repro.metrics.report``):
+    ``tick(t, state_fn)`` prints every ``interval`` units (``state_fn`` is
+    called lazily, at report ticks only); ``report(t, state)`` prints
+    unconditionally.  The last finalized value is kept on ``.last``."""
+
+    def __init__(self, metric: streaming.Metric, *, interval: int = 0,
+                 label: str = "metrics", printer=print):
+        self.metric = metric
+        self.interval = int(interval)
+        self.label = label
+        self.printer = printer
+        self.last = None
+        self._next = self.interval
+
+    def tick(self, t: int, state_fn) -> bool:
+        if self.interval <= 0 or t < self._next:
+            return False
+        self.report(t, state_fn())
+        while self._next <= t:
+            self._next += self.interval
+        return True
+
+    def report(self, t, state, *, n_seen=None) -> float:
+        self.last = self.metric.finalize(state)
+        self.printer(metric_line(self.label, t, self.metric, state, n_seen=n_seen))
+        return self.last

@@ -1,1 +1,1 @@
-from repro_torch.models import attention, blocks, embeddings, mlp, model, resnet  # noqa: F401
+from repro_torch.models import attention, blocks, embeddings, mlp, model, moe, resnet  # noqa: F401

@@ -1,5 +1,6 @@
 """Per-layer blocks and the layer stack (counterpart of
-``repro.models.blocks``), for the ``dense`` family's decoder layers.
+``repro.models.blocks``), for the decoder layers of the ``dense`` and
+``moe`` families (an moe layer has ``moe`` where a dense one has ``mlp``).
 
 Layer parameters are stacked along a leading ``n_layers`` axis, as
 ``blocks.init_stack`` stacks them (``blocks.py:75``); with the worker axis
@@ -9,8 +10,8 @@ so its attention never reaches the Pallas kernel; here the stack is a
 Python loop and every layer's window is a Python int or None
 (``layer_windows_static``), so every attention layer launches K4.
 
-The ``moe``, ``hybrid``, encoder-decoder (``cross``) and ``xlstm`` branches
-are not ported yet and raise, naming their ROADMAP item.
+The ``hybrid``, encoder-decoder (``cross``) and ``xlstm`` branches are not
+ported yet and raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,16 +21,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attend, init_attention
 from repro_torch.models.embeddings import ParamInit, apply_norm, init_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.tree import tree_leaves, tree_unflatten
 
-_UNPORTED = "ROADMAP Queue 1 item 11 (model zoo: moe, hybrid, audio, ssm)"
+_UNPORTED = "ROADMAP Queue 1 item 11 (model zoo: hybrid, audio, ssm)"
 
 
-def _check_dense(cfg: ModelConfig, kind: str):
-    if cfg.family != "dense" or kind != "decoder":
+def _check_decoder(cfg: ModelConfig, kind: str):
+    if cfg.family not in ("dense", "moe") or kind != "decoder":
         raise NotImplementedError(
             f"{cfg.family!r} layers of kind {kind!r} are not ported yet "
-            f"({_UNPORTED}); ported: dense decoder layers")
+            f"({_UNPORTED}); ported: dense and moe decoder layers")
 
 
 def layer_windows(cfg: ModelConfig, S: int, use_window: bool) -> torch.Tensor:
@@ -57,10 +59,15 @@ def layer_windows_static(cfg: ModelConfig, use_window: bool):
 
 def init_layer(cfg: ModelConfig, kind: str, init: ParamInit, lead=()):
     """One decoder layer's parameters (``lead`` = a stack of layers)."""
-    _check_dense(cfg, kind)
+    _check_decoder(cfg, kind)
     d = cfg.d_model
-    return {"norm1": init_norm(cfg, d, init, lead), "norm2": init_norm(cfg, d, init, lead),
-            "attn": init_attention(cfg, init, lead), "mlp": init_mlp(cfg, init, lead)}
+    p = {"norm1": init_norm(cfg, d, init, lead), "norm2": init_norm(cfg, d, init, lead),
+         "attn": init_attention(cfg, init, lead)}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(cfg, init, lead)
+    else:
+        p["mlp"] = init_mlp(cfg, init, lead)
+    return p
 
 
 def init_stack(cfg: ModelConfig, n_layers: int, kind: str, init: ParamInit):
@@ -73,11 +80,10 @@ def apply_layer(cfg: ModelConfig, p, x, positions, window, *, kind: str = "decod
                 return_kv: bool = False):
     """One block over x [K, B, S, d].  ``window``: int | None.  Returns
     (x, aux [K], kv) — aux is the MoE load-balance loss (zeros for dense
-    layers), kv the bf16 (K, V) pair when ``return_kv``.  ``train`` changes
-    nothing for dense layers (the reference uses it for MoE capacity and
-    rematerialisation)."""
-    _check_dense(cfg, kind)
-    del train
+    layers), kv the bf16 (K, V) pair when ``return_kv``.  ``train`` picks
+    the MoE dispatch (capacity with drops); it changes nothing for dense
+    layers."""
+    _check_decoder(cfg, kind)
     h = apply_norm(cfg, p["norm1"], x)
     a = attend(cfg, p["attn"], h, positions, window=window, causal=causal,
                impl=impl, return_kv=return_kv)
@@ -85,8 +91,12 @@ def apply_layer(cfg: ModelConfig, p, x, positions, window, *, kind: str = "decod
     if return_kv:
         a, kv = a
     x = x + a
-    y = apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    h2 = apply_norm(cfg, p["norm2"], x)
+    if "moe" in p:
+        y, aux = apply_moe(cfg, p["moe"], h2, train=train, impl=impl)
+    else:
+        y = apply_mlp(cfg, p["mlp"], h2)
+        aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     return x + y, aux, kv
 
 
@@ -103,8 +113,8 @@ def apply_stack(cfg: ModelConfig, stacked, x, positions, windows, *,
                 kind: str = "decoder", causal: bool = True, enc_out=None,
                 train: bool = False, impl: str = "auto", return_kv: bool = False):
     """The layers in order (the reference's scan as a Python loop).
-    ``windows``: one ``int | None`` per layer.  Returns (hidden, total aux
-    [K]) — plus the stacked per-layer bf16 (K, V) caches
+    ``windows``: one ``int | None`` per layer.  Returns (hidden, aux [K]
+    summed over the layers) — plus the stacked per-layer bf16 (K, V) caches
     ``[K, L, B, S, KV, hd]`` when ``return_kv`` (the prefill path)."""
     if enc_out is not None:
         raise NotImplementedError(f"cross attention is not ported yet ({_UNPORTED})")

@@ -33,12 +33,13 @@ class ParamInit:
                  device="cpu"):
         self.gen, self.dtype, self.device = generator, dtype, torch.device(device)
 
-    def normal(self, shape, scale: float):
+    def normal(self, shape, scale: float, dtype=None):
+        dtype = dtype or self.dtype
         if self.device.type == "meta":   # shapes only: nothing is drawn
-            return torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
+            return torch.empty(tuple(shape), dtype=dtype, device=self.device)
         x = torch.randn(tuple(shape), generator=self.gen, dtype=torch.float32,
                         device=self.gen.device)
-        return x.mul_(scale).to(dtype=self.dtype, device=self.device)
+        return x.mul_(scale).to(dtype=dtype, device=self.device)
 
     def zeros(self, shape, dtype=None):
         return torch.zeros(tuple(shape), dtype=dtype or self.dtype, device=self.device)

@@ -1,5 +1,5 @@
-"""Top-level model for the ported families ``mlp``, ``cnn`` and ``dense``
-(counterpart of ``repro.models.model``).
+"""Top-level model for the ported families ``mlp``, ``cnn``, ``dense`` and
+``moe`` (counterpart of ``repro.models.model``).
 
 ``score(cfg, params, batch)`` is the scoring function h(w; x) ∈ [0, 1]
 that CoDA maximizes AUC for: backbone → (mean-pool over the sequence) →
@@ -10,8 +10,8 @@ leading ``[K, B]``: the K replicas run as batched matmuls (mlp, dense) or
 one grouped convolution (cnn), and attention folds K into its batch.  The
 public layouts are the reference's: weights ``[d_in, d_out]``, layers
 stacked ``[L, ...]`` behind K, images ``[K, B, hw·hw, 3]``, tokens
-``[K, B, S]``.  The other families arrive with the model zoo (ROADMAP
-Queue 1, item 11).
+``[K, B, S]``, an moe layer's experts ``[K, L, E, d, ff]``.  The other
+families arrive with the model zoo (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -22,7 +22,9 @@ from repro_torch.models import blocks, resnet
 from repro_torch.models.embeddings import ParamInit, apply_norm, embed, init_embed, init_norm
 from repro_torch.models.mlp import linear
 
-FAMILIES = ("mlp", "cnn", "dense")
+FAMILIES = ("mlp", "cnn", "dense", "moe")
+# the transformer families: token inputs, a layer stack, an LM head
+LM_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig):
@@ -35,16 +37,16 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
                 dtype=torch.float32, device="cpu"):
     """One replica's parameters (no K axis), drawn from ``generator`` with
     the reference's initialisers, then moved to ``device``.  mlp and cnn
-    draw on the CPU; the dense family draws on the generator's device (a
-    CUDA generator keeps a full-width model off the host).  The numbers
-    differ from ``jax.random``'s; carry the reference's weights across with
-    ``params.py`` to compare the two."""
+    draw on the CPU; the transformer families (dense, moe) draw on the
+    generator's device (a CUDA generator keeps a full-width model off the
+    host).  The numbers differ from ``jax.random``'s; carry the reference's
+    weights across with ``params.py`` to compare the two."""
     _check_family(cfg)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     d = cfg.d_model
     randn = lambda *shape: torch.randn(shape, generator=gen, dtype=torch.float32)
     p = {}
-    if cfg.family == "dense":
+    if cfg.family in LM_FAMILIES:
         init = ParamInit(gen, dtype, device)
         p["embed"] = init_embed(cfg.vocab_size, d, init)
         p["layers"] = blocks.init_stack(cfg, cfg.n_layers, "decoder", init)
@@ -71,12 +73,13 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
 
 def backbone(cfg: ModelConfig, params, batch, *, use_window: bool = False,
              train: bool = False, impl: str = "auto"):
-    """Returns (hidden, moe_aux [K] zeros).  Hidden is ``[K, B, S, d]`` for
-    the dense family and ``[K, B, d]`` for mlp and cnn (the reference keeps
-    a length-1 sequence axis there that its mean-pool removes; here it is
-    left out, and ``use_window``/``train``/``impl`` change nothing)."""
+    """Returns (hidden, moe_aux [K]: the load-balance loss summed over the
+    layers, zeros outside the moe family).  Hidden is ``[K, B, S, d]`` for
+    dense and moe and ``[K, B, d]`` for mlp and cnn (the reference keeps a
+    length-1 sequence axis there that its mean-pool removes; here it is left
+    out, and ``use_window``/``train``/``impl`` change nothing)."""
     _check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in LM_FAMILIES:
         x = embed(params["embed"], batch["tokens"])
         S = x.shape[2]
         positions = torch.arange(S, device=x.device)
@@ -107,7 +110,8 @@ def _score_head(sh, pooled):
 def score(cfg: ModelConfig, params, batch, *, use_window: bool = False,
           train: bool = False, impl: str = "auto"):
     """h(w; x) ∈ [0,1] per example.  Returns (scores [K, B], moe_aux [K]).
-    The dense family mean-pools its hidden states over the sequence."""
+    The transformer families mean-pool their hidden states over the
+    sequence."""
     h, aux = backbone(cfg, params, batch, use_window=use_window, train=train,
                       impl=impl)
     pooled = torch.mean(h, dim=2) if h.dim() == 4 else h
@@ -122,7 +126,7 @@ def prefill_step(cfg: ModelConfig, params, batch, *, use_window: bool = False,
     caches ``([K, L, B, S, KV, hd], same)``.  mlp and cnn have no caches and
     no vocabulary: (scores, None, None)."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in LM_FAMILIES:
         s, _ = score(cfg, params, batch, use_window=use_window, impl=impl)
         return s, None, None
     x = embed(params["embed"], batch["tokens"])

@@ -5,11 +5,12 @@ module takes that tree as numpy arrays (no jax import) and returns the
 port's tree, and back.  Every parameter leaf carries the leading worker
 axis K in both packages.  The only layout change is the convolution
 weights of the ``cnn`` family: HWIO ``[K, kh, kw, cin, cout]`` in the
-reference, OIHW ``[K, cout, cin, kh, kw]`` here.  The mlp and the dense
-transformers keep their ``[d_in, d_out]`` matmul layouts, and a dense
-model's layers stay stacked ``[K, L, ...]`` as ``blocks.init_stack``
-stacks them (no 5-D leaf, so ``ref_order`` leaves them alone).  bf16
-leaves travel through their bits.
+reference, OIHW ``[K, cout, cin, kh, kw]`` here.  The mlp and the
+transformers keep their ``[d_in, d_out]`` matmul layouts, and a
+transformer's layers stay stacked ``[K, L, ...]`` as ``blocks.init_stack``
+stacks them: an moe layer's experts are ``[K, L, E, d, ff]`` in both
+packages, and its router stays fp32.  Only the cnn family's 5-D leaves are
+permuted.  bf16 leaves travel through their bits.
 
 The optimizer state follows suit: a momentum buffer has its parameter's
 layout (HWIO ↔ OIHW as above); SM3 keeps its per-axis accumulators in the
@@ -33,9 +34,11 @@ FROM_REF = (0, 4, 3, 1, 2)
 
 def ref_order(leaf: torch.Tensor) -> tuple[int, ...]:
     """The permutation that puts a stacked parameter leaf in the
-    reference's axis order: ``leaf.permute(ref_order(leaf))``.  In the
-    ported families every 5-D leaf is a convolution weight, and no other
-    leaf differs in layout."""
+    reference's axis order: ``leaf.permute(ref_order(leaf))``.  It reads
+    every 5-D leaf as a convolution weight, which is right for the families
+    the axis-order optimizers (sm3, shampoo_blocked) run on: mlp, cnn and
+    dense (``coda.init_state`` refuses them on the moe family, whose expert
+    leaves are 5-D and not permuted)."""
     return TO_REF if leaf.dim() == 5 else tuple(range(leaf.dim()))
 
 

@@ -1,8 +1,10 @@
 """repro_torch and chip_smoke.py never import jax or the reference package.
 
 Two checks: a subprocess that imports repro_torch and runs one CPU local
-step of the mlp and one of the dense transformer (and a prefill) must leave
-``jax`` and ``repro`` out of ``sys.modules``; and an AST
+step of the mlp, one of the dense transformer (and a prefill), one of the
+moe transformer (an eval score and a prefill through the sorted dispatch)
+and a short serving-engine run must leave ``jax`` and ``repro`` out of
+``sys.modules``; and an AST
 scan of every module of the port and of chip_smoke.py finds no import of
 either (imports of ``repro_torch`` itself are allowed).
 """
@@ -43,6 +45,26 @@ st, losses = coda.local_step(tcfg, ccfg, st, batch, 0.1)
 assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
 s, logits, (kc, vc) = M.prefill_step(tcfg, st["params"], {"tokens": batch["tokens"]})
 assert kc.shape == (2, 2, 4, 8, 4, 64) and logits.shape == (2, 4, 512)
+# the moe family: a local step (capacity dispatch), an eval score and a
+# prefill (sorted dispatch through grouped_matmul's plain version), then
+# the serving engine on one replica
+from repro_torch.launch import serve  # noqa: F401
+from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import loadgen  # noqa: F401
+from repro_torch.tree import tree_map
+mcfg = get_smoke_config("dbrx-132b")
+st = coda.init_state(mcfg, ccfg, generator=torch.Generator().manual_seed(0))
+st, losses = coda.local_step(mcfg, ccfg, st, batch, 0.1)
+assert losses.shape == (2,) and bool(torch.isfinite(losses).all())
+s, aux = M.score(mcfg, st["params"], {"tokens": batch["tokens"]})
+assert s.shape == (2, 4) and aux.shape == (2,)
+s, logits, (kc, vc) = M.prefill_step(mcfg, st["params"], {"tokens": batch["tokens"]})
+assert kc.shape == (2, 2, 4, 8, 2, 128)
+eng = ServingEngine(mcfg, tree_map(lambda x: x[:1], st["params"]), slots=2, max_len=16)
+req = Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2)
+eng.add_request(req)
+eng.run()
+assert req.status == "done" and len(req.generated) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

@@ -375,13 +375,13 @@ def test_unported_families_and_kinds_raise():
     cfg = get_smoke_config("stablelm-1.6b")
     init = E.ParamInit(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        B.init_layer(dataclasses.replace(cfg, family="moe"), "decoder", init)
+        B.init_layer(dataclasses.replace(cfg, family="hybrid"), "decoder", init)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         B.init_layer(cfg, "xdecoder", init)
     with pytest.raises(NotImplementedError, match="model zoo"):
         M.init_params(dataclasses.replace(cfg, family="hybrid"))
     with pytest.raises(NotImplementedError, match="model zoo"):
-        get_smoke_config("dbrx-132b")
+        get_smoke_config("xlstm-350m")
 
 
 @pytest.mark.parametrize("n_layers", [0, 1])
