@@ -33,14 +33,20 @@ last line):
   7. the smoke paths again with ``--device cpu``: each test AUC within 0.01 of
      the card's;
   8. K4 flash_attention against its plain version (``ref.attention_full``)
-     on the card, fp32 within atol 2e-5 + rtol 2e-5 and bf16 within one
-     bf16 ulp (rtol 2^-7) + atol 1e-4,
+     on the card, fp32 within atol 2e-5 + rtol 2e-5, bf16 through
+     flash_fwd (head_dim 16/32) within one bf16 ulp (rtol 2^-7) + atol
+     1e-4, bf16 through flash_fwd_wgmma (head_dim 64/128) within rtol 2^-7
+     + atol 2^-9·max|v| + 1e-4 (P rounded to bf16 before P·V) and within
+     2× SDPA's max and 1.5× its mean error against the fp32 plain version,
      at stablelm-1.6b's training shape [128, 64, 32, 64] and prefill shape
      [4, 2048, 32, 64] (causal, and with window 256), qwen2.5-14b's GQA
      [1, 2048, 40/8, 128], MQA, non-causal S=512 against Skv=2048 and a
-     ragged S=1000; each timed with CUDA events and the profiler beside
-     its bound, the plain version and SDPA; the backward against autograd
-     through the plain version at the training shape;
+     ragged S=1000 (fp32 and bf16, head_dim 128 in bf16); each routed to
+     the variant ``launch_geometry`` names (its counter checked), timed
+     with CUDA events and the profiler (the profiler's time only when it
+     recorded every launch the wrapper counted, else CUDA events, marked)
+     beside its bound, the plain version and SDPA; the backward against
+     autograd through the plain version at the training shape;
   9. stablelm-1.6b prefill at full width and full depth (24 layers, one
      replica, 1,644,369,921 fp32 parameters on the card): ``prefill_step``
      on [B=4, S=2048] tokens with the kernel and with ``impl="ref"``
@@ -55,9 +61,12 @@ last line):
      with ``--device cpu`` (run with the mlp paths' CPU twins);
  11. K5 grouped_matmul against its plain version (``ref.grouped_matmul_ref``)
      on the card, fp32 within atol = rtol = 5e-5 and bf16 within one bf16
-     ulp + atol 1e-4, at dbrx-132b's decode (N=16) and prefill (N=8192)
-     expert shapes in fp32, arctic-480b's (128 experts, N=8 and 4096) in
-     bf16, K-folded strided weights, and the reference's edge tables; group
+     ulp + atol 1e-4, at dbrx-132b's decode (N=16, gmm_rows) and prefill
+     (N=8192, gmm_tiles) expert shapes in fp32 and its prefill shape in
+     bf16, arctic-480b's (128 experts, N=8 and 4096) in bf16 (gmm_wgmma),
+     K-folded strided weights in both dtypes, the reference's edge tables,
+     N = 1 and aligned ragged groups in bf16; each case's kernel checked
+     against the one ``launch_geometry`` names; group
      sizes from a seeded top-k routing; each timed beside its bound (the hit
      experts' bytes or the operations), the plain version and
      torch._grouped_mm where the installed torch takes the inputs (run with
@@ -177,23 +186,35 @@ def device_profile(fn, counts: dict | None = None):
     return wall, busy / 1e3, per
 
 
-def kernel_device_ms(fn, tag: str, calls: int = 20, launches_per_call: int = 1) -> float:
-    """Device time per call of the kernels whose names contain ``tag``,
-    from the profiler (no host time in it), over the launches it recorded:
-    it has been seen to miss some, so a short count is profiled once more
-    and the fuller record kept; 0.0 if it saw none."""
-    want = calls * launches_per_call
-    best = (-1, 0.0)
+def kernel_device_ms(fn, tag: str, module, calls: int = 20,
+                     kernels_per_launch: int = 1) -> tuple[float, str]:
+    """Device time per call of ``fn`` from the profiler (no host time in
+    it): the device time of the kernels whose names contain ``tag`` over
+    ``calls`` calls.  The profiler has been seen to record fewer launches
+    than were made, so its count is held against the wrapper's counter
+    (``module.launches``; ``kernels_per_launch`` kernels per counted
+    launch, e.g. K5's offset scan and its GEMM): the profiler's time is
+    reported only when the two agree (one more try if not), else the
+    CUDA-event time of ``calls`` calls.  Returns (ms, "profiler" or
+    "cuda_events")."""
     for _ in range(2):
         n: dict[str, int] = {}
+        before = module.launches
         _, _, per = device_profile(lambda: [fn() for _ in range(calls)], n)
+        made = (module.launches - before) * kernels_per_launch
         seen = sum(c for k, c in n.items() if tag in k)
-        best = max(best, (seen, sum(v for k, v in per.items() if tag in k)))
-        if seen == want:
-            break
-        print(f"profiler: recorded {seen} of {want} launches of {tag}")
-    seen, total = best
-    return total * launches_per_call / max(seen, 1)
+        if seen == made and made > 0:
+            return sum(v for k, v in per.items() if tag in k) / calls, "profiler"
+        print(f"profiler: recorded {seen} of {made} launches of {tag}")
+    print(f"profiler: {tag} timed with CUDA events instead")
+    return cuda_ms(fn, iters=calls), "cuda_events"
+
+
+def dev_txt(ms: float, source: str, unit: str = "ms") -> str:
+    """A device time for the log, marked when it is CUDA-event time."""
+    scale = 1e3 if unit == "us" else 1.0
+    what = "device" if source == "profiler" else "CUDA events"
+    return f"{what} {ms * scale:.{2 if unit == 'us' else 4}f} {unit}"
 
 
 def bound_ms(n_bytes: float, n_ops: float, rates) -> tuple[float, str]:
@@ -209,6 +230,7 @@ def bf16_peak(name: str) -> float:
 
 
 def check_auc_loss(dev, rates, gen):
+    from repro_torch.kernels import auc_loss as K1
     from repro_torch.kernels import ref
     from repro_torch.kernels.auc_loss import auc_loss
     atol, rtol = 1e-5, 1e-4
@@ -231,19 +253,21 @@ def check_auc_loss(dev, rates, gen):
                              f"version: max_abs_err={err} stable={stable}")
         ms = cuda_ms(lambda: auc_loss(h, y, a, b, al, 0.71))
         plain = cuda_ms(lambda: ref.auc_loss_ref(h, y, a, b, al, 0.71))
-        dev_ms = kernel_device_ms(lambda: auc_loss(h, y, a, b, al, 0.71), "auc_loss",
-                                  launches_per_call=2)    # block partials + finish
+        dev_ms, dev_src = kernel_device_ms(lambda: auc_loss(h, y, a, b, al, 0.71),
+                                           "auc_loss", K1, kernels_per_launch=2)  # + finish
         bnd, by = bound_ms(12 * K * T + 28 * K, AUC_OPS_PER_SCORE * K * T, rates)
         rows.append({"shape": [K, T], "max_abs_err": err, "ms": ms,
-                     "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bnd,
+                     "device_ms": dev_ms, "device_ms_source": dev_src,
+                     "plain_ms": plain, "bound_ms": bnd,
                      "bound_by": by})
         print(f"auc_loss [{K},{T}]: max_abs_err={err:.3g} (atol {atol}, rtol "
-              f"{rtol}) kernel {ms * 1e3:.2f} us (device {dev_ms * 1e3:.2f} us), "
+              f"{rtol}) kernel {ms * 1e3:.2f} us ({dev_txt(dev_ms, dev_src, 'us')}), "
               f"plain {plain * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by})")
     return rows
 
 
 def check_prox_update(dev, rates, gen):
+    from repro_torch.kernels import prox_update as K2
     from repro_torch.kernels import ref
     from repro_torch.kernels.prox_update import prox_update
     K = 4
@@ -263,15 +287,16 @@ def check_prox_update(dev, rates, gen):
                              f"version: max_abs_err={err}")
         ms = cuda_ms(lambda: prox_update(v, g, v0, 0.05, 0.5))
         plain = cuda_ms(lambda: ref.prox_update_ref(v, g, v0, 0.05, 0.5))
-        dev_ms = kernel_device_ms(lambda: prox_update(v, g, v0, 0.05, 0.5),
-                                  "prox_update")
+        dev_ms, dev_src = kernel_device_ms(lambda: prox_update(v, g, v0, 0.05, 0.5),
+                                           "prox_update", K2)
         bnd, by = bound_ms(4 * n * v.element_size(), PROX_OPS_PER_ELEMENT * n, rates)
         dname = str(dt).replace("torch.", "")
         rows.append({"shape": [n], "dtype": dname, "max_abs_err": err,
-                     "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                     "tol": tol, "ms": ms, "device_ms": dev_ms,
+                     "device_ms_source": dev_src, "plain_ms": plain,
                      "bound_ms": bnd, "bound_by": by})
         print(f"prox_update n={n} {dname}: max_abs_err={err:.3g} (bitwise) "
-              f"kernel {ms * 1e3:.2f} us (device {dev_ms * 1e3:.2f} us), plain "
+              f"kernel {ms * 1e3:.2f} us ({dev_txt(dev_ms, dev_src, 'us')}), plain "
               f"{plain * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by})")
     # one ResNet50 local step's sweep: every leaf × K, one launch per leaf
     leaves = [tuple(torch.randn((K * s,), generator=gen).to(dev) for _ in range(3))
@@ -279,16 +304,17 @@ def check_prox_update(dev, rates, gen):
     sweep = lambda fn: [fn(v, g, v0, 0.05, 0.5) for v, g, v0 in leaves]
     ms = cuda_ms(lambda: sweep(prox_update), iters=10)
     plain = cuda_ms(lambda: sweep(ref.prox_update_ref), iters=10)
-    dev_ms = kernel_device_ms(lambda: sweep(prox_update), "prox_update", calls=5,
-                              launches_per_call=len(leaf_sizes))
+    dev_ms, dev_src = kernel_device_ms(lambda: sweep(prox_update), "prox_update", K2,
+                                       calls=5)
     n = K * sum(leaf_sizes)
     bnd, by = bound_ms(16 * n, PROX_OPS_PER_ELEMENT * n, rates)
     rows.append({"shape": [n], "dtype": "float32",
                  "what": f"resnet50 local step: {len(leaf_sizes)} leaves x K={K}",
                  "launches": len(leaf_sizes), "ms": ms, "device_ms": dev_ms,
-                 "plain_ms": plain, "bound_ms": bnd, "bound_by": by})
+                 "device_ms_source": dev_src, "plain_ms": plain, "bound_ms": bnd,
+                 "bound_by": by})
     print(f"prox_update resnet50 step ({len(leaf_sizes)} launches, {n:,} "
-          f"elements): kernel {ms:.3f} ms (device {dev_ms:.3f} ms), plain "
+          f"elements): kernel {ms:.3f} ms ({dev_txt(dev_ms, dev_src)}), plain "
           f"{plain:.3f} ms, bound {bnd:.3f} ms ({by})")
     del leaves
     return rows
@@ -309,6 +335,7 @@ def check_opt_update(dev, rates, gen):
     """opt_update against its plain version: bitwise in every mode and dtype,
     the bf16 buffer's stochastic-rounding bits included; and at coef = 0
     with an fp32 buffer, bitwise prox_update."""
+    from repro_torch.kernels import opt_update as K3
     from repro_torch.kernels import ref
     from repro_torch.kernels.opt_update import opt_update
     from repro_torch.kernels.prox_update import prox_update
@@ -342,16 +369,18 @@ def check_opt_update(dev, rates, gen):
                 raise SystemExit(f"opt_update n={n} at coef=0 is not prox_update bitwise")
         ms = cuda_ms(lambda: opt_update(*args, mode=mode))
         plain = cuda_ms(lambda: ref.opt_update_ref(*args, mode=mode), iters=10)
-        dev_ms = kernel_device_ms(lambda: opt_update(*args, mode=mode), "opt_update")
+        dev_ms, dev_src = kernel_device_ms(lambda: opt_update(*args, mode=mode),
+                                           "opt_update", K3)
         nbytes = n * (4 * v.element_size() + 2 * b.element_size())
         bnd, by = bound_ms(nbytes, OPT_OPS_PER_ELEMENT[mode] * n, rates)
         name = lambda d: str(d).replace("torch.", "")
         rows.append({"shape": [n], "mode": mode, "dtype": name(vdt), "buf_dtype": name(bdt),
                      "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                     "plain_ms": plain, "bound_ms": bnd, "bound_by": by})
+                     "device_ms_source": dev_src, "plain_ms": plain, "bound_ms": bnd,
+                     "bound_by": by})
         print(f"opt_update n={n} {mode} v {name(vdt)} buf {name(bdt)}: bitwise "
-              f"(max_abs_err={err:.3g}) kernel {ms * 1e3:.2f} us (device "
-              f"{dev_ms * 1e3:.2f} us), plain {plain * 1e3:.2f} us, bound "
+              f"(max_abs_err={err:.3g}) kernel {ms * 1e3:.2f} us "
+              f"({dev_txt(dev_ms, dev_src, 'us')}), plain {plain * 1e3:.2f} us, bound "
               f"{bnd * 1e3:.3f} us ({by})")
     # one ResNet50 local step's sweep, one launch per leaf, as the momentum
     # (bf16 buffer) and sm3 paths run it
@@ -365,8 +394,8 @@ def check_opt_update(dev, rates, gen):
                             for v, g, v0, b in leaves]
         ms = cuda_ms(lambda: sweep(opt_update), iters=10)
         plain = cuda_ms(lambda: sweep(ref.opt_update_ref), iters=3, warmup=1)
-        dev_ms = kernel_device_ms(lambda: sweep(opt_update), "opt_update", calls=5,
-                                  launches_per_call=len(leaf_sizes))
+        dev_ms, dev_src = kernel_device_ms(lambda: sweep(opt_update), "opt_update", K3,
+                                           calls=5)
         n = K * sum(leaf_sizes)
         bnd, by = bound_ms(n * (16 + 2 * torch.finfo(bdt).bits // 8),
                            OPT_OPS_PER_ELEMENT[mode] * n, rates)
@@ -374,9 +403,10 @@ def check_opt_update(dev, rates, gen):
                      "buf_dtype": str(bdt).replace("torch.", ""),
                      "what": f"resnet50 local step: {len(leaf_sizes)} leaves x K={K}",
                      "launches": len(leaf_sizes), "ms": ms, "device_ms": dev_ms,
-                     "plain_ms": plain, "bound_ms": bnd, "bound_by": by})
+                     "device_ms_source": dev_src, "plain_ms": plain, "bound_ms": bnd,
+                     "bound_by": by})
         print(f"opt_update resnet50 step {mode} buf {bdt} ({len(leaf_sizes)} launches, "
-              f"{n:,} elements): kernel {ms:.3f} ms (device {dev_ms:.3f} ms), plain "
+              f"{n:,} elements): kernel {ms:.3f} ms ({dev_txt(dev_ms, dev_src)}), plain "
               f"{plain:.3f} ms, bound {bnd:.3f} ms ({by})")
         del leaves
     return rows
@@ -385,23 +415,36 @@ def check_opt_update(dev, rates, gen):
 F32, BF16 = torch.float32, torch.bfloat16
 # (label, B, S, H, KV, Skv, hd, causal, window, dtype): stablelm-1.6b's
 # training shape (K·B = 128 sequences of 64 tokens) and prefill shape,
-# qwen2.5-14b's GQA, MQA, cross-shaped and ragged cases
+# qwen2.5-14b's GQA, MQA, cross-shaped and ragged cases; the bf16 cases at
+# head_dim 64/128 run flash_fwd_wgmma
 ATTN_CASES = [
     ("stablelm_train", 128, 64, 32, 32, 64, 64, True, None, F32),
     ("stablelm_train_bf16", 128, 64, 32, 32, 64, 64, True, None, BF16),
     ("stablelm_prefill", 4, 2048, 32, 32, 2048, 64, True, None, F32),
     ("stablelm_prefill_bf16", 4, 2048, 32, 32, 2048, 64, True, None, BF16),
     ("stablelm_prefill_window256", 4, 2048, 32, 32, 2048, 64, True, 256, F32),
+    ("stablelm_prefill_window256_bf16", 4, 2048, 32, 32, 2048, 64, True, 256, BF16),
     ("qwen_gqa", 1, 2048, 40, 8, 2048, 128, True, None, F32),
     ("qwen_gqa_bf16", 1, 2048, 40, 8, 2048, 128, True, None, BF16),
     ("mqa", 2, 1024, 16, 1, 1024, 64, True, None, F32),
+    ("mqa_hd128_bf16", 2, 1024, 16, 1, 1024, 128, True, None, BF16),
     ("noncausal_skv2048", 2, 512, 8, 8, 2048, 64, False, None, F32),
     ("ragged_s1000", 2, 1000, 8, 8, 1000, 64, True, None, F32),
+    ("ragged_s1000_hd128_bf16", 2, 1000, 8, 8, 1000, 128, True, None, BF16),
+    ("smoke_hd32_bf16", 2, 256, 8, 2, 256, 32, True, None, BF16),
 ]
-# (atol, rtol): fp32 is the reference's own; in bf16 kernel and plain
-# version both compute in fp32 and round once, so one bf16 ulp (≤ 2^-7 of
-# the value) plus fp32 noise near zero
+# (atol, rtol): fp32 is the reference's own; bf16 through flash_fwd (head_dim
+# 16/32): kernel and plain version both compute in fp32 and round once, so
+# one bf16 ulp (≤ 2^-7 of the value) plus fp32 noise near zero
 ATTN_TOL = {F32: (2e-5, 2e-5), BF16: (1e-4, 2 ** -7)}
+# bf16 through flash_fwd_wgmma: it rounds each probability to bf16 before
+# P·V (relative error ≤ 2^-9), as every tensor-core attention does; the
+# weights sum to 1, so an output moves by at most 2^-9·max|v|; then the one
+# ulp of the final rounding: atol = ATTN_P_ROUND·max|v| + 1e-4, rtol 2^-7.
+# Beside it, the kernel's max and mean error against the fp32 plain version
+# stay within 2× and 1.5× SDPA's own on the same inputs.
+ATTN_P_ROUND = 2 ** -9
+ATTN_SDPA_MAX, ATTN_SDPA_MEAN = 2.0, 1.5
 LSE_ATOL = 1e-4                      # log-sum-exp of O(10) values in fp32
 ATTN_BWD_TOL = 5e-5                  # atol = rtol, as tests/test_torch_attention.py
 
@@ -441,21 +484,48 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         q = torch.randn((B, S, H, hd), generator=gen).to(dev, dt)
         k, v = (torch.randn((B, Skv, KV, hd), generator=gen).to(dev, dt) for _ in range(2))
         kw = dict(causal=causal, window=window)
+        variant = fa.launch_geometry(B, S, H, KV, Skv, hd, dt)["kernel"]
+        before = fa.variant_launches[variant]
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         want, want_lse = ref.attention_full(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
+        if fa.variant_launches[variant] != before + 1:
+            raise SystemExit(f"flash_attention {label}: {variant} was not launched")
         atol, rtol = ATTN_TOL[dt]
+        if variant == "flash_fwd_wgmma":
+            atol = ATTN_P_ROUND * float(v.float().abs().max()) + ATTN_TOL[BF16][0]
         diff = (o.float() - want.float()).abs()
         err = float(diff.max())
         lse_err = float((lse - want_lse).abs().max())
         if not (bool((diff <= atol + rtol * want.float().abs()).all()) and lse_err <= LSE_ATOL):
             raise SystemExit(f"flash_attention {label} disagrees with its plain version: "
                              f"max_abs_err={err} (atol {atol}, rtol {rtol}), lse err {lse_err}")
+        del diff, want
+        lib = sdpa_fn(q, k, v, causal, window)
+        vs_sdpa = {}
+        if dt == BF16:
+            # kernel and SDPA against the fp32 plain version on the same bf16 inputs
+            exact = ref.attention_full(q.float(), k.float(), v.float(), **kw)
+            de = (o.float() - exact).abs()
+            ds = (lib().transpose(1, 2).float() - exact).abs()
+            vs_sdpa = {"max_err_vs_fp32": float(de.max()), "mean_err_vs_fp32": float(de.mean()),
+                       "sdpa_max_err_vs_fp32": float(ds.max()),
+                       "sdpa_mean_err_vs_fp32": float(ds.mean())}
+            del exact, de, ds
+            print(f"flash_attention {label} vs the fp32 plain version: max/mean err "
+                  f"{vs_sdpa['max_err_vs_fp32']:.3g}/{vs_sdpa['mean_err_vs_fp32']:.3g}, SDPA "
+                  f"{vs_sdpa['sdpa_max_err_vs_fp32']:.3g}/{vs_sdpa['sdpa_mean_err_vs_fp32']:.3g}")
+            if variant == "flash_fwd_wgmma" and not (
+                    vs_sdpa["max_err_vs_fp32"] <= ATTN_SDPA_MAX * vs_sdpa["sdpa_max_err_vs_fp32"]
+                    and vs_sdpa["mean_err_vs_fp32"]
+                    <= ATTN_SDPA_MEAN * vs_sdpa["sdpa_mean_err_vs_fp32"]):
+                raise SystemExit(f"flash_attention {label}: error beyond {ATTN_SDPA_MAX}× "
+                                 f"(max) or {ATTN_SDPA_MEAN}× (mean) SDPA's: {vs_sdpa}")
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), iters=20)
-        dev_ms = kernel_device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                                  "flash_fwd", calls=5)
+        dev_ms, dev_src = kernel_device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                                           "flash_fwd", fa, calls=5)
         plain = cuda_ms(lambda: ref.attention_full(q, k, v, **kw), iters=5, warmup=2)
-        lib_ms = cuda_ms(sdpa_fn(q, k, v, causal, window), iters=20)
+        lib_ms = cuda_ms(lib, iters=20)
         pairs = attn_pairs(S, Skv, causal, window)
         es = q.element_size()
         n_bytes = es * (2 * B * S * H * hd + 2 * B * Skv * KV * hd) + 4 * B * H * S
@@ -463,16 +533,18 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         bnd, by = bound_ms(n_bytes, n_ops, (rates[0], rates[1] if dt == F32 else bf16_rate))
         dname = str(dt).replace("torch.", "")
         rows.append({"case": label, "shape": [B, S, H, KV, Skv, hd], "causal": causal,
-                     "window": window, "dtype": dname, "max_abs_err": err,
-                     "lse_max_abs_err": lse_err, "atol": atol, "rtol": rtol, "ms": ms, "device_ms": dev_ms,
+                     "window": window, "dtype": dname, "kernel": variant, "max_abs_err": err,
+                     "lse_max_abs_err": lse_err, "atol": atol, "rtol": rtol, "ms": ms,
+                     "device_ms": dev_ms, "device_ms_source": dev_src,
                      "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
-                     "bound_by": by, "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6})
+                     "bound_by": by, "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6, **vs_sdpa})
         print(f"flash_attention {label} [B={B}, S={S}, H={H}, KV={KV}, Skv={Skv}, hd={hd}] "
-              f"{'causal' if causal else 'full'} window={window} {dname}: max_abs_err="
-              f"{err:.3g} (atol {atol:g}, rtol {rtol:g}), lse err {lse_err:.3g}; kernel {ms:.4f} ms "
-              f"(device {dev_ms:.4f} ms), plain {plain:.4f} ms, SDPA {lib_ms:.4f} ms, "
-              f"bound {bnd:.4f} ms ({by}: {n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
-        del q, k, v, o, lse, want, want_lse, diff
+              f"{'causal' if causal else 'full'} window={window} {dname} {variant}: "
+              f"max_abs_err={err:.3g} (atol {atol:.3g}, rtol {rtol:g}), lse err {lse_err:.3g}; "
+              f"kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain {plain:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}: {n_ops / 1e9:.2f} GFLOP, "
+              f"{n_bytes / 1e6:.1f} MB)")
+        del q, k, v, o, lse, want_lse
     # the backward (plain tensor code over the kernel's saved log-sum-exp) at
     # the training shape, against autograd through the plain version
     q = torch.randn((128, 64, 32, 64), generator=gen).to(dev).requires_grad_()
@@ -536,6 +608,20 @@ def check_step(dev):
                              "versions")
 
 
+def zero_counts():
+    """Set every launch counter to 0: each kernel's, and each variant's."""
+    from repro_torch.launch import train
+    for mod in train.KERNELS.values():
+        mod.launches = 0
+        if hasattr(mod, "zero_launches"):
+            mod.zero_launches()
+
+
+def read_counts() -> dict:
+    from repro_torch.launch import train
+    return {k: mod.launches for k, mod in train.KERNELS.items()}
+
+
 def run_main_path(label: str, argv: list[str], leaves_per_step: int,
                   per_leaf: str = "prox_update", attn_layers: int = 0, moe_layers: int = 0):
     """Drive ``train.main(argv)`` with every launch counter set to 0 just
@@ -548,10 +634,10 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     batches and the held-out chunks) and never in a local step."""
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
-    for mod in train.KERNELS.values():
-        mod.launches = 0
+    zero_counts()
     out = train.main(argv)
-    counts = {k: mod.launches for k, mod in train.KERNELS.items()}
+    counts = read_counts()
+    out["variant_launches"] = read_variants()
     steps = out["iterations"]
     # fit's history holds each window's loss, then, on eval windows, the
     # eval value under the same (stage, iteration): keep the losses
@@ -752,15 +838,15 @@ def run_prefill(dev, rates) -> dict:
     with torch.no_grad():
         prefill()                                               # warm-up
         torch.cuda.synchronize()
-        for mod in train.KERNELS.values():
-            mod.launches = 0
+        zero_counts()
         s, logits, (kc, vc) = prefill()
         torch.cuda.synchronize()
-        counts = {k: mod.launches for k, mod in train.KERNELS.items()}
+        counts, variants = read_counts(), read_variants()
         want = {"auc_loss": 0, "prox_update": 0, "opt_update": 0,
                 "flash_attention": cfg.n_layers, "grouped_matmul": 0}
-        if counts != want:
-            raise SystemExit(f"stablelm_prefill: launch counts {counts}, expected {want}")
+        if counts != want or variants["flash_attention"]["flash_fwd"] != cfg.n_layers:
+            raise SystemExit(f"stablelm_prefill: launch counts {counts} ({variants}), "
+                             f"expected {want}, all flash_fwd (fp32)")
         times = []
         for _ in range(3):
             t = time.perf_counter()
@@ -809,7 +895,7 @@ def run_prefill(dev, rates) -> dict:
     tokens = PREFILL_B * PREFILL_S
     out = {"path": "stablelm_prefill", "ms_per_prefill": ms, "ms_runs": times,
            "ref_ms_per_prefill": sorted(ref_ms)[0], "tokens_per_s": tokens / ms * 1e3,
-           "peak_bytes": peak, "launches": counts, "errs": errs,
+           "peak_bytes": peak, "launches": counts, "variant_launches": variants, "errs": errs,
            "profile": {"wall_ms": wall, "device_busy_ms": busy, "kernel_sum_ms": total,
                        "idle_share": 1.0 - busy / wall, "flash_attention_ms": k4,
                        "gemm_ms": gemm, "flash_attention_share": k4 / total,
@@ -888,38 +974,48 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
 
-    def case(label, x, w, sizes_np, iters):
+    def case(label, x, w, sizes_np, iters, want_kernel=None):
         sizes = torch.from_numpy(np.asarray(sizes_np, np.int64)).to(dev)
         atol, rtol = GMM_TOL[x.dtype]
+        G = ref.n_groups(w)
+        kernel = md.launch_geometry(x.shape[0], x.shape[1], G, w.shape[-1], x.dtype,
+                                    md.tma_aligned(x, w))["kernel"]
+        if want_kernel is not None and kernel != want_kernel:
+            raise SystemExit(f"grouped_matmul {label}: routed to {kernel}, not {want_kernel}")
+        before = md.variant_launches[kernel]
         got = md.grouped_matmul(x, w, sizes)
         want = ref.grouped_matmul_ref(x, w, sizes)
         torch.cuda.synchronize()
+        if md.variant_launches[kernel] != before + 1:
+            raise SystemExit(f"grouped_matmul {label}: {kernel} was not launched")
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         if not bool((diff <= atol + rtol * want.float().abs()).all()):
             raise SystemExit(f"grouped_matmul {label} disagrees with its plain version: "
                              f"max_abs_err={err} (atol {atol}, rtol {rtol})")
+        del got, want, diff
         fn = lambda: md.grouped_matmul(x, w, sizes)
         ms = cuda_ms(fn, iters=iters, warmup=1)
-        dev_ms = kernel_device_ms(fn, "gmm_", calls=max(2, iters // 4), launches_per_call=2)
+        dev_ms, dev_src = kernel_device_ms(fn, "gmm_", md, calls=max(2, iters // 4),
+                                           kernels_per_launch=2)   # offset scan + GEMM
         plain = cuda_ms(lambda: ref.grouped_matmul_ref(x, w, sizes), iters=max(2, iters // 2),
                         warmup=1)
         lib, why = grouped_mm_fn(x, w, sizes)
         lib_ms = cuda_ms(lib, iters=iters, warmup=1) if lib is not None else None
         bnd, by, n_bytes, n_ops = gmm_bound(x, w, sizes, rates, bf16_rate)
-        G, hit = ref.n_groups(w), int((sizes > 0).sum())
-        kernel = md.launch_geometry(x.shape[0], x.shape[1], G, w.shape[-1])["kernel"]
+        hit = int((sizes > 0).sum())
         dname = str(x.dtype).replace("torch.", "")
         rows.append({"case": label, "N": x.shape[0], "Kd": x.shape[1], "F": w.shape[-1],
                      "groups": G, "hit_groups": hit, "dtype": dname, "kernel": kernel,
                      "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms,
-                     "device_ms": dev_ms, "plain_ms": plain, "library_ms": lib_ms,
+                     "device_ms": dev_ms, "device_ms_source": dev_src, "plain_ms": plain,
+                     "library_ms": lib_ms,
                      "library_note": why, "bound_ms": bnd, "bound_by": by,
                      "gbytes": n_bytes / 1e9, "gflop": n_ops / 1e9})
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"
         print(f"grouped_matmul {label} [N={x.shape[0]}, Kd={x.shape[1]}, F={w.shape[-1]}, "
               f"G={G}, {hit} hit] {dname} {kernel}: max_abs_err={err:.3g} (atol {atol:g}, "
-              f"rtol {rtol:g}); kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+              f"rtol {rtol:g}); kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain "
               f"{plain:.4f} ms, torch._grouped_mm {lib_txt}, bound {bnd:.4f} ms ({by}: "
               f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP)")
 
@@ -929,36 +1025,53 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     # every weight at the model's init scale, Kd^-0.5 (moe.py:58-61), so the
     # outputs are O(1) as in the MoE layer and the tolerances are those of it
 
-    # dbrx-132b: 16 experts, top-4, d 6144, d_ff 10752, fp32 (the model's dtype)
+    # dbrx-132b: 16 experts, top-4, d 6144, d_ff 10752, fp32 (the model's
+    # dtype), then its prefill shape in bf16: ~512 rows per expert, where the
+    # tensor cores and not the weight bytes bound gmm_wgmma
     d, ff, E = 6144, 10752, 16
     w_up, w_down = randn((E, d, ff), scale=d ** -0.5), randn((E, ff, d), scale=ff ** -0.5)
-    for label, T, iters in (("dbrx_decode", 4, 20), ("dbrx_prefill", 2048, 3)):
+    for label, T, iters, kern in (("dbrx_decode", 4, 20, "gmm_rows"),
+                                  ("dbrx_prefill", 2048, 3, "gmm_tiles")):
         sizes = routed_sizes(1, T, E, 4)
-        case(f"{label}_gate", randn((T * 4, d)), w_up, sizes, iters)
-        case(f"{label}_down", randn((T * 4, ff)), w_down, sizes, iters)
-    del w_up, w_down
+        case(f"{label}_gate", randn((T * 4, d)), w_up, sizes, iters, kern)
+        case(f"{label}_down", randn((T * 4, ff)), w_down, sizes, iters, kern)
+    w_up = w_up.to(BF16)
+    del w_down
+    case("dbrx_prefill_gate_bf16", randn((8192, d), BF16), w_up, routed_sizes(1, 2048, E, 4),
+         5, "gmm_wgmma")
+    del w_up
     torch.cuda.empty_cache()
     # arctic-480b: 128 experts, top-2, d 7168, d_ff 4864, bf16 (8.9 GB of weights)
     d, ff, E = 7168, 4864, 128
     w = randn((E, d, ff), BF16, d ** -0.5)
-    for label, T, iters in (("arctic_decode_bf16", 4, 20), ("arctic_prefill_bf16", 2048, 3)):
-        case(label, randn((T * 2, d), BF16), w, routed_sizes(2, T, E, 2), iters)
+    for label, T, iters in (("arctic_decode_bf16", 4, 20), ("arctic_prefill_bf16", 2048, 5)):
+        case(label, randn((T * 2, d), BF16), w, routed_sizes(2, T, E, 2), iters, "gmm_wgmma")
     del w
     torch.cuda.empty_cache()
     # K-folded groups: 4 replicas × 16 experts, a strided layer slice of a
-    # [4, 2, 16, d, ff] stack at dbrx's smoke width
-    stack = randn((4, 2, 16, 128, 256), scale=128 ** -0.5)
+    # [4, 2, 16, d, ff] stack at dbrx's smoke width, in both dtypes
     sizes = routed_sizes(3, 64, 16, 4, R=4)
-    case("kfold_4x16_strided", randn((int(sizes.sum()), 128)), stack[:, 1], sizes, 20)
+    for dt, kern in ((F32, "gmm_tiles"), (BF16, "gmm_wgmma")):
+        stack = randn((4, 2, 16, 128, 256), dt, 128 ** -0.5)
+        case(f"kfold_4x16_strided_{str(dt)[6:]}", randn((int(sizes.sum()), 128), dt),
+             stack[:, 1], sizes, 20, kern)
     # edges: the reference's group tables with Kd and F off the tiles, N = 1,
-    # the 64-row kernel on ragged segments in both dtypes
+    # the 128-row kernel on ragged segments in both dtypes; gmm_wgmma on
+    # aligned ragged groups with empty ones (Kd 136, F 520) and at N = 1
     for i, gs in enumerate(([3, 0, 6, 1], [0, 0, 10, 0], [10, 0, 0, 0], [1, 2, 3, 4])):
         case(f"table{i}_{'_'.join(map(str, gs))}", randn((sum(gs), 130)),
-             randn((4, 130, 515), scale=130 ** -0.5), gs, 10)
-    case("n1", randn((1, 6144)), randn((4, 6144, 1000), scale=6144 ** -0.5), [0, 1, 0, 0], 10)
+             randn((4, 130, 515), scale=130 ** -0.5), gs, 10, "gmm_rows")
+    case("n1", randn((1, 6144)), randn((4, 6144, 1000), scale=6144 ** -0.5), [0, 1, 0, 0], 10,
+         "gmm_rows")
+    case("n1_bf16", randn((1, 6144), BF16), randn((4, 6144, 1000), BF16, 6144 ** -0.5),
+         [0, 1, 0, 0], 10, "gmm_wgmma")
     for dt in (F32, BF16):
         case(f"tiles_ragged_{str(dt)[6:]}", randn((273, 96), dt),
-             randn((4, 96, 300), dt, 96 ** -0.5), [70, 0, 200, 3], 10)
+             randn((4, 96, 300), dt, 96 ** -0.5), [70, 0, 200, 3], 10, "gmm_tiles")
+    gs = [70, 0, 200, 3, 0]
+    case("aligned_ragged_bf16", randn((sum(gs), 136), BF16), randn((5, 136, 520), BF16,
+                                                                    136 ** -0.5), gs, 10,
+         "gmm_wgmma")
     return rows
 
 
@@ -973,15 +1086,12 @@ SERVE_SCORE_ATOL = 1e-4          # score-head logits after 2 fp32 layers
 SERVE_GAP_TOL = 1e-4             # top-2 logit gap below which a token may flip
 
 
-def zero_counts():
+def read_variants() -> dict:
+    """Launches of each kernel variant since the counters were last set to
+    0: {kernel: {variant: launches}} for the kernels that have variants."""
     from repro_torch.launch import train
-    for mod in train.KERNELS.values():
-        mod.launches = 0
-
-
-def read_counts() -> dict:
-    from repro_torch.launch import train
-    return {k: mod.launches for k, mod in train.KERNELS.items()}
+    return {k: dict(mod.variant_launches) for k, mod in train.KERNELS.items()
+            if hasattr(mod, "variant_launches")}
 
 
 def run_dbrx_prefill(dev):
@@ -1019,11 +1129,13 @@ def run_dbrx_prefill(dev):
         zero_counts()
         s, logits, (kc, vc) = prefill()
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts, variants = read_counts(), read_variants()
         want = dict.fromkeys(counts, 0) | {"flash_attention": DBRX_LAYERS,
                                            "grouped_matmul": 3 * DBRX_LAYERS}
-        if counts != want:
-            raise SystemExit(f"dbrx_prefill: launch counts {counts}, expected {want}")
+        # fp32 at ~512 rows per expert: every K5 call is the 128×128 FFMA tile
+        if counts != want or variants["grouped_matmul"]["gmm_tiles"] != 3 * DBRX_LAYERS:
+            raise SystemExit(f"dbrx_prefill: launch counts {counts} ({variants}), expected "
+                             f"{want}, every K5 launch gmm_tiles")
         times = []
         for _ in range(3):
             t = time.perf_counter()
@@ -1073,7 +1185,7 @@ def run_dbrx_prefill(dev):
     tokens = DBRX_B * DBRX_S
     out = {"path": "dbrx_prefill", "ms_per_prefill": ms, "ms_runs": times,
            "ref_ms_per_prefill": sorted(ref_ms)[0], "tokens_per_s": tokens / ms * 1e3,
-           "peak_bytes": peak, "launches": counts, "errs": errs,
+           "peak_bytes": peak, "launches": counts, "variant_launches": variants, "errs": errs,
            "profile": {"wall_ms": wall, "device_busy_ms": busy, "kernel_sum_ms": total,
                        "idle_share": 1.0 - busy / wall, "grouped_matmul_ms": k5,
                        "flash_attention_ms": k4, "cublas_gemm_ms": gemm,
@@ -1145,7 +1257,7 @@ def run_dbrx_serve(rates, cfg, params) -> dict:
         zero_counts()
         ticks = []
         eng, reqs, wall = _serve(cfg, params, "auto", ticks)
-        counts = read_counts()
+        counts, variants = read_counts(), read_variants()
         want = dict.fromkeys(counts, 0) | {"grouped_matmul": 3 * DBRX_LAYERS * eng.steps}
         if counts != want:
             raise SystemExit(f"dbrx_serve: launch counts {counts}, expected {want} (3 × "
@@ -1216,7 +1328,8 @@ def run_dbrx_serve(rates, cfg, params) -> dict:
           f"{len(seen)} calls against a bound of {bound:.3f} ms (bytes of the hit experts), "
           f"{100 * k5 / total:.1f} % of kernel time")
     print(json.dumps({"profile": prof | {"path": "dbrx_serve_decode_tick"}}))
-    return {"path": "dbrx_serve", "launches": counts, "steps": eng.steps, "ticks": eng.ticks,
+    return {"path": "dbrx_serve", "launches": counts, "variant_launches": variants,
+            "steps": eng.steps, "ticks": eng.ticks,
             "ms_per_prefill_tick": statistics.median(pre),
             "ms_per_decode_tick": statistics.median(dec), "flips": flips,
             "score_max_abs_err": score_err, "profile": prof,
@@ -1242,6 +1355,7 @@ def run_serve_smoke() -> tuple[dict, dict, str]:
     text = buf.getvalue()
     print(text, end="")
     counts = read_counts()
+    out["variant_launches"] = read_variants()
     steps = out["engine"].steps
     want = dict.fromkeys(counts, 0) | {"grouped_matmul": 3 * 2 * steps}
     print(f"main path {label}: {out['completed']} requests, {steps} serve steps, "
@@ -1355,7 +1469,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     label, args, per_leaf = MOE_SMOKE
     runs[label], counts[label] = run_main_path(f"main path {label}", args, MOE_LEAVES,
                                                per_leaf, attn_layers=2, moe_layers=2)
-    _, counts["dbrx_serve_smoke"], serve_text = run_serve_smoke()
+    serve_out, counts["dbrx_serve_smoke"], serve_text = run_serve_smoke()
 
     # the same commands on the CPU: test AUC within 0.01; the served tokens
     # equal and the served AUC within 0.01
@@ -1389,6 +1503,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err, "tol": tol,
                 "shape": h["shape"], "ms": h["ms"], "device_ms": h["device_ms"],
+                "device_ms_source": h["device_ms_source"],
                 "plain_ms": h["plain_ms"],
                 "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
                 "library_ms": None, "max_err": err, "kernel_us": h["ms"] * 1e3,
@@ -1414,6 +1529,28 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
             "bitwise (0): v and buffer in every mode and dtype, bf16 rounding bits "
             "included; coef=0 equals prox_update bitwise"),
     ]
+    # launches of each K4/K5 variant on each path (counters set to 0 just
+    # before each path, read just after), and each variant's headline case
+    variants = {label: r["variant_launches"] for label, r in runs.items()}
+    variants.update(stablelm_prefill=prefill["variant_launches"],
+                    dbrx_prefill=dbrx_prefill["variant_launches"],
+                    dbrx_serve=dbrx_serve["variant_launches"],
+                    dbrx_serve_smoke=serve_out["variant_launches"])
+
+    def variant_rows(name, rows, heads):
+        out = {}
+        for variant, head in heads.items():
+            by_path = {label: v[name][variant] for label, v in variants.items()}
+            h = next(r for r in rows if r["case"] == head)
+            out[variant] = {
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "cases": [r["case"] for r in rows if r["kernel"] == variant],
+                "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == variant),
+                "head": head, **{k: h[k] for k in ("ms", "device_ms", "device_ms_source",
+                                                   "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")}}
+        return out
+
     # flash_attention: headline at stablelm-1.6b's prefill shape in fp32, the
     # shape where the prefill path spends its attention time
     h = next(r for r in attn_rows if r["case"] == "stablelm_prefill")
@@ -1431,11 +1568,15 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "tol": (f"(atol, rtol) fp32 {ATTN_TOL[F32]}, bf16 {ATTN_TOL[BF16]}; "
                 f"lse atol {LSE_ATOL}"),
         "shape": h["shape"], "ms": h["ms"], "device_ms": h["device_ms"],
+                "device_ms_source": h["device_ms_source"],
         "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
         "library_ms": h["library_ms"], "library": "torch.nn.functional."
         "scaled_dot_product_attention", "max_err": f32_err,
         "kernel_us": h["ms"] * 1e3, "plain_us": h["plain_ms"] * 1e3,
         "bound_us": h["bound_ms"] * 1e3, "shapes": attn_rows, "backward": attn_bwd,
+        "variants": variant_rows("flash_attention", attn_rows,
+                                 {"flash_fwd": "stablelm_prefill",
+                                  "flash_fwd_wgmma": "stablelm_prefill_bf16"}),
         "prefill": {k: prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
                                             "tokens_per_s", "peak_bytes", "errs")}})
     # grouped_matmul: headline at dbrx-132b's decode gate/up shape in fp32,
@@ -1453,11 +1594,15 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                 if r["dtype"] == "bfloat16"),
         "tol": f"(atol, rtol) fp32 {GMM_TOL[F32]}, bf16 {GMM_TOL[BF16]}",
         "shape": [h["N"], h["Kd"], h["F"], h["groups"]], "ms": h["ms"],
-        "device_ms": h["device_ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "device_ms": h["device_ms"], "device_ms_source": h["device_ms_source"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
         "bound_by": h["bound_by"], "library_ms": h["library_ms"],
         "library": "torch._grouped_mm", "library_note": h["library_note"],
         "max_err": h["max_abs_err"], "kernel_us": h["ms"] * 1e3,
         "plain_us": h["plain_ms"] * 1e3, "bound_us": h["bound_ms"] * 1e3, "shapes": gmm_rows,
+        "variants": variant_rows("grouped_matmul", gmm_rows,
+                                 {"gmm_rows": "dbrx_decode_gate",
+                                  "gmm_tiles": "dbrx_prefill_gate",
+                                  "gmm_wgmma": "arctic_prefill_bf16"}),
         "prefill": {k: dbrx_prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
                                                  "tokens_per_s", "peak_bytes", "errs")},
         "serve": {k: v for k, v in dbrx_serve.items() if k != "profile"}})

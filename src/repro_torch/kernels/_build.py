@@ -3,10 +3,12 @@
 The sources ``csrc/coda_kernels.cu`` (auc_loss, prox_update, opt_update),
 ``csrc/flash_attention.cu`` (K4) and ``csrc/moe_dispatch.cu`` (K5) have a
 plain C interface, so nvcc compiles them in seconds (no PyTorch headers,
-no ninja).  One nvcc builds all three into
+no ninja); the last two include ``csrc/hopper.cuh`` (mbarriers, TMA, wgmma
+and the tensor-map encoder).  One nvcc builds the three into
 ``<repo>/build/repro_torch_kernels/libcoda_<hash>.so``, keyed on a hash of
-the sources and the flags, at first use: importing this module builds
-nothing.  There is no fallback — a failed build raises.
+every file under ``csrc/`` (headers included) and the flags, at first use:
+importing this module builds nothing.  There is no fallback — a failed
+build raises.
 """
 from __future__ import annotations
 
@@ -19,12 +21,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "coda_kernels.cu"
-ATTN_SOURCE = SOURCE.with_name("flash_attention.cu")
-MOE_SOURCE = SOURCE.with_name("moe_dispatch.cu")
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "coda_kernels.cu"
+ATTN_SOURCE = CSRC / "flash_attention.cu"
+MOE_SOURCE = CSRC / "moe_dispatch.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -41,14 +44,15 @@ _SIGNATURES = {
                                        ctypes.c_float, _P, _P]),
     "coda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     "flash_attention_forward": (ctypes.c_int, [
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, _P]),
+        ctypes.c_int, ctypes.c_float, _P]),
     "flash_attention_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
+    "flash_attention_wgmma_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "grouped_matmul": (ctypes.c_int, [
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, _P]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]),
     "grouped_matmul_geometry": (None, [_P]),
 }
 
@@ -66,13 +70,23 @@ def nvcc() -> str:
 
 
 def sources() -> tuple[Path, ...]:
-    """The CUDA sources of the one library (read at call time)."""
+    """The CUDA sources nvcc compiles into the one library (read at call
+    time)."""
     return (SOURCE, ATTN_SOURCE, MOE_SOURCE)
 
 
+def hashed_files() -> tuple[Path, ...]:
+    """Every file the build reads: the sources and every file under
+    ``CSRC`` (the headers they include), each once, in a fixed order."""
+    under = (p for p in CSRC.rglob("*") if p.is_file())
+    return tuple(sorted(set(sources()) | set(under)))
+
+
 def library_path() -> Path:
-    text = b"".join(src.read_bytes() for src in sources())
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in hashed_files():
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libcoda_{digest.hexdigest()[:16]}.so"
 
 

@@ -36,10 +36,51 @@
 // Shared-memory traffic per FFMA is what keeps this simple kernel below
 // the arithmetic bound; wgmma/TMA and bf16 tensor cores are later work.
 //
+// flash_fwd_wgmma: the variant for bf16 q/k/v with head_dim 64 or 128 (the
+// head_dims of every full-width config), chosen on the host from the dtype
+// and head_dim (kernels/flash_attention.py::launch_geometry); fp32 inputs
+// and bf16 at head_dim 16/32 keep flash_fwd.  bf16 attention at the prefill
+// shape does ~69 GFLOP against 67 MB, over the tensor cores' ridge: the
+// bound is bf16 tensor-core arithmetic (0.07 ms at 989 TFLOP/s), which
+// FFMA cannot approach.  Design:
+//   * a block owns 128 query rows of one (head, batch row): two consumer
+//     warpgroups of 64 rows each and a producer warpgroup (384 threads),
+//     which hands its registers to the consumers (setmaxnreg 24 / 240);
+//   * the producer loads the q tile once and streams the band's K and V
+//     tiles (128 keys) through a ring of 3 (hd 64) or 2 (hd 128) stages by
+//     TMA, each completing on its own full barrier; consumers release a
+//     stage on its empty barrier.  The tensor maps keep B, S (or Skv) and
+//     heads as separate dimensions, so a ragged tile's rows past S or Skv
+//     are zeros, never the next batch row's; GQA reads KV head h / G
+//     through the coordinates;
+//   * S = q·kᵀ is one wgmma chain (m64n128k16, both operands K-major in
+//     shared memory, 128-byte swizzle); the scores are scaled to log2 units
+//     and masked in fp32 registers with the same −1e30 sentinel (causal,
+//     static window, ragged S and Skv), only in tiles the mask reaches;
+//   * online softmax in registers: each row's max and sum over the four
+//     threads that share it (two shuffles), the output accumulator rescaled,
+//     exp2 of scores pre-multiplied by log2(e)·hd^-½;
+//   * O += P·V: P rounded to bf16 in registers is the A operand (the
+//     accumulator layout is the A-fragment layout), V the B operand from
+//     shared memory, MN-major (hd contiguous: wgmma's transpose bit);
+//   * a software pipeline in each warpgroup: q·kᵀ of the next tile is
+//     issued before P·V of this one, and its softmax runs on the CUDA cores
+//     while P·V runs on the tensor cores (the loop's last tile is peeled,
+//     so every iteration commits the same two groups: ptxas then keeps the
+//     wgmma chain asynchronous);
+//   * o = O / max(l, 1e-30) stored in bf16; lse = m·ln2 + log l in fp32, as
+//     flash_fwd; query tiles are walked last-first (longest causal rows
+//     first), KV tiles outside the causal/window band skipped.
+// Its numbers differ from flash_fwd's by design: P is rounded to bf16 before
+// P·V, as in every tensor-core attention (SDPA's flash backend included);
+// the error model and tolerance are stated in chip_smoke.py (ATTN_TOL).
+//
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -262,14 +303,326 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// ------------------------------------------------------------ flash_fwd_wgmma
+constexpr int kWgBQ = 128;        // query rows per block: two warpgroups of 64
+constexpr int kWgBK = 128;        // keys per K/V tile
+constexpr int kWgThreads = 384;   // warpgroups 0-1 consume, warpgroup 2 produces
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int HD>
+__host__ __device__ constexpr int wg_stages() { return HD == 64 ? 3 : 2; }
+template <int HD>
+__host__ __device__ constexpr int wg_smem_bytes() {
+  // q [128 × HD], K and V [kWgBK × HD] per stage (bf16), 1 + 3 barriers per
+  // stage, 1024 bytes of alignment slack
+  return kWgBQ * HD * 2 + wg_stages<HD>() * (2 * kWgBK * HD * 2 + 24) + 8 + 1024;
+}
+
+// the rows a consumer thread owns and what masks them
+struct WgRows {
+  int row0;   // first of the thread's two query rows (the other is row0 + 8)
+  int qw;     // first query row of the warpgroup
+  int cc;     // 2·(lane % 4): the thread's first column in each 8-wide slice
+  int Skv, causal, window;
+  float scale_log2;
+};
+
+// issue S = q·kᵀ over HD / 16 slices of 16 (committed, not waited)
+template <int HD>
+__device__ __forceinline__ void issue_scores(float (&sacc)[kWgBK / 2], const uint8_t* qw_s,
+                                             const uint8_t* k_stage) {
+  constexpr int kQRegion = 64 * 128, kKVRegion = kWgBK * 128;
+  hopper::fence_regs(sacc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da = hopper::desc_sw128(qw_s + (kk / 4) * kQRegion + 32 * (kk % 4), 0, 1024);
+    const uint64_t db = hopper::desc_sw128(k_stage + (kk / 4) * kKVRegion + 32 * (kk % 4), 0, 1024);
+    hopper::wgmma_ss_n128<0>(sacc, da, db, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// issue O += P·V for the V tile in stage v_stage (committed, not waited;
+// the caller has fenced O and P)
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&oacc)[HD / 2], const uint32_t (&pa)[kWgBK / 16][4],
+                                         const uint8_t* v_stage) {
+  const uint64_t dv = hopper::desc_sw128(v_stage, kWgBK * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kWgBK / 16; ++kk) {
+    if constexpr (HD == 128)
+      hopper::wgmma_rs_n128<1>(oacc, pa[kk], hopper::desc_add(dv, 2048 * kk), 1);
+    else
+      hopper::wgmma_rs_n64<1>(oacc, pa[kk], hopper::desc_add(dv, 2048 * kk), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// the scores of the tile at k0 → scaled to log2 units, masked where the
+// mask reaches the tile, the online softmax's m and l updated, the rescale
+// of O in corr and the probabilities (fp32) in sacc; each row lives on the
+// four threads lane & ~3 .. lane | 3
+__device__ __forceinline__ void softmax_tile(float (&sacc)[kWgBK / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, const WgRows& w) {
+  const bool edge = k0 + kWgBK > w.Skv || (w.causal && k0 + kWgBK - 1 > w.qw) ||
+                    (w.window >= 0 && k0 <= w.qw + 63 - w.window);
+#pragma unroll
+  for (int j = 0; j < kWgBK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = sacc[4 * j + e] * w.scale_log2;
+      if (edge) {
+        const int kp = k0 + 8 * j + w.cc + (e & 1), qp = w.row0 + 8 * (e >> 1);
+        bool ok = kp < w.Skv;
+        if (w.causal) ok = ok && kp <= qp;
+        if (w.window >= 0) ok = ok && kp > qp - w.window;
+        if (!ok) v = kNegInf;
+      }
+      sacc[4 * j + e] = v;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kWgBK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sacc[4 * j + 2 * r], sacc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    corr[r] = exp2f(m[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kWgBK / 8; ++j) {
+      const float p0 = exp2f(sacc[4 * j + 2 * r] - m_new);
+      const float p1 = exp2f(sacc[4 * j + 2 * r + 1] - m_new);
+      sacc[4 * j + 2 * r] = p0;
+      sacc[4 * j + 2 * r + 1] = p1;
+      sum += p0 + p1;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[r] = l[r] * corr[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+// P (the probabilities in sacc) rounded to bf16, as wgmma's A fragments:
+// slice kk holds keys 16kk .. 16kk + 15
+__device__ __forceinline__ void pack_p(const float (&sacc)[kWgBK / 2], uint32_t (&pa)[kWgBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBK / 16; ++kk) {
+    pa[kk][0] = hopper::pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+    pa[kk][1] = hopper::pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pa[kk][2] = hopper::pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pa[kk][3] = hopper::pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int S, int H, int Skv, int KV, int causal, int window,
+                float scale_log2) {
+  constexpr int NST = wg_stages<HD>();
+  constexpr int NHB = HD / 64;                   // 64-wide column regions of a row
+  constexpr int kQRegion = 64 * 128;             // 64 rows × 128 bytes
+  constexpr int kKVRegion = kWgBK * 128;         // 128 keys × 128 bytes
+  constexpr int kTileBytes = kWgBK * HD * 2;     // one K (or V) tile
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_smem_1024(smem_raw);
+  uint8_t* qs = smem;                                  // [2 wg][NHB][64 × 128 B]
+  uint8_t* ks = qs + kWgBQ * HD * 2;                   // [NST][NHB][kWgBK × 128 B]
+  uint8_t* vs = ks + NST * kTileBytes;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(vs + NST * kTileBytes);
+  uint64_t* vfull = kfull + NST;
+  uint64_t* empty = vfull + NST;
+  uint64_t* qfull = empty + NST;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;  // last tile first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  // KV tiles inside the band of this block's rows (pl.when(needed) in Pallas)
+  int kv_hi = causal ? min(Skv, q0 + kWgBQ) : Skv;
+  int kv_lo = window >= 0 ? max(0, q0 - window + 1) : 0;
+  kv_lo = (kv_lo / kWgBK) * kWgBK;
+  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kWgBK - 1) / kWgBK : 0;
+  const int n_wg = q0 + 64 < S ? 2 : 1;  // a warpgroup whose rows all lie past S exits
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&empty[s], 128 * n_wg);
+    }
+    hopper::mbar_init(qfull, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      hopper::prefetch_tensormap(&qmap);
+      hopper::prefetch_tensormap(&kmap);
+      hopper::prefetch_tensormap(&vmap);
+      hopper::mbar_expect_tx(qfull, kWgBQ * HD * 2);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int j = 0; j < NHB; ++j)
+          hopper::tma_load_4d(qs + (w * NHB + j) * kQRegion, &qmap, qfull, 64 * j, h,
+                              q0 + 64 * w, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % NST, k0 = kv_lo + i * kWgBK;
+        if (i >= NST) hopper::mbar_wait(&empty[s], ((i / NST) - 1) & 1);
+        hopper::mbar_expect_tx(&kfull[s], kTileBytes);
+#pragma unroll
+        for (int j = 0; j < NHB; ++j)
+          hopper::tma_load_4d(ks + s * kTileBytes + j * kKVRegion, &kmap, &kfull[s], 64 * j, kvh,
+                              k0, b);
+        hopper::mbar_expect_tx(&vfull[s], kTileBytes);
+#pragma unroll
+        for (int j = 0; j < NHB; ++j)
+          hopper::tma_load_4d(vs + s * kTileBytes + j * kKVRegion, &vmap, &vfull[s], 64 * j, kvh,
+                              k0, b);
+      }
+    }
+    return;
+  }
+  // consumers take the registers the producer gave back (24 → 240 a thread)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = warp / 4;
+  if (wg >= n_wg) return;
+
+  // this thread's two rows (accumulator layout): 16·(warp % 4) + lane / 4 (+8)
+  const int qw = q0 + 64 * wg;
+  const int row0 = qw + 16 * (warp % 4) + lane / 4;
+  const int cc = 2 * (lane % 4);
+  float sacc[kWgBK / 2], oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < kWgBK / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pa[kWgBK / 16][4];
+  const uint8_t* qw_s = qs + wg * NHB * kQRegion;
+  const WgRows rows{row0, qw, cc, Skv, causal, window, scale_log2};
+  hopper::mbar_wait(qfull, 0);
+
+  // Software pipeline: q·kᵀ of tile i + 1 is issued before P·V of tile i,
+  // and its softmax runs on the CUDA cores while P·V_i runs on the tensor
+  // cores; P_{i+1} replaces P_i in pa only once P·V_i has completed.
+  if (ntiles > 0) {
+    hopper::mbar_wait(&kfull[0], 0);
+    issue_scores<HD>(sacc, qw_s, ks);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    softmax_tile(sacc, m, l, corr, kv_lo, rows);  // O is 0: corr unused
+    pack_p(sacc, pa);
+  }
+  // every tile but the last: q·kᵀ of the next tile, then P·V of this one
+  for (int i = 0; i + 1 < ntiles; ++i) {
+    const int s = i % NST, s1 = (i + 1) % NST;
+    hopper::mbar_wait(&kfull[s1], ((i + 1) / NST) & 1);
+    issue_scores<HD>(sacc, qw_s, ks + s1 * kTileBytes);
+    hopper::mbar_wait(&vfull[s], (i / NST) & 1);
+    hopper::fence_regs(oacc);
+    hopper::wgmma_fence();
+    issue_pv<HD>(oacc, pa, vs + s * kTileBytes);
+    hopper::wgmma_wait<1>();  // q·kᵀ of tile i + 1 is done; P·V of tile i may run on
+    hopper::fence_regs(sacc);
+    softmax_tile(sacc, m, l, corr, kv_lo + (i + 1) * kWgBK, rows);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(oacc);
+    hopper::fence_regs(pa);
+    hopper::mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      oacc[4 * j] *= corr[0];
+      oacc[4 * j + 1] *= corr[0];
+      oacc[4 * j + 2] *= corr[1];
+      oacc[4 * j + 3] *= corr[1];
+    }
+    pack_p(sacc, pa);
+  }
+  if (ntiles > 0) {  // the last tile's P·V
+    const int s = (ntiles - 1) % NST;
+    hopper::mbar_wait(&vfull[s], ((ntiles - 1) / NST) & 1);
+    hopper::fence_regs(oacc);
+    hopper::wgmma_fence();
+    issue_pv<HD>(oacc, pa, vs + s * kTileBytes);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(oacc);
+    hopper::fence_regs(pa);
+  }
+
+  // o = O / max(l, 1e-30) in bf16; lse = m·ln2 + log l
+  const long long q_row = static_cast<long long>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= S) continue;
+    const float li = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / li;
+    __nv_bfloat16* orow = o + (static_cast<long long>(b) * S + qp) * q_row +
+                          static_cast<long long>(h) * HD + cc;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
+    if (lane % 4 == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + qp] = m[r] * kLn2 + logf(li);
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                 int H, int Skv, int KV, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  constexpr int bytes = wg_smem_bytes<HD>();
+  CUtensorMap qm, km, vm;
+  const uint64_t e = 2;  // bytes per bf16
+  const uint64_t qdims[4] = {HD, static_cast<uint64_t>(H), static_cast<uint64_t>(S),
+                             static_cast<uint64_t>(B)};
+  const uint64_t qstr[3] = {HD * e, static_cast<uint64_t>(H) * HD * e,
+                            static_cast<uint64_t>(S) * H * HD * e};
+  const uint32_t qbox[4] = {64, 1, 64, 1};
+  const uint64_t kdims[4] = {HD, static_cast<uint64_t>(KV), static_cast<uint64_t>(Skv),
+                             static_cast<uint64_t>(B)};
+  const uint64_t kstr[3] = {HD * e, static_cast<uint64_t>(KV) * HD * e,
+                            static_cast<uint64_t>(Skv) * KV * HD * e};
+  const uint32_t kbox[4] = {64, 1, kWgBK, 1};
+  int err = hopper::encode_bf16_map(&qm, q, 4, qdims, qstr, qbox);
+  if (err == 0) err = hopper::encode_bf16_map(&km, k, 4, kdims, kstr, kbox);
+  if (err == 0) err = hopper::encode_bf16_map(&vm, v, 4, kdims, kstr, kbox);
+  if (err != 0) return err;
+  static bool attr_set = false;  // per instantiation, once per process
+  if (!attr_set) {
+    const cudaError_t cerr = cudaFuncSetAttribute(
+        flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    attr_set = true;
+  }
+  const dim3 grid((S + kWgBQ - 1) / kWgBQ, H, B);
+  flash_fwd_wgmma<HD><<<grid, kWgThreads, bytes, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, S, H, Skv, KV, causal, window,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 extern "C" {
 
 // q [B, S, H, hd], k/v [B, Skv, KV, hd], o [B, S, H, hd] (contiguous, one
 // dtype: bf16 = 0 → fp32, 1 → bf16); lse [B, H, S] fp32.  window < 0 means
-// no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.
-int flash_attention_forward(int bf16, int hd, const void* q, const void* k,
+// no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.  wgmma = 1 runs
+// flash_fwd_wgmma (bf16, hd 64 or 128, q/k/v 16-byte aligned), 0 flash_fwd.
+int flash_attention_forward(int bf16, int hd, int wgmma, const void* q, const void* k,
                             const void* v, void* o, float* lse, int B, int S,
                             int H, int Skv, int KV, int causal, int window,
                             float scale, void* stream) {
@@ -277,6 +630,14 @@ int flash_attention_forward(int bf16, int hd, const void* q, const void* k,
       B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+      case 64: return launch_wgmma<64>(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+      case 128: return launch_wgmma<128>(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   return bf16 ? dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s)
               : dispatch_hd<float>(hd, q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
 }
@@ -287,6 +648,14 @@ int flash_attention_smem_bytes(int hd) {
     case 32: return smem_floats<32>() * 4;
     case 64: return smem_floats<64>() * 4;
     case 128: return smem_floats<128>() * 4;
+    default: return -1;
+  }
+}
+
+int flash_attention_wgmma_smem_bytes(int hd) {
+  switch (hd) {
+    case 64: return wg_smem_bytes<64>();
+    case 128: return wg_smem_bytes<128>();
     default: return -1;
   }
 }

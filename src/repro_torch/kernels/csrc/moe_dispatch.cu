@@ -8,8 +8,10 @@
 // What it computes: the ragged grouped GEMM of the sorted dropless MoE
 // dispatch, out[i] = x[i] @ w[g(i)], for rows of x [N, Kd] sorted by group,
 // w's groups [Kd, F] each, and group_sizes [G] (int32, on the device) giving
-// the row segments.  Sums are fp32 (FFMA, no tensor cores, no TF32); inputs
-// are fp32 or bf16 (x and w of one dtype); out [N, F] is in x's dtype.
+// the row segments.  Sums are fp32 (fp32 inputs: FFMA, no TF32; bf16
+// inputs: exact bf16 products summed in fp32, on tensor cores where
+// gmm_wgmma runs); inputs are fp32 or bf16 (x and w of one dtype); out
+// [N, F] is in x's dtype.
 //
 // Weights are read in place through their strides.  Group g is
 // (g / e_in, g % e_in) of a [R, E = e_in, Kd, F] view — the layer slice of
@@ -27,26 +29,56 @@
 //     (the reference's grouped_layout bound, ref.py:138), y = F tiles.  A
 //     block finds its group by a binary search over the tile starts; tiles
 //     past the last group exit; no tile mixes two groups.
-//  3. Two regimes, chosen on the host from the static shapes (average rows
-//     per group, kernels/moe_dispatch.py::launch_geometry):
-//     - gmm_rows (decode: 1–4 rows per expert): 8-row tiles, the x tile in
-//       shared memory, each thread streaming one output column's weights
-//       straight from device memory into registers, 16 K-steps of loads in
-//       flight before their FMAs; 128-column blocks, so that even 8 hit
-//       experts give a few blocks per SM.  Each hit expert's weights are
-//       read once per 8 rows: bound by the bytes of the hit experts' weights.
-//     - gmm_tiles (prefill: hundreds of rows per expert): 64×128 output
-//       tiles, 16-deep K tiles through shared memory (x transposed), 4×8
-//       outputs per thread, the next K tile's loads held in registers while
-//       the current one is multiplied.  Bound by fp32 arithmetic.
+//  3. Three kernels, chosen on the host from static facts only — dtype,
+//     alignment and the average rows per group
+//     (kernels/moe_dispatch.py::launch_geometry):
+//     - gmm_wgmma (bf16 x and w, Kd and F multiples of 8, every base and
+//       stride 16-byte aligned; any N): bf16 tensor cores.  A block owns one
+//       64-row tile inside one group and BN = 128 (decode) or 256 (prefill)
+//       output columns.  One producer warp keeps a ring of 4–5 stages full
+//       with TMA: the x rows through a 2-D map that starts at the tile's
+//       first row (rows past the group's end are loaded and discarded), the
+//       weights through a 4-D map over the strided [R, E, Kd, F] view (the
+//       K workers folded into the groups, nothing copied; MN-major, 128-byte
+//       swizzle).  One consumer warpgroup runs m64nBNk16 wgmma with fp32
+//       accumulators and rounds once to bf16 at the store, rows < m only,
+//       with register stores (the rows past m belong to the next group).
+//       Both regimes are bound by the weight bytes (a 64-row tile does 64
+//       operations per weight byte read at most, under the 295 the tensor
+//       cores need): at decode, 8 hit experts × 38 column tiles of 128 give
+//       ~300 blocks of 1.8 MB each, two blocks per SM with 4 stages of
+//       16 KB of weights in flight each, so every SM keeps ~128 KB of loads
+//       in flight without split-K; at prefill the 256-column tile halves the
+//       x re-reads and the block count.
+//     - gmm_rows (the other decode calls: under 16 rows per group on
+//       average): 8-row tiles, the x tile in shared memory, each thread
+//       streaming one output column's weights straight from device memory
+//       into registers, 16 K-steps of loads in flight before their FMAs;
+//       128-column blocks, so that even 8 hit experts give a few blocks per
+//       SM.  Each hit expert's weights are read once per 8 rows: bound by
+//       the bytes of the hit experts' weights.
+//     - gmm_tiles (the other prefill calls; fp32 is the model's dtype):
+//       128×128 output tiles, 256 threads with 8×8 outputs each (two 4-row
+//       by two 4-column float4 slices, so shared-memory reads are float4 and
+//       conflict-free), 16-deep K tiles in a 3-stage cp.async ring: x
+//       transposed into shared memory by 4-byte copies, w by 16-byte copies
+//       where F and the strides allow, masked zero-filling copies at the
+//       ragged edge; bf16 inputs are loaded through registers and stored as
+//       fp32.  fp32 FFMA only (the dbrx paths are held to the fp32
+//       reference at 1e-5: no TF32).  Bound by fp32 arithmetic.
+//     The tile kernels walk their (row tile, column tile) grid in groups of
+//     8 column tiles, columns fastest inside a group, so the blocks in
+//     flight share x rows and each expert's weights in L2.
 //     The Pallas kernel holds the whole padded Kd of a 128-row tile in VMEM;
 //     at dbrx's d_ff that is 5.5 MB, far past 227 KB of shared memory, so
-//     both kernels loop over Kd in tiles.
+//     every kernel loops over Kd in tiles.
 //
 // Every entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -59,11 +91,32 @@ constexpr int kRowsThreads = 128;
 constexpr int kRowsTN = 1;
 constexpr int kRowsBK = 64;
 constexpr int kRowsUnroll = 16;
-// gmm_tiles: 64×128 tiles, 256 threads × (4 rows × 8 columns), K tiles of 16
-constexpr int kTileBM = 64;
+// gmm_tiles: 128×128 tiles, 256 threads × (8 rows × 8 columns), K tiles of
+// 16 in a 3-stage cp.async ring
+constexpr int kTileBM = 128;
 constexpr int kTileBN = 128;
 constexpr int kTileBK = 16;
 constexpr int kTileThreads = 256;
+constexpr int kTileStages = 3;
+constexpr int kTileLdA = kTileBM + 4;  // padded row of the transposed x tile
+constexpr int kTileStageFloats = kTileBK * kTileLdA + kTileBK * kTileBN;
+constexpr int kTileSmemBytes = kTileStages * kTileStageFloats * 4;
+// gmm_wgmma: 64-row tiles, BN = 128 or 256 columns, K tiles of 64 (one
+// 128-byte swizzle row of x), one consumer warpgroup + one producer warp
+constexpr int kWgBM = 64;
+constexpr int kWgBK = 64;
+constexpr int kWgThreads = 160;
+constexpr int kRasterGroup = 8;  // column tiles walked together
+
+template <int BN>
+__host__ __device__ constexpr int wg_stages() { return BN == 256 ? 5 : 4; }
+template <int BN>
+__host__ __device__ constexpr int wg_stage_bytes() { return kWgBM * kWgBK * 2 + kWgBK * BN * 2; }
+template <int BN>
+__host__ __device__ constexpr int wg_smem_bytes() {
+  // the ring, a full and an empty barrier per stage, 1024 bytes of alignment slack
+  return wg_stages<BN>() * (wg_stage_bytes<BN>() + 16) + 1024;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -128,6 +181,18 @@ __device__ __forceinline__ bool find_tile(const int* __restrict__ offs, int G, i
   r0 = offs[g] + (t - tile0[g]) * bm;
   m = min(bm, offs[g + 1] - r0);
   return m > 0;
+}
+
+// block b of a flattened (T row tiles × C column tiles) grid → (row tile
+// t, column tile c): groups of kRasterGroup column tiles, columns fastest
+// inside a group, so the blocks in flight read the same x rows across the
+// group's columns and an expert's weights across its row tiles
+__device__ __forceinline__ void raster(int b, int T, int C, int& t, int& c) {
+  const int per = kRasterGroup * T;
+  const int grp = b / per, idx = b - grp * per;
+  const int width = min(kRasterGroup, C - grp * kRasterGroup);
+  t = idx / width;
+  c = grp * kRasterGroup + idx % width;
 }
 
 template <typename T>
@@ -206,113 +271,334 @@ gmm_rows(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
   }
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one K tile of x (transposed: as[k][row]) and w (bs[k][col]) into a stage,
+// zeros past m rows, Kd and F.  fp32: cp.async (16-byte w copies when vec:
+// F, s_k and the group bases multiples of 4 floats); bf16: through registers.
+// Thread tid copies x rows tid / BK + i·(256 / BK) at column tid % BK, and w
+// rows tid / 32 + i·8 (vec: 4 columns at 4·(tid % 32)) or tid / BN + i·(256 /
+// BN) (scalar: column tid % BN); xp and wp point at its first element of
+// the group's first K tile, so a tile adds k0 and i times a row stride.
 template <typename T>
-__global__ void __launch_bounds__(kTileThreads, 2)
-gmm_tiles(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-          const int* __restrict__ offs, int G, int Kd, int F, int e_in,
-          long long s_outer, long long s_inner, long long s_k) {
-  int g, r0, m;
-  if (!find_tile(offs, G, kTileBM, blockIdx.x, g, r0, m)) return;
-  constexpr int kLdA = kTileBM + 4;  // padded row of the transposed x tile
-  __shared__ __align__(16) float as[kTileBK][kLdA];
-  __shared__ __align__(16) float bs[kTileBK][kTileBN];
-  constexpr int kA = kTileBM * kTileBK / kTileThreads;  // 4 x values per thread
-  constexpr int kB = kTileBK * kTileBN / kTileThreads;  // 8 w values per thread
-  const T* wg = group_weight(w, g, e_in, s_outer, s_inner);
+__device__ __forceinline__ void tile_load(float* as, float* bs, const T* __restrict__ xp,
+                                          const T* __restrict__ wp, int m, int k0, int Kd,
+                                          int F, int f0, long long s_k, bool vec) {
   const int tid = threadIdx.x;
-  const int f0 = blockIdx.y * kTileBN;
-  float ra[kA], rb[kB];
-
-  auto gload = [&](int k0) {
+  constexpr int kXRows = kTileThreads / kTileBK;  // x rows per pass
+  const int kx = tid % kTileBK, rx = tid / kTileBK;
+  const bool kx_ok = k0 + kx < Kd;
 #pragma unroll
-    for (int i = 0; i < kA; ++i) {
-      const int e = tid + i * kTileThreads, row = e / kTileBK, kk = e % kTileBK;
-      ra[i] = (row < m && k0 + kk < Kd)
-                  ? to_f32(x[(long long)(r0 + row) * Kd + k0 + kk]) : 0.f;
-    }
+  for (int i = 0; i < kTileBM / kXRows; ++i) {
+    const int row = rx + i * kXRows;
+    const bool ok = kx_ok && row < m;
+    const T* src = xp + (long long)i * kXRows * Kd + k0;
+    if constexpr (sizeof(T) == 4) cp_async4(as + kx * kTileLdA + row, ok ? src : xp, ok);
+    else as[kx * kTileLdA + row] = ok ? to_f32(*src) : 0.f;
+  }
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      constexpr int kWRows = kTileThreads / (kTileBN / 4);
+      const int kw = tid / (kTileBN / 4), col = 4 * (tid % (kTileBN / 4));
+      const bool col_ok = f0 + col < F;  // F % 4 == 0: the 4 columns together
 #pragma unroll
-    for (int i = 0; i < kB; ++i) {
-      const int e = tid + i * kTileThreads, kk = e / kTileBN, col = e % kTileBN;
-      rb[i] = (k0 + kk < Kd && f0 + col < F)
-                  ? to_f32(wg[(long long)(k0 + kk) * s_k + f0 + col]) : 0.f;
-    }
-  };
-  auto sstore = [&]() {
-#pragma unroll
-    for (int i = 0; i < kA; ++i) {
-      const int e = tid + i * kTileThreads;
-      as[e % kTileBK][e / kTileBK] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kB; ++i) {
-      const int e = tid + i * kTileThreads;
-      bs[e / kTileBN][e % kTileBN] = rb[i];
-    }
-  };
-
-  const int ty = tid / 16, tx = tid % 16;  // rows 4ty.., columns 4tx.. and 64 + 4tx..
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  gload(0);
-  sstore();
-  __syncthreads();
-  for (int k0 = 0; k0 < Kd; k0 += kTileBK) {
-    const bool more = k0 + kTileBK < Kd;
-    if (more) gload(k0 + kTileBK);  // in flight while this tile is multiplied
-#pragma unroll
-    for (int kk = 0; kk < kTileBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + 4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      sstore();
-      __syncthreads();
+      for (int i = 0; i < kTileBK / kWRows; ++i) {
+        const bool ok = col_ok && k0 + kw + i * kWRows < Kd;
+        const T* src = wp + (long long)(k0 + i * kWRows) * s_k;
+        cp_async16(bs + (kw + i * kWRows) * kTileBN + col, ok ? src : wp, ok);
+      }
+      return;
     }
   }
+  constexpr int kWRows = kTileThreads / kTileBN;
+  const int kw = tid / kTileBN, col = tid % kTileBN;
+  const bool col_ok = f0 + col < F;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = 4 * ty + i;
-    if (row >= m) break;
-    T* orow = out + (long long)(r0 + row) * F;
+  for (int i = 0; i < kTileBK / kWRows; ++i) {
+    const bool ok = col_ok && k0 + kw + i * kWRows < Kd;
+    const T* src = wp + (long long)(k0 + i * kWRows) * s_k;
+    if constexpr (sizeof(T) == 4) cp_async4(bs + (kw + i * kWRows) * kTileBN + col, ok ? src : wp, ok);
+    else bs[(kw + i * kWRows) * kTileBN + col] = ok ? to_f32(*src) : 0.f;
+  }
+}
+
+// acc += the stage's x rows × w columns of this thread: rows 4ty.. (and
+// 64 + 4ty.. when ROWS = 8), columns 4tx.. and 64 + 4tx..
+template <int ROWS>
+__device__ __forceinline__ void tile_fma(float (&acc)[8][8], const float* as, const float* bs,
+                                         int ty, int tx) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = f0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (col < F) store1(orow + col, acc[i][j]);
-    }
+  for (int kk = 0; kk < kTileBK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kTileLdA + 4 * ty);
+    const float4 a1 = ROWS == 8 ? *reinterpret_cast<const float4*>(as + kk * kTileLdA + 64 + 4 * ty)
+                                : a0;
+    const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * kTileBN + 4 * tx);
+    const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * kTileBN + 64 + 4 * tx);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
 template <typename T>
-int launch(int small, const void* x, const void* w, void* out, const int* sizes, int* offs,
+__global__ void __launch_bounds__(kTileThreads, 2)
+gmm_tiles(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+          const int* __restrict__ offs, int G, int Kd, int F, int e_in,
+          long long s_outer, long long s_inner, long long s_k, int row_tiles, int col_tiles,
+          int vec) {
+  int t, c, g, r0, m;
+  raster(blockIdx.x, row_tiles, col_tiles, t, c);
+  if (!find_tile(offs, G, kTileBM, t, g, r0, m)) return;
+  extern __shared__ __align__(16) float tsmem[];
+  const T* wg = group_weight(w, g, e_in, s_outer, s_inner);
+  const int tid = threadIdx.x;
+  const int f0 = c * kTileBN;
+  const int nk = (Kd + kTileBK - 1) / kTileBK;
+  // this thread's first x and w elements (see tile_load)
+  const T* xp = x + (long long)(r0 + tid / kTileBK) * Kd + tid % kTileBK;
+  const T* wp = (sizeof(T) == 4 && vec)
+                    ? wg + (long long)(tid / (kTileBN / 4)) * s_k + f0 + 4 * (tid % (kTileBN / 4))
+                    : wg + (long long)(tid / kTileBN) * s_k + f0 + tid % kTileBN;
+  auto stage_a = [&](int s) { return tsmem + s * kTileStageFloats; };
+  auto stage_b = [&](int s) { return tsmem + s * kTileStageFloats + kTileBK * kTileLdA; };
+
+#pragma unroll
+  for (int s = 0; s < kTileStages - 1; ++s) {
+    if (s < nk) tile_load(stage_a(s), stage_b(s), xp, wp, m, s * kTileBK, Kd, F, f0, s_k, vec);
+    cp_async_commit();
+  }
+  // thread (ty, tx): rows 4ty.. and 64 + 4ty.., columns 4tx.. and 64 + 4tx..;
+  // a warp holds 4 ty × 8 tx, so each of its float4 reads of a k row is one
+  // 64- or 128-byte span: one shared-memory wavefront
+  const int warp = tid / 32, lane = tid % 32;
+  const int ty = (warp / 2) * 4 + lane / 8, tx = (warp % 2) * 8 + lane % 8;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // a group's last tile may hold few rows: a warp multiplies only the rows
+  // it holds below m (its rows are 16·(warp / 2) + 0..15, and 64 more)
+  const bool lo_live = 16 * (warp / 2) < m, hi_live = 64 + 16 * (warp / 2) < m;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTileStages - 2>();
+    __syncthreads();  // tile kt is in; every thread is done with tile kt - 1
+    const int nxt = kt + kTileStages - 1;
+    if (nxt < nk) {
+      const int s = nxt % kTileStages;
+      tile_load(stage_a(s), stage_b(s), xp, wp, m, nxt * kTileBK, Kd, F, f0, s_k, vec);
+    }
+    cp_async_commit();
+    const float* as = stage_a(kt % kTileStages);
+    const float* bs = stage_b(kt % kTileStages);
+    if (hi_live) tile_fma<8>(acc, as, bs, ty, tx);
+    else if (lo_live) tile_fma<4>(acc, as, bs, ty, tx);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = (i < 4 ? 0 : 64) + 4 * ty + (i & 3);
+    if (row >= m) continue;
+    T* orow = out + (long long)(r0 + row) * F;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = f0 + 64 * h + 4 * tx;
+      if constexpr (sizeof(T) == 4) {
+        if (vec) {   // F % 4 == 0: the four columns are in or out together
+          if (col < F)
+            *reinterpret_cast<float4*>(orow + col) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < F) store1(orow + col + j, acc[i][4 * h + j]);
+    }
+  }
+}
+
+// bf16 grouped GEMM on tensor cores (see the header, 3): block = 64 rows of
+// one group × BN columns; warps 0-3 consume (wgmma), warp 4 produces (TMA).
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+          __nv_bfloat16* __restrict__ out, const int* __restrict__ offs, int G, int Kd, int F,
+          int e_in, int row_tiles, int col_tiles) {
+  constexpr int S = wg_stages<BN>();
+  constexpr int kXBytes = kWgBM * kWgBK * 2;  // 64 rows × 128 bytes
+  constexpr int kWBytes = kWgBK * BN * 2;     // BN / 64 regions of 64 k-rows × 128 bytes
+  constexpr int kWRegion = kWgBK * 128;
+  int t, c, g, r0, m;
+  raster(blockIdx.x, row_tiles, col_tiles, t, c);
+  if (!find_tile(offs, G, kWgBM, t, g, r0, m)) return;
+  extern __shared__ __align__(1024) uint8_t wsmem_raw[];
+  uint8_t* smem = hopper::align_smem_1024(wsmem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * (kXBytes + kWBytes));
+  uint64_t* empty = full + S;
+  const int f0 = c * BN;
+  const int nk = (Kd + kWgBK - 1) / kWgBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: one thread issues every TMA load
+    if (lane == 0) {
+      hopper::prefetch_tensormap(&xmap);
+      hopper::prefetch_tensormap(&wmap);
+      const int e = g % e_in, r = g / e_in;
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % S;
+        if (i >= S) hopper::mbar_wait(&empty[s], ((i / S) - 1) & 1);
+        uint8_t* xs = smem + s * (kXBytes + kWBytes);
+        uint8_t* ws = xs + kXBytes;
+        hopper::mbar_expect_tx(&full[s], kXBytes + kWBytes);
+        hopper::tma_load_2d(xs, &xmap, &full[s], i * kWgBK, r0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          hopper::tma_load_4d(ws + j * kWRegion, &wmap, &full[s], f0 + 64 * j, i * kWgBK, e, r);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: acc[64 × BN] in the wgmma accumulator layout
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % S;
+    hopper::mbar_wait(&full[s], (i / S) & 1);
+    const uint8_t* xs = smem + s * (kXBytes + kWBytes);
+    const uint64_t da = hopper::desc_sw128(xs, 0, 1024);                // K-major
+    const uint64_t db = hopper::desc_sw128(xs + kXBytes, kWRegion, 1024);  // MN-major
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      if constexpr (BN == 256)
+        hopper::wgmma_ss_n256<1>(acc, hopper::desc_add(da, 32 * kk), hopper::desc_add(db, 2048 * kk), 1);
+      else
+        hopper::wgmma_ss_n128<1>(acc, hopper::desc_add(da, 32 * kk), hopper::desc_add(db, 2048 * kk), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc);
+    hopper::wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (i > 0) hopper::mbar_arrive(&empty[(i - 1) % S]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // rows 16·warp + lane/4 (+8), columns 8j + 2·(lane % 4) (+1); F % 8 == 0,
+  // so a column pair is in or out together; rows ≥ m belong to the next group
+  const int cc = 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * warp + lane / 4 + 8 * h;
+    if (row >= m) continue;
+    __nv_bfloat16* orow = out + (long long)(r0 + row) * F + f0 + cc;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      if (f0 + 8 * j + cc < F)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <typename T>
+int launch(int kernel, const void* x, const void* w, void* out, const int* sizes, int* offs,
            int N, int Kd, int F, int G, int e_in, long long s_outer, long long s_inner,
-           long long s_k, cudaStream_t stream) {
-  const int bm = small ? kRowsBM : kTileBM;
-  const int bn = small ? kRowsThreads * kRowsTN : kTileBN;
+           long long s_k, int vec, cudaStream_t stream) {
+  const int bm = kernel == 0 ? kRowsBM : kTileBM;
   gmm_offsets<<<1, kScanThreads, 0, stream>>>(sizes, G, N, bm, offs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + bm - 1) / bm + (G < N ? G : N), (F + bn - 1) / bn);
+  const int row_tiles = (N + bm - 1) / bm + (G < N ? G : N);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  if (small)
-    gmm_rows<T><<<grid, kRowsThreads, 0, stream>>>(xp, wp, op, offs, G, Kd, F, e_in,
-                                                  s_outer, s_inner, s_k);
-  else
-    gmm_tiles<T><<<grid, kTileThreads, 0, stream>>>(xp, wp, op, offs, G, Kd, F, e_in,
-                                                   s_outer, s_inner, s_k);
+  if (kernel == 0) {
+    const dim3 grid(row_tiles, (F + kRowsThreads * kRowsTN - 1) / (kRowsThreads * kRowsTN));
+    gmm_rows<T><<<grid, kRowsThreads, 0, stream>>>(xp, wp, op, offs, G, Kd, F, e_in, s_outer,
+                                                  s_inner, s_k);
+  } else {
+    static bool attr_set = false;  // per instantiation, once per process
+    if (!attr_set) {
+      const int e = set_smem(gmm_tiles<T>, kTileSmemBytes);
+      if (e != 0) return e;
+      attr_set = true;
+    }
+    const int col_tiles = (F + kTileBN - 1) / kTileBN;
+    gmm_tiles<T><<<row_tiles * col_tiles, kTileThreads, kTileSmemBytes, stream>>>(
+        xp, wp, op, offs, G, Kd, F, e_in, s_outer, s_inner, s_k, row_tiles, col_tiles, vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int launch_wgmma(const void* x, const void* w, void* out, const int* sizes, int* offs, int N,
+                 int Kd, int F, int G, int e_in, long long s_outer, long long s_inner,
+                 long long s_k, cudaStream_t stream) {
+  const int R = G / e_in;
+  if (R == 1) s_outer = static_cast<long long>(e_in) * s_inner;  // a [G, Kd, F] weight
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(Kd), static_cast<uint64_t>(N)};
+  const uint64_t xstr[1] = {static_cast<uint64_t>(Kd) * 2};
+  const uint32_t xbox[2] = {kWgBK, kWgBM};
+  int err = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstr, xbox);
+  if (err != 0) return err;
+  const uint64_t wdims[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(Kd),
+                             static_cast<uint64_t>(e_in), static_cast<uint64_t>(R)};
+  const uint64_t wstr[3] = {static_cast<uint64_t>(s_k) * 2, static_cast<uint64_t>(s_inner) * 2,
+                            static_cast<uint64_t>(s_outer) * 2};
+  const uint32_t wbox[4] = {64, kWgBK, 1, 1};
+  err = hopper::encode_bf16_map(&wmap, w, 4, wdims, wstr, wbox);
+  if (err != 0) return err;
+  gmm_offsets<<<1, kScanThreads, 0, stream>>>(sizes, G, N, kWgBM, offs);
+  cudaError_t cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  static bool attr_set = false;  // per instantiation, once per process
+  if (!attr_set) {
+    err = set_smem(gmm_wgmma<BN>, wg_smem_bytes<BN>());
+    if (err != 0) return err;
+    attr_set = true;
+  }
+  const int row_tiles = (N + kWgBM - 1) / kWgBM + (G < N ? G : N);
+  const int col_tiles = (F + BN - 1) / BN;
+  gmm_wgmma<BN><<<row_tiles * col_tiles, kWgThreads, wg_smem_bytes<BN>(), stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(out), offs, G, Kd, F, e_in, row_tiles, col_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,28 +610,47 @@ extern "C" {
 // (bf16 = 0 → fp32, 1 → bf16).  w: group g at w + (g / e_in)·s_outer +
 // (g % e_in)·s_inner, element (k, f) at + k·s_k + f (strides in elements).
 // sizes [G] int32 on the device, summing to N; offs: 2G + 2 int32 of
-// scratch.  small = 1 runs gmm_rows (8-row tiles), 0 gmm_tiles (64-row).
-int grouped_matmul(int bf16, int small, const void* x, const void* w, void* out,
+// scratch.  kernel: 0 gmm_rows (8-row tiles), 1 gmm_tiles (128-row tiles;
+// vec = 1 takes 16-byte copies of fp32 w: F, s_k, s_inner, s_outer
+// multiples of 4 and w 16-byte aligned), 2 gmm_wgmma (bf16 only, 64-row
+// tiles of bn = 128 or 256 columns; Kd, F and the strides multiples of 8,
+// x and w 16-byte aligned).
+int grouped_matmul(int bf16, int kernel, int bn, const void* x, const void* w, void* out,
                    const int* sizes, int* offs, int N, int Kd, int F, int G, int e_in,
-                   long long s_outer, long long s_inner, long long s_k, void* stream) {
+                   long long s_outer, long long s_inner, long long s_k, int vec, void* stream) {
   if (N <= 0 || Kd <= 0 || F <= 0 || G <= 0 || G > kMaxGroups || e_in <= 0 ||
-      G % e_in != 0 || (F + kTileBN - 1) / kTileBN > 65535)
+      G % e_in != 0 || kernel < 0 || kernel > 2 ||
+      (kernel == 0 && (F + kRowsThreads * kRowsTN - 1) / (kRowsThreads * kRowsTN) > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(small, x, w, out, sizes, offs, N, Kd, F, G, e_in,
-                                      s_outer, s_inner, s_k, s)
-              : launch<float>(small, x, w, out, sizes, offs, N, Kd, F, G, e_in, s_outer,
-                              s_inner, s_k, s);
+  if (kernel == 2) {
+    if (!bf16 || Kd % 8 || F % 8 || s_k % 8 || s_inner % 8 || s_outer % 8 ||
+        (bn != 128 && bn != 256))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return bn == 256 ? launch_wgmma<256>(x, w, out, sizes, offs, N, Kd, F, G, e_in, s_outer,
+                                         s_inner, s_k, s)
+                     : launch_wgmma<128>(x, w, out, sizes, offs, N, Kd, F, G, e_in, s_outer,
+                                         s_inner, s_k, s);
+  }
+  return bf16 ? launch<__nv_bfloat16>(kernel, x, w, out, sizes, offs, N, Kd, F, G, e_in,
+                                      s_outer, s_inner, s_k, 0, s)
+              : launch<float>(kernel, x, w, out, sizes, offs, N, Kd, F, G, e_in, s_outer,
+                              s_inner, s_k, vec, s);
 }
 
 // the static tile geometry, for the wrapper's launch_geometry to check
-// against: [rows BM, rows BN, tiles BM, tiles BN, max groups]
+// against: [rows BM, rows BN, tiles BM, tiles BN, max groups, tiles smem
+// bytes, wgmma BM, wgmma smem bytes at BN 128, at BN 256]
 void grouped_matmul_geometry(int* out) {
   out[0] = kRowsBM;
   out[1] = kRowsThreads * kRowsTN;
   out[2] = kTileBM;
   out[3] = kTileBN;
   out[4] = kMaxGroups;
+  out[5] = kTileSmemBytes;
+  out[6] = kWgBM;
+  out[7] = wg_smem_bytes<128>();
+  out[8] = wg_smem_bytes<256>();
 }
 
 }  // extern "C"

@@ -9,10 +9,14 @@ skipped, query head h reading KV head ``h // G``.  Output in q's dtype
 (fp32 or bf16).  The kernel also writes each row's log-sum-exp (fp32
 ``[B, H, S]``), which the backward reuses.
 
-What bounds it on the card, and the design: see ``csrc/flash_attention.cu``
-— one block per (64-row query tile, head, batch row), a loop over the KV
-tiles of the band, fp32 FFMA.  At the prefill shape fp32 arithmetic bounds
-it, at the training shape (64-token sequences) bytes.
+What bounds it on the card, and the design: see ``csrc/flash_attention.cu``.
+Two variants, chosen on the host from static facts (``launch_geometry``):
+``flash_fwd_wgmma`` for bf16 q/k/v with head_dim 64 or 128 and 16-byte
+aligned bases — 128-row query tiles, TMA-fed K/V ring, q·kᵀ and P·V on the
+bf16 tensor cores (wgmma) with P rounded to bf16; and ``flash_fwd`` for
+every other call (fp32, or bf16 at head_dim 16/32) — 64-row query tiles,
+fp32 FFMA.  At the prefill shape arithmetic bounds both (bf16 tensor-core
+or fp32 rates), at the training shape (64-token sequences) bytes.
 
 The Pallas kernel has no VJP: the reference differentiates attention by
 XLA autodiff outside any kernel.  Here ``FlashAttention`` is a
@@ -32,27 +36,55 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# Kernel launches through this wrapper (one per call that reaches the card).
+# Kernel launches through this wrapper (one per call that reaches the card),
+# in all and by variant.
 launches = 0
+variant_launches = {"flash_fwd": 0, "flash_fwd_wgmma": 0}
 
 BLOCK_Q = BLOCK_K = 64
 THREADS = 256
 HEAD_DIMS = (16, 32, 64, 128)
+# flash_fwd_wgmma (csrc/flash_attention.cu's kWg* constants)
+WG_BLOCK_Q = WG_BLOCK_K = 128
+WG_THREADS = 384                  # two consumer warpgroups + a producer warpgroup
+WG_HEAD_DIMS = (64, 128)
+WG_STAGES = {64: 3, 128: 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int) -> dict:
+def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
+                    dtype=torch.float32, aligned: bool = True) -> dict:
     """Static launch geometry of one call (the counterpart of the Pallas
-    kernel's ``launch_geometry``): grid = (query tiles, H, B), 256 threads,
-    dynamic shared memory for the transposed q tile, one K and one V tile
-    and the probability tile.  Unlike the Pallas kernel, S and Skv need not
-    divide by the tiles: the ragged edge is masked, and the KV tiles are a
-    loop inside the block, so Skv does not enter the grid."""
+    kernel's ``launch_geometry``), and the variant: ``flash_fwd_wgmma`` for
+    bf16 at head_dim 64/128 with q, k and v 16-byte aligned (``aligned``,
+    which TMA needs), else ``flash_fwd``.  grid = (query tiles, H, B).
+    flash_fwd: 64-row tiles, 256 threads, dynamic shared memory for the
+    transposed q tile, one K and one V tile and the probability tile.
+    flash_fwd_wgmma: 128-row tiles, 384 threads, the q tile and a ring of
+    K/V stages of 128 keys in bf16, their barriers and 1 KB of alignment
+    slack.  Unlike the Pallas kernel, S and Skv need not divide by the
+    tiles: the ragged edge is masked (or zero-filled by TMA), and the KV
+    tiles are a loop inside the block, so Skv does not enter the grid."""
     del Skv
+    if dtype == torch.bfloat16 and hd in WG_HEAD_DIMS and aligned:
+        stages = WG_STAGES[hd]
+        smem = WG_BLOCK_Q * hd * 2 + stages * (2 * WG_BLOCK_K * hd * 2 + 24) + 8 + 1024
+        return {"kernel": "flash_fwd_wgmma", "bq": WG_BLOCK_Q, "bk": WG_BLOCK_K,
+                "G": H // KV, "threads": WG_THREADS, "stages": stages,
+                "grid": (math.ceil(S / WG_BLOCK_Q), H, B), "smem_bytes": smem}
     smem_floats = hd * (BLOCK_Q + 4) + BLOCK_K * (hd + 1) + BLOCK_K * hd \
         + BLOCK_K * (BLOCK_Q + 4)
-    return {"bq": BLOCK_Q, "bk": BLOCK_K, "G": H // KV, "threads": THREADS,
-            "grid": (math.ceil(S / BLOCK_Q), H, B), "smem_bytes": 4 * smem_floats}
+    return {"kernel": "flash_fwd", "bq": BLOCK_Q, "bk": BLOCK_K, "G": H // KV,
+            "threads": THREADS, "grid": (math.ceil(S / BLOCK_Q), H, B),
+            "smem_bytes": 4 * smem_floats}
+
+
+def zero_launches() -> None:
+    """Set the launch counters (the total and each variant's) to 0."""
+    global launches
+    launches = 0
+    for name in variant_launches:
+        variant_launches[name] = 0
 
 
 def normalize_window(window):
@@ -97,15 +129,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
     global launches
     lib = _build.load()
     q, k, v = (t.contiguous() for t in (q, k, v))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    geo = launch_geometry(B, S, H, KV, Skv, hd, q.dtype, aligned)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_forward(
-        int(q.dtype == torch.bfloat16), hd, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, H, Skv, KV,
-        int(bool(causal)), -1 if window is None else window, hd ** -0.5, stream)
-    _build.check(err, "flash_attention launch")
+        int(q.dtype == torch.bfloat16), hd, int(geo["kernel"] == "flash_fwd_wgmma"),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S,
+        H, Skv, KV, int(bool(causal)), -1 if window is None else window, hd ** -0.5,
+        stream)
+    _build.check(err, f"flash_attention launch ({geo['kernel']})")
     launches += 1
+    variant_launches[geo["kernel"]] += 1
     return o, lse
 
 

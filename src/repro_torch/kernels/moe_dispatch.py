@@ -8,10 +8,15 @@ segments, fp32 sums, the output in x's dtype.
 
 What bounds it on the card, and the design: see ``csrc/moe_dispatch.cu``.
 Decode (a few rows per expert) is bound by the bytes of the experts the
-rows hit, prefill (hundreds of rows per expert) by fp32 arithmetic; the
-kernel picks an 8-row or a 64-row tile from the static shapes
-(``launch_geometry``).  The segment offsets are computed on the card from
-``group_sizes``: the wrapper never reads them on the host.
+rows hit, fp32 prefill (hundreds of rows per expert) by fp32 arithmetic.
+``launch_geometry`` picks one of three kernels from static facts — dtype,
+alignment and the average rows per group: ``gmm_wgmma`` (bf16 tensor
+cores fed by TMA, 64-row tiles, 128 columns below 16 rows per group, else
+256) for bf16 when Kd, F and every stride are multiples of 8 elements and
+x and w 16-byte aligned; otherwise ``gmm_rows`` (8-row tiles) below 16 rows
+per group and ``gmm_tiles`` (128×128 fp32 FFMA tiles, cp.async ring) above.
+The segment offsets are computed on the card from ``group_sizes``: the
+wrapper never reads them on the host.
 
 ``w`` is ``[G, Kd, F]``, or ``[R, E, Kd, F]`` with the R workers folded
 into G = R·E groups (group g = r·E + e), which is how the MoE layer passes
@@ -30,34 +35,84 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# Kernel launches through this wrapper (one per call that reaches the card).
+# Kernel launches through this wrapper (one per call that reaches the card),
+# in all and by kernel.
 launches = 0
+variant_launches = {"gmm_rows": 0, "gmm_tiles": 0, "gmm_wgmma": 0}
 
 # tile geometry, as csrc/moe_dispatch.cu's constants
 ROWS_BM, ROWS_BN, ROWS_THREADS = 8, 128, 128       # gmm_rows (decode)
-TILE_BM, TILE_BN, TILE_THREADS = 64, 128, 256      # gmm_tiles (prefill)
+TILE_BM, TILE_BN, TILE_THREADS = 128, 128, 256     # gmm_tiles (prefill)
+TILE_STAGES, TILE_BK = 3, 16
+TILE_SMEM = TILE_STAGES * (TILE_BK * (TILE_BM + 4) + TILE_BK * TILE_BN) * 4
+WG_BM, WG_BK, WG_THREADS = 64, 64, 160             # gmm_wgmma (bf16)
+WG_STAGES = {128: 4, 256: 5}                       # by BN
 SCAN_THREADS = 1024
 MAX_GROUPS = 4 * SCAN_THREADS
-# below this many rows per group on average, the 8-row kernel runs
+# below this many rows per group on average, the decode kernels run
 ROWS_PER_GROUP_SMALL = 16
+_KERNEL_IDS = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def launch_geometry(N: int, Kd: int, G: int, F: int) -> dict:
+def wgmma_smem(bn: int) -> int:
+    """gmm_wgmma's dynamic shared memory at BN = ``bn``: the ring of x and w
+    stages, a full and an empty barrier per stage, 1 KB of alignment slack."""
+    return WG_STAGES[bn] * (WG_BM * WG_BK * 2 + WG_BK * bn * 2 + 16) + 1024
+
+
+def launch_geometry(N: int, Kd: int, G: int, F: int, dtype=torch.float32,
+                    tma_ok: bool = True) -> dict:
     """Static launch geometry of one call (the counterpart of the Pallas
     kernel's ``launch_geometry``): which kernel, its row and column tiles,
     and the grid — ``round_up(N, bm)/bm + min(G, N)`` row tiles (the
-    reference's ``grouped_layout`` bound) by ``ceil(F/bn)`` column tiles.
-    Unlike the Pallas kernel, Kd and F need not be padded: the edges are
-    masked, and Kd is a loop inside the block."""
-    del Kd
+    reference's ``grouped_layout`` bound) by ``ceil(F/bn)`` column tiles
+    (the tile kernels launch it flattened and walk it in groups of 8 column
+    tiles).  ``gmm_wgmma`` for bf16 when Kd and F are multiples of 8 and
+    ``tma_ok`` (the strides multiples of 8 elements, x and w 16-byte
+    aligned: ``tma_aligned``); else ``gmm_rows`` below 16 rows per group on
+    average and ``gmm_tiles`` above.  Unlike the Pallas kernel, Kd and F
+    need not be padded: the edges are masked (or zero-filled by TMA), and
+    Kd is a loop inside the block."""
     small = N < ROWS_PER_GROUP_SMALL * G
-    bm, bn, threads = ((ROWS_BM, ROWS_BN, ROWS_THREADS) if small
-                       else (TILE_BM, TILE_BN, TILE_THREADS))
     n = max(N, 1)
-    return {"kernel": "gmm_rows" if small else "gmm_tiles", "small": small,
-            "bm": bm, "bn": bn, "threads": threads,
-            "grid": (-(-n // bm) + min(G, n), -(-F // bn))}
+    if dtype == torch.bfloat16 and tma_ok and Kd % 8 == 0 and F % 8 == 0:
+        bn = 128 if small else 256
+        geo = {"kernel": "gmm_wgmma", "bm": WG_BM, "bn": bn, "threads": WG_THREADS,
+               "stages": WG_STAGES[bn], "smem_bytes": wgmma_smem(bn)}
+    elif small:
+        geo = {"kernel": "gmm_rows", "bm": ROWS_BM, "bn": ROWS_BN,
+               "threads": ROWS_THREADS, "smem_bytes": 0}
+    else:
+        geo = {"kernel": "gmm_tiles", "bm": TILE_BM, "bn": TILE_BN,
+               "threads": TILE_THREADS, "stages": TILE_STAGES, "smem_bytes": TILE_SMEM}
+    geo["grid"] = (-(-n // geo["bm"]) + min(G, n), -(-F // geo["bn"]))
+    return geo
+
+
+def tma_aligned(x, w) -> bool:
+    """Whether TMA can read x and w as gmm_wgmma needs: every stride of w
+    (but the unit one) a multiple of 8 elements and both bases 16-byte
+    aligned (x is contiguous, so its row stride is Kd)."""
+    _, _, s_outer, s_inner, s_k = weight_layout(w)
+    return (all(s % 8 == 0 for s in (s_outer, s_inner, s_k))
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def vec_aligned(w) -> bool:
+    """Whether gmm_tiles may copy fp32 w in 16-byte pieces: F and every
+    stride of w multiples of 4 elements, the base 16-byte aligned."""
+    _, _, s_outer, s_inner, s_k = weight_layout(w)
+    return (all(s % 4 == 0 for s in (w.shape[-1], s_outer, s_inner, s_k))
+            and w.data_ptr() % 16 == 0)
+
+
+def zero_launches() -> None:
+    """Set the launch counters (the total and each kernel's) to 0."""
+    global launches
+    launches = 0
+    for name in variant_launches:
+        variant_launches[name] = 0
 
 
 def weight_layout(w) -> tuple[int, int, int, int, int]:
@@ -112,12 +167,13 @@ def grouped_matmul(x, w, group_sizes):
     x = x.contiguous()
     sizes = group_sizes.to(torch.int32).contiguous()      # on the device
     offs = torch.empty((2 * G + 2,), dtype=torch.int32, device=x.device)
-    geo = launch_geometry(N, Kd, G, F)
+    geo = launch_geometry(N, Kd, G, F, x.dtype, tma_aligned(x, w))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.grouped_matmul(int(x.dtype == torch.bfloat16), int(geo["small"]),
-                             x.data_ptr(), w.data_ptr(), out.data_ptr(),
+    err = lib.grouped_matmul(int(x.dtype == torch.bfloat16), _KERNEL_IDS[geo["kernel"]],
+                             geo["bn"], x.data_ptr(), w.data_ptr(), out.data_ptr(),
                              sizes.data_ptr(), offs.data_ptr(), N, Kd, F, G, e_in,
-                             s_outer, s_inner, s_k, stream)
-    _build.check(err, "grouped_matmul launch")
+                             s_outer, s_inner, s_k, int(vec_aligned(w)), stream)
+    _build.check(err, f"grouped_matmul launch ({geo['kernel']})")
     launches += 1
+    variant_launches[geo["kernel"]] += 1
     return out

@@ -6,8 +6,14 @@ Tolerances:
   * forward vs ``repro.kernels.ref.attention_full`` and vs the Pallas
     kernel (interpret mode): atol 2e-5, rtol 2e-5, the reference's own
     (tests/test_kernels_attention.py:39) — fp32 sums in another order;
-    bf16 (here and on the card): one bf16 ulp of the output (rtol 2^-7)
-    plus atol 1e-4 — both sides compute in fp32 and round once;
+    bf16 (here, and on the card through flash_fwd at head_dim 16/32): one
+    bf16 ulp of the output (rtol 2^-7) plus atol 1e-4 — both sides compute
+    in fp32 and round once;
+  * on the card, bf16 through flash_fwd_wgmma (head_dim 64/128): rtol 2^-7
+    plus atol 2^-9·max|v| + 1e-4 — the kernel rounds each probability to
+    bf16 (relative error ≤ 2^-9) before P·V, as every tensor-core attention
+    does, and the weights sum to 1, so that rounding moves an output by at
+    most 2^-9·max|v|; the final rounding is the one ulp;
   * the log-sum-exp vs ``jax.nn.logsumexp`` of the reference's masked
     scores: atol 2e-5;
   * ``attention_bwd`` vs ``jax.vjp`` of ``ref.attention_full``: atol 5e-5,
@@ -29,6 +35,12 @@ BWD_TOL = {"atol": 5e-5, "rtol": 5e-5}
 # bf16 output: both sides compute in fp32 and round once to bf16, so they
 # may differ by one bf16 ulp (≤ 2^-7 of the value) plus fp32 noise near zero
 BF16_TOL = {"atol": 1e-4, "rtol": 2 ** -7}
+
+
+def wgmma_tol(v) -> dict:
+    """flash_fwd_wgmma's bf16 tolerance (see the module docstring): one ulp
+    of the output plus P's rounding, 2^-9 of the largest |v|."""
+    return {"atol": 2 ** -9 * float(v.float().abs().max()) + 1e-4, "rtol": 2 ** -7}
 
 # the reference's shape table (tests/test_kernels_attention.py:22-28):
 # B, S, H, KV, hd and the Pallas kernel's block_q, block_k
@@ -257,6 +269,37 @@ def test_launch_geometry(B, S, H, KV, Skv, hd, grid, smem):
     assert geo["smem_bytes"] <= 232_448        # a block's shared memory on Hopper
 
 
+@pytest.mark.parametrize("hd,dtype,aligned,kernel", [
+    (64, torch.bfloat16, True, "flash_fwd_wgmma"),     # stablelm
+    (128, torch.bfloat16, True, "flash_fwd_wgmma"),    # qwen, phi3, chatglm, dbrx, arctic
+    (16, torch.bfloat16, True, "flash_fwd"),           # the smoke configs' widths
+    (32, torch.bfloat16, True, "flash_fwd"),
+    (64, torch.bfloat16, False, "flash_fwd"),          # a base TMA cannot read
+    (64, torch.float32, True, "flash_fwd"),
+    (128, torch.float32, True, "flash_fwd"),
+])
+def test_launch_geometry_picks_the_variant(hd, dtype, aligned, kernel):
+    geo = fa.launch_geometry(4, 2048, 32, 8, 2048, hd, dtype, aligned)
+    assert geo["kernel"] == kernel and geo["G"] == 4
+    assert geo["smem_bytes"] <= 232_448
+    if kernel == "flash_fwd_wgmma":
+        assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 128, 384)
+        assert geo["grid"] == (16, 32, 4) and geo["stages"] == fa.WG_STAGES[hd]
+    else:
+        assert geo == fa.launch_geometry(4, 2048, 32, 8, 2048, hd)
+        assert geo["grid"] == (32, 32, 4) and geo["threads"] == 256
+
+
+def test_variant_counters_and_the_cpu_never_counts():
+    assert set(fa.variant_launches) == {"flash_fwd", "flash_fwd_wgmma"}
+    q, k, v = (t.bfloat16() for t in _t(*_qkv(5, 1, 16, 2, 2, 64)))
+    fa.launches, fa.variant_launches["flash_fwd_wgmma"] = 3, 1
+    fa.flash_attention_fwd(q, k, v)
+    assert fa.launches == 3 and fa.variant_launches["flash_fwd_wgmma"] == 1
+    fa.zero_launches()
+    assert fa.launches == 0 and set(fa.variant_launches.values()) == {0}
+
+
 def test_build_knows_both_libraries(tmp_path, monkeypatch):
     """K4's source and the CoDA kernels' source build one library whose
     hash-keyed name changes when either source changes."""
@@ -299,8 +342,35 @@ def test_kernel_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
     want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
                                         return_lse=True)
     assert fa.launches == n0 + 1 and o.dtype == dtype
-    tol = TOL if dtype == torch.float32 else BF16_TOL
+    kernel = fa.launch_geometry(B, S, H, KV, Skv, hd, dtype)["kernel"]
+    tol = (TOL if dtype == torch.float32 else
+           wgmma_tol(v) if kernel == "flash_fwd_wgmma" else BF16_TOL)
     torch.testing.assert_close(o.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+# flash_fwd_wgmma's edges: B, S, H, KV, Skv, hd, causal, window
+WGMMA_SHAPES = [
+    (2, 1000, 4, 4, 1000, 128, True, 256),     # ragged S, window, head_dim 128
+    (2, 1000, 8, 1, 1000, 128, True, None),    # MQA, ragged
+    (3, 64, 4, 2, 64, 64, True, None),         # one warpgroup's rows only (S < 65)
+    (1, 200, 4, 4, 333, 64, False, None),      # Skv != S, both ragged
+    (2, 130, 2, 2, 130, 64, False, 50),        # window without causal
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,causal,window", WGMMA_SHAPES)
+def test_wgmma_variant_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
+                                             window):
+    q, k, v = (t.to(cuda_device, torch.bfloat16)
+               for t in _t(*_qkv(S + hd + 1, B, S, H, KV, hd, Skv)))
+    n0 = fa.variant_launches["flash_fwd_wgmma"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    assert fa.variant_launches["flash_fwd_wgmma"] == n0 + 1
+    torch.testing.assert_close(o.float(), want.float(), **wgmma_tol(v))
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
 
@@ -311,6 +381,9 @@ def test_launch_geometry_matches_the_kernel_on_card(cuda_device, hd):
     kernel asks for."""
     lib = _build.load()
     assert lib.flash_attention_smem_bytes(hd) == fa.launch_geometry(1, 64, 1, 1, 64, hd)["smem_bytes"]
+    if hd in fa.WG_HEAD_DIMS:
+        geo = fa.launch_geometry(1, 64, 1, 1, 64, hd, torch.bfloat16)
+        assert lib.flash_attention_wgmma_smem_bytes(hd) == geo["smem_bytes"]
 
 
 @pytest.mark.cuda

@@ -18,6 +18,8 @@ tests/test_torch_kernels.py``
 (tests/conftest.py imports jax); the reference cases import it through the
 ``jref`` fixture.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,27 @@ def jref():
     from repro.kernels.auc_loss import auc_loss as pallas_auc
     from repro.kernels.prox_update import prox_update as pallas_prox
     return jnp, jax_ref, pallas_auc, pallas_prox
+
+
+def test_library_path_hashes_every_file_under_csrc(tmp_path, monkeypatch):
+    """The hash-keyed library name covers the headers the sources include:
+    an edit to a header alone renames the library (no nvcc needed), and the
+    headers are not compiled as sources."""
+    from repro_torch.kernels import _build
+    for name in ("k.cu", "fa.cu", "moe.cu", "hopper.cuh"):
+        (tmp_path / name).write_text("// one")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    for attr, name in (("SOURCE", "k.cu"), ("ATTN_SOURCE", "fa.cu"), ("MOE_SOURCE", "moe.cu")):
+        monkeypatch.setattr(_build, attr, tmp_path / name)
+    first = _build.library_path()
+    assert tmp_path / "hopper.cuh" in _build.hashed_files()
+    assert tmp_path / "hopper.cuh" not in _build.sources()
+    (tmp_path / "hopper.cuh").write_text("// two")
+    second = _build.library_path()
+    (tmp_path / "extra.cuh").write_text("// new header")
+    assert len({first, second, _build.library_path()}) == 3
+    real = Path(_build.__file__).resolve().parent / "csrc"
+    assert "-I" in _build.NVCC_FLAGS and str(real) in _build.NVCC_FLAGS
 
 
 @pytest.fixture

@@ -19,7 +19,8 @@ Tolerances (fp32; sums taken in another order than the reference's):
     1e-4 (atol 1e-6), parameters atol 1e-4, as for the dense family;
   * on the card, K5 vs its plain version: fp32 atol = rtol = 5e-5 (up to
     d_ff products summed in another order), bf16 one bf16 ulp (rtol 2⁻⁷) +
-    atol 1e-4.
+    atol 1e-4 — every kernel, gmm_wgmma included: bf16 products are exact
+    in the fp32 accumulator and the result is rounded once.
 
 The card cases need no jax: ``PYTHONPATH=src python -m pytest --noconftest
 -q -m cuda tests/test_torch_moe.py``.
@@ -214,9 +215,9 @@ def test_ops_grouped_matmul_dispatch():
 @pytest.mark.parametrize("N,Kd,G,F,kernel,grid", [
     (16, 6144, 16, 10752, "gmm_rows", (18, 84)),       # dbrx decode, gate/up
     (16, 10752, 16, 6144, "gmm_rows", (18, 48)),       # dbrx decode, down
-    (8192, 6144, 16, 10752, "gmm_tiles", (144, 84)),   # dbrx prefill
-    (8, 7168, 128, 4864, "gmm_rows", (9, 38)),         # arctic decode
-    (4096, 7168, 128, 4864, "gmm_tiles", (192, 38)),   # arctic prefill
+    (8192, 6144, 16, 10752, "gmm_tiles", (80, 84)),    # dbrx prefill (128-row tiles)
+    (8, 7168, 128, 4864, "gmm_rows", (9, 38)),         # arctic decode shape, fp32
+    (4096, 7168, 128, 4864, "gmm_tiles", (160, 38)),   # arctic prefill shape, fp32
     (1, 7, 4, 5, "gmm_rows", (2, 1)),
 ])
 def test_launch_geometry(N, Kd, G, F, kernel, grid):
@@ -224,6 +225,57 @@ def test_launch_geometry(N, Kd, G, F, kernel, grid):
     assert geo["kernel"] == kernel and geo["grid"] == grid
     # the grid bound is the reference's grouped_layout bound, in tiles
     assert geo["grid"][0] * geo["bm"] == ref._round_up(N, geo["bm"]) + min(G, N) * geo["bm"]
+
+
+@pytest.mark.parametrize("N,Kd,G,F,dtype,tma_ok,kernel,bn", [
+    # bf16, aligned: the tensor-core kernel, 128 columns below 16 rows per group
+    (8, 7168, 128, 4864, torch.bfloat16, True, "gmm_wgmma", 128),      # arctic decode
+    (4096, 7168, 128, 4864, torch.bfloat16, True, "gmm_wgmma", 256),   # arctic prefill
+    (8192, 6144, 16, 10752, torch.bfloat16, True, "gmm_wgmma", 256),   # dbrx in bf16
+    (1, 6144, 4, 1000, torch.bfloat16, True, "gmm_wgmma", 128),        # N = 1
+    (273, 136, 5, 520, torch.bfloat16, True, "gmm_wgmma", 256),        # aligned ragged
+    # bf16 that TMA cannot read keeps the FFMA kernels
+    (10, 130, 4, 515, torch.bfloat16, True, "gmm_rows", 128),          # Kd, F off 8
+    (273, 96, 4, 300, torch.bfloat16, True, "gmm_tiles", 128),         # F off 8
+    (4096, 7168, 128, 4864, torch.bfloat16, False, "gmm_tiles", 128),  # strides/bases
+    (8, 7168, 128, 4864, torch.bfloat16, False, "gmm_rows", 128),
+    # fp32: FFMA by rows per group
+    (16, 6144, 16, 10752, torch.float32, True, "gmm_rows", 128),
+    (8192, 6144, 16, 10752, torch.float32, True, "gmm_tiles", 128),
+])
+def test_launch_geometry_picks_the_variant(N, Kd, G, F, dtype, tma_ok, kernel, bn):
+    geo = md.launch_geometry(N, Kd, G, F, dtype, tma_ok)
+    assert (geo["kernel"], geo["bn"]) == (kernel, bn)
+    assert geo["grid"] == (-(-N // geo["bm"]) + min(G, N), -(-F // bn))
+    assert geo["smem_bytes"] <= 232_448        # a block's shared memory on Hopper
+    if kernel == "gmm_wgmma":
+        assert geo["bm"] == 64 and geo["threads"] == 160
+        assert geo["smem_bytes"] == md.wgmma_smem(bn) and geo["stages"] == md.WG_STAGES[bn]
+    if kernel == "gmm_tiles":
+        assert (geo["bm"], geo["bn"], geo["threads"]) == (128, 128, 256)
+
+
+def test_tma_and_vec_alignment_are_read_from_the_tensors():
+    w = torch.zeros((2, 3, 16, 24), dtype=torch.bfloat16)
+    x = torch.zeros((5, 16), dtype=torch.bfloat16)
+    assert md.tma_aligned(x, w) and md.tma_aligned(x, w[:, 1])   # strided K-fold slice
+    assert md.tma_aligned(x, w[0])
+    assert not md.tma_aligned(x, w[..., 4:])                     # base 8 bytes in
+    assert not md.tma_aligned(x[:, 4:].contiguous()[1:], w[0])   # x base off 16 bytes
+    assert not md.tma_aligned(x, torch.zeros((2, 16, 20), dtype=torch.bfloat16)[:, :, :12])
+    f = torch.zeros((2, 16, 24))
+    assert md.vec_aligned(f) and md.vec_aligned(f[:, :, :20])
+    assert not md.vec_aligned(f[:, :, :22]) and not md.vec_aligned(f[:, :, 1:21])
+
+
+def test_variant_counters_start_at_zero_and_the_cpu_never_counts():
+    assert set(md.variant_launches) == {"gmm_rows", "gmm_tiles", "gmm_wgmma"}
+    x, w, g = (torch.from_numpy(a) for a in _gmm_inputs(3, [2, 3], Kd=8, F=8))
+    md.launches, md.variant_launches["gmm_wgmma"] = 5, 2
+    md.grouped_matmul(x.bfloat16(), w.bfloat16(), g)
+    assert md.launches == 5 and md.variant_launches["gmm_wgmma"] == 2
+    md.zero_launches()
+    assert md.launches == 0 and set(md.variant_launches.values()) == {0}
 
 
 def test_build_knows_the_moe_source(tmp_path, monkeypatch):
@@ -539,8 +591,16 @@ CARD_CASES = [
     ([10, 0, 0, 0], 64, 128, torch.bfloat16),
     ([1, 2, 3, 4], 33, 1000, torch.float32),
     ([1], 16, 16, torch.float32),                       # N = 1
-    ([70, 0, 200, 3], 96, 300, torch.float32),          # the 64-row tiles
+    ([70, 0, 200, 3], 96, 300, torch.float32),          # the 128-row tiles
     ([70, 0, 200, 3], 96, 300, torch.bfloat16),
+]
+
+# gmm_wgmma (bf16, Kd and F multiples of 8): group sizes, Kd, F
+WGMMA_CASES = [
+    ([70, 0, 200, 3, 0], 136, 520),     # aligned ragged groups, empty groups, Kd off 64
+    ([0, 1, 0, 0], 6144, 1000),         # N = 1, F off the 128/256 column tiles
+    ([130, 5, 0, 64], 64, 256),         # a group across three 64-row tiles
+    ([3, 0, 0, 2] * 8, 256, 512),       # decode: under 16 rows per group
 ]
 
 
@@ -558,6 +618,40 @@ def test_kernel_matches_plain_on_card(cuda_device, gs, Kd, F, dt):
     want = ref.grouped_matmul_ref(x, w, sizes)
     atol, rtol = (5e-5, 5e-5) if dt == torch.float32 else (1e-4, 2 ** -7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs,Kd,F", WGMMA_CASES)
+def test_wgmma_kernel_matches_plain_on_card(cuda_device, gs, Kd, F):
+    g = torch.Generator().manual_seed(sum(gs) + Kd + F)
+    x = torch.randn((sum(gs), Kd), generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn((len(gs), Kd, F), generator=g) * Kd ** -0.5).to(cuda_device, torch.bfloat16)
+    sizes = torch.tensor(gs, dtype=torch.int32, device=cuda_device)
+    before = md.variant_launches["gmm_wgmma"]
+    got = md.grouped_matmul(x, w, sizes)
+    torch.cuda.synchronize()
+    assert md.variant_launches["gmm_wgmma"] == before + 1
+    want = ref.grouped_matmul_ref(x, w, sizes)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,kernel", [(torch.bfloat16, "gmm_wgmma"), (torch.float32, "gmm_tiles")])
+def test_tile_kernels_read_a_strided_k_folded_stack_on_card(cuda_device, dt, kernel):
+    """A [4, 2, 16, 128, 256] stack's layer slice, 4 × 16 groups, through
+    the bf16 TMA maps and the fp32 cp.async tiles (≥ 16 rows per group)."""
+    R, L, E, Kd, F = 4, 2, 16, 128, 256
+    g = torch.Generator().manual_seed(9)
+    stack = (torch.randn((R, L, E, Kd, F), generator=g) * Kd ** -0.5).to(cuda_device, dt)
+    sizes = torch.randint(16, 40, (R * E,), generator=g).to(cuda_device)
+    x = torch.randn((int(sizes.sum()), Kd), generator=g).to(cuda_device, dt)
+    before = md.variant_launches[kernel]
+    got = md.grouped_matmul(x, stack[:, 1], sizes)
+    torch.cuda.synchronize()
+    assert md.variant_launches[kernel] == before + 1
+    atol, rtol = (5e-5, 5e-5) if dt == torch.float32 else (1e-4, 2 ** -7)
+    torch.testing.assert_close(got.float(), ref.grouped_matmul_ref(x, stack[:, 1], sizes).float(),
+                               atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -587,6 +681,7 @@ def test_kernel_tiles_are_the_wrappers_geometry_on_card(cuda_device):
     """The CUDA source's tile constants are the ones ``launch_geometry``
     computes the grid from."""
     import ctypes
-    got = (ctypes.c_int * 5)()
+    got = (ctypes.c_int * 9)()
     _build.load().grouped_matmul_geometry(ctypes.addressof(got))
-    assert list(got) == [md.ROWS_BM, md.ROWS_BN, md.TILE_BM, md.TILE_BN, md.MAX_GROUPS]
+    assert list(got) == [md.ROWS_BM, md.ROWS_BN, md.TILE_BM, md.TILE_BN, md.MAX_GROUPS,
+                         md.TILE_SMEM, md.WG_BM, md.wgmma_smem(128), md.wgmma_smem(256)]
