@@ -33,7 +33,10 @@ last line):
   7. the smoke paths again with ``--device cpu``: each test AUC within 0.01 of
      the card's;
   8. K4 flash_attention against its plain version (``ref.attention_full``)
-     on the card, fp32 within atol 2e-5 + rtol 2e-5, bf16 through
+     on the card, fp32 within atol 2e-5 + rtol 2e-5 (through
+     flash_fwd_tf32x3 at head_dim 64, its max and mean error printed beside
+     SDPA's, its bound 3× the operations at the TF32 rate beside the fp32
+     FFMA bound; through flash_fwd at head_dim 128), bf16 through
      flash_fwd (head_dim 16/32) within one bf16 ulp (rtol 2^-7) + atol
      1e-4, bf16 through flash_fwd_wgmma (head_dim 64/128) within rtol 2^-7
      + atol 2^-9·max|v| + 1e-4 (P rounded to bf16 before P·V) and within
@@ -51,12 +54,13 @@ last line):
      replica, 1,644,369,921 fp32 parameters on the card): ``prefill_step``
      on [B=4, S=2048] tokens with the kernel and with ``impl="ref"``
      (scores, last logits and bf16 caches compared), exactly 24 K4
-     launches per prefill, ms per prefill, tokens/s, peak memory and a
-     profile of one prefill;
+     launches per prefill, all flash_fwd_tf32x3, ms per prefill, tokens/s,
+     peak memory and a profile of one prefill;
  10. stablelm-1.6b CoDA training at full width, depth cut to 2 layers
      (K=4, B=32, S=64, sgd, one stage of 16 local steps) through
      ``train.main`` with exact launch counts of auc_loss, prox_update and
-     flash_attention, and a profiled window; and ``--arch stablelm-1.6b
+     flash_attention (every K4 launch flash_fwd_tf32x3), and a profiled
+     window; and ``--arch stablelm-1.6b
      --smoke`` on the card, its test AUC within 0.01 of the same command
      with ``--device cpu`` (run with the mlp paths' CPU twins);
  11. K5 grouped_matmul against its plain version (``ref.grouped_matmul_ref``)
@@ -113,8 +117,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (operations/s) by card, from NVIDIA's data sheets (SXM part at 700 W).
 CARDS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
-# dense bf16 tensor-core peak (operations/s), the bound for bf16 inputs
+# dense bf16 tensor-core peak (operations/s), the bound for bf16 inputs;
+# the dense TF32 peak is half of it (NVIDIA's data sheet: 495 TFLOP/s on the
+# H100 SXM), the rate of flash_fwd_tf32x3's three products per fp32 product
 BF16_PEAK = {"H100 PCIe": 756e12, "H100 NVL": 835e12, "H100": 989e12, "H200": 989e12}
+TF32_PER_BF16 = 0.5
 AUC_OPS_PER_SCORE = 40      # fp32 operations per score in the auc_loss kernel
 PROX_OPS_PER_ELEMENT = 6    # 3 mul, 1 sub, 1 add, 1 div
 # fp32 operations per element of opt_update: momentum = 1 mul + 1 add + the
@@ -416,7 +423,9 @@ F32, BF16 = torch.float32, torch.bfloat16
 # (label, B, S, H, KV, Skv, hd, causal, window, dtype): stablelm-1.6b's
 # training shape (K·B = 128 sequences of 64 tokens) and prefill shape,
 # qwen2.5-14b's GQA, MQA, cross-shaped and ragged cases; the bf16 cases at
-# head_dim 64/128 run flash_fwd_wgmma
+# head_dim 64/128 run flash_fwd_wgmma, the fp32 cases at head_dim 64
+# flash_fwd_tf32x3 (two heads a block at the training shape), fp32 at 128
+# flash_fwd
 ATTN_CASES = [
     ("stablelm_train", 128, 64, 32, 32, 64, 64, True, None, F32),
     ("stablelm_train_bf16", 128, 64, 32, 32, 64, 64, True, None, BF16),
@@ -500,27 +509,29 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         if not (bool((diff <= atol + rtol * want.float().abs()).all()) and lse_err <= LSE_ATOL):
             raise SystemExit(f"flash_attention {label} disagrees with its plain version: "
                              f"max_abs_err={err} (atol {atol}, rtol {rtol}), lse err {lse_err}")
-        del diff, want
         lib = sdpa_fn(q, k, v, causal, window)
-        vs_sdpa = {}
         if dt == BF16:
             # kernel and SDPA against the fp32 plain version on the same bf16 inputs
             exact = ref.attention_full(q.float(), k.float(), v.float(), **kw)
             de = (o.float() - exact).abs()
             ds = (lib().transpose(1, 2).float() - exact).abs()
-            vs_sdpa = {"max_err_vs_fp32": float(de.max()), "mean_err_vs_fp32": float(de.mean()),
-                       "sdpa_max_err_vs_fp32": float(ds.max()),
-                       "sdpa_mean_err_vs_fp32": float(ds.mean())}
-            del exact, de, ds
-            print(f"flash_attention {label} vs the fp32 plain version: max/mean err "
-                  f"{vs_sdpa['max_err_vs_fp32']:.3g}/{vs_sdpa['mean_err_vs_fp32']:.3g}, SDPA "
-                  f"{vs_sdpa['sdpa_max_err_vs_fp32']:.3g}/{vs_sdpa['sdpa_mean_err_vs_fp32']:.3g}")
-            if variant == "flash_fwd_wgmma" and not (
-                    vs_sdpa["max_err_vs_fp32"] <= ATTN_SDPA_MAX * vs_sdpa["sdpa_max_err_vs_fp32"]
-                    and vs_sdpa["mean_err_vs_fp32"]
-                    <= ATTN_SDPA_MEAN * vs_sdpa["sdpa_mean_err_vs_fp32"]):
-                raise SystemExit(f"flash_attention {label}: error beyond {ATTN_SDPA_MAX}× "
-                                 f"(max) or {ATTN_SDPA_MEAN}× (mean) SDPA's: {vs_sdpa}")
+            del exact
+        else:
+            # fp32: kernel and SDPA against the plain version, all in fp32
+            de, ds = diff, (lib().transpose(1, 2) - want).abs()
+        vs_sdpa = {"max_err_vs_fp32": float(de.max()), "mean_err_vs_fp32": float(de.mean()),
+                   "sdpa_max_err_vs_fp32": float(ds.max()),
+                   "sdpa_mean_err_vs_fp32": float(ds.mean())}
+        del de, ds, diff, want
+        print(f"flash_attention {label} vs the fp32 plain version: max/mean err "
+              f"{vs_sdpa['max_err_vs_fp32']:.3g}/{vs_sdpa['mean_err_vs_fp32']:.3g}, SDPA "
+              f"{vs_sdpa['sdpa_max_err_vs_fp32']:.3g}/{vs_sdpa['sdpa_mean_err_vs_fp32']:.3g}")
+        if variant == "flash_fwd_wgmma" and not (
+                vs_sdpa["max_err_vs_fp32"] <= ATTN_SDPA_MAX * vs_sdpa["sdpa_max_err_vs_fp32"]
+                and vs_sdpa["mean_err_vs_fp32"]
+                <= ATTN_SDPA_MEAN * vs_sdpa["sdpa_mean_err_vs_fp32"]):
+            raise SystemExit(f"flash_attention {label}: error beyond {ATTN_SDPA_MAX}× "
+                             f"(max) or {ATTN_SDPA_MEAN}× (mean) SDPA's: {vs_sdpa}")
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), iters=20)
         dev_ms, dev_src = kernel_device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
                                            "flash_fwd", fa, calls=5)
@@ -531,19 +542,28 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         n_bytes = es * (2 * B * S * H * hd + 2 * B * Skv * KV * hd) + 4 * B * H * S
         n_ops = 4 * B * H * hd * pairs        # q·k and p·v, 2 operations a product
         bnd, by = bound_ms(n_bytes, n_ops, (rates[0], rates[1] if dt == F32 else bf16_rate))
+        tf32 = {}
+        if variant == "flash_fwd_tf32x3":
+            # three tf32 products per fp32 product on the tensor cores; the
+            # fp32 FFMA bound beside it
+            tf32 = {"bound_ffma_ms": bnd, "bound_ffma_by": by}
+            bnd, by = bound_ms(n_bytes, 3 * n_ops, (rates[0], TF32_PER_BF16 * bf16_rate))
         dname = str(dt).replace("torch.", "")
         rows.append({"case": label, "shape": [B, S, H, KV, Skv, hd], "causal": causal,
                      "window": window, "dtype": dname, "kernel": variant, "max_abs_err": err,
                      "lse_max_abs_err": lse_err, "atol": atol, "rtol": rtol, "ms": ms,
                      "device_ms": dev_ms, "device_ms_source": dev_src,
                      "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
-                     "bound_by": by, "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6, **vs_sdpa})
+                     "bound_by": by, **tf32, "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
+                     **vs_sdpa})
         print(f"flash_attention {label} [B={B}, S={S}, H={H}, KV={KV}, Skv={Skv}, hd={hd}] "
               f"{'causal' if causal else 'full'} window={window} {dname} {variant}: "
               f"max_abs_err={err:.3g} (atol {atol:.3g}, rtol {rtol:g}), lse err {lse_err:.3g}; "
               f"kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain {plain:.4f} ms, SDPA "
               f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}: {n_ops / 1e9:.2f} GFLOP, "
-              f"{n_bytes / 1e6:.1f} MB)")
+              f"{n_bytes / 1e6:.1f} MB)"
+              + (f"; 3xTF32 at {TF32_PER_BF16 * bf16_rate / 1e12:.0f} TFLOP/s, fp32 FFMA bound "
+                 f"{tf32['bound_ffma_ms']:.4f} ms ({tf32['bound_ffma_by']})" if tf32 else ""))
         del q, k, v, o, lse, want_lse
     # the backward (plain tensor code over the kernel's saved log-sum-exp) at
     # the training shape, against autograd through the plain version
@@ -844,9 +864,9 @@ def run_prefill(dev, rates) -> dict:
         counts, variants = read_counts(), read_variants()
         want = {"auc_loss": 0, "prox_update": 0, "opt_update": 0,
                 "flash_attention": cfg.n_layers, "grouped_matmul": 0}
-        if counts != want or variants["flash_attention"]["flash_fwd"] != cfg.n_layers:
+        if counts != want or variants["flash_attention"]["flash_fwd_tf32x3"] != cfg.n_layers:
             raise SystemExit(f"stablelm_prefill: launch counts {counts} ({variants}), "
-                             f"expected {want}, all flash_fwd (fp32)")
+                             f"expected {want}, all flash_fwd_tf32x3 (fp32, head_dim 64)")
         times = []
         for _ in range(3):
             t = time.perf_counter()
@@ -1450,6 +1470,10 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     label = "stablelm_train"
     runs[label], counts[label] = run_main_path(f"main path {label}", LM_TRAIN_ARGS,
                                                DENSE_LEAVES, attn_layers=TRAIN_LAYERS)
+    k4 = runs[label]["variant_launches"]["flash_attention"]
+    if k4["flash_fwd_tf32x3"] != counts[label]["flash_attention"]:
+        raise SystemExit(f"main path {label}: K4 variants {k4}, expected every launch "
+                         "flash_fwd_tf32x3 (fp32, head_dim 64)")
     lm_cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
     profile_window(label, lm_cfg, runs[label].pop("state"), dev)
     torch.cuda.empty_cache()
@@ -1548,11 +1572,13 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == variant),
                 "head": head, **{k: h[k] for k in ("ms", "device_ms", "device_ms_source",
                                                    "plain_ms", "bound_ms", "bound_by",
-                                                   "library_ms")}}
+                                                   "library_ms", "bound_ffma_ms")
+                                 if k in h}}
         return out
 
     # flash_attention: headline at stablelm-1.6b's prefill shape in fp32, the
-    # shape where the prefill path spends its attention time
+    # shape where the prefill path spends its attention time (flash_fwd_tf32x3,
+    # so its bound is 3xTF32's)
     h = next(r for r in attn_rows if r["case"] == "stablelm_prefill")
     by_path = {label: c["flash_attention"] for label, c in counts.items()}
     f32_err = max(r["max_abs_err"] for r in attn_rows if r["dtype"] == "float32")
@@ -1575,8 +1601,9 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "kernel_us": h["ms"] * 1e3, "plain_us": h["plain_ms"] * 1e3,
         "bound_us": h["bound_ms"] * 1e3, "shapes": attn_rows, "backward": attn_bwd,
         "variants": variant_rows("flash_attention", attn_rows,
-                                 {"flash_fwd": "stablelm_prefill",
-                                  "flash_fwd_wgmma": "stablelm_prefill_bf16"}),
+                                 {"flash_fwd": "qwen_gqa",
+                                  "flash_fwd_wgmma": "stablelm_prefill_bf16",
+                                  "flash_fwd_tf32x3": "stablelm_prefill"}),
         "prefill": {k: prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
                                             "tokens_per_s", "peak_bytes", "errs")}})
     # grouped_matmul: headline at dbrx-132b's decode gate/up shape in fp32,

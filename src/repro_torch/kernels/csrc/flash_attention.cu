@@ -34,7 +34,7 @@
 // so fp32 arithmetic bounds it (~1.03 ms at 67 TFLOP/s); at the training
 // shape [128, 64, 32, 64] each (b, h) has one tile and bytes bound it.
 // Shared-memory traffic per FFMA is what keeps this simple kernel below
-// the arithmetic bound; wgmma/TMA and bf16 tensor cores are later work.
+// the arithmetic bound; the two variants below take the tensor cores.
 //
 // flash_fwd_wgmma: the variant for bf16 q/k/v with head_dim 64 or 128 (the
 // head_dims of every full-width config), chosen on the host from the dtype
@@ -74,6 +74,59 @@
 // Its numbers differ from flash_fwd's by design: P is rounded to bf16 before
 // P·V, as in every tensor-core attention (SDPA's flash backend included);
 // the error model and tolerance are stated in chip_smoke.py (ATTN_TOL).
+//
+// flash_fwd_tf32x3: the variant for fp32 q/k/v with head_dim 64 (stablelm's,
+// on every fp32 path), chosen on the host from the dtype, head_dim and
+// 16-byte-aligned bases.  flash_fwd is bound by fp32 FFMA (1.03 ms at the
+// prefill shape) and in practice by shared-memory reads per FFMA.  Here
+// q·kᵀ and P·V run on the TF32 tensor cores as split TF32 ("3xTF32"): each
+// fp32 operand x = big + small with big = tf32(x) and small = tf32(x − big)
+// (round to nearest, ties away), and a·b ≈ a_small·b_big + a_big·b_small +
+// a_big·b_big, each product exact, accumulated in fp32.  What is dropped —
+// a_small·b_small and the rounding of the small parts — is at most 3·2^-22
+// of |a·b|, so the result is held to fp32's tolerance.  Its bound at the
+// prefill shape is 3 × 68.7 GFLOP at 495 TFLOP/s = 0.417 ms.  Design:
+//   * flash_fwd_wgmma's block: 128 query rows, two consumer warpgroups of
+//     64 rows and a producer warpgroup (setmaxnreg 40 / 232); when S and Skv
+//     are both ≤ 64 (one K/V tile per head, the training shape) the block
+//     packs two heads instead, one per consumer warpgroup, each with its
+//     own ring stage, so neither warpgroup idles;
+//   * warp 8 of the producer streams 64-key K and V tiles (16 KB each in
+//     fp32) by TMA over 4-D tensor maps into rings of 2 stages; warps 9-11
+//     split each stage in shared memory: K rounded in place to K_big and
+//     K_small written beside it; V (keys × dims, as TMA lands it)
+//     transposed into Vᵀ_big and Vᵀ_small (dims × keys), because tf32
+//     wgmma takes both shared-memory operands K-major only (no transpose
+//     bit) and P·V reduces over keys.  The split runs in the producer's
+//     otherwise idle warps, a stage ahead of the consumers, and costs no
+//     device-memory bytes (a pre-pass kernel would write and read Vᵀ
+//     twice); each splitter fences its stores to the async proxy and
+//     arrives on the stage's ready barrier.  K, V and Vᵀ have separate
+//     rings and barriers, so a K stage is refilled once its q·kᵀ is done;
+//     81 KB a stage, 193 KB in all with q_small;
+//   * q·scale is loaded once per block straight into registers as tf32 A
+//     fragments and split there: q_big stays in registers (32), q_small
+//     goes to a K-major tile in shared memory (an SS operand), which leaves
+//     registers for the per-tile P·V fragment below;
+//   * accuracy: the tensor cores add each product group into the fp32
+//     accumulator with truncation (measured on the card: with O
+//     accumulated by wgmma across the row, the error grew with the number
+//     of KV tiles to 10× fp32 FFMA's, and a 24-layer prefill's logits
+//     drifted past 1e-4).  So the small products are issued before the big
+//     ones, and each tile's P·V goes into a fresh fragment that is added
+//     to O in fp32 registers (round to nearest), folded into the rescale:
+//     O = (O + P_i·V_i)·corr;
+//   * S = q·kᵀ: one chain of 24 m64n64k8 tf32 wgmmas (3 per 8-wide slice)
+//     into one fp32 fragment; the softmax is flash_fwd_wgmma's (log2
+//     units, −1e30 sentinel, ragged S and Skv, causal and window bands);
+//   * O += P·V: P is split in registers.  The f32 accumulator holds keys
+//     2t, 2t + 1 of each 8-key slice on thread t of a quad, while the tf32
+//     A fragment wants columns t and t + 4; P's registers are used as they
+//     are (key 2t as column t, key 2t + 1 as column t + 4) and the
+//     splitters write each 8-key group of a Vᵀ row in the same order (0, 2,
+//     4, 6, 1, 3, 5, 7), so no shuffle or shared-memory trip is needed;
+//   * the pipeline of flash_fwd_wgmma (next tile's q·kᵀ before this tile's
+//     P·V, last tile peeled); o stored in fp32 and lse as flash_fwd's.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
@@ -361,16 +414,17 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[HD / 2], const uint32_t (
   hopper::wgmma_commit();
 }
 
-// the scores of the tile at k0 → scaled to log2 units, masked where the
+// the scores of the BK-key tile at k0 → scaled to log2 units, masked where the
 // mask reaches the tile, the online softmax's m and l updated, the rescale
 // of O in corr and the probabilities (fp32) in sacc; each row lives on the
 // four threads lane & ~3 .. lane | 3
-__device__ __forceinline__ void softmax_tile(float (&sacc)[kWgBK / 2], float (&m)[2], float (&l)[2],
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sacc)[BK / 2], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], int k0, const WgRows& w) {
-  const bool edge = k0 + kWgBK > w.Skv || (w.causal && k0 + kWgBK - 1 > w.qw) ||
+  const bool edge = k0 + BK > w.Skv || (w.causal && k0 + BK - 1 > w.qw) ||
                     (w.window >= 0 && k0 <= w.qw + 63 - w.window);
 #pragma unroll
-  for (int j = 0; j < kWgBK / 8; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = sacc[4 * j + e] * w.scale_log2;
@@ -387,7 +441,7 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[kWgBK / 2], float (&m
   for (int r = 0; r < 2; ++r) {
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kWgBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
       mx = fmaxf(mx, fmaxf(sacc[4 * j + 2 * r], sacc[4 * j + 2 * r + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -395,7 +449,7 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[kWgBK / 2], float (&m
     corr[r] = exp2f(m[r] - m_new);
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kWgBK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
       const float p0 = exp2f(sacc[4 * j + 2 * r] - m_new);
       const float p1 = exp2f(sacc[4 * j + 2 * r + 1] - m_new);
       sacc[4 * j + 2 * r] = p0;
@@ -522,7 +576,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     issue_scores<HD>(sacc, qw_s, ks);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sacc);
-    softmax_tile(sacc, m, l, corr, kv_lo, rows);  // O is 0: corr unused
+    softmax_tile<kWgBK>(sacc, m, l, corr, kv_lo, rows);  // O is 0: corr unused
     pack_p(sacc, pa);
   }
   // every tile but the last: q·kᵀ of the next tile, then P·V of this one
@@ -536,7 +590,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     issue_pv<HD>(oacc, pa, vs + s * kTileBytes);
     hopper::wgmma_wait<1>();  // q·kᵀ of tile i + 1 is done; P·V of tile i may run on
     hopper::fence_regs(sacc);
-    softmax_tile(sacc, m, l, corr, kv_lo + (i + 1) * kWgBK, rows);
+    softmax_tile<kWgBK>(sacc, m, l, corr, kv_lo + (i + 1) * kWgBK, rows);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(oacc);
     hopper::fence_regs(pa);
@@ -614,15 +668,393 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ----------------------------------------------------------- flash_fwd_tf32x3
+constexpr int kTfBQ = 128;                     // query rows per block: two warpgroups of 64
+constexpr int kTfBK = 64;                      // keys per K/V tile
+constexpr int kTfHD = 64;                      // head_dim
+constexpr int kTfThreads = 384;                // warpgroups 0-1 consume, 2 loads and splits
+constexpr int kTfStages = 2;                   // depth of the K, V and Vᵀ rings
+constexpr int kTfSplitters = 96;               // warps 9-11 of the producer warpgroup
+constexpr int kTfTile = kTfBK * kTfHD * 4;     // one fp32 K, V or Vᵀ tile: 16 KB
+constexpr int kTfRegion = kTfTile / 2;         // its two 128-byte-wide regions: 8 KB
+
+__host__ __device__ constexpr int tf_smem_bytes() {
+  // q_small of each consumer warpgroup (64 rows × 64 dims); per stage: K
+  // (rounded in place), K_small, V as loaded, Vᵀ_big, Vᵀ_small and 7
+  // barriers; 1024 bytes of alignment slack
+  return 2 * kTfTile + kTfStages * (5 * kTfTile + 7 * 8) + 1024;
+}
+
+// x → big = tf32(x) and small = tf32(x − big), both rounded to nearest (ties
+// away): big + small is x to 2^-22 of |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = hopper::tf32_rna(x);
+  small = hopper::tf32_rna(x - __uint_as_float(big));
+}
+
+// issue S = q·kᵀ as 3xTF32 over 8 slices of 8 dims into one fp32 fragment
+// (committed, not waited): the small products first (q_small·K_big,
+// q_big·K_small), then q_big·K_big, so the tensor cores' truncating
+// accumulation meets the full-size sum in 8 steps rather than 24.  qs: this
+// warpgroup's q_small in shared memory; kb/ks: the rounded K tile and
+// K_small; all K-major (a 128-byte row of 32 dims, two regions)
+__device__ __forceinline__ void issue_scores_tf32(float (&sacc)[kTfBK / 2],
+                                                  const uint32_t (&qb)[kTfHD / 8][4],
+                                                  const uint8_t* qs, const uint8_t* kb,
+                                                  const uint8_t* ks) {
+  hopper::fence_regs(sacc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTfHD / 8; ++kk) {
+    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+    hopper::wgmma_tf32_ss_n64(sacc, hopper::desc_sw128(qs + off, 0, 1024),
+                              hopper::desc_sw128(kb + off, 0, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTfHD / 8; ++kk) {
+    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+    hopper::wgmma_tf32_rs_n64(sacc, qb[kk], hopper::desc_sw128(ks + off, 0, 1024), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTfHD / 8; ++kk) {
+    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+    hopper::wgmma_tf32_rs_n64(sacc, qb[kk], hopper::desc_sw128(kb + off, 0, 1024), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// issue this tile's P·V as 3xTF32 over 8 slices of 8 keys into a fresh
+// fp32 fragment pv (committed, not waited; the caller has fenced pv and P),
+// small products first; the caller adds pv to O in fp32 (round to nearest),
+// so O's truncating tensor-core accumulation spans one tile, not the row.
+// vb/vs: Vᵀ_big and Vᵀ_small, K-major (a 128-byte row of 32 keys per dim,
+// two regions, keys permuted as split_p's)
+__device__ __forceinline__ void issue_pv_tf32(float (&pv)[kTfHD / 2],
+                                              const uint32_t (&pb)[kTfBK / 8][4],
+                                              const uint32_t (&ps)[kTfBK / 8][4],
+                                              const uint8_t* vb, const uint8_t* vs) {
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+    hopper::wgmma_tf32_rs_n64(pv, ps[kk], hopper::desc_sw128(vb + off, 0, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+    hopper::wgmma_tf32_rs_n64(pv, pb[kk], hopper::desc_sw128(vs + off, 0, 1024), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+    hopper::wgmma_tf32_rs_n64(pv, pb[kk], hopper::desc_sw128(vb + off, 0, 1024), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// P (the probabilities in sacc) split into tf32 A fragments.  The f32
+// accumulator gives this thread keys 8kk + 2t and 8kk + 2t + 1 (t = lane % 4)
+// of its rows r and r + 8; the tf32 A fragment wants columns t and t + 4.  So
+// column t carries key 2t and column t + 4 key 2t + 1, and the Vᵀ rows store
+// each 8-key group in the same order (0, 2, 4, 6, 1, 3, 5, 7): no shuffles.
+__device__ __forceinline__ void split_p(const float (&sacc)[kTfBK / 2], uint32_t (&pb)[kTfBK / 8][4],
+                                        uint32_t (&ps)[kTfBK / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+    split_tf32(sacc[4 * kk], pb[kk][0], ps[kk][0]);      // row r,     key 2t
+    split_tf32(sacc[4 * kk + 2], pb[kk][1], ps[kk][1]);  // row r + 8, key 2t
+    split_tf32(sacc[4 * kk + 1], pb[kk][2], ps[kk][2]);  // row r,     key 2t + 1
+    split_tf32(sacc[4 * kk + 3], pb[kk][3], ps[kk][3]);  // row r + 8, key 2t + 1
+  }
+}
+
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                 const float* __restrict__ q, float* __restrict__ o, float* __restrict__ lse,
+                 int S, int H, int Skv, int KV, int causal, int window, float scale,
+                 int packed) {
+  constexpr int NST = kTfStages, HD = kTfHD;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_smem_1024(smem_raw);
+  uint8_t* qsml = smem;                          // [2 wg][2 regions: 64 rows × 32 dims]
+  uint8_t* kbig = qsml + 2 * kTfTile;            // [NST][2 regions: 64 keys × 32 dims]
+  uint8_t* ksml = kbig + NST * kTfTile;
+  uint8_t* vraw = ksml + NST * kTfTile;          // [NST][2 regions: 64 keys × 32 dims]
+  uint8_t* vtb = vraw + NST * kTfTile;           // [NST][2 regions: 64 dims × 32 keys]
+  uint8_t* vts = vtb + NST * kTfTile;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(vts + NST * kTfTile);  // K landed (TMA)
+  uint64_t* kready = kfull + NST;    // K rounded in place and K_small written
+  uint64_t* kempty = kready + NST;   // the consumers' q·kᵀ has read the K stage
+  uint64_t* vfull = kempty + NST;    // V landed (TMA)
+  uint64_t* vfree = vfull + NST;     // the splitters have read V
+  uint64_t* vtready = vfree + NST;   // Vᵀ_big and Vᵀ_small written
+  uint64_t* vtempty = vtready + NST; // the consumers' P·V has read the Vᵀ stage
+
+  // packed (S, Skv ≤ 64): the block owns heads h0 and h0 + 1, one per
+  // consumer warpgroup, each with one K/V tile in its own stage; else 128
+  // query rows of head h0, the warpgroups sharing the band's K/V tiles
+  const int q0 = packed ? 0 : (gridDim.x - 1 - blockIdx.x) * kTfBQ;  // last tile first
+  const int h0 = packed ? 2 * blockIdx.y : blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  // KV tiles inside the band of this block's rows (pl.when(needed) in Pallas)
+  int kv_hi = causal ? min(Skv, min(S, q0 + kTfBQ)) : Skv;
+  int kv_lo = window >= 0 ? max(0, q0 - window + 1) : 0;
+  kv_lo = (kv_lo / kTfBK) * kTfBK;
+  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kTfBK - 1) / kTfBK : 0;
+  // consumer warpgroups (one whose rows all lie past S, or whose head is past
+  // H, exits) and the tiles the producer loads (packed: one per warpgroup)
+  const int n_wg = packed ? min(2, H - h0) : (q0 + 64 < S ? 2 : 1);
+  const int nloads = packed ? (ntiles > 0 ? n_wg : 0) : ntiles;
+  const int readers = 128 * (packed ? 1 : n_wg);  // consumer threads that read a stage
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&kready[s], kTfSplitters);
+      hopper::mbar_init(&kempty[s], readers);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&vfree[s], kTfSplitters);
+      hopper::mbar_init(&vtready[s], kTfSplitters);
+      hopper::mbar_init(&vtempty[s], readers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: warp 8 loads, warps 9-11 split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      if (lane == 0) {
+        hopper::prefetch_tensormap(&kmap);
+        hopper::prefetch_tensormap(&vmap);
+        for (int i = 0; i < nloads; ++i) {
+          const int s = i % NST;
+          const int k0 = packed ? kv_lo : kv_lo + i * kTfBK, kvh = (h0 + (packed ? i : 0)) / G;
+          if (i >= NST) hopper::mbar_wait(&kempty[s], ((i / NST) - 1) & 1);
+          hopper::mbar_expect_tx(&kfull[s], kTfTile);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            hopper::tma_load_4d(kbig + s * kTfTile + j * kTfRegion, &kmap, &kfull[s], 32 * j, kvh,
+                                k0, b);
+          if (i >= NST) hopper::mbar_wait(&vfree[s], ((i / NST) - 1) & 1);
+          hopper::mbar_expect_tx(&vfull[s], kTfTile);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            hopper::tma_load_4d(vraw + s * kTfTile + j * kTfRegion, &vmap, &vfull[s], 32 * j, kvh,
+                                k0, b);
+        }
+      }
+      return;
+    }
+    // splitters: K → K_big (in place) and K_small, elementwise at the same
+    // offsets; V [keys][dims] → Vᵀ_big and Vᵀ_small [dims][keys], keys
+    // permuted within each group of 8 as split_p pairs them
+    const int sid = threadIdx.x - 9 * 32, sw = sid / 32;
+    // this lane's key within a 32-key region, and its column in a Vᵀ row
+    const int c = (lane & ~7) | ((lane & 1) << 2) | ((lane & 7) >> 1);
+    for (int i = 0; i < nloads; ++i) {
+      const int s = i % NST;
+      const uint32_t ph = (i / NST) & 1;
+      hopper::mbar_wait(&kfull[s], ph);
+      float4* kb4 = reinterpret_cast<float4*>(kbig + s * kTfTile);
+      float4* ks4 = reinterpret_cast<float4*>(ksml + s * kTfTile);
+      for (int e = sid; e < kTfTile / 16; e += kTfSplitters) {
+        const float4 x = kb4[e];
+        uint32_t b0, b1, b2, b3, s0, s1, s2, s3;
+        split_tf32(x.x, b0, s0);
+        split_tf32(x.y, b1, s1);
+        split_tf32(x.z, b2, s2);
+        split_tf32(x.w, b3, s3);
+        kb4[e] = make_float4(__uint_as_float(b0), __uint_as_float(b1), __uint_as_float(b2),
+                             __uint_as_float(b3));
+        ks4[e] = make_float4(__uint_as_float(s0), __uint_as_float(s1), __uint_as_float(s2),
+                             __uint_as_float(s3));
+      }
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&kready[s]);
+
+      hopper::mbar_wait(&vfull[s], ph);
+      if (i >= NST) hopper::mbar_wait(&vtempty[s], ph ^ 1);
+      const uint8_t* vr = vraw + s * kTfTile;
+      float* tb = reinterpret_cast<float*>(vtb + s * kTfTile);
+      float* ts = reinterpret_cast<float*>(vts + s * kTfTile);
+      for (int t = sw; t < 2 * (HD / 4); t += 3) {  // (region kb, dims 4dc .. 4dc + 3)
+        const int kb = t / (HD / 4), dc = t % (HD / 4);
+        const int key = 32 * kb + lane;
+        const float4 x = *reinterpret_cast<const float4*>(
+            vr + (dc / 8) * kTfRegion + key * 128 + (((dc % 8) ^ (key % 8)) << 4));
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = 4 * dc + e;
+          const int off = kb * (kTfRegion / 4) + n * 32 + ((((c >> 2) ^ (n & 7)) << 2) | (c & 3));
+          uint32_t big, small;
+          split_tf32(xs[e], big, small);
+          tb[off] = __uint_as_float(big);
+          ts[off] = __uint_as_float(small);
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&vtready[s]);
+      hopper::mbar_arrive(&vfree[s]);
+    }
+    return;
+  }
+  // consumers take the registers the producer gave back (40 → 232 a thread)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp / 4;
+  if (wg >= n_wg) return;
+
+  // this thread's head and two rows (accumulator layout): 16·(warp % 4) +
+  // lane / 4 (+8); the producer's load j = sb + i holds its tile i
+  const int h = h0 + (packed ? wg : 0), sb = packed ? wg : 0;
+  const int qw = q0 + (packed ? 0 : 64 * wg);
+  const int row0 = qw + 16 * (warp % 4) + lane / 4;
+  const int t4 = lane % 4;
+  const long long q_row = static_cast<long long>(H) * HD;
+  // q·scale split once per block: q_big as tf32 A fragments in registers
+  // (rows row0, row0 + 8; dims 8kk + t4, +4), q_small into this warpgroup's
+  // K-major tile in shared memory (an operand from shared memory, which
+  // leaves registers for the per-tile P·V fragment)
+  uint32_t qb[HD / 8][4];
+  uint8_t* qs_w = qsml + wg * kTfTile;
+  {
+    const float* qr = q + (static_cast<long long>(b) * S + row0) * q_row +
+                      static_cast<long long>(h) * HD + t4;
+    const bool in0 = row0 < S, in1 = row0 + 8 < S;
+    const int rl = row0 - qw;  // the row within the warpgroup's 64
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = (e & 1) ? in1 : in0;
+        const float x = in ? __ldg(qr + (e & 1) * 8 * q_row + 8 * kk + 4 * (e >> 1)) * scale : 0.f;
+        uint32_t small;
+        split_tf32(x, qb[kk][e], small);
+        const int r = rl + 8 * (e & 1), d = 8 * kk + t4 + 4 * (e >> 1);
+        *reinterpret_cast<uint32_t*>(qs_w + (d / 32) * kTfRegion + r * 128 +
+                                     ((((d % 32) >> 2) ^ (r & 7)) << 4) + (d & 3) * 4) = small;
+      }
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1 + wg, 128);
+  }
+  float sacc[kTfBK / 2], oacc[HD / 2], pv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < kTfBK / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = pv[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pb[kTfBK / 8][4], ps[kTfBK / 8][4];
+  const WgRows rows{row0, qw, 2 * t4, Skv, causal, window, kLog2e};  // q holds the scale
+
+  // the pipeline of flash_fwd_wgmma: q·kᵀ of tile i + 1 is issued before P·V
+  // of tile i, and its softmax runs while P·V_i is on the tensor cores
+  if (ntiles > 0) {
+    const int s = sb % NST;
+    hopper::mbar_wait(&kready[s], (sb / NST) & 1);
+    issue_scores_tf32(sacc, qb, qs_w, kbig + s * kTfTile, ksml + s * kTfTile);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    hopper::mbar_arrive(&kempty[s]);
+    softmax_tile<kTfBK>(sacc, m, l, corr, kv_lo, rows);  // O is 0: corr unused
+    split_p(sacc, pb, ps);
+  }
+  for (int i = 0; i + 1 < ntiles; ++i) {  // never packed: there ntiles ≤ 1
+    const int j = sb + i, s = j % NST, s1 = (j + 1) % NST;
+    hopper::mbar_wait(&kready[s1], ((j + 1) / NST) & 1);
+    issue_scores_tf32(sacc, qb, qs_w, kbig + s1 * kTfTile, ksml + s1 * kTfTile);
+    hopper::mbar_wait(&vtready[s], (j / NST) & 1);
+    hopper::fence_regs(pv);
+    hopper::wgmma_fence();
+    issue_pv_tf32(pv, pb, ps, vtb + s * kTfTile, vts + s * kTfTile);
+    hopper::wgmma_wait<1>();  // q·kᵀ of tile i + 1 is done; P·V of tile i may run on
+    hopper::fence_regs(sacc);
+    hopper::mbar_arrive(&kempty[s1]);
+    softmax_tile<kTfBK>(sacc, m, l, corr, kv_lo + (i + 1) * kTfBK, rows);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(pv);
+    hopper::fence_regs(pb);
+    hopper::fence_regs(ps);
+    hopper::mbar_arrive(&vtempty[s]);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {  // O = (O + P_i·V_i) · corr, in fp32
+      oacc[4 * j] = (oacc[4 * j] + pv[4 * j]) * corr[0];
+      oacc[4 * j + 1] = (oacc[4 * j + 1] + pv[4 * j + 1]) * corr[0];
+      oacc[4 * j + 2] = (oacc[4 * j + 2] + pv[4 * j + 2]) * corr[1];
+      oacc[4 * j + 3] = (oacc[4 * j + 3] + pv[4 * j + 3]) * corr[1];
+    }
+    split_p(sacc, pb, ps);
+  }
+  if (ntiles > 0) {  // the last tile's P·V
+    const int j = sb + ntiles - 1, s = j % NST;
+    hopper::mbar_wait(&vtready[s], (j / NST) & 1);
+    hopper::fence_regs(pv);
+    hopper::wgmma_fence();
+    issue_pv_tf32(pv, pb, ps, vtb + s * kTfTile, vts + s * kTfTile);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(pv);
+    hopper::fence_regs(pb);
+    hopper::fence_regs(ps);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] += pv[i];
+  }
+
+  // o = O / max(l, 1e-30) in fp32; lse = m·ln2 + log l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= S) continue;
+    const float li = fmaxf(l[r], 1e-30f);
+    float* orow = o + (static_cast<long long>(b) * S + qp) * q_row +
+                  static_cast<long long>(h) * HD + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(oacc[4 * j + 2 * r] / li, oacc[4 * j + 2 * r + 1] / li);
+    if (t4 == 0) lse[(static_cast<long long>(b) * H + h) * S + qp] = m[r] * kLn2 + logf(li);
+  }
+}
+
+int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                  int H, int Skv, int KV, int causal, int window, float scale,
+                  cudaStream_t stream) {
+  constexpr int bytes = tf_smem_bytes();
+  constexpr uint64_t HD = kTfHD, e = 4;  // bytes per fp32
+  CUtensorMap km, vm;
+  const uint64_t kdims[4] = {HD, static_cast<uint64_t>(KV), static_cast<uint64_t>(Skv),
+                             static_cast<uint64_t>(B)};
+  const uint64_t kstr[3] = {HD * e, static_cast<uint64_t>(KV) * HD * e,
+                            static_cast<uint64_t>(Skv) * KV * HD * e};
+  const uint32_t kbox[4] = {32, 1, kTfBK, 1};
+  int err = hopper::encode_f32_map(&km, k, 4, kdims, kstr, kbox);
+  if (err == 0) err = hopper::encode_f32_map(&vm, v, 4, kdims, kstr, kbox);
+  if (err != 0) return err;
+  static bool attr_set = false;  // once per process
+  if (!attr_set) {
+    const cudaError_t cerr = cudaFuncSetAttribute(
+        flash_fwd_tf32x3, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    attr_set = true;
+  }
+  // one K/V tile per head (S, Skv ≤ 64): two heads per block, one per warpgroup
+  const int packed = S <= kTfBK && Skv <= kTfBK;
+  const dim3 grid = packed ? dim3(1, (H + 1) / 2, B) : dim3((S + kTfBQ - 1) / kTfBQ, H, B);
+  flash_fwd_tf32x3<<<grid, kTfThreads, bytes, stream>>>(
+      km, vm, static_cast<const float*>(q), static_cast<float*>(o), lse, S, H, Skv, KV, causal,
+      window, scale, packed);
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 extern "C" {
 
 // q [B, S, H, hd], k/v [B, Skv, KV, hd], o [B, S, H, hd] (contiguous, one
 // dtype: bf16 = 0 → fp32, 1 → bf16); lse [B, H, S] fp32.  window < 0 means
-// no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.  wgmma = 1 runs
-// flash_fwd_wgmma (bf16, hd 64 or 128, q/k/v 16-byte aligned), 0 flash_fwd.
-int flash_attention_forward(int bf16, int hd, int wgmma, const void* q, const void* k,
+// no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.  variant: 0 flash_fwd,
+// 1 flash_fwd_wgmma (bf16, hd 64 or 128, q/k/v 16-byte aligned), 2
+// flash_fwd_tf32x3 (fp32, hd 64, q/k/v 16-byte aligned).
+int flash_attention_forward(int bf16, int hd, int variant, const void* q, const void* k,
                             const void* v, void* o, float* lse, int B, int S,
                             int H, int Skv, int KV, int causal, int window,
                             float scale, void* stream) {
@@ -630,7 +1062,11 @@ int flash_attention_forward(int bf16, int hd, int wgmma, const void* q, const vo
       B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wgmma) {
+  if (variant == 2) {
+    if (bf16 || hd != kTfHD) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tf32x3(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+  }
+  if (variant == 1) {
     if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
     switch (hd) {
       case 64: return launch_wgmma<64>(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
@@ -638,6 +1074,7 @@ int flash_attention_forward(int bf16, int hd, int wgmma, const void* q, const vo
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return bf16 ? dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s)
               : dispatch_hd<float>(hd, q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
 }
@@ -659,5 +1096,7 @@ int flash_attention_wgmma_smem_bytes(int hd) {
     default: return -1;
   }
 }
+
+int flash_attention_tf32x3_smem_bytes(int hd) { return hd == kTfHD ? tf_smem_bytes() : -1; }
 
 }  // extern "C"

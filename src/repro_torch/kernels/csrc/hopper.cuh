@@ -1,12 +1,17 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu (flash_fwd_wgmma) and moe_dispatch.cu (gmm_wgmma):
+// flash_attention.cu (flash_fwd_wgmma, flash_fwd_tf32x3) and moe_dispatch.cu
+// (gmm_wgmma):
 //
 //   * mbarriers: init, arrive, arrive with expected bytes, parity wait;
 //   * TMA: tile loads (cp.async.bulk.tensor, 2-D to 4-D) into shared memory,
 //     completing on an mbarrier; out-of-range elements of a box are zeros;
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled tiles, fence,
 //     commit and wait, and bf16 m64nNk16 products with fp32 accumulators
-//     (A from shared memory or from registers);
+//     (A from shared memory or from registers); tf32 m64n64k8 products (A
+//     from registers or shared memory) and fp32 → tf32 rounding, for
+//     split-TF32 kernels;
+//   * the proxy fence that makes threads' shared-memory stores visible to
+//     wgmma, and named barriers;
 //   * host: CUtensorMap encoding through cuTensorMapEncodeTiled, reached with
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda at link time.
 //
@@ -21,6 +26,10 @@
 //   * MN-major operand (the output axis contiguous, e.g. v, w): SBO = 1024
 //     bytes (8 reduction rows), LBO = the byte stride from one 64-wide column
 //     region to the next; the k-th 16-row slice starts 2048·k bytes in.
+// In fp32 (tf32 products) a 128-byte row holds 32 elements and a product's
+// depth is 8 (32 bytes), so the K-major rule is unchanged: SBO = 1024, the
+// k-th 8-wide slice of a 32-wide region starts 32·k bytes in.  tf32 has no
+// MN-major form (no transpose bit): both shared-memory operands are K-major.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; no driver library linked)
@@ -144,6 +153,20 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][R]) {
     for (int j = 0; j < R; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// make this thread's shared-memory stores visible to the async proxy (wgmma,
+// TMA); then an mbarrier arrival or a barrier publishes them to other threads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// fp32 → tf32, round to nearest with ties away from zero: an fp32 bit pattern
+// whose low 13 bits are 0, which the tensor cores read exactly
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // two floats → one register of two bf16 (lo in the low half), round to nearest
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -198,6 +221,35 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D[64×64] += A·B in tf32, A in registers (the tf32 A fragment of an
+// m64n64k8 product: thread lane of warp w holds rows 16w + lane/4 (+8) and
+// columns lane%4 (+4) of the 8-wide k slice, as {a0: (r, c), a1: (r + 8, c),
+// a2: (r, c + 4), a3: (r + 8, c + 4)}), B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64×64] += A·B in tf32, A and B K-major in shared memory (descriptors)
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wait at named barrier `id` (1..15; 0 is __syncthreads') for `threads` threads
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // ------------------------------------------------------------------ host side
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -223,11 +275,12 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// a bf16 tensor map of `rank` dims: dims[0] innermost (unit stride),
-// strides[i] the byte stride of dim i + 1 (multiples of 16), boxes of
-// `box`, 128-byte swizzle, zeros out of range.  Returns 0 or a cudaError_t.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+// a tensor map of `rank` dims and element type `type`: dims[0] innermost
+// (unit stride), strides[i] the byte stride of dim i + 1 (multiples of 16),
+// boxes of `box`, 128-byte swizzle, zeros out of range.  Returns 0 or a
+// cudaError_t.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], s[4];
@@ -238,10 +291,22 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const u
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s,
-                        b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), d, s, b, e,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// a bf16 tensor map (inner box of 64 elements = one 128-byte row)
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// an fp32 tensor map (inner box of 32 elements = one 128-byte row)
+inline int encode_f32_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, strides, box);
 }
 
 }  // namespace hopper

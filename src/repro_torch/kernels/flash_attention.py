@@ -10,13 +10,19 @@ skipped, query head h reading KV head ``h // G``.  Output in q's dtype
 ``[B, H, S]``), which the backward reuses.
 
 What bounds it on the card, and the design: see ``csrc/flash_attention.cu``.
-Two variants, chosen on the host from static facts (``launch_geometry``):
+Three variants, chosen on the host from static facts (``launch_geometry``):
 ``flash_fwd_wgmma`` for bf16 q/k/v with head_dim 64 or 128 and 16-byte
 aligned bases — 128-row query tiles, TMA-fed K/V ring, q·kᵀ and P·V on the
-bf16 tensor cores (wgmma) with P rounded to bf16; and ``flash_fwd`` for
-every other call (fp32, or bf16 at head_dim 16/32) — 64-row query tiles,
-fp32 FFMA.  At the prefill shape arithmetic bounds both (bf16 tensor-core
-or fp32 rates), at the training shape (64-token sequences) bytes.
+bf16 tensor cores (wgmma) with P rounded to bf16; ``flash_fwd_tf32x3`` for
+fp32 q/k/v with head_dim 64 and 16-byte aligned bases — the same structure
+with q·kᵀ and P·V as split TF32 (each operand x = big + small, both tf32,
+and big·big + big·small + small·big on the tf32 tensor cores, fp32
+accumulation: each product within 3·2^-22 of its value, held to the plain
+fp32 version at fp32's tolerance); and ``flash_fwd`` for every other call (fp32
+at head_dim 16/32/128, bf16 at 16/32, or an unaligned base) — 64-row query
+tiles, fp32 FFMA.  At the prefill shape arithmetic bounds them (bf16 or
+TF32 tensor-core, or fp32 rates), at the training shape (64-token
+sequences) bytes.
 
 The Pallas kernel has no VJP: the reference differentiates attention by
 XLA autodiff outside any kernel.  Here ``FlashAttention`` is a
@@ -39,7 +45,9 @@ from repro_torch.kernels import _build, ref
 # Kernel launches through this wrapper (one per call that reaches the card),
 # in all and by variant.
 launches = 0
-variant_launches = {"flash_fwd": 0, "flash_fwd_wgmma": 0}
+variant_launches = {"flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_fwd_tf32x3": 0}
+# the C entry point's variant argument
+_VARIANT_ID = {"flash_fwd": 0, "flash_fwd_wgmma": 1, "flash_fwd_tf32x3": 2}
 
 BLOCK_Q = BLOCK_K = 64
 THREADS = 256
@@ -49,29 +57,49 @@ WG_BLOCK_Q = WG_BLOCK_K = 128
 WG_THREADS = 384                  # two consumer warpgroups + a producer warpgroup
 WG_HEAD_DIMS = (64, 128)
 WG_STAGES = {64: 3, 128: 2}
+# flash_fwd_tf32x3 (csrc/flash_attention.cu's kTf* constants)
+TF_BLOCK_Q, TF_BLOCK_K = 128, 64
+TF_THREADS = 384                  # two consumer warpgroups + a load-and-split warpgroup
+TF_HEAD_DIMS = (64,)
+TF_STAGES = 2                     # depth of each of the K, V and Vᵀ rings
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
                     dtype=torch.float32, aligned: bool = True) -> dict:
     """Static launch geometry of one call (the counterpart of the Pallas
-    kernel's ``launch_geometry``), and the variant: ``flash_fwd_wgmma`` for
-    bf16 at head_dim 64/128 with q, k and v 16-byte aligned (``aligned``,
-    which TMA needs), else ``flash_fwd``.  grid = (query tiles, H, B).
+    kernel's ``launch_geometry``), and the variant, from the dtype, head_dim
+    and whether q, k and v are 16-byte aligned (``aligned``, which TMA
+    needs): ``flash_fwd_wgmma`` for bf16 at head_dim 64/128,
+    ``flash_fwd_tf32x3`` for fp32 at head_dim 64, ``flash_fwd`` for every
+    other call.  grid = (query tiles, H, B).
     flash_fwd: 64-row tiles, 256 threads, dynamic shared memory for the
     transposed q tile, one K and one V tile and the probability tile.
     flash_fwd_wgmma: 128-row tiles, 384 threads, the q tile and a ring of
     K/V stages of 128 keys in bf16, their barriers and 1 KB of alignment
-    slack.  Unlike the Pallas kernel, S and Skv need not divide by the
-    tiles: the ragged edge is masked (or zero-filled by TMA), and the KV
-    tiles are a loop inside the block, so Skv does not enter the grid."""
-    del Skv
+    slack.  flash_fwd_tf32x3: 128-row tiles, 384 threads, q_small of the
+    tile and rings of 64-key fp32 stages (q_big lives in registers); when S
+    and Skv are both at most 64 (one K/V tile per head) it packs two heads
+    into a block, one per consumer warpgroup: grid = (1, ceil(H / 2), B).
+    Unlike the Pallas kernel, S and Skv need not divide by the tiles: the
+    ragged edge is masked (or zero-filled by TMA), and the KV tiles are a
+    loop inside the block, so Skv does not enter the grid otherwise."""
     if dtype == torch.bfloat16 and hd in WG_HEAD_DIMS and aligned:
         stages = WG_STAGES[hd]
         smem = WG_BLOCK_Q * hd * 2 + stages * (2 * WG_BLOCK_K * hd * 2 + 24) + 8 + 1024
         return {"kernel": "flash_fwd_wgmma", "bq": WG_BLOCK_Q, "bk": WG_BLOCK_K,
                 "G": H // KV, "threads": WG_THREADS, "stages": stages,
                 "grid": (math.ceil(S / WG_BLOCK_Q), H, B), "smem_bytes": smem}
+    if dtype == torch.float32 and hd in TF_HEAD_DIMS and aligned:
+        # q_small of the 128 rows; per stage five fp32 tiles of 64 keys (K
+        # rounded in place, K_small, V as loaded, Vᵀ_big, Vᵀ_small) and 7
+        # barriers; 1 KB of slack
+        smem = TF_BLOCK_Q * hd * 4 + TF_STAGES * (5 * TF_BLOCK_K * hd * 4 + 7 * 8) + 1024
+        packed = S <= TF_BLOCK_K and Skv <= TF_BLOCK_K
+        grid = (1, math.ceil(H / 2), B) if packed else (math.ceil(S / TF_BLOCK_Q), H, B)
+        return {"kernel": "flash_fwd_tf32x3", "bq": TF_BLOCK_Q, "bk": TF_BLOCK_K,
+                "G": H // KV, "threads": TF_THREADS, "stages": TF_STAGES, "packed": packed,
+                "grid": grid, "smem_bytes": smem}
     smem_floats = hd * (BLOCK_Q + 4) + BLOCK_K * (hd + 1) + BLOCK_K * hd \
         + BLOCK_K * (BLOCK_Q + 4)
     return {"kernel": "flash_fwd", "bq": BLOCK_Q, "bk": BLOCK_K, "G": H // KV,
@@ -135,7 +163,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_forward(
-        int(q.dtype == torch.bfloat16), hd, int(geo["kernel"] == "flash_fwd_wgmma"),
+        int(q.dtype == torch.bfloat16), hd, _VARIANT_ID[geo["kernel"]],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S,
         H, Skv, KV, int(bool(causal)), -1 if window is None else window, hd ** -0.5,
         stream)

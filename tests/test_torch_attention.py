@@ -9,6 +9,9 @@ Tolerances:
     bf16 (here, and on the card through flash_fwd at head_dim 16/32): one
     bf16 ulp of the output (rtol 2^-7) plus atol 1e-4 — both sides compute
     in fp32 and round once;
+  * on the card, fp32 through flash_fwd_tf32x3 (head_dim 64): the same
+    atol 2e-5, rtol 2e-5 — split TF32 drops ~2^-21 of each product, which
+    the CPU emulation below holds to that tolerance before the card does;
   * on the card, bf16 through flash_fwd_wgmma (head_dim 64/128): rtol 2^-7
     plus atol 2^-9·max|v| + 1e-4 — the kernel rounds each probability to
     bf16 (relative error ≤ 2^-9) before P·V, as every tensor-core attention
@@ -256,16 +259,21 @@ def test_wrapper_checks_its_inputs():
         fa.flash_attention_fwd(q, k.double(), v.double())
 
 
-@pytest.mark.parametrize("B,S,H,KV,Skv,hd,grid,smem", [
-    (128, 64, 32, 32, 64, 64, (1, 32, 128), 67_840),      # stablelm training
-    (4, 2048, 32, 32, 2048, 64, (32, 32, 4), 67_840),     # stablelm prefill
-    (1, 2048, 40, 8, 2048, 128, (32, 40, 1), 118_016),    # qwen GQA
-    (1, 1000, 8, 8, 1000, 64, (16, 8, 1), 67_840),        # ragged S
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,kernel,grid,smem", [
+    # stablelm training: one K/V tile per head, two heads per block
+    (128, 64, 32, 32, 64, 64, "flash_fwd_tf32x3", (1, 16, 128), 197_744),
+    (4, 2048, 32, 32, 2048, 64, "flash_fwd_tf32x3", (16, 32, 4), 197_744),  # stablelm prefill
+    (1, 2048, 40, 8, 2048, 128, "flash_fwd", (32, 40, 1), 118_016),     # qwen GQA
+    (1, 1000, 8, 8, 1000, 64, "flash_fwd_tf32x3", (8, 8, 1), 197_744),    # ragged S
+    (2, 64, 5, 5, 64, 64, "flash_fwd_tf32x3", (1, 3, 2), 197_744),        # odd H, packed
+    (2, 64, 4, 4, 65, 64, "flash_fwd_tf32x3", (1, 4, 2), 197_744),        # Skv > 64: unpacked
+    (2, 200, 8, 2, 200, 32, "flash_fwd", (4, 8, 2), 42_752),              # smoke widths
 ])
-def test_launch_geometry(B, S, H, KV, Skv, hd, grid, smem):
+def test_launch_geometry(B, S, H, KV, Skv, hd, kernel, grid, smem):
     geo = fa.launch_geometry(B, S, H, KV, Skv, hd)
+    assert geo["kernel"] == kernel
     assert geo["grid"] == grid and geo["smem_bytes"] == smem
-    assert geo["threads"] == 256 and geo["G"] == H // KV
+    assert geo["threads"] == (256 if kernel == "flash_fwd" else 384) and geo["G"] == H // KV
     assert geo["smem_bytes"] <= 232_448        # a block's shared memory on Hopper
 
 
@@ -275,8 +283,11 @@ def test_launch_geometry(B, S, H, KV, Skv, hd, grid, smem):
     (16, torch.bfloat16, True, "flash_fwd"),           # the smoke configs' widths
     (32, torch.bfloat16, True, "flash_fwd"),
     (64, torch.bfloat16, False, "flash_fwd"),          # a base TMA cannot read
-    (64, torch.float32, True, "flash_fwd"),
+    (64, torch.float32, True, "flash_fwd_tf32x3"),     # stablelm, the fp32 paths
     (128, torch.float32, True, "flash_fwd"),
+    (16, torch.float32, True, "flash_fwd"),
+    (32, torch.float32, True, "flash_fwd"),
+    (64, torch.float32, False, "flash_fwd"),
 ])
 def test_launch_geometry_picks_the_variant(hd, dtype, aligned, kernel):
     geo = fa.launch_geometry(4, 2048, 32, 8, 2048, hd, dtype, aligned)
@@ -285,13 +296,129 @@ def test_launch_geometry_picks_the_variant(hd, dtype, aligned, kernel):
     if kernel == "flash_fwd_wgmma":
         assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 128, 384)
         assert geo["grid"] == (16, 32, 4) and geo["stages"] == fa.WG_STAGES[hd]
+    elif kernel == "flash_fwd_tf32x3":
+        assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 64, 384)
+        assert geo["grid"] == (16, 32, 4) and geo["stages"] == fa.TF_STAGES
+        assert not geo["packed"]
     else:
-        assert geo == fa.launch_geometry(4, 2048, 32, 8, 2048, hd)
+        assert geo == fa.launch_geometry(4, 2048, 32, 8, 2048, hd, aligned=False)
         assert geo["grid"] == (32, 32, 4) and geo["threads"] == 256
 
 
+def test_kernel_constants_are_the_wrappers_geometry():
+    """The tile, thread and stage constants of ``csrc/flash_attention.cu``
+    are the ones ``launch_geometry`` computes grids and shared memory from
+    (read from the source: there is no compiler here)."""
+    import re
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    const = {name: int(val) for name, val in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (const["kBQ"], const["kBK"], const["kThreads"]) == (fa.BLOCK_Q, fa.BLOCK_K, fa.THREADS)
+    assert (const["kWgBQ"], const["kWgBK"], const["kWgThreads"]) == (
+        fa.WG_BLOCK_Q, fa.WG_BLOCK_K, fa.WG_THREADS)
+    assert (const["kTfBQ"], const["kTfBK"], const["kTfThreads"], const["kTfStages"]) == (
+        fa.TF_BLOCK_Q, fa.TF_BLOCK_K, fa.TF_THREADS, fa.TF_STAGES)
+    assert (const["kTfHD"],) == fa.TF_HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# flash_fwd_tf32x3's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → tf32 (10 stored mantissa bits), round to nearest with ties
+    away from zero, by bit ops: ``cvt.rna.tf32.f32``.  Adding half a tf32 ulp
+    to the magnitude bits and clearing the low 13 rounds |x| half away."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """a @ b as the kernel's tensor cores compute it: a_small·b_big +
+    a_big·b_small + a_big·b_big, each product of two tf32 values exact, the
+    sums in ``dtype`` (fp32 as on the card; fp64 isolates the dropped
+    terms from the accumulation's rounding)."""
+    (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+    ab, as_, bb, bs = (t.to(dtype) for t in (ab, as_, bb, bs))
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def attention_3xtf32(q, k, v, causal, window):
+    """Attention with q·kᵀ and P·V as split TF32, the rest (scale, mask,
+    softmax) in fp32, as flash_fwd_tf32x3 computes it (its online softmax
+    rescales by exact powers of the same exponentials)."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qh = (q * hd ** -0.5).reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    kh, vh = k.permute(0, 2, 1, 3)[:, :, None], v.permute(0, 2, 1, 3)[:, :, None]
+    s = mm_3xtf32(qh, kh.transpose(-1, -2))                  # [B, KV, G, S, Skv]
+    valid = ref._mask(torch.arange(S), torch.arange(Skv), causal, window)
+    s = torch.where(valid, s, ref.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = mm_3xtf32(p, vh) / p.sum(-1, keepdim=True)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                                    # tf32's ulp at 1 is 2^-10
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      one + 2.0 ** -11, 3.0, -0.0, 1e-30])
+    want = torch.tensor([one, -one, 1.0, one + 2.0 ** -10, 3.0, -0.0, 0.0])
+    got = tf32_rna(x)
+    assert torch.equal(got[:6], want[:6])
+    assert (tf32_rna(torch.randn(1000)).view(torch.int32) & 0x1FFF).eq(0).all()
+    # a tiny value keeps its exponent: tf32 has fp32's range
+    assert abs(float(got[6]) - 1e-30) <= 2.0 ** -11 * 1e-30
+
+
+def test_3xtf32_dropped_term_is_the_error_model():
+    """x = big + small + e with |small| ≤ 2^-11·|x| and |e| ≤ 2^-22·|x|, so
+    the three products drop big·e_y + e_x·big + small·small (+ smaller):
+    at most 3·2^-22 (+2^-32) of Σ|x·y| in a dot product.  Plain TF32 (one
+    product) drops ~2^-11 — far outside fp32's tolerance."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32) * 3)
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    dropped = (mm_3xtf32(a, b, torch.float64) - exact).abs() / scale
+    assert float(dropped.max()) <= 3 * 2.0 ** -22 + 2.0 ** -32
+    assert float(dropped.mean()) >= 2.0 ** -28                # the term is there
+    one_product = (tf32_rna(a).double() @ tf32_rna(b).double() - exact).abs() / scale
+    assert float(one_product.max()) >= 2.0 ** -14
+    # in fp32 the sums' rounding joins it: still well inside (2e-5, 2e-5)
+    torch.testing.assert_close(mm_3xtf32(a, b), exact.float(), atol=1e-5, rtol=1e-5)
+
+
+# the fp32 head_dim-64 cases of chip_smoke.py's ATTN_CASES, cut to a few
+# heads (B, S, H, KV, Skv, causal, window)
+TF32X3_CASES = [
+    (4, 64, 2, 2, 64, True, None),             # stablelm training
+    (1, 2048, 2, 2, 2048, True, None),         # stablelm prefill
+    (1, 2048, 2, 2, 2048, True, 256),          # window 256
+    (1, 1024, 4, 1, 1024, True, None),         # MQA
+    (1, 512, 2, 2, 2048, False, None),         # non-causal, Skv > S
+    (1, 1000, 2, 2, 1000, True, None),         # ragged S
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,Skv,causal,window", TF32X3_CASES)
+def test_3xtf32_attention_meets_the_fp32_tolerance(B, S, H, KV, Skv, causal, window):
+    """Split TF32 attention holds ``ref.attention_full`` at fp32's own
+    tolerance (atol 2e-5, rtol 2e-5) at the shapes the card checks."""
+    q, k, v = _t(*_qkv(S + Skv + H, B, S, H, KV, 64, Skv))
+    got = attention_3xtf32(q, k, v, causal, window)
+    want = ref.attention_full(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **TOL)
+
+
 def test_variant_counters_and_the_cpu_never_counts():
-    assert set(fa.variant_launches) == {"flash_fwd", "flash_fwd_wgmma"}
+    assert set(fa.variant_launches) == {"flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3"}
     q, k, v = (t.bfloat16() for t in _t(*_qkv(5, 1, 16, 2, 2, 64)))
     fa.launches, fa.variant_launches["flash_fwd_wgmma"] = 3, 1
     fa.flash_attention_fwd(q, k, v)
@@ -314,20 +441,26 @@ def test_build_knows_both_libraries(tmp_path, monkeypatch):
     src.write_text("// two")
     assert len({first, second, _build.library_path()}) == 3
     assert first.name.startswith("libcoda_") and first.suffix == ".so"
-    assert {"coda_error_string", "flash_attention_forward",
-            "flash_attention_smem_bytes"} <= set(_build._SIGNATURES)
+    assert {"coda_error_string", "flash_attention_forward", "flash_attention_smem_bytes",
+            "flash_attention_tf32x3_smem_bytes"} <= set(_build._SIGNATURES)
 
 
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 CARD_SHAPES = [
-    # B, S, H, KV, Skv, hd, causal, window
+    # B, S, H, KV, Skv, hd, causal, window (fp32 at head_dim 64 runs
+    # flash_fwd_tf32x3, packed two heads a block where S, Skv <= 64)
     (3, 64, 4, 4, 64, 64, True, None),
     (2, 200, 8, 2, 200, 32, True, None),       # GQA, ragged
     (1, 1000, 8, 1, 1000, 64, True, 256),      # MQA, window, ragged
     (2, 96, 4, 4, 300, 128, False, None),      # Skv != S
     (2, 130, 2, 2, 130, 16, False, 50),        # window without causal
+    (2, 256, 8, 2, 256, 64, True, None),       # GQA, causal
+    (1, 200, 4, 4, 333, 64, False, None),      # non-causal, Skv > S, both ragged
+    (2, 1000, 4, 4, 1000, 64, True, None),     # ragged S = 1000
+    (2, 64, 5, 5, 64, 64, True, None),         # two heads a block, odd H
+    (2, 48, 6, 1, 40, 64, False, 16),          # packed MQA, window, S > Skv
 ]
 
 
@@ -337,12 +470,13 @@ CARD_SHAPES = [
 def test_kernel_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
                                       window, dtype):
     q, k, v = (t.to(cuda_device, dtype) for t in _t(*_qkv(S + hd, B, S, H, KV, hd, Skv)))
-    n0 = fa.launches
+    kernel = fa.launch_geometry(B, S, H, KV, Skv, hd, dtype)["kernel"]
+    n0, v0 = fa.launches, fa.variant_launches[kernel]
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
                                         return_lse=True)
-    assert fa.launches == n0 + 1 and o.dtype == dtype
-    kernel = fa.launch_geometry(B, S, H, KV, Skv, hd, dtype)["kernel"]
+    assert fa.launches == n0 + 1 and fa.variant_launches[kernel] == v0 + 1
+    assert o.dtype == dtype
     tol = (TOL if dtype == torch.float32 else
            wgmma_tol(v) if kernel == "flash_fwd_wgmma" else BF16_TOL)
     torch.testing.assert_close(o.float(), want.float(), **tol)
@@ -380,10 +514,16 @@ def test_launch_geometry_matches_the_kernel_on_card(cuda_device, hd):
     """The shared memory ``launch_geometry`` reports is what the built
     kernel asks for."""
     lib = _build.load()
-    assert lib.flash_attention_smem_bytes(hd) == fa.launch_geometry(1, 64, 1, 1, 64, hd)["smem_bytes"]
+    geo = fa.launch_geometry(1, 64, 1, 1, 64, hd, aligned=False)
+    assert lib.flash_attention_smem_bytes(hd) == geo["smem_bytes"]
     if hd in fa.WG_HEAD_DIMS:
         geo = fa.launch_geometry(1, 64, 1, 1, 64, hd, torch.bfloat16)
         assert lib.flash_attention_wgmma_smem_bytes(hd) == geo["smem_bytes"]
+    if hd in fa.TF_HEAD_DIMS:
+        geo = fa.launch_geometry(1, 64, 1, 1, 64, hd, torch.float32)
+        assert lib.flash_attention_tf32x3_smem_bytes(hd) == geo["smem_bytes"]
+    else:
+        assert lib.flash_attention_tf32x3_smem_bytes(hd) == -1
 
 
 @pytest.mark.cuda
