@@ -10,8 +10,9 @@ last line):
      and prints the build time and ptxas's register report;
   3. holds each kernel against its plain PyTorch version on the card at the
      main path's shapes (and a few ragged ones), and times kernel and plain
-     version with CUDA events after warm-up: auc_loss within atol 1e-5 +
-     rtol 1e-4, prox_update and opt_update bitwise (opt_update's bf16
+     version with CUDA events after warm-up: auc_loss (one launch a call,
+     bitwise equal from call to call) within atol 1e-5 + rtol 1e-4,
+     prox_update and opt_update bitwise (opt_update's bf16
      stochastic-rounding bits included, and equal to prox_update at
      coef = 0), each with a ResNet50 local step's sweep of 153 launches;
   4. one mlp local step per optimizer (sgd, momentum with a bf16 buffer,
@@ -34,28 +35,33 @@ last line):
      the card's;
   8. K4 flash_attention against its plain version (``ref.attention_full``)
      on the card, fp32 within atol 2e-5 + rtol 2e-5 (through
-     flash_fwd_tf32x3 at head_dim 64, its max and mean error printed beside
-     SDPA's, its bound 3× the operations at the TF32 rate beside the fp32
-     FFMA bound; through flash_fwd at head_dim 128), bf16 through
+     flash_fwd_tf32x3 at head_dim 64 and 128, its max and mean error printed
+     beside SDPA's, its bound 3× the operations at the TF32 rate beside the
+     fp32 FFMA bound; through flash_fwd at head_dim 32), bf16 through
      flash_fwd (head_dim 16/32) within one bf16 ulp (rtol 2^-7) + atol
      1e-4, bf16 through flash_fwd_wgmma (head_dim 64/128) within rtol 2^-7
      + atol 2^-9·max|v| + 1e-4 (P rounded to bf16 before P·V) and within
      2× SDPA's max and 1.5× its mean error against the fp32 plain version,
      at stablelm-1.6b's training shape [128, 64, 32, 64] and prefill shape
      [4, 2048, 32, 64] (causal, and with window 256), qwen2.5-14b's GQA
-     [1, 2048, 40/8, 128], MQA, non-causal S=512 against Skv=2048 and a
-     ragged S=1000 (fp32 and bf16, head_dim 128 in bf16); each routed to
+     [1, 2048, 40/8, 128] (and with window 256), chatglm3-6b's prefill
+     shape [4, 2048, 32/2, 128], dbrx-132b's [2, 1024, 48/8, 128] and its
+     smoke training shape [128, 64, 4/2, 128] (two heads a block), MQA,
+     non-causal S=512 against Skv=2048, a ragged S=1000 (head_dim 64 and
+     128) and a smoke width (head_dim 32, fp32 and bf16); each routed to
      the variant ``launch_geometry`` names (its counter checked), timed
      with CUDA events and the profiler (the profiler's time only when it
      recorded every launch the wrapper counted, else CUDA events, marked)
      beside its bound, the plain version and SDPA; the backward against
      autograd through the plain version at the training shape;
-  9. stablelm-1.6b prefill at full width and full depth (24 layers, one
-     replica, 1,644,369,921 fp32 parameters on the card): ``prefill_step``
-     on [B=4, S=2048] tokens with the kernel and with ``impl="ref"``
-     (scores, last logits and bf16 caches compared), exactly 24 K4
-     launches per prefill, all flash_fwd_tf32x3, ms per prefill, tokens/s,
-     peak memory and a profile of one prefill;
+  9. full-depth fp32 prefills at full width, one replica each:
+     stablelm-1.6b (24 layers, 1,644,369,921 parameters, head_dim 64) and
+     chatglm3-6b (28 layers, 6,243,588,097 parameters, head_dim 128):
+     ``prefill_step`` on [B=4, S=2048] tokens with the kernel and with
+     ``impl="ref"`` (scores, last logits and bf16 caches compared), exactly
+     one K4 launch per layer, all flash_fwd_tf32x3, ms per prefill,
+     tokens/s, peak memory and a profile of one prefill (K4's and the
+     GEMMs' shares);
  10. stablelm-1.6b CoDA training at full width, depth cut to 2 layers
      (K=4, B=32, S=64, sgd, one stage of 16 local steps) through
      ``train.main`` with exact launch counts of auc_loss, prox_update and
@@ -78,6 +84,7 @@ last line):
  12. dbrx-132b at full width with 2 of 40 layers (7,751,337,985 fp32
      parameters, one replica): ``prefill_step`` on [B=2, S=1024] with the
      kernels and with ``impl="ref"`` (2 K4 and 6 K5 launches per prefill,
+     every K4 launch flash_fwd_tf32x3 and every K5 launch gmm_tiles;
      scores, logits and caches compared, a profile with the K5, K4 and
      cuBLAS shares); then the same parameters through ``ServingEngine``
      (4 slots, max_len 64, chunk 8, a batch trace of 8 requests) with
@@ -85,7 +92,8 @@ last line):
      near tie), scores within 1e-4, K5 launches = 3 × 2 × serve steps; ms
      per prefill and decode tick, tokens/s, TTFT and latency, a profiled
      decode tick against K5's bound;
- 13. ``--arch dbrx-132b --smoke`` training (K5 only in eval forwards) and
+ 13. ``--arch dbrx-132b --smoke`` training (K5 only in eval forwards; every
+     K4 launch flash_fwd_tf32x3, two heads a block) and
      ``launch/serve.py --arch dbrx-132b --labeled --metrics sketch`` on the
      card with exact launch counts, against their ``--device cpu`` twins:
      test AUC within 0.01; the printed requests' tokens equal and the served
@@ -237,12 +245,16 @@ def bf16_peak(name: str) -> float:
 
 
 def check_auc_loss(dev, rates, gen):
+    """K1 against its plain version (atol 1e-5 + rtol 1e-4) and bitwise
+    equal from call to call, at the main path's [4, 32], ragged T, T over
+    several blocks and over 32 blocks (the ticket path); one kernel per
+    call (the profiler's count held to the wrapper's)."""
     from repro_torch.kernels import auc_loss as K1
     from repro_torch.kernels import ref
     from repro_torch.kernels.auc_loss import auc_loss
     atol, rtol = 1e-5, 1e-4
     rows = []
-    for K, T in ((1, 7), (4, 100), (4, 513), (4, 32), (8, 4096)):
+    for K, T in ((1, 7), (4, 100), (4, 513), (4, 32), (8, 4096), (2, 65536)):
         h = torch.rand((K, T), generator=gen).to(dev)
         y = (torch.rand((K, T), generator=gen) < 0.71).float().to(dev)
         a, b, al = (torch.randn((K,), generator=gen).mul(0.3).to(dev)
@@ -261,9 +273,10 @@ def check_auc_loss(dev, rates, gen):
         ms = cuda_ms(lambda: auc_loss(h, y, a, b, al, 0.71))
         plain = cuda_ms(lambda: ref.auc_loss_ref(h, y, a, b, al, 0.71))
         dev_ms, dev_src = kernel_device_ms(lambda: auc_loss(h, y, a, b, al, 0.71),
-                                           "auc_loss", K1, kernels_per_launch=2)  # + finish
+                                           "auc_loss", K1)
         bnd, by = bound_ms(12 * K * T + 28 * K, AUC_OPS_PER_SCORE * K * T, rates)
-        rows.append({"shape": [K, T], "max_abs_err": err, "ms": ms,
+        rows.append({"shape": [K, T], "ticket": K1.launch_geometry(K, T)["ticket"],
+                     "max_abs_err": err, "ms": ms,
                      "device_ms": dev_ms, "device_ms_source": dev_src,
                      "plain_ms": plain, "bound_ms": bnd,
                      "bound_by": by})
@@ -422,10 +435,11 @@ def check_opt_update(dev, rates, gen):
 F32, BF16 = torch.float32, torch.bfloat16
 # (label, B, S, H, KV, Skv, hd, causal, window, dtype): stablelm-1.6b's
 # training shape (K·B = 128 sequences of 64 tokens) and prefill shape,
-# qwen2.5-14b's GQA, MQA, cross-shaped and ragged cases; the bf16 cases at
-# head_dim 64/128 run flash_fwd_wgmma, the fp32 cases at head_dim 64
-# flash_fwd_tf32x3 (two heads a block at the training shape), fp32 at 128
-# flash_fwd
+# qwen2.5-14b's GQA, chatglm3-6b's and dbrx-132b's prefill shapes, the dbrx
+# smoke training shape, MQA, cross-shaped, windowed and ragged cases, and a
+# smoke width; the bf16 cases at head_dim 64/128 run flash_fwd_wgmma, the
+# fp32 cases at head_dim 64/128 flash_fwd_tf32x3 (two heads a block where S,
+# Skv <= 64), head_dim 32 flash_fwd
 ATTN_CASES = [
     ("stablelm_train", 128, 64, 32, 32, 64, 64, True, None, F32),
     ("stablelm_train_bf16", 128, 64, 32, 32, 64, 64, True, None, BF16),
@@ -435,11 +449,18 @@ ATTN_CASES = [
     ("stablelm_prefill_window256_bf16", 4, 2048, 32, 32, 2048, 64, True, 256, BF16),
     ("qwen_gqa", 1, 2048, 40, 8, 2048, 128, True, None, F32),
     ("qwen_gqa_bf16", 1, 2048, 40, 8, 2048, 128, True, None, BF16),
+    ("qwen_gqa_window256", 1, 2048, 40, 8, 2048, 128, True, 256, F32),
+    ("chatglm_prefill", 4, 2048, 32, 2, 2048, 128, True, None, F32),
+    ("dbrx_prefill", 2, 1024, 48, 8, 1024, 128, True, None, F32),
+    ("dbrx_smoke_train", 128, 64, 4, 2, 64, 128, True, None, F32),
     ("mqa", 2, 1024, 16, 1, 1024, 64, True, None, F32),
     ("mqa_hd128_bf16", 2, 1024, 16, 1, 1024, 128, True, None, BF16),
     ("noncausal_skv2048", 2, 512, 8, 8, 2048, 64, False, None, F32),
+    ("noncausal_skv2048_hd128", 2, 512, 8, 8, 2048, 128, False, None, F32),
     ("ragged_s1000", 2, 1000, 8, 8, 1000, 64, True, None, F32),
+    ("ragged_s1000_hd128", 2, 1000, 8, 8, 1000, 128, True, None, F32),
     ("ragged_s1000_hd128_bf16", 2, 1000, 8, 8, 1000, 128, True, None, BF16),
+    ("smoke_hd32", 2, 256, 8, 2, 256, 32, True, None, F32),
     ("smoke_hd32_bf16", 2, 256, 8, 2, 256, 32, True, None, BF16),
 ]
 # (atol, rtol): fp32 is the reference's own; bf16 through flash_fwd (head_dim
@@ -690,6 +711,15 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     return out, counts
 
 
+def require_k4_variant(label: str, run: dict, variant: str, why: str) -> None:
+    """Every K4 launch of a main path's run took ``variant`` (so none took
+    another, flash_fwd included)."""
+    k4 = run["variant_launches"]["flash_attention"]
+    if k4[variant] != sum(k4.values()) or not k4[variant]:
+        raise SystemExit(f"main path {label}: K4 variants {k4}, expected every launch "
+                         f"{variant} ({why})")
+
+
 # (label, launcher arguments, the kernel launched once per leaf per step)
 MLP_PATHS = [
     ("mlp", [], "prox_update"),
@@ -819,26 +849,64 @@ def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
     return out
 
 
-PREFILL_B, PREFILL_S = 4, 2048
-PREFILL_PARAMS = 1_644_369_921
-# prefill with the kernel vs impl="ref" on the card, 24 layers deep in fp32:
-# sigmoid scores, O(1) last-position logits, and the bf16 caches (one bf16
-# ulp, 2⁻⁷ relative, on top of the fp32 noise)
+# prefill with the kernels vs impl="ref" on the card, in fp32 through every
+# layer: sigmoid scores, O(1) last-position logits, and the bf16 caches (one
+# bf16 ulp, 2⁻⁷ relative, on top of the fp32 noise)
 PREFILL_TOL = {"scores": 1e-5, "logits": 1e-4, "cache_rtol": 2 ** -7, "cache_atol": 1e-4}
 
 
-def run_prefill(dev, rates) -> dict:
-    """stablelm-1.6b at full width and depth, one replica: ``prefill_step``
-    on [B=4, S=2048] tokens with the kernels (exactly one K4 launch per
-    layer) and with ``impl="ref"``, compared; ms per prefill, tokens/s,
-    peak memory, and one profiled prefill."""
+# the variants every fp32 prefill launch must take: K4 at head_dim 64/128,
+# K5 at ~512 rows per expert
+PREFILL_K4, PREFILL_K5 = "flash_fwd_tf32x3", "gmm_tiles"
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPath:
+    """A model's ``prefill_step`` at full width on one replica (K = 1): the
+    configuration (``n_layers`` cuts its depth; None keeps it), its parameter
+    count, the [B, S] token batch, and how both were cut (printed as
+    ``reduced:``)."""
+    label: str
+    arch: str
+    n_params: int
+    B: int
+    S: int
+    reduced: str
+    n_layers: int | None = None
+
+
+PREFILL_32K = "prefill_32k [B=32, S=32768] cut to [B={B}, S={S}]"
+STABLELM_PREFILL = PrefillPath(
+    "stablelm_prefill", "stablelm-1.6b", 1_644_369_921, 4, 2048,
+    PREFILL_32K + ", one replica (K=1); full width and depth (24 layers)")
+CHATGLM_PREFILL = PrefillPath(
+    "chatglm_prefill", "chatglm3-6b", 6_243_588_097, 4, 2048,
+    PREFILL_32K + ", one replica (K=1); full width and depth (28 layers: d=4096, 32/2 "
+    "heads of 128, d_ff 13696, vocab 65,024, half-rotary 2-d RoPE, qkv bias)")
+DBRX_LAYERS = 2
+DBRX_PREFILL = PrefillPath(
+    "dbrx_prefill", "dbrx-132b", 7_751_337_985, 2, 1024,
+    f"{DBRX_LAYERS} of 40 layers (full width: d=6144, 48/8 heads of 128, 16 experts top-4, "
+    "d_ff 10752, vocab 100,352), one replica (K=1); " + PREFILL_32K,
+    n_layers=DBRX_LAYERS)
+
+
+def run_prefill(dev, path: PrefillPath):
+    """``prefill_step`` of ``path`` with the kernels (every counter set to 0
+    just before one prefill and read just after: one K4 launch per layer,
+    three K5 launches per moe layer, all of PREFILL_K4 and PREFILL_K5)
+    and with ``impl="ref"``, compared under PREFILL_TOL; ms per prefill,
+    tokens/s, peak memory, and one profiled prefill with the K4, K5 and
+    cuBLAS GEMM shares.  Returns (the record, cfg, params): the serving
+    phase reuses dbrx's parameters."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = get_config("stablelm-1.6b")
-    print(f"stablelm_prefill: reduced: prefill_32k [B=32, S=32768] cut to [B={PREFILL_B}, "
-          f"S={PREFILL_S}], one replica (K=1); full width and depth ({cfg.n_layers} layers)")
+    label, B, S = path.label, path.B, path.S
+    cfg = get_config(path.arch)
+    if path.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=path.n_layers)
+    print(f"{label}: reduced: {path.reduced.format(B=B, S=S)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -846,15 +914,15 @@ def run_prefill(dev, rates) -> dict:
                            device=dev)
     torch.cuda.synchronize()
     n = sum(l.numel() for l in tree_leaves(params))
-    print(f"stablelm_prefill: init_params on the card in {time.perf_counter() - t0:.2f} s: "
+    print(f"{label}: init_params on the card in {time.perf_counter() - t0:.2f} s: "
           f"{n:,} fp32 parameters ({4 * n / 1e9:.2f} GB) in {len(tree_leaves(params))} leaves")
-    if n != PREFILL_PARAMS:
-        raise SystemExit(f"stablelm_prefill: {n:,} parameters, expected {PREFILL_PARAMS:,}")
+    if n != path.n_params:
+        raise SystemExit(f"{label}: {n:,} parameters, expected {path.n_params:,}")
     params = tree_map(lambda x: x[None], params)               # K = 1 (views)
     g = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_B, PREFILL_S),
-                                     generator=g, device=dev)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, B, S), generator=g, device=dev)}
     prefill = lambda impl="auto": M.prefill_step(cfg, params, batch, impl=impl)
+    moe_layers = cfg.n_layers if cfg.family == "moe" else 0
     with torch.no_grad():
         prefill()                                               # warm-up
         torch.cuda.synchronize()
@@ -862,11 +930,13 @@ def run_prefill(dev, rates) -> dict:
         s, logits, (kc, vc) = prefill()
         torch.cuda.synchronize()
         counts, variants = read_counts(), read_variants()
-        want = {"auc_loss": 0, "prox_update": 0, "opt_update": 0,
-                "flash_attention": cfg.n_layers, "grouped_matmul": 0}
-        if counts != want or variants["flash_attention"]["flash_fwd_tf32x3"] != cfg.n_layers:
-            raise SystemExit(f"stablelm_prefill: launch counts {counts} ({variants}), "
-                             f"expected {want}, all flash_fwd_tf32x3 (fp32, head_dim 64)")
+        want = dict.fromkeys(counts, 0) | {"flash_attention": cfg.n_layers,
+                                           "grouped_matmul": 3 * moe_layers}
+        k4, k5 = variants["flash_attention"], variants["grouped_matmul"]
+        if (counts != want or k4[PREFILL_K4] != cfg.n_layers
+                or k5[PREFILL_K5] != 3 * moe_layers):
+            raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
+                             f"every K4 launch {PREFILL_K4}, every K5 launch {PREFILL_K5}")
         times = []
         for _ in range(3):
             t = time.perf_counter()
@@ -891,12 +961,12 @@ def run_prefill(dev, rates) -> dict:
                              + PREFILL_TOL["cache_rtol"] * b.float().abs()).all())
                        for a, b in ((kc, rk), (vc, rv)))
         finite = all(bool(torch.isfinite(t.float()).all()) for t in (s, logits, kc, vc))
-        shapes_ok = (tuple(s.shape) == (1, PREFILL_B)
-                     and tuple(logits.shape) == (1, PREFILL_B, cfg.vocab_size)
-                     and tuple(kc.shape) == (1, cfg.n_layers, PREFILL_B, PREFILL_S,
-                                             cfg.n_kv_heads, cfg.head_dim)
+        shapes_ok = (tuple(s.shape) == (1, B)
+                     and tuple(logits.shape) == (1, B, cfg.vocab_size)
+                     and tuple(kc.shape) == (1, cfg.n_layers, B, S, cfg.n_kv_heads,
+                                             cfg.head_dim)
                      and kc.dtype == vc.dtype == torch.bfloat16)
-        print(f"stablelm_prefill: kernels vs impl='ref' on the card: scores max_abs_err "
+        print(f"{label}: kernels vs impl='ref' on the card: scores max_abs_err "
               f"{errs['scores']:.3g} (atol {PREFILL_TOL['scores']}), last logits "
               f"{errs['logits']:.3g} (atol {PREFILL_TOL['logits']}), bf16 caches k "
               f"{errs['k_cache']:.3g} v {errs['v_cache']:.3g} (rtol 2^-7 + atol "
@@ -904,34 +974,33 @@ def run_prefill(dev, rates) -> dict:
               f"finite {finite}")
         if not (finite and shapes_ok and cache_ok and errs["scores"] <= PREFILL_TOL["scores"]
                 and errs["logits"] <= PREFILL_TOL["logits"]):
-            raise SystemExit("stablelm_prefill: the prefill with kernels disagrees with "
-                             "impl='ref'")
+            raise SystemExit(f"{label}: the prefill with kernels disagrees with impl='ref'")
         del rs, rlogits, rk, rv
         wall, busy, per = device_profile(prefill)
     total = sum(per.values())
-    k4 = sum(v for k, v in per.items() if KERNEL_TAGS["flash_attention"] in k)
-    gemm = sum(v for k, v in per.items() if "gemm" in k.lower())
+    share = {name: sum(v for k, v in per.items() if tag in k.lower())
+             for name, tag in (("flash_attention", KERNEL_TAGS["flash_attention"]),
+                               ("grouped_matmul", KERNEL_TAGS["grouped_matmul"]),
+                               ("cublas_gemm", "gemm"))}
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
-    tokens = PREFILL_B * PREFILL_S
-    out = {"path": "stablelm_prefill", "ms_per_prefill": ms, "ms_runs": times,
+    tokens = B * S
+    out = {"path": label, "ms_per_prefill": ms, "ms_runs": times,
            "ref_ms_per_prefill": sorted(ref_ms)[0], "tokens_per_s": tokens / ms * 1e3,
            "peak_bytes": peak, "launches": counts, "variant_launches": variants, "errs": errs,
            "profile": {"wall_ms": wall, "device_busy_ms": busy, "kernel_sum_ms": total,
-                       "idle_share": 1.0 - busy / wall, "flash_attention_ms": k4,
-                       "gemm_ms": gemm, "flash_attention_share": k4 / total,
-                       "gemm_share": gemm / total,
+                       "idle_share": 1.0 - busy / wall,
+                       **{f"{k}_ms": v for k, v in share.items()},
+                       **{f"{k}_share": v / total for k, v in share.items()},
                        "top_kernels_ms": {k[:90]: v for k, v in top}}}
-    print(f"stablelm_prefill: {ms:.2f} ms per prefill (median of {times}), "
+    print(f"{label}: {ms:.2f} ms per prefill (median of {[round(t, 2) for t in times]}), "
           f"{tokens / ms * 1e3:,.0f} tokens/s, impl='ref' {sorted(ref_ms)[0]:.2f} ms; "
           f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
-    print(f"profile stablelm_prefill: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
-          f"share {1.0 - busy / wall:.3f}), kernel time {total:.2f} ms: flash_attention "
-          f"{k4:.2f} ms ({100 * k4 / total:.1f} %, {cfg.n_layers} launches), GEMMs "
-          f"{gemm:.2f} ms ({100 * gemm / total:.1f} %)")
-    print(json.dumps({"profile": out["profile"] | {"path": "stablelm_prefill"}}))
-    del params, batch, s, logits, kc, vc
-    torch.cuda.empty_cache()
-    return out
+    print(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share "
+          f"{1.0 - busy / wall:.3f}), kernel time {total:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)" for k, v in share.items()))
+    print(json.dumps({"profile": out["profile"] | {"path": label}}))
+    del batch, s, logits, kc, vc
+    return out, cfg, params
 
 
 # --------------------------------------------------------------------------
@@ -1095,11 +1164,6 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     return rows
 
 
-DBRX_LAYERS = 2
-DBRX_PARAMS = 7_751_337_985
-DBRX_B, DBRX_S = 2, 1024
-# prefill with the kernels vs impl="ref" on the card, 2 layers in fp32
-DBRX_TOL = {"scores": 1e-5, "logits": 1e-4, "cache_rtol": 2 ** -7, "cache_atol": 1e-4}
 SERVE_KW = dict(slots=4, max_len=64, prefill_chunk=8)
 SERVE_TRACE = dict(kind="batch", n_requests=8, prompt_len=(8, 33), max_new=(8, 9), seed=0)
 SERVE_SCORE_ATOL = 1e-4          # score-head logits after 2 fp32 layers
@@ -1112,116 +1176,6 @@ def read_variants() -> dict:
     from repro_torch.launch import train
     return {k: dict(mod.variant_launches) for k, mod in train.KERNELS.items()
             if hasattr(mod, "variant_launches")}
-
-
-def run_dbrx_prefill(dev):
-    """dbrx-132b at full width, depth cut to 2 of 40 layers, one replica:
-    ``prefill_step`` on [B=2, S=1024] tokens with the kernels (2 K4 and 6
-    K5 launches per prefill) and with ``impl="ref"``, compared; ms per
-    prefill, tokens/s, peak memory, and a profiled prefill.  Returns (the
-    record, cfg, params): the serving phase reuses the parameters."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.tree import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=DBRX_LAYERS)
-    print(f"dbrx_prefill: reduced: {DBRX_LAYERS} of 40 layers (full width: d=6144, 48/8 "
-          "heads of 128, 16 experts top-4, d_ff 10752, vocab 100,352), one replica (K=1); "
-          f"prefill_32k [B=32, S=32768] cut to [B={DBRX_B}, S={DBRX_S}]")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
-    torch.cuda.synchronize()
-    n = sum(l.numel() for l in tree_leaves(params))
-    print(f"dbrx_prefill: init_params on the card in {time.perf_counter() - t0:.2f} s: "
-          f"{n:,} fp32 parameters ({4 * n / 1e9:.2f} GB) in {len(tree_leaves(params))} leaves")
-    if n != DBRX_PARAMS:
-        raise SystemExit(f"dbrx_prefill: {n:,} parameters, expected {DBRX_PARAMS:,}")
-    params = tree_map(lambda x: x[None], params)               # K = 1 (views)
-    gt = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, DBRX_B, DBRX_S), generator=gt,
-                                     device=dev)}
-    prefill = lambda impl="auto": M.prefill_step(cfg, params, batch, impl=impl)
-    with torch.no_grad():
-        prefill()                                               # warm-up
-        torch.cuda.synchronize()
-        zero_counts()
-        s, logits, (kc, vc) = prefill()
-        torch.cuda.synchronize()
-        counts, variants = read_counts(), read_variants()
-        want = dict.fromkeys(counts, 0) | {"flash_attention": DBRX_LAYERS,
-                                           "grouped_matmul": 3 * DBRX_LAYERS}
-        # fp32 at ~512 rows per expert: every K5 call is the 128×128 FFMA tile
-        if counts != want or variants["grouped_matmul"]["gmm_tiles"] != 3 * DBRX_LAYERS:
-            raise SystemExit(f"dbrx_prefill: launch counts {counts} ({variants}), expected "
-                             f"{want}, every K5 launch gmm_tiles")
-        times = []
-        for _ in range(3):
-            t = time.perf_counter()
-            prefill()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        ms = sorted(times)[1]
-        rs, rlogits, (rk, rv) = prefill("ref")
-        torch.cuda.synchronize()
-        ref_ms = []
-        for _ in range(2):
-            t = time.perf_counter()
-            prefill("ref")
-            torch.cuda.synchronize()
-            ref_ms.append((time.perf_counter() - t) * 1e3)
-        peak = torch.cuda.max_memory_allocated()
-        errs = {"scores": float((s - rs).abs().max()),
-                "logits": float((logits - rlogits).abs().max()),
-                "k_cache": float((kc.float() - rk.float()).abs().max()),
-                "v_cache": float((vc.float() - rv.float()).abs().max())}
-        cache_ok = all(bool(((a.float() - b.float()).abs() <= DBRX_TOL["cache_atol"]
-                             + DBRX_TOL["cache_rtol"] * b.float().abs()).all())
-                       for a, b in ((kc, rk), (vc, rv)))
-        finite = all(bool(torch.isfinite(t.float()).all()) for t in (s, logits, kc, vc))
-        shapes_ok = (tuple(s.shape) == (1, DBRX_B)
-                     and tuple(logits.shape) == (1, DBRX_B, cfg.vocab_size)
-                     and tuple(kc.shape) == (1, DBRX_LAYERS, DBRX_B, DBRX_S, cfg.n_kv_heads,
-                                             cfg.head_dim)
-                     and kc.dtype == vc.dtype == torch.bfloat16)
-        print(f"dbrx_prefill: kernels vs impl='ref' on the card: scores max_abs_err "
-              f"{errs['scores']:.3g} (atol {DBRX_TOL['scores']}), last logits "
-              f"{errs['logits']:.3g} (atol {DBRX_TOL['logits']}), bf16 caches k "
-              f"{errs['k_cache']:.3g} v {errs['v_cache']:.3g} (rtol 2^-7 + atol "
-              f"{DBRX_TOL['cache_atol']}); shapes {'ok' if shapes_ok else 'WRONG'}, "
-              f"finite {finite}")
-        if not (finite and shapes_ok and cache_ok and errs["scores"] <= DBRX_TOL["scores"]
-                and errs["logits"] <= DBRX_TOL["logits"]):
-            raise SystemExit("dbrx_prefill: the prefill with kernels disagrees with "
-                             "impl='ref'")
-        del rs, rlogits, rk, rv
-        wall, busy, per = device_profile(prefill)
-    total = sum(per.values())
-    k5 = sum(v for k, v in per.items() if "gmm_" in k)
-    k4 = sum(v for k, v in per.items() if "flash_fwd" in k)
-    gemm = sum(v for k, v in per.items() if "gemm" in k.lower())
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
-    tokens = DBRX_B * DBRX_S
-    out = {"path": "dbrx_prefill", "ms_per_prefill": ms, "ms_runs": times,
-           "ref_ms_per_prefill": sorted(ref_ms)[0], "tokens_per_s": tokens / ms * 1e3,
-           "peak_bytes": peak, "launches": counts, "variant_launches": variants, "errs": errs,
-           "profile": {"wall_ms": wall, "device_busy_ms": busy, "kernel_sum_ms": total,
-                       "idle_share": 1.0 - busy / wall, "grouped_matmul_ms": k5,
-                       "flash_attention_ms": k4, "cublas_gemm_ms": gemm,
-                       "grouped_matmul_share": k5 / total,
-                       "flash_attention_share": k4 / total, "cublas_share": gemm / total,
-                       "top_kernels_ms": {k[:90]: v for k, v in top}}}
-    print(f"dbrx_prefill: {ms:.2f} ms per prefill (median of "
-          f"{[round(t, 2) for t in times]}), {tokens / ms * 1e3:,.0f} tokens/s, impl='ref' "
-          f"{sorted(ref_ms)[0]:.2f} ms; peak memory {peak / 2**30:.2f} GiB; launches {counts}")
-    print(f"profile dbrx_prefill: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share "
-          f"{1.0 - busy / wall:.3f}), kernel time {total:.2f} ms: grouped_matmul {k5:.2f} ms "
-          f"({100 * k5 / total:.1f} %), flash_attention {k4:.2f} ms ({100 * k4 / total:.1f} "
-          f"%), cuBLAS GEMMs {gemm:.2f} ms ({100 * gemm / total:.1f} %)")
-    print(json.dumps({"profile": out["profile"] | {"path": "dbrx_prefill"}}))
-    del batch, s, logits, kc, vc
-    return out, cfg, params
 
 
 def _top2_gap(cfg, params, prompt, generated, j) -> float:
@@ -1409,7 +1363,7 @@ def main() -> int:
     disable_tf32()
 
     t0 = time.perf_counter()
-    lib = _build.build(verbose=True)        # one nvcc, both sources
+    lib = _build.build(verbose=True)        # one nvcc per source, then the link
     print(f"build: {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -1460,20 +1414,23 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     for label, _, _ in RN_PATHS:
         runs[label].pop("state")                 # free the card for stablelm
 
-    # stablelm-1.6b: prefill at full width and depth; CoDA training at full
-    # width, 2 layers; the smoke config (its CPU twin runs in the background)
-    prefill = run_prefill(dev, rates)
-    counts["stablelm_prefill"] = prefill["launches"]
+    # full-depth fp32 prefills: stablelm-1.6b (head_dim 64) and chatglm3-6b
+    # (head_dim 128), every K4 launch flash_fwd_tf32x3
+    prefills = {}
+    for path in (STABLELM_PREFILL, CHATGLM_PREFILL):
+        prefills[path.label], _, params = run_prefill(dev, path)
+        counts[path.label] = prefills[path.label]["launches"]
+        del params
+        torch.cuda.empty_cache()
+    # stablelm-1.6b CoDA training at full width, 2 layers; the smoke config
+    # (its CPU twin runs in the background)
     print(f"main path stablelm_train: reduced: {TRAIN_LAYERS} of 24 layers (full width "
           "d=2048, 32 heads, d_ff 5632, vocab 100,352), K=4, B=32, S=64, one stage of 16 "
           "local steps")
     label = "stablelm_train"
     runs[label], counts[label] = run_main_path(f"main path {label}", LM_TRAIN_ARGS,
                                                DENSE_LEAVES, attn_layers=TRAIN_LAYERS)
-    k4 = runs[label]["variant_launches"]["flash_attention"]
-    if k4["flash_fwd_tf32x3"] != counts[label]["flash_attention"]:
-        raise SystemExit(f"main path {label}: K4 variants {k4}, expected every launch "
-                         "flash_fwd_tf32x3 (fp32, head_dim 64)")
+    require_k4_variant(label, runs[label], "flash_fwd_tf32x3", "fp32, head_dim 64")
     lm_cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
     profile_window(label, lm_cfg, runs[label].pop("state"), dev)
     torch.cuda.empty_cache()
@@ -1484,7 +1441,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
 
     # dbrx-132b: prefill and the serving engine at full width, 2 layers;
     # then the launchers' smoke configs (their CPU twins run in the background)
-    dbrx_prefill, dbrx_cfg, dbrx_params = run_dbrx_prefill(dev)
+    dbrx_prefill, dbrx_cfg, dbrx_params = run_prefill(dev, DBRX_PREFILL)
+    prefills[DBRX_PREFILL.label] = dbrx_prefill
     counts["dbrx_prefill"] = dbrx_prefill["launches"]
     dbrx_serve = run_dbrx_serve(rates, dbrx_cfg, dbrx_params)
     counts["dbrx_serve"] = dbrx_serve["launches"]
@@ -1493,6 +1451,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     label, args, per_leaf = MOE_SMOKE
     runs[label], counts[label] = run_main_path(f"main path {label}", args, MOE_LEAVES,
                                                per_leaf, attn_layers=2, moe_layers=2)
+    require_k4_variant(label, runs[label], "flash_fwd_tf32x3", "fp32, head_dim 128")
     serve_out, counts["dbrx_serve_smoke"], serve_text = run_serve_smoke()
 
     # the same commands on the CPU: test AUC within 0.01; the served tokens
@@ -1556,24 +1515,25 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     # launches of each K4/K5 variant on each path (counters set to 0 just
     # before each path, read just after), and each variant's headline case
     variants = {label: r["variant_launches"] for label, r in runs.items()}
-    variants.update(stablelm_prefill=prefill["variant_launches"],
-                    dbrx_prefill=dbrx_prefill["variant_launches"],
+    variants.update({label: r["variant_launches"] for label, r in prefills.items()},
                     dbrx_serve=dbrx_serve["variant_launches"],
                     dbrx_serve_smoke=serve_out["variant_launches"])
 
     def variant_rows(name, rows, heads):
+        """Each variant's launches by path, its cases and largest error, and
+        its headline cases' numbers (the first is ``head``)."""
+        keys = ("ms", "device_ms", "device_ms_source", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "bound_ffma_ms", "shape")
         out = {}
-        for variant, head in heads.items():
+        for variant, cases in heads.items():
             by_path = {label: v[name][variant] for label, v in variants.items()}
-            h = next(r for r in rows if r["case"] == head)
+            at = {c: {k: r[k] for k in keys if k in r}
+                  for r in rows for c in cases if r["case"] == c}
             out[variant] = {
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "cases": [r["case"] for r in rows if r["kernel"] == variant],
                 "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == variant),
-                "head": head, **{k: h[k] for k in ("ms", "device_ms", "device_ms_source",
-                                                   "plain_ms", "bound_ms", "bound_by",
-                                                   "library_ms", "bound_ffma_ms")
-                                 if k in h}}
+                "head": cases[0], **at[cases[0]], "heads": at}
         return out
 
     # flash_attention: headline at stablelm-1.6b's prefill shape in fp32, the
@@ -1601,11 +1561,13 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "kernel_us": h["ms"] * 1e3, "plain_us": h["plain_ms"] * 1e3,
         "bound_us": h["bound_ms"] * 1e3, "shapes": attn_rows, "backward": attn_bwd,
         "variants": variant_rows("flash_attention", attn_rows,
-                                 {"flash_fwd": "qwen_gqa",
-                                  "flash_fwd_wgmma": "stablelm_prefill_bf16",
-                                  "flash_fwd_tf32x3": "stablelm_prefill"}),
-        "prefill": {k: prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
-                                            "tokens_per_s", "peak_bytes", "errs")}})
+                                 {"flash_fwd": ["smoke_hd32"],
+                                  "flash_fwd_wgmma": ["stablelm_prefill_bf16"],
+                                  "flash_fwd_tf32x3": ["stablelm_prefill", "chatglm_prefill",
+                                                       "qwen_gqa", "dbrx_prefill"]}),
+        "prefills": {label: {k: prefills[label][k] for k in (
+            "ms_per_prefill", "ref_ms_per_prefill", "tokens_per_s", "peak_bytes", "errs")}
+            for label in (STABLELM_PREFILL.label, CHATGLM_PREFILL.label)}})
     # grouped_matmul: headline at dbrx-132b's decode gate/up shape in fp32,
     # the call every moe layer of every served token makes twice
     h = next(r for r in gmm_rows if r["case"] == "dbrx_decode_gate")
@@ -1627,9 +1589,9 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "max_err": h["max_abs_err"], "kernel_us": h["ms"] * 1e3,
         "plain_us": h["plain_ms"] * 1e3, "bound_us": h["bound_ms"] * 1e3, "shapes": gmm_rows,
         "variants": variant_rows("grouped_matmul", gmm_rows,
-                                 {"gmm_rows": "dbrx_decode_gate",
-                                  "gmm_tiles": "dbrx_prefill_gate",
-                                  "gmm_wgmma": "arctic_prefill_bf16"}),
+                                 {"gmm_rows": ["dbrx_decode_gate"],
+                                  "gmm_tiles": ["dbrx_prefill_gate"],
+                                  "gmm_wgmma": ["arctic_prefill_bf16"]}),
         "prefill": {k: dbrx_prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
                                                  "tokens_per_s", "peak_bytes", "errs")},
         "serve": {k: v for k, v in dbrx_serve.items() if k != "profile"}})

@@ -54,7 +54,7 @@ def build(name: str, subs) -> ctypes.CDLL:
     out = os.path.join(d, "lib.so")
     i = _build.NVCC_FLAGS.index("-I")
     flags = _build.NVCC_FLAGS[:i] + _build.NVCC_FLAGS[i + 2:]
-    cmd = [_build.nvcc(), *flags, "-I", d, "-Xptxas", "-v", "-o", out, path,
+    cmd = [_build.nvcc(), *flags, "-shared", "-I", d, "-Xptxas", "-v", "-o", out, path,
            os.path.join(d, "coda_kernels.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:

@@ -4,7 +4,8 @@ The sources ``csrc/coda_kernels.cu`` (auc_loss, prox_update, opt_update),
 ``csrc/flash_attention.cu`` (K4) and ``csrc/moe_dispatch.cu`` (K5) have a
 plain C interface, so nvcc compiles them in seconds (no PyTorch headers,
 no ninja); the last two include ``csrc/hopper.cuh`` (mbarriers, TMA, wgmma
-and the tensor-map encoder).  One nvcc builds the three into
+and the tensor-map encoder).  One nvcc per source, all started together,
+compiles them to objects, and one more links the objects into
 ``<repo>/build/repro_torch_kernels/libcoda_<hash>.so``, keyed on a hash of
 every file under ``csrc/`` (headers included) and the flags, at first use:
 importing this module builds nothing.  There is no fallback — a failed
@@ -27,12 +28,12 @@ ATTN_SOURCE = CSRC / "flash_attention.cu"
 MOE_SOURCE = CSRC / "moe_dispatch.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
+              "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "coda_auc_loss": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_float,
-                                     ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]),
+                                     ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]),
     "coda_auc_rows_per_block": (ctypes.c_int, []),
     "coda_prox_update_f32": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
                                             ctypes.c_float, ctypes.c_float, _P]),
@@ -91,29 +92,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcoda_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise if any fails; their output, joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the library if it is not built yet; return its path.  The
+    """Compile the library if it is not built yet; return its path.  Each
+    source is compiled by its own nvcc, all at once, then linked; the
     output is written under a temporary name and renamed, so concurrent
     builders never load a half-written file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if verbose and (proc.stdout or proc.stderr):
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        text = _run([[nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+                     for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        text += _run([[nvcc(), "-shared", "-o", lib, *objs]])
+        if verbose and text:
+            print(text, end="")
+        os.replace(lib, out)
     return out
 
 

@@ -14,17 +14,26 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// auc_loss: one pass over the scores of every worker.
+// auc_loss: one pass over the scores of every worker, in one launch.
 //
 // Grid (ceil(T / kAucRows), K): block (i, k) reads kAucRows scores and labels
 // of worker k, writes dh for them, and reduces its four partial sums
-// (Σ f′, Σ ∂a, Σ ∂b, Σ ∂α′) into partials[k, i, :] with warp shuffles and
-// shared memory.  A second launch, one warp per worker, sums those partials
-// in a fixed order.  No atomics: repeated runs are bitwise identical.
+// (Σ f′, Σ ∂a, Σ ∂b, Σ ∂α′) with warp shuffles and shared memory.
+//   * T ≤ kAucRows (one block per worker, as on every CoDA path): the block
+//     finishes the worker itself and writes (loss, da, db, dα);
+//   * otherwise each block writes its sums to partials[k, i, :], and the
+//     last block of worker k to finish — found by a per-worker ticket, a
+//     release-acquire atomic add, which it then resets to 0 for the next
+//     call — sums the partials in a fixed order (lane-strided, then
+//     warp_sum) and finishes the worker.
+// The ticket is the only atomic; the sums have none, so repeated runs are
+// bitwise identical, and the results are bitwise those of the earlier form
+// of this kernel (block partials, then a second launch that summed them in
+// the same order).
 //
 // The per-row constants of F and ∂α (−p(1−p)α² and −2p(1−p)α, which the
-// TPU kernel masks by `live` and sums) are added once in the finishing
-// kernel: Σ live = T, so the result is the same sum without T rounding
+// TPU kernel masks by `live` and sums) are added once when a worker is
+// finished: Σ live = T, so the result is the same sum without T rounding
 // steps.
 // ---------------------------------------------------------------------------
 constexpr int kAucThreads = 256;
@@ -36,11 +45,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// component c of a worker's result from its summed partial v, each
+// operation an explicitly rounded intrinsic, so that no contraction of the
+// compiler's choosing changes a bit: loss = v/T − α·(α·pq) as one fused
+// multiply-add; dα = v/T − α·(pq + pq), rounded after each step
+__device__ __forceinline__ float auc_finish(float v, int c, float Tf, float alpha, float pq) {
+  const float r = __fdiv_rn(v, Tf);
+  if (c == 0) return __fmaf_rn(-alpha, __fmul_rn(alpha, pq), r);  // the −p(1−p)α² term
+  if (c == 3) return __fsub_rn(r, __fmul_rn(alpha, __fadd_rn(pq, pq)));  // −2p(1−p)α
+  return r;
+}
+
+// tickets[k] += 1 with release-acquire semantics at device scope, returning
+// the old value: the caller's earlier writes are visible to the thread that
+// takes a later ticket, and what that thread reads after its own ticket
+// sees them (a release sequence on tickets[k]; no full fence needed)
+__device__ __forceinline__ unsigned int take_ticket(unsigned int* t) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n" : "=r"(old) : "l"(t) : "memory");
+  return old;
+}
+
 __global__ void __launch_bounds__(kAucThreads)
-auc_loss_blocks(const float* __restrict__ h, const float* __restrict__ y,
+auc_loss_kernel(const float* __restrict__ h, const float* __restrict__ y,
                 const float* __restrict__ a_, const float* __restrict__ b_,
                 const float* __restrict__ alpha_, float p, int T,
-                float* __restrict__ dh, float* __restrict__ partials) {
+                float* __restrict__ dh, float* __restrict__ partials,
+                unsigned int* __restrict__ tickets, float* __restrict__ out) {
   const int k = blockIdx.y;
   const float a = a_[k], b = b_[k], alpha = alpha_[k];
   const float q = 1.0f - p;
@@ -79,38 +110,45 @@ auc_loss_blocks(const float* __restrict__ h, const float* __restrict__ y,
     red[warp][3] = s3;
   }
   __syncthreads();
-  if (warp == 0) {
-    float* out = partials + (static_cast<long long>(k) * gridDim.x + blockIdx.x) * 4;
+  if (warp != 0) return;
+  const float pq = __fmul_rn(__fsub_rn(1.0f, p), p);
+  const int n_blocks = gridDim.x;
+  float sums[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float v = lane < kAucThreads / 32 ? red[lane][c] : 0.f;
-      v = warp_sum(v);
-      if (lane == 0) out[c] = v;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(32)
-auc_loss_finish(const float* __restrict__ partials, int n_blocks,
-                const float* __restrict__ alpha_, float p, int T,
-                float* __restrict__ out) {
-  const int k = blockIdx.x;
-  const int lane = threadIdx.x;
-  const float* src = partials + static_cast<long long>(k) * n_blocks * 4;
-  const float Tf = static_cast<float>(T);
-  const float alpha = alpha_[k];
-  const float pq = p * (1.0f - p);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    float v = 0.f;
-    for (int i = lane; i < n_blocks; i += 32) v += src[i * 4 + c];
-    v = warp_sum(v);
+  for (int c = 0; c < 4; ++c) sums[c] = warp_sum(lane < kAucThreads / 32 ? red[lane][c] : 0.f);
+  if (n_blocks == 1) {  // the block is the worker: finish it
     if (lane == 0) {
-      float r = v / Tf;
-      if (c == 0) r -= pq * alpha * alpha;   // loss: the −p(1−p)α² term
-      if (c == 3) r -= 2.0f * pq * alpha;    // dα: the −2p(1−p)α term
-      out[k * 4 + c] = r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[k * 4 + c] = auc_finish(sums[c], c, Tf, alpha, pq);
     }
+    return;
+  }
+  // a block's four sums are one float4 of partials [K, n_blocks, 4]
+  float4* part = reinterpret_cast<float4*>(partials) + static_cast<long long>(k) * n_blocks;
+  unsigned int ticket = 0;
+  if (lane == 0) {
+    part[blockIdx.x] = make_float4(sums[0], sums[1], sums[2], sums[3]);
+    ticket = take_ticket(&tickets[k]);  // releases the partial just written
+  }
+  ticket = __shfl_sync(0xffffffffu, ticket, 0);
+  if (ticket != static_cast<unsigned int>(n_blocks - 1)) return;
+  // the last block of worker k: lane 0's ticket acquired every other block's
+  // partials, and the warp barrier orders the other lanes' reads after it;
+  // each component summed lane-strided, then across the warp
+  __syncwarp();
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = lane; i < n_blocks; i += 32) {
+    const float4 x = __ldcg(part + i);
+    v.x += x.x;
+    v.y += x.y;
+    v.z += x.z;
+    v.w += x.w;
+  }
+  const float vs[4] = {warp_sum(v.x), warp_sum(v.y), warp_sum(v.z), warp_sum(v.w)};
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[k * 4 + c] = auc_finish(vs[c], c, Tf, alpha, pq);
+    tickets[k] = 0;  // ready for the next call
   }
 }
 
@@ -269,25 +307,25 @@ int launch_opt(const void* v, const void* g, const void* v0, const void* buf,
 
 extern "C" {
 
-// h, y: [K, T] fp32; a, b, alpha: [K] fp32; dh: [K, T] fp32;
-// partials: [K, ceil(T / coda_auc_rows_per_block()), 4] fp32 scratch;
-// out: [K, 4] fp32 = (loss, da, db, dalpha) per worker.
+// h, y: [K, T] fp32; a, b, alpha: [K] fp32; dh: [K, T] fp32; out: [K, 4]
+// fp32 = (loss, da, db, dalpha) per worker.  One launch.  When T exceeds
+// coda_auc_rows_per_block(): partials is [K, ceil(T / rows), 4] fp32
+// scratch and tickets [K] uint32, zero before the first call and left zero
+// by every call (calls that share tickets must run on one stream); else
+// both may be null.
 int coda_auc_loss(const void* h, const void* y, const void* a, const void* b,
                   const void* alpha, float p, int K, int T, void* dh,
-                  void* partials, void* out, void* stream) {
+                  void* partials, void* tickets, void* out, void* stream) {
   if (K > 0 && T > 0) {
     const int n_blocks = (T + kAucRows - 1) / kAucRows;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    auc_loss_blocks<<<dim3(n_blocks, K), kAucThreads, 0, s>>>(
+    if (n_blocks > 1 && (partials == nullptr || tickets == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    auc_loss_kernel<<<dim3(n_blocks, K), kAucThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(h), static_cast<const float*>(y),
         static_cast<const float*>(a), static_cast<const float*>(b),
         static_cast<const float*>(alpha), p, T, static_cast<float*>(dh),
-        static_cast<float*>(partials));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    auc_loss_finish<<<K, 32, 0, s>>>(static_cast<const float*>(partials), n_blocks,
-                                     static_cast<const float*>(alpha), p, T,
-                                     static_cast<float*>(out));
+        static_cast<float*>(partials), static_cast<unsigned int*>(tickets),
+        static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,8 +38,9 @@
 //
 // flash_fwd_wgmma: the variant for bf16 q/k/v with head_dim 64 or 128 (the
 // head_dims of every full-width config), chosen on the host from the dtype
-// and head_dim (kernels/flash_attention.py::launch_geometry); fp32 inputs
-// and bf16 at head_dim 16/32 keep flash_fwd.  bf16 attention at the prefill
+// and head_dim (kernels/flash_attention.py::launch_geometry); bf16 at
+// head_dim 16/32 keeps flash_fwd, as does fp32 there (fp32 at head_dim 64
+// and 128 takes flash_fwd_tf32x3, below).  bf16 attention at the prefill
 // shape does ~69 GFLOP against 67 MB, over the tensor cores' ridge: the
 // bound is bf16 tensor-core arithmetic (0.07 ms at 989 TFLOP/s), which
 // FFMA cannot approach.  Design:
@@ -75,39 +76,45 @@
 // P·V, as in every tensor-core attention (SDPA's flash backend included);
 // the error model and tolerance are stated in chip_smoke.py (ATTN_TOL).
 //
-// flash_fwd_tf32x3: the variant for fp32 q/k/v with head_dim 64 (stablelm's,
-// on every fp32 path), chosen on the host from the dtype, head_dim and
-// 16-byte-aligned bases.  flash_fwd is bound by fp32 FFMA (1.03 ms at the
-// prefill shape) and in practice by shared-memory reads per FFMA.  Here
-// q·kᵀ and P·V run on the TF32 tensor cores as split TF32 ("3xTF32"): each
-// fp32 operand x = big + small with big = tf32(x) and small = tf32(x − big)
-// (round to nearest, ties away), and a·b ≈ a_small·b_big + a_big·b_small +
-// a_big·b_big, each product exact, accumulated in fp32.  What is dropped —
-// a_small·b_small and the rounding of the small parts — is at most 3·2^-22
-// of |a·b|, so the result is held to fp32's tolerance.  Its bound at the
-// prefill shape is 3 × 68.7 GFLOP at 495 TFLOP/s = 0.417 ms.  Design:
+// flash_fwd_tf32x3: the variant for fp32 q/k/v with head_dim 64 (stablelm's)
+// or 128 (qwen's, phi3's, chatglm's, dbrx's), chosen on the host from the
+// dtype, head_dim and 16-byte-aligned bases; one template, HD = 64 or 128.
+// flash_fwd is bound by fp32 FFMA (1.03 ms at stablelm's prefill shape) and
+// in practice by shared-memory reads per FFMA.  Here q·kᵀ and P·V run on the
+// TF32 tensor cores as split TF32 ("3xTF32"): each fp32 operand x = big +
+// small with big = tf32(x) and small = tf32(x − big) (round to nearest,
+// ties away), and a·b ≈ a_small·b_big + a_big·b_small + a_big·b_big, each
+// product exact, accumulated in fp32.  What is dropped — a_small·b_small
+// and the rounding of the small parts — is at most 3·2^-22 of |a·b|, so the
+// result is held to fp32's tolerance.  Its bound at stablelm's prefill
+// shape is 3 × 68.7 GFLOP at 495 TFLOP/s = 0.417 ms; at chatglm3-6b's [4,
+// 2048, 32/2, 128] 3 × 137 GFLOP, 0.83 ms.  Design:
 //   * flash_fwd_wgmma's block: 128 query rows, two consumer warpgroups of
 //     64 rows and a producer warpgroup (setmaxnreg 40 / 232); when S and Skv
-//     are both ≤ 64 (one K/V tile per head, the training shape) the block
-//     packs two heads instead, one per consumer warpgroup, each with its
-//     own ring stage, so neither warpgroup idles;
-//   * warp 8 of the producer streams 64-key K and V tiles (16 KB each in
-//     fp32) by TMA over 4-D tensor maps into rings of 2 stages; warps 9-11
-//     split each stage in shared memory: K rounded in place to K_big and
-//     K_small written beside it; V (keys × dims, as TMA lands it)
-//     transposed into Vᵀ_big and Vᵀ_small (dims × keys), because tf32
-//     wgmma takes both shared-memory operands K-major only (no transpose
-//     bit) and P·V reduces over keys.  The split runs in the producer's
-//     otherwise idle warps, a stage ahead of the consumers, and costs no
-//     device-memory bytes (a pre-pass kernel would write and read Vᵀ
-//     twice); each splitter fences its stores to the async proxy and
-//     arrives on the stage's ready barrier.  K, V and Vᵀ have separate
+//     are both ≤ 64 (the training shapes: one K/V tile per head at HD 64,
+//     two at HD 128) the block packs two heads instead, one per consumer
+//     warpgroup; the producer interleaves the two heads' tiles, so with two
+//     stages each head keeps its own stage and neither warpgroup idles;
+//   * a K, V or Vᵀ tile is 16 KB in fp32: 64 keys at HD 64, 32 keys at HD
+//     128.  Warp 8 of the producer streams K and V tiles by TMA over 4-D
+//     tensor maps (boxes of 32 dims × BK keys, HD / 32 of them a tile) into
+//     rings of 2 stages; warps 9-11 split each stage in shared memory: K
+//     rounded in place to K_big and K_small written beside it; V (keys ×
+//     dims, as TMA lands it) transposed into Vᵀ_big and Vᵀ_small (dims ×
+//     keys), because tf32 wgmma takes both shared-memory operands K-major
+//     only (no transpose bit) and P·V reduces over keys.  The split runs in
+//     the producer's otherwise idle warps, a stage ahead of the consumers,
+//     and costs no device-memory bytes (a pre-pass kernel would write and
+//     read Vᵀ twice); each splitter fences its stores to the async proxy
+//     and arrives on the stage's ready barrier.  K, V and Vᵀ have separate
 //     rings and barriers, so a K stage is refilled once its q·kᵀ is done;
-//     81 KB a stage, 193 KB in all with q_small;
+//     81 KB a stage, with q_small 193 KB in all at HD 64 and 230,512 B of
+//     the 232,448 a block may use at HD 128 (where a 64-key tile, 32 KB,
+//     would need 160 KB a stage: that is why the tile halves);
 //   * q·scale is loaded once per block straight into registers as tf32 A
-//     fragments and split there: q_big stays in registers (32), q_small
-//     goes to a K-major tile in shared memory (an SS operand), which leaves
-//     registers for the per-tile P·V fragment below;
+//     fragments and split there: q_big stays in registers (HD / 2 a
+//     thread), q_small goes to a K-major tile in shared memory (an SS
+//     operand), which leaves registers for the per-tile P·V fragment;
 //   * accuracy: the tensor cores add each product group into the fp32
 //     accumulator with truncation (measured on the card: with O
 //     accumulated by wgmma across the row, the error grew with the number
@@ -116,17 +123,23 @@
 //     ones, and each tile's P·V goes into a fresh fragment that is added
 //     to O in fp32 registers (round to nearest), folded into the rescale:
 //     O = (O + P_i·V_i)·corr;
-//   * S = q·kᵀ: one chain of 24 m64n64k8 tf32 wgmmas (3 per 8-wide slice)
-//     into one fp32 fragment; the softmax is flash_fwd_wgmma's (log2
+//   * S = q·kᵀ: one chain of 3·HD / 8 m64nBKk8 tf32 wgmmas (3 per 8-wide
+//     slice) into one fp32 fragment; the softmax is flash_fwd_wgmma's (log2
 //     units, −1e30 sentinel, ragged S and Skv, causal and window bands);
 //   * O += P·V: P is split in registers.  The f32 accumulator holds keys
 //     2t, 2t + 1 of each 8-key slice on thread t of a quad, while the tf32
 //     A fragment wants columns t and t + 4; P's registers are used as they
 //     are (key 2t as column t, key 2t + 1 as column t + 4) and the
 //     splitters write each 8-key group of a Vᵀ row in the same order (0, 2,
-//     4, 6, 1, 3, 5, 7), so no shuffle or shared-memory trip is needed;
+//     4, 6, 1, 3, 5, 7), so no shuffle or shared-memory trip is needed.
+//     P·V is m64n64k8 products: at HD 128 two of them a tile (dims 0-63,
+//     then 64-127) through one 32-register fragment, each added to O as it
+//     completes.  A consumer at HD 128 holds q_big (64 registers), O (64),
+//     the P·V fragment (32), S (16) and P's two parts (32): 208 of its 232;
+//     with 64-key tiles and a 64-register fragment it would need 288;
 //   * the pipeline of flash_fwd_wgmma (next tile's q·kᵀ before this tile's
-//     P·V, last tile peeled); o stored in fp32 and lse as flash_fwd's.
+//     P·V — at HD 128 before its first half — last tile peeled); o stored
+//     in fp32 and lse as flash_fwd's.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
@@ -671,19 +684,35 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
 
 // ----------------------------------------------------------- flash_fwd_tf32x3
 constexpr int kTfBQ = 128;                     // query rows per block: two warpgroups of 64
-constexpr int kTfBK = 64;                      // keys per K/V tile
-constexpr int kTfHD = 64;                      // head_dim
+constexpr int kTfBK64 = 64;                    // keys per K/V tile at head_dim 64
+constexpr int kTfBK128 = 32;                   // keys per K/V tile at head_dim 128
 constexpr int kTfThreads = 384;                // warpgroups 0-1 consume, 2 loads and splits
 constexpr int kTfStages = 2;                   // depth of the K, V and Vᵀ rings
 constexpr int kTfSplitters = 96;               // warps 9-11 of the producer warpgroup
-constexpr int kTfTile = kTfBK * kTfHD * 4;     // one fp32 K, V or Vᵀ tile: 16 KB
-constexpr int kTfRegion = kTfTile / 2;         // its two 128-byte-wide regions: 8 KB
+constexpr int kTfPack = 64;                    // two heads a block when S, Skv ≤ this
+constexpr int kTfPvN = 64;                     // dims of one P·V product (m64n64k8)
 
+// the tile geometry at head_dim HD: BK keys a tile (64 at HD 64, 32 at HD
+// 128, so that one fp32 K, V or Vᵀ tile is 16 KB at both), and the byte
+// sizes of the 128-byte-wide swizzle regions of each tile kind
+template <int HD>
+struct TfTile {
+  static constexpr int BK = HD == 64 ? kTfBK64 : kTfBK128;
+  static constexpr int kTile = BK * HD * 4;      // one fp32 K, V or Vᵀ tile
+  static constexpr int kQTile = 64 * HD * 4;     // one warpgroup's q_small
+  static constexpr int kQRegion = 64 * 128;      // q_small: 64 rows × 32 dims
+  static constexpr int kKVRegion = BK * 128;     // K, K_small, V: BK keys × 32 dims
+  static constexpr int kVtRegion = HD * 128;     // Vᵀ: HD dims × 32 keys
+  static constexpr int kHalves = HD / kTfPvN;    // P·V products a tile, n64 each
+};
+
+template <int HD>
 __host__ __device__ constexpr int tf_smem_bytes() {
-  // q_small of each consumer warpgroup (64 rows × 64 dims); per stage: K
+  // q_small of each consumer warpgroup (64 rows × HD dims); per stage: K
   // (rounded in place), K_small, V as loaded, Vᵀ_big, Vᵀ_small and 7
-  // barriers; 1024 bytes of alignment slack
-  return 2 * kTfTile + kTfStages * (5 * kTfTile + 7 * 8) + 1024;
+  // barriers; 1024 bytes of alignment slack.  HD 64: 197,744 B; HD 128:
+  // 230,512 B of the 232,448 a block may use
+  return 2 * TfTile<HD>::kQTile + kTfStages * (5 * TfTile<HD>::kTile + 7 * 8) + 1024;
 }
 
 // x → big = tf32(x) and small = tf32(x − big), both rounded to nearest (ties
@@ -693,60 +722,84 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = hopper::tf32_rna(x - __uint_as_float(big));
 }
 
-// issue S = q·kᵀ as 3xTF32 over 8 slices of 8 dims into one fp32 fragment
-// (committed, not waited): the small products first (q_small·K_big,
+// one m64nNk8 tf32 product, N = 32 or 64: A from registers or shared memory
+template <int N>
+__device__ __forceinline__ void tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                        int scale_d) {
+  if constexpr (N == 64)
+    hopper::wgmma_tf32_rs_n64(d, a, db, scale_d);
+  else
+    hopper::wgmma_tf32_rs_n32(d, a, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    hopper::wgmma_tf32_ss_n64(d, da, db, scale_d);
+  else
+    hopper::wgmma_tf32_ss_n32(d, da, db, scale_d);
+}
+
+// issue S = q·kᵀ as 3xTF32 over HD / 8 slices of 8 dims into one fp32
+// fragment (committed, not waited): the small products first (q_small·K_big,
 // q_big·K_small), then q_big·K_big, so the tensor cores' truncating
-// accumulation meets the full-size sum in 8 steps rather than 24.  qs: this
-// warpgroup's q_small in shared memory; kb/ks: the rounded K tile and
-// K_small; all K-major (a 128-byte row of 32 dims, two regions)
-__device__ __forceinline__ void issue_scores_tf32(float (&sacc)[kTfBK / 2],
-                                                  const uint32_t (&qb)[kTfHD / 8][4],
+// accumulation meets the full-size sum in HD / 8 steps rather than 3·HD / 8.
+// qs: this warpgroup's q_small in shared memory; kb/ks: the rounded K tile
+// and K_small; all K-major (a 128-byte row of 32 dims, HD / 32 regions)
+template <int HD>
+__device__ __forceinline__ void issue_scores_tf32(float (&sacc)[TfTile<HD>::BK / 2],
+                                                  const uint32_t (&qb)[HD / 8][4],
                                                   const uint8_t* qs, const uint8_t* kb,
                                                   const uint8_t* ks) {
+  using T = TfTile<HD>;
   hopper::fence_regs(sacc);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTfHD / 8; ++kk) {
-    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
-    hopper::wgmma_tf32_ss_n64(sacc, hopper::desc_sw128(qs + off, 0, 1024),
-                              hopper::desc_sw128(kb + off, 0, 1024), kk > 0);
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const int oq = (kk / 4) * T::kQRegion + 32 * (kk % 4);
+    const int ok = (kk / 4) * T::kKVRegion + 32 * (kk % 4);
+    tf32_ss<T::BK>(sacc, hopper::desc_sw128(qs + oq, 0, 1024),
+                   hopper::desc_sw128(kb + ok, 0, 1024), kk > 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < kTfHD / 8; ++kk) {
-    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
-    hopper::wgmma_tf32_rs_n64(sacc, qb[kk], hopper::desc_sw128(ks + off, 0, 1024), 1);
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const int ok = (kk / 4) * T::kKVRegion + 32 * (kk % 4);
+    tf32_rs<T::BK>(sacc, qb[kk], hopper::desc_sw128(ks + ok, 0, 1024), 1);
   }
 #pragma unroll
-  for (int kk = 0; kk < kTfHD / 8; ++kk) {
-    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
-    hopper::wgmma_tf32_rs_n64(sacc, qb[kk], hopper::desc_sw128(kb + off, 0, 1024), 1);
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const int ok = (kk / 4) * T::kKVRegion + 32 * (kk % 4);
+    tf32_rs<T::BK>(sacc, qb[kk], hopper::desc_sw128(kb + ok, 0, 1024), 1);
   }
   hopper::wgmma_commit();
 }
 
-// issue this tile's P·V as 3xTF32 over 8 slices of 8 keys into a fresh
-// fp32 fragment pv (committed, not waited; the caller has fenced pv and P),
-// small products first; the caller adds pv to O in fp32 (round to nearest),
-// so O's truncating tensor-core accumulation spans one tile, not the row.
-// vb/vs: Vᵀ_big and Vᵀ_small, K-major (a 128-byte row of 32 keys per dim,
-// two regions, keys permuted as split_p's)
-__device__ __forceinline__ void issue_pv_tf32(float (&pv)[kTfHD / 2],
-                                              const uint32_t (&pb)[kTfBK / 8][4],
-                                              const uint32_t (&ps)[kTfBK / 8][4],
-                                              const uint8_t* vb, const uint8_t* vs) {
+// issue dims 64·half .. 64·half + 63 of this tile's P·V as 3xTF32 over BK / 8
+// slices of 8 keys into a fresh fp32 fragment pv (committed, not waited; the
+// caller has fenced pv and P), small products first; the caller adds pv to
+// O in fp32 (round to nearest), so O's truncating tensor-core accumulation
+// spans one tile, not the row.  vb/vs: Vᵀ_big and Vᵀ_small, K-major (a
+// 128-byte row of 32 keys per dim, BK / 32 regions, keys permuted as
+// split_p's)
+template <int HD>
+__device__ __forceinline__ void issue_pv_tf32(float (&pv)[kTfPvN / 2],
+                                              const uint32_t (&pb)[TfTile<HD>::BK / 8][4],
+                                              const uint32_t (&ps)[TfTile<HD>::BK / 8][4],
+                                              const uint8_t* vb, const uint8_t* vs, int half) {
+  using T = TfTile<HD>;
+  const int o0 = half * kTfPvN * 128;  // the half's first Vᵀ row
 #pragma unroll
-  for (int kk = 0; kk < kTfBK / 8; ++kk) {
-    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+  for (int kk = 0; kk < T::BK / 8; ++kk) {
+    const int off = o0 + (kk / 4) * T::kVtRegion + 32 * (kk % 4);
     hopper::wgmma_tf32_rs_n64(pv, ps[kk], hopper::desc_sw128(vb + off, 0, 1024), kk > 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < kTfBK / 8; ++kk) {
-    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+  for (int kk = 0; kk < T::BK / 8; ++kk) {
+    const int off = o0 + (kk / 4) * T::kVtRegion + 32 * (kk % 4);
     hopper::wgmma_tf32_rs_n64(pv, pb[kk], hopper::desc_sw128(vs + off, 0, 1024), 1);
   }
 #pragma unroll
-  for (int kk = 0; kk < kTfBK / 8; ++kk) {
-    const int off = (kk / 4) * kTfRegion + 32 * (kk % 4);
+  for (int kk = 0; kk < T::BK / 8; ++kk) {
+    const int off = o0 + (kk / 4) * T::kVtRegion + 32 * (kk % 4);
     hopper::wgmma_tf32_rs_n64(pv, pb[kk], hopper::desc_sw128(vb + off, 0, 1024), 1);
   }
   hopper::wgmma_commit();
@@ -757,10 +810,11 @@ __device__ __forceinline__ void issue_pv_tf32(float (&pv)[kTfHD / 2],
 // of its rows r and r + 8; the tf32 A fragment wants columns t and t + 4.  So
 // column t carries key 2t and column t + 4 key 2t + 1, and the Vᵀ rows store
 // each 8-key group in the same order (0, 2, 4, 6, 1, 3, 5, 7): no shuffles.
-__device__ __forceinline__ void split_p(const float (&sacc)[kTfBK / 2], uint32_t (&pb)[kTfBK / 8][4],
-                                        uint32_t (&ps)[kTfBK / 8][4]) {
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&sacc)[BK / 2], uint32_t (&pb)[BK / 8][4],
+                                        uint32_t (&ps)[BK / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kTfBK / 8; ++kk) {
+  for (int kk = 0; kk < BK / 8; ++kk) {
     split_tf32(sacc[4 * kk], pb[kk][0], ps[kk][0]);      // row r,     key 2t
     split_tf32(sacc[4 * kk + 2], pb[kk][1], ps[kk][1]);  // row r + 8, key 2t
     split_tf32(sacc[4 * kk + 1], pb[kk][2], ps[kk][2]);  // row r,     key 2t + 1
@@ -768,21 +822,38 @@ __device__ __forceinline__ void split_p(const float (&sacc)[kTfBK / 2], uint32_t
   }
 }
 
+// O = (O + P·V)·corr in fp32 for the dims of P·V product `half` (pv holds
+// them in the n64 accumulator layout: pv[4j + e] is oacc[32·half + 4j + e])
+template <int HD>
+__device__ __forceinline__ void add_pv(float (&oacc)[HD / 2], const float (&pv)[kTfPvN / 2],
+                                       const float (&corr)[2], int half) {
+#pragma unroll
+  for (int j = 0; j < kTfPvN / 8; ++j) {
+    float* o = oacc + (kTfPvN / 2) * half + 4 * j;
+    o[0] = (o[0] + pv[4 * j]) * corr[0];
+    o[1] = (o[1] + pv[4 * j + 1]) * corr[0];
+    o[2] = (o[2] + pv[4 * j + 2]) * corr[1];
+    o[3] = (o[3] + pv[4 * j + 3]) * corr[1];
+  }
+}
+
+template <int HD>
 __global__ void __launch_bounds__(kTfThreads, 1)
 flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                  const float* __restrict__ q, float* __restrict__ o, float* __restrict__ lse,
                  int S, int H, int Skv, int KV, int causal, int window, float scale,
                  int packed) {
-  constexpr int NST = kTfStages, HD = kTfHD;
+  using T = TfTile<HD>;
+  constexpr int NST = kTfStages, BK = T::BK, TILE = T::kTile;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = hopper::align_smem_1024(smem_raw);
-  uint8_t* qsml = smem;                          // [2 wg][2 regions: 64 rows × 32 dims]
-  uint8_t* kbig = qsml + 2 * kTfTile;            // [NST][2 regions: 64 keys × 32 dims]
-  uint8_t* ksml = kbig + NST * kTfTile;
-  uint8_t* vraw = ksml + NST * kTfTile;          // [NST][2 regions: 64 keys × 32 dims]
-  uint8_t* vtb = vraw + NST * kTfTile;           // [NST][2 regions: 64 dims × 32 keys]
-  uint8_t* vts = vtb + NST * kTfTile;
-  uint64_t* kfull = reinterpret_cast<uint64_t*>(vts + NST * kTfTile);  // K landed (TMA)
+  uint8_t* qsml = smem;                          // [2 wg][HD / 32 regions: 64 rows × 32 dims]
+  uint8_t* kbig = qsml + 2 * T::kQTile;          // [NST][HD / 32 regions: BK keys × 32 dims]
+  uint8_t* ksml = kbig + NST * TILE;
+  uint8_t* vraw = ksml + NST * TILE;             // [NST][HD / 32 regions: BK keys × 32 dims]
+  uint8_t* vtb = vraw + NST * TILE;              // [NST][BK / 32 regions: HD dims × 32 keys]
+  uint8_t* vts = vtb + NST * TILE;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(vts + NST * TILE);  // K landed (TMA)
   uint64_t* kready = kfull + NST;    // K rounded in place and K_small written
   uint64_t* kempty = kready + NST;   // the consumers' q·kᵀ has read the K stage
   uint64_t* vfull = kempty + NST;    // V landed (TMA)
@@ -791,20 +862,23 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   uint64_t* vtempty = vtready + NST; // the consumers' P·V has read the Vᵀ stage
 
   // packed (S, Skv ≤ 64): the block owns heads h0 and h0 + 1, one per
-  // consumer warpgroup, each with one K/V tile in its own stage; else 128
-  // query rows of head h0, the warpgroups sharing the band's K/V tiles
+  // consumer warpgroup, and the producer interleaves their tiles (load i is
+  // tile i / n_wg of head h0 + i % n_wg: with two heads and two stages each
+  // head keeps its own stage); else 128 query rows of head h0, the
+  // warpgroups sharing the band's K/V tiles
   const int q0 = packed ? 0 : (gridDim.x - 1 - blockIdx.x) * kTfBQ;  // last tile first
   const int h0 = packed ? 2 * blockIdx.y : blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
   // KV tiles inside the band of this block's rows (pl.when(needed) in Pallas)
   int kv_hi = causal ? min(Skv, min(S, q0 + kTfBQ)) : Skv;
   int kv_lo = window >= 0 ? max(0, q0 - window + 1) : 0;
-  kv_lo = (kv_lo / kTfBK) * kTfBK;
-  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kTfBK - 1) / kTfBK : 0;
+  kv_lo = (kv_lo / BK) * BK;
+  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
   // consumer warpgroups (one whose rows all lie past S, or whose head is past
-  // H, exits) and the tiles the producer loads (packed: one per warpgroup)
+  // H, exits) and the tiles the producer loads
   const int n_wg = packed ? min(2, H - h0) : (q0 + 64 < S ? 2 : 1);
-  const int nloads = packed ? (ntiles > 0 ? n_wg : 0) : ntiles;
+  const int heads = packed ? n_wg : 1;           // heads whose tiles the producer loads
+  const int nloads = ntiles * heads;
   const int readers = 128 * (packed ? 1 : n_wg);  // consumer threads that read a stage
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -830,19 +904,19 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
         hopper::prefetch_tensormap(&vmap);
         for (int i = 0; i < nloads; ++i) {
           const int s = i % NST;
-          const int k0 = packed ? kv_lo : kv_lo + i * kTfBK, kvh = (h0 + (packed ? i : 0)) / G;
+          const int k0 = kv_lo + (i / heads) * BK, kvh = (h0 + i % heads) / G;
           if (i >= NST) hopper::mbar_wait(&kempty[s], ((i / NST) - 1) & 1);
-          hopper::mbar_expect_tx(&kfull[s], kTfTile);
+          hopper::mbar_expect_tx(&kfull[s], TILE);
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            hopper::tma_load_4d(kbig + s * kTfTile + j * kTfRegion, &kmap, &kfull[s], 32 * j, kvh,
-                                k0, b);
+          for (int j = 0; j < HD / 32; ++j)
+            hopper::tma_load_4d(kbig + s * TILE + j * T::kKVRegion, &kmap, &kfull[s], 32 * j,
+                                kvh, k0, b);
           if (i >= NST) hopper::mbar_wait(&vfree[s], ((i / NST) - 1) & 1);
-          hopper::mbar_expect_tx(&vfull[s], kTfTile);
+          hopper::mbar_expect_tx(&vfull[s], TILE);
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            hopper::tma_load_4d(vraw + s * kTfTile + j * kTfRegion, &vmap, &vfull[s], 32 * j, kvh,
-                                k0, b);
+          for (int j = 0; j < HD / 32; ++j)
+            hopper::tma_load_4d(vraw + s * TILE + j * T::kKVRegion, &vmap, &vfull[s], 32 * j,
+                                kvh, k0, b);
         }
       }
       return;
@@ -857,9 +931,9 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
       const int s = i % NST;
       const uint32_t ph = (i / NST) & 1;
       hopper::mbar_wait(&kfull[s], ph);
-      float4* kb4 = reinterpret_cast<float4*>(kbig + s * kTfTile);
-      float4* ks4 = reinterpret_cast<float4*>(ksml + s * kTfTile);
-      for (int e = sid; e < kTfTile / 16; e += kTfSplitters) {
+      float4* kb4 = reinterpret_cast<float4*>(kbig + s * TILE);
+      float4* ks4 = reinterpret_cast<float4*>(ksml + s * TILE);
+      for (int e = sid; e < TILE / 16; e += kTfSplitters) {
         const float4 x = kb4[e];
         uint32_t b0, b1, b2, b3, s0, s1, s2, s3;
         split_tf32(x.x, b0, s0);
@@ -876,19 +950,21 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
 
       hopper::mbar_wait(&vfull[s], ph);
       if (i >= NST) hopper::mbar_wait(&vtempty[s], ph ^ 1);
-      const uint8_t* vr = vraw + s * kTfTile;
-      float* tb = reinterpret_cast<float*>(vtb + s * kTfTile);
-      float* ts = reinterpret_cast<float*>(vts + s * kTfTile);
-      for (int t = sw; t < 2 * (HD / 4); t += 3) {  // (region kb, dims 4dc .. 4dc + 3)
+      const uint8_t* vr = vraw + s * TILE;
+      float* tb = reinterpret_cast<float*>(vtb + s * TILE);
+      float* ts = reinterpret_cast<float*>(vts + s * TILE);
+      // (32-key region kb, dims 4dc .. 4dc + 3)
+      for (int t = sw; t < (BK / 32) * (HD / 4); t += 3) {
         const int kb = t / (HD / 4), dc = t % (HD / 4);
         const int key = 32 * kb + lane;
         const float4 x = *reinterpret_cast<const float4*>(
-            vr + (dc / 8) * kTfRegion + key * 128 + (((dc % 8) ^ (key % 8)) << 4));
+            vr + (dc / 8) * T::kKVRegion + key * 128 + (((dc % 8) ^ (key % 8)) << 4));
         const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int n = 4 * dc + e;
-          const int off = kb * (kTfRegion / 4) + n * 32 + ((((c >> 2) ^ (n & 7)) << 2) | (c & 3));
+          const int off =
+              kb * (T::kVtRegion / 4) + n * 32 + ((((c >> 2) ^ (n & 7)) << 2) | (c & 3));
           uint32_t big, small;
           split_tf32(xs[e], big, small);
           tb[off] = __uint_as_float(big);
@@ -907,7 +983,7 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   if (wg >= n_wg) return;
 
   // this thread's head and two rows (accumulator layout): 16·(warp % 4) +
-  // lane / 4 (+8); the producer's load j = sb + i holds its tile i
+  // lane / 4 (+8); its tile t is the producer's load t·heads + sb
   const int h = h0 + (packed ? wg : 0), sb = packed ? wg : 0;
   const int qw = q0 + (packed ? 0 : 64 * wg);
   const int row0 = qw + 16 * (warp % 4) + lane / 4;
@@ -918,7 +994,7 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   // K-major tile in shared memory (an operand from shared memory, which
   // leaves registers for the per-tile P·V fragment)
   uint32_t qb[HD / 8][4];
-  uint8_t* qs_w = qsml + wg * kTfTile;
+  uint8_t* qs_w = qsml + wg * T::kQTile;
   {
     const float* qr = q + (static_cast<long long>(b) * S + row0) * q_row +
                       static_cast<long long>(h) * HD + t4;
@@ -933,71 +1009,80 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
         uint32_t small;
         split_tf32(x, qb[kk][e], small);
         const int r = rl + 8 * (e & 1), d = 8 * kk + t4 + 4 * (e >> 1);
-        *reinterpret_cast<uint32_t*>(qs_w + (d / 32) * kTfRegion + r * 128 +
+        *reinterpret_cast<uint32_t*>(qs_w + (d / 32) * T::kQRegion + r * 128 +
                                      ((((d % 32) >> 2) ^ (r & 7)) << 4) + (d & 3) * 4) = small;
       }
     hopper::fence_proxy_async();
     hopper::named_barrier_sync(1 + wg, 128);
   }
-  float sacc[kTfBK / 2], oacc[HD / 2], pv[HD / 2];
+  float sacc[BK / 2], oacc[HD / 2], pv[kTfPvN / 2];
 #pragma unroll
-  for (int i = 0; i < kTfBK / 2; ++i) sacc[i] = 0.f;
+  for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) oacc[i] = pv[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTfPvN / 2; ++i) pv[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
-  uint32_t pb[kTfBK / 8][4], ps[kTfBK / 8][4];
+  uint32_t pb[BK / 8][4], ps[BK / 8][4];
   const WgRows rows{row0, qw, 2 * t4, Skv, causal, window, kLog2e};  // q holds the scale
 
   // the pipeline of flash_fwd_wgmma: q·kᵀ of tile i + 1 is issued before P·V
-  // of tile i, and its softmax runs while P·V_i is on the tensor cores
+  // of tile i, and its softmax runs while P·V_i (its first n64 half at HD
+  // 128) is on the tensor cores
   if (ntiles > 0) {
     const int s = sb % NST;
     hopper::mbar_wait(&kready[s], (sb / NST) & 1);
-    issue_scores_tf32(sacc, qb, qs_w, kbig + s * kTfTile, ksml + s * kTfTile);
+    issue_scores_tf32<HD>(sacc, qb, qs_w, kbig + s * TILE, ksml + s * TILE);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sacc);
     hopper::mbar_arrive(&kempty[s]);
-    softmax_tile<kTfBK>(sacc, m, l, corr, kv_lo, rows);  // O is 0: corr unused
-    split_p(sacc, pb, ps);
+    softmax_tile<BK>(sacc, m, l, corr, kv_lo, rows);  // O is 0: corr unused
+    split_p<BK>(sacc, pb, ps);
   }
-  for (int i = 0; i + 1 < ntiles; ++i) {  // never packed: there ntiles ≤ 1
-    const int j = sb + i, s = j % NST, s1 = (j + 1) % NST;
-    hopper::mbar_wait(&kready[s1], ((j + 1) / NST) & 1);
-    issue_scores_tf32(sacc, qb, qs_w, kbig + s1 * kTfTile, ksml + s1 * kTfTile);
+  for (int i = 0; i + 1 < ntiles; ++i) {
+    const int j = sb + i * heads, j1 = j + heads, s = j % NST, s1 = j1 % NST;
+    hopper::mbar_wait(&kready[s1], (j1 / NST) & 1);
+    issue_scores_tf32<HD>(sacc, qb, qs_w, kbig + s1 * TILE, ksml + s1 * TILE);
     hopper::mbar_wait(&vtready[s], (j / NST) & 1);
     hopper::fence_regs(pv);
     hopper::wgmma_fence();
-    issue_pv_tf32(pv, pb, ps, vtb + s * kTfTile, vts + s * kTfTile);
+    issue_pv_tf32<HD>(pv, pb, ps, vtb + s * TILE, vts + s * TILE, 0);
     hopper::wgmma_wait<1>();  // q·kᵀ of tile i + 1 is done; P·V of tile i may run on
     hopper::fence_regs(sacc);
     hopper::mbar_arrive(&kempty[s1]);
-    softmax_tile<kTfBK>(sacc, m, l, corr, kv_lo + (i + 1) * kTfBK, rows);
+    softmax_tile<BK>(sacc, m, l, corr, kv_lo + (i + 1) * BK, rows);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(pv);
+    add_pv<HD>(oacc, pv, corr, 0);  // O = (O + P_i·V_i) · corr, in fp32
+#pragma unroll
+    for (int half = 1; half < T::kHalves; ++half) {
+      hopper::fence_regs(pv);
+      hopper::wgmma_fence();
+      issue_pv_tf32<HD>(pv, pb, ps, vtb + s * TILE, vts + s * TILE, half);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(pv);
+      add_pv<HD>(oacc, pv, corr, half);
+    }
     hopper::fence_regs(pb);
     hopper::fence_regs(ps);
     hopper::mbar_arrive(&vtempty[s]);
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {  // O = (O + P_i·V_i) · corr, in fp32
-      oacc[4 * j] = (oacc[4 * j] + pv[4 * j]) * corr[0];
-      oacc[4 * j + 1] = (oacc[4 * j + 1] + pv[4 * j + 1]) * corr[0];
-      oacc[4 * j + 2] = (oacc[4 * j + 2] + pv[4 * j + 2]) * corr[1];
-      oacc[4 * j + 3] = (oacc[4 * j + 3] + pv[4 * j + 3]) * corr[1];
-    }
-    split_p(sacc, pb, ps);
+    split_p<BK>(sacc, pb, ps);
   }
   if (ntiles > 0) {  // the last tile's P·V
-    const int j = sb + ntiles - 1, s = j % NST;
+    const int j = sb + (ntiles - 1) * heads, s = j % NST;
+    const float one[2] = {1.f, 1.f};
     hopper::mbar_wait(&vtready[s], (j / NST) & 1);
-    hopper::fence_regs(pv);
-    hopper::wgmma_fence();
-    issue_pv_tf32(pv, pb, ps, vtb + s * kTfTile, vts + s * kTfTile);
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(pv);
+#pragma unroll
+    for (int half = 0; half < T::kHalves; ++half) {
+      hopper::fence_regs(pv);
+      hopper::wgmma_fence();
+      issue_pv_tf32<HD>(pv, pb, ps, vtb + s * TILE, vts + s * TILE, half);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(pv);
+      add_pv<HD>(oacc, pv, one, half);
+    }
     hopper::fence_regs(pb);
     hopper::fence_regs(ps);
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] += pv[i];
   }
 
   // o = O / max(l, 1e-30) in fp32; lse = m·ln2 + log l
@@ -1016,31 +1101,33 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap kmap, const __grid_constant
   }
 }
 
+template <int HD>
 int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                   int H, int Skv, int KV, int causal, int window, float scale,
                   cudaStream_t stream) {
-  constexpr int bytes = tf_smem_bytes();
-  constexpr uint64_t HD = kTfHD, e = 4;  // bytes per fp32
+  constexpr int bytes = tf_smem_bytes<HD>();
+  const uint64_t e = 4;  // bytes per fp32
   CUtensorMap km, vm;
   const uint64_t kdims[4] = {HD, static_cast<uint64_t>(KV), static_cast<uint64_t>(Skv),
                              static_cast<uint64_t>(B)};
   const uint64_t kstr[3] = {HD * e, static_cast<uint64_t>(KV) * HD * e,
                             static_cast<uint64_t>(Skv) * KV * HD * e};
-  const uint32_t kbox[4] = {32, 1, kTfBK, 1};
+  const uint32_t kbox[4] = {32, 1, TfTile<HD>::BK, 1};
   int err = hopper::encode_f32_map(&km, k, 4, kdims, kstr, kbox);
   if (err == 0) err = hopper::encode_f32_map(&vm, v, 4, kdims, kstr, kbox);
   if (err != 0) return err;
-  static bool attr_set = false;  // once per process
+  static bool attr_set = false;  // per instantiation, once per process
   if (!attr_set) {
     const cudaError_t cerr = cudaFuncSetAttribute(
-        flash_fwd_tf32x3, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_fwd_tf32x3<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
     attr_set = true;
   }
-  // one K/V tile per head (S, Skv ≤ 64): two heads per block, one per warpgroup
-  const int packed = S <= kTfBK && Skv <= kTfBK;
+  // S, Skv ≤ 64 (one warpgroup's rows; one K/V tile at HD 64, two at HD
+  // 128): two heads per block, one per warpgroup
+  const int packed = S <= kTfPack && Skv <= kTfPack;
   const dim3 grid = packed ? dim3(1, (H + 1) / 2, B) : dim3((S + kTfBQ - 1) / kTfBQ, H, B);
-  flash_fwd_tf32x3<<<grid, kTfThreads, bytes, stream>>>(
+  flash_fwd_tf32x3<HD><<<grid, kTfThreads, bytes, stream>>>(
       km, vm, static_cast<const float*>(q), static_cast<float*>(o), lse, S, H, Skv, KV, causal,
       window, scale, packed);
   return static_cast<int>(cudaGetLastError());
@@ -1053,7 +1140,7 @@ extern "C" {
 // dtype: bf16 = 0 → fp32, 1 → bf16); lse [B, H, S] fp32.  window < 0 means
 // no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.  variant: 0 flash_fwd,
 // 1 flash_fwd_wgmma (bf16, hd 64 or 128, q/k/v 16-byte aligned), 2
-// flash_fwd_tf32x3 (fp32, hd 64, q/k/v 16-byte aligned).
+// flash_fwd_tf32x3 (fp32, hd 64 or 128, q/k/v 16-byte aligned).
 int flash_attention_forward(int bf16, int hd, int variant, const void* q, const void* k,
                             const void* v, void* o, float* lse, int B, int S,
                             int H, int Skv, int KV, int causal, int window,
@@ -1063,8 +1150,12 @@ int flash_attention_forward(int bf16, int hd, int variant, const void* q, const 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 2) {
-    if (bf16 || hd != kTfHD) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_tf32x3(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+    if (bf16) return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+      case 64: return launch_tf32x3<64>(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+      case 128: return launch_tf32x3<128>(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (variant == 1) {
     if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
@@ -1097,6 +1188,12 @@ int flash_attention_wgmma_smem_bytes(int hd) {
   }
 }
 
-int flash_attention_tf32x3_smem_bytes(int hd) { return hd == kTfHD ? tf_smem_bytes() : -1; }
+int flash_attention_tf32x3_smem_bytes(int hd) {
+  switch (hd) {
+    case 64: return tf_smem_bytes<64>();
+    case 128: return tf_smem_bytes<128>();
+    default: return -1;
+  }
+}
 
 }  // extern "C"

@@ -14,13 +14,13 @@ Three variants, chosen on the host from static facts (``launch_geometry``):
 ``flash_fwd_wgmma`` for bf16 q/k/v with head_dim 64 or 128 and 16-byte
 aligned bases — 128-row query tiles, TMA-fed K/V ring, q·kᵀ and P·V on the
 bf16 tensor cores (wgmma) with P rounded to bf16; ``flash_fwd_tf32x3`` for
-fp32 q/k/v with head_dim 64 and 16-byte aligned bases — the same structure
+fp32 q/k/v with head_dim 64 or 128 and 16-byte aligned bases — the same structure
 with q·kᵀ and P·V as split TF32 (each operand x = big + small, both tf32,
 and big·big + big·small + small·big on the tf32 tensor cores, fp32
 accumulation: each product within 3·2^-22 of its value, held to the plain
 fp32 version at fp32's tolerance); and ``flash_fwd`` for every other call (fp32
-at head_dim 16/32/128, bf16 at 16/32, or an unaligned base) — 64-row query
-tiles, fp32 FFMA.  At the prefill shape arithmetic bounds them (bf16 or
+or bf16 at head_dim 16/32, or an unaligned base) — 64-row query tiles, fp32
+FFMA.  At the prefill shape arithmetic bounds them (bf16 or
 TF32 tensor-core, or fp32 rates), at the training shape (64-token
 sequences) bytes.
 
@@ -58,10 +58,12 @@ WG_THREADS = 384                  # two consumer warpgroups + a producer warpgro
 WG_HEAD_DIMS = (64, 128)
 WG_STAGES = {64: 3, 128: 2}
 # flash_fwd_tf32x3 (csrc/flash_attention.cu's kTf* constants)
-TF_BLOCK_Q, TF_BLOCK_K = 128, 64
+TF_BLOCK_Q = 128
+TF_BLOCK_K = {64: 64, 128: 32}    # keys a K/V tile, by head_dim: 16 KB in fp32 at both
 TF_THREADS = 384                  # two consumer warpgroups + a load-and-split warpgroup
-TF_HEAD_DIMS = (64,)
+TF_HEAD_DIMS = (64, 128)
 TF_STAGES = 2                     # depth of each of the K, V and Vᵀ rings
+TF_PACK = 64                      # two heads a block when S and Skv are at most this
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -71,16 +73,18 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
     kernel's ``launch_geometry``), and the variant, from the dtype, head_dim
     and whether q, k and v are 16-byte aligned (``aligned``, which TMA
     needs): ``flash_fwd_wgmma`` for bf16 at head_dim 64/128,
-    ``flash_fwd_tf32x3`` for fp32 at head_dim 64, ``flash_fwd`` for every
-    other call.  grid = (query tiles, H, B).
+    ``flash_fwd_tf32x3`` for fp32 at head_dim 64/128, ``flash_fwd`` for
+    every other call.  grid = (query tiles, H, B).
     flash_fwd: 64-row tiles, 256 threads, dynamic shared memory for the
     transposed q tile, one K and one V tile and the probability tile.
     flash_fwd_wgmma: 128-row tiles, 384 threads, the q tile and a ring of
     K/V stages of 128 keys in bf16, their barriers and 1 KB of alignment
     slack.  flash_fwd_tf32x3: 128-row tiles, 384 threads, q_small of the
-    tile and rings of 64-key fp32 stages (q_big lives in registers); when S
-    and Skv are both at most 64 (one K/V tile per head) it packs two heads
-    into a block, one per consumer warpgroup: grid = (1, ceil(H / 2), B).
+    tile and rings of fp32 stages of 64 keys at head_dim 64, 32 at 128
+    (q_big lives in registers); when S and Skv are both at most 64 (one
+    warpgroup's rows; one K/V tile at head_dim 64, two at 128) it packs two
+    heads into a block, one per consumer warpgroup: grid = (1, ceil(H / 2),
+    B).
     Unlike the Pallas kernel, S and Skv need not divide by the tiles: the
     ragged edge is masked (or zero-filled by TMA), and the KV tiles are a
     loop inside the block, so Skv does not enter the grid otherwise."""
@@ -91,13 +95,14 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
                 "G": H // KV, "threads": WG_THREADS, "stages": stages,
                 "grid": (math.ceil(S / WG_BLOCK_Q), H, B), "smem_bytes": smem}
     if dtype == torch.float32 and hd in TF_HEAD_DIMS and aligned:
-        # q_small of the 128 rows; per stage five fp32 tiles of 64 keys (K
+        # q_small of the 128 rows; per stage five fp32 tiles of bk keys (K
         # rounded in place, K_small, V as loaded, Vᵀ_big, Vᵀ_small) and 7
         # barriers; 1 KB of slack
-        smem = TF_BLOCK_Q * hd * 4 + TF_STAGES * (5 * TF_BLOCK_K * hd * 4 + 7 * 8) + 1024
-        packed = S <= TF_BLOCK_K and Skv <= TF_BLOCK_K
+        bk = TF_BLOCK_K[hd]
+        smem = TF_BLOCK_Q * hd * 4 + TF_STAGES * (5 * bk * hd * 4 + 7 * 8) + 1024
+        packed = S <= TF_PACK and Skv <= TF_PACK
         grid = (1, math.ceil(H / 2), B) if packed else (math.ceil(S / TF_BLOCK_Q), H, B)
-        return {"kernel": "flash_fwd_tf32x3", "bq": TF_BLOCK_Q, "bk": TF_BLOCK_K,
+        return {"kernel": "flash_fwd_tf32x3", "bq": TF_BLOCK_Q, "bk": bk,
                 "G": H // KV, "threads": TF_THREADS, "stages": TF_STAGES, "packed": packed,
                 "grid": grid, "smem_bytes": smem}
     smem_floats = hd * (BLOCK_Q + 4) + BLOCK_K * (hd + 1) + BLOCK_K * hd \

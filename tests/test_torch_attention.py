@@ -9,9 +9,10 @@ Tolerances:
     bf16 (here, and on the card through flash_fwd at head_dim 16/32): one
     bf16 ulp of the output (rtol 2^-7) plus atol 1e-4 — both sides compute
     in fp32 and round once;
-  * on the card, fp32 through flash_fwd_tf32x3 (head_dim 64): the same
-    atol 2e-5, rtol 2e-5 — split TF32 drops ~2^-21 of each product, which
-    the CPU emulation below holds to that tolerance before the card does;
+  * on the card, fp32 through flash_fwd_tf32x3 (head_dim 64 and 128): the
+    same atol 2e-5, rtol 2e-5 — split TF32 drops ~2^-21 of each product,
+    which the CPU emulation below (the kernel's tiles, product order and
+    online softmax) holds to that tolerance before the card does;
   * on the card, bf16 through flash_fwd_wgmma (head_dim 64/128): rtol 2^-7
     plus atol 2^-9·max|v| + 1e-4 — the kernel rounds each probability to
     bf16 (relative error ≤ 2^-9) before P·V, as every tensor-core attention
@@ -263,7 +264,11 @@ def test_wrapper_checks_its_inputs():
     # stablelm training: one K/V tile per head, two heads per block
     (128, 64, 32, 32, 64, 64, "flash_fwd_tf32x3", (1, 16, 128), 197_744),
     (4, 2048, 32, 32, 2048, 64, "flash_fwd_tf32x3", (16, 32, 4), 197_744),  # stablelm prefill
-    (1, 2048, 40, 8, 2048, 128, "flash_fwd", (32, 40, 1), 118_016),     # qwen GQA
+    (1, 2048, 40, 8, 2048, 128, "flash_fwd_tf32x3", (16, 40, 1), 230_512),  # qwen GQA
+    (4, 2048, 32, 2, 2048, 128, "flash_fwd_tf32x3", (16, 32, 4), 230_512),  # chatglm prefill
+    (2, 1024, 48, 8, 1024, 128, "flash_fwd_tf32x3", (8, 48, 2), 230_512),   # dbrx prefill
+    (128, 64, 4, 2, 64, 128, "flash_fwd_tf32x3", (1, 2, 128), 230_512),    # dbrx smoke, packed
+    (2, 64, 4, 4, 65, 128, "flash_fwd_tf32x3", (1, 4, 2), 230_512),        # Skv > 64: unpacked
     (1, 1000, 8, 8, 1000, 64, "flash_fwd_tf32x3", (8, 8, 1), 197_744),    # ragged S
     (2, 64, 5, 5, 64, 64, "flash_fwd_tf32x3", (1, 3, 2), 197_744),        # odd H, packed
     (2, 64, 4, 4, 65, 64, "flash_fwd_tf32x3", (1, 4, 2), 197_744),        # Skv > 64: unpacked
@@ -284,7 +289,8 @@ def test_launch_geometry(B, S, H, KV, Skv, hd, kernel, grid, smem):
     (32, torch.bfloat16, True, "flash_fwd"),
     (64, torch.bfloat16, False, "flash_fwd"),          # a base TMA cannot read
     (64, torch.float32, True, "flash_fwd_tf32x3"),     # stablelm, the fp32 paths
-    (128, torch.float32, True, "flash_fwd"),
+    (128, torch.float32, True, "flash_fwd_tf32x3"),    # qwen, phi3, chatglm, dbrx
+    (128, torch.float32, False, "flash_fwd"),
     (16, torch.float32, True, "flash_fwd"),
     (32, torch.float32, True, "flash_fwd"),
     (64, torch.float32, False, "flash_fwd"),
@@ -297,7 +303,8 @@ def test_launch_geometry_picks_the_variant(hd, dtype, aligned, kernel):
         assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 128, 384)
         assert geo["grid"] == (16, 32, 4) and geo["stages"] == fa.WG_STAGES[hd]
     elif kernel == "flash_fwd_tf32x3":
-        assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 64, 384)
+        # 16 KB fp32 K/V tiles: 64 keys at head_dim 64, 32 at 128
+        assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 4096 // hd, 384)
         assert geo["grid"] == (16, 32, 4) and geo["stages"] == fa.TF_STAGES
         assert not geo["packed"]
     else:
@@ -316,9 +323,27 @@ def test_kernel_constants_are_the_wrappers_geometry():
     assert (const["kBQ"], const["kBK"], const["kThreads"]) == (fa.BLOCK_Q, fa.BLOCK_K, fa.THREADS)
     assert (const["kWgBQ"], const["kWgBK"], const["kWgThreads"]) == (
         fa.WG_BLOCK_Q, fa.WG_BLOCK_K, fa.WG_THREADS)
-    assert (const["kTfBQ"], const["kTfBK"], const["kTfThreads"], const["kTfStages"]) == (
-        fa.TF_BLOCK_Q, fa.TF_BLOCK_K, fa.TF_THREADS, fa.TF_STAGES)
-    assert (const["kTfHD"],) == fa.TF_HEAD_DIMS
+    assert (const["kTfBQ"], const["kTfThreads"], const["kTfStages"], const["kTfPack"]) == (
+        fa.TF_BLOCK_Q, fa.TF_THREADS, fa.TF_STAGES, fa.TF_PACK)
+    assert {64: const["kTfBK64"], 128: const["kTfBK128"]} == fa.TF_BLOCK_K
+    assert tuple(fa.TF_BLOCK_K) == fa.TF_HEAD_DIMS
+    # the C entry point takes exactly these head_dims for variant 2
+    assert re.search(r"flash_attention_tf32x3_smem_bytes\(int hd\) \{\s*switch \(hd\) \{\s*"
+                     r"case 64: return tf_smem_bytes<64>\(\);\s*"
+                     r"case 128: return tf_smem_bytes<128>\(\);", src)
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("S,Skv", [(64, 64), (2048, 2048), (48, 40)])
+def test_every_variant_fits_a_blocks_shared_memory(hd, dtype, aligned, S, Skv):
+    """Each variant's shared memory, packed or not, fits the 232,448 bytes a
+    Hopper block may use."""
+    geo = fa.launch_geometry(2, S, 8, 2, Skv, hd, dtype, aligned)
+    assert 0 < geo["smem_bytes"] <= 232_448
+    if geo["kernel"] == "flash_fwd_tf32x3":
+        assert geo["packed"] == (S <= fa.TF_PACK and Skv <= fa.TF_PACK)
 
 
 # ---------------------------------------------------------------------------
@@ -348,19 +373,36 @@ def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, dtype=torch.float32) -> torch.Te
 
 
 def attention_3xtf32(q, k, v, causal, window):
-    """Attention with q·kᵀ and P·V as split TF32, the rest (scale, mask,
-    softmax) in fp32, as flash_fwd_tf32x3 computes it (its online softmax
-    rescales by exact powers of the same exponentials)."""
+    """Attention as flash_fwd_tf32x3 computes it, tile by tile
+    (``fa.TF_BLOCK_K`` keys: 64 at head_dim 64, 32 at 128): q·scale split
+    once, each tile's scores by split TF32 in log2 units, masked with the
+    −1e30 sentinel, the online softmax's max, rescale and denominator in
+    fp32, each tile's P·V into a fresh product (small products first) that
+    is added to O before the next tile's rescale, O = (O + P_i·V_i)·corr,
+    and o = O / l at the end."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    bk = fa.TF_BLOCK_K[hd]
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
     qh = (q * hd ** -0.5).reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
     kh, vh = k.permute(0, 2, 1, 3)[:, :, None], v.permute(0, 2, 1, 3)[:, :, None]
-    s = mm_3xtf32(qh, kh.transpose(-1, -2))                  # [B, KV, G, S, Skv]
     valid = ref._mask(torch.arange(S), torch.arange(Skv), causal, window)
-    s = torch.where(valid, s, ref.NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    o = mm_3xtf32(p, vh) / p.sum(-1, keepdim=True)
+    m = torch.full(qh.shape[:-1] + (1,), ref.NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(qh.shape)
+    pv = None
+    for k0 in range(0, Skv, bk):
+        s = mm_3xtf32(qh, kh[..., k0:k0 + bk, :].transpose(-1, -2)) * log2e
+        s = torch.where(valid[:, k0:k0 + bk], s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        if pv is not None:
+            o = (o + pv) * corr
+        pv = mm_3xtf32(p, vh[..., k0:k0 + bk, :])
+    o = (o + pv) / l.clamp_min(1e-30)
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
 
@@ -395,26 +437,38 @@ def test_3xtf32_dropped_term_is_the_error_model():
     torch.testing.assert_close(mm_3xtf32(a, b), exact.float(), atol=1e-5, rtol=1e-5)
 
 
-# the fp32 head_dim-64 cases of chip_smoke.py's ATTN_CASES, cut to a few
-# heads (B, S, H, KV, Skv, causal, window)
+# the fp32 cases of chip_smoke.py's ATTN_CASES, cut to a few heads
+# (B, S, H, KV, Skv, hd, causal, window)
 TF32X3_CASES = [
-    (4, 64, 2, 2, 64, True, None),             # stablelm training
-    (1, 2048, 2, 2, 2048, True, None),         # stablelm prefill
-    (1, 2048, 2, 2, 2048, True, 256),          # window 256
-    (1, 1024, 4, 1, 1024, True, None),         # MQA
-    (1, 512, 2, 2, 2048, False, None),         # non-causal, Skv > S
-    (1, 1000, 2, 2, 1000, True, None),         # ragged S
+    (4, 64, 2, 2, 64, 64, True, None),         # stablelm training
+    (1, 2048, 2, 2, 2048, 64, True, None),     # stablelm prefill
+    (1, 2048, 2, 2, 2048, 64, True, 256),      # window 256
+    (1, 1024, 4, 1, 1024, 64, True, None),     # MQA
+    (1, 512, 2, 2, 2048, 64, False, None),     # non-causal, Skv > S
+    (1, 1000, 2, 2, 1000, 64, True, None),     # ragged S
+    (1, 2048, 4, 1, 2048, 128, True, None),    # chatglm prefill (G = 4 of its 16)
+    (1, 1024, 6, 1, 1024, 128, True, None),    # dbrx prefill
+    (1, 2048, 5, 1, 2048, 128, True, 256),     # qwen GQA with window 256
+    (8, 64, 4, 2, 64, 128, True, None),        # dbrx smoke training (two tiles a head)
+    (1, 512, 2, 2, 2048, 128, False, None),    # non-causal, Skv > S
+    (1, 1000, 2, 2, 1000, 128, True, None),    # ragged S
 ]
 
 
-@pytest.mark.parametrize("B,S,H,KV,Skv,causal,window", TF32X3_CASES)
-def test_3xtf32_attention_meets_the_fp32_tolerance(B, S, H, KV, Skv, causal, window):
-    """Split TF32 attention holds ``ref.attention_full`` at fp32's own
-    tolerance (atol 2e-5, rtol 2e-5) at the shapes the card checks."""
-    q, k, v = _t(*_qkv(S + Skv + H, B, S, H, KV, 64, Skv))
-    got = attention_3xtf32(q, k, v, causal, window)
-    want = ref.attention_full(q, k, v, causal=causal, window=window)
-    torch.testing.assert_close(got, want, **TOL)
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,causal,window", TF32X3_CASES)
+def test_3xtf32_attention_meets_the_fp32_tolerance(jref, B, S, H, KV, Skv, hd, causal,
+                                                   window):
+    """Split TF32 attention in the kernel's tiles and order holds
+    ``ref.attention_full`` and the reference's ``attention_full`` at fp32's
+    own tolerance (atol 2e-5, rtol 2e-5) at the shapes the card checks."""
+    _, jnp, jax_ref, _ = jref
+    qn, kn, vn = _qkv(S + Skv + H + hd, B, S, H, KV, hd, Skv)
+    got = attention_3xtf32(*_t(qn, kn, vn), causal, window)
+    torch.testing.assert_close(got, ref.attention_full(*_t(qn, kn, vn), causal=causal,
+                                                       window=window), **TOL)
+    want = jax_ref.attention_full(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
+                                  causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_variant_counters_and_the_cpu_never_counts():
@@ -449,7 +503,7 @@ def test_build_knows_both_libraries(tmp_path, monkeypatch):
 # on the card
 # ---------------------------------------------------------------------------
 CARD_SHAPES = [
-    # B, S, H, KV, Skv, hd, causal, window (fp32 at head_dim 64 runs
+    # B, S, H, KV, Skv, hd, causal, window (fp32 at head_dim 64 and 128 runs
     # flash_fwd_tf32x3, packed two heads a block where S, Skv <= 64)
     (3, 64, 4, 4, 64, 64, True, None),
     (2, 200, 8, 2, 200, 32, True, None),       # GQA, ragged
@@ -480,6 +534,37 @@ def test_kernel_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
     tol = (TOL if dtype == torch.float32 else
            wgmma_tol(v) if kernel == "flash_fwd_wgmma" else BF16_TOL)
     torch.testing.assert_close(o.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+# flash_fwd_tf32x3 at head_dim 128 (32-key tiles, P·V in two n64 halves):
+# B, S, H, KV, Skv, causal, window
+TF32_HD128_SHAPES = [
+    pytest.param(4, 2048, 32, 2, 2048, True, None, id="chatglm_prefill"),
+    pytest.param(1, 2048, 40, 8, 2048, True, None, id="qwen_gqa"),
+    pytest.param(2, 1024, 48, 8, 1024, True, None, id="dbrx_prefill"),
+    pytest.param(128, 64, 4, 2, 64, True, None, id="dbrx_smoke_packed"),
+    pytest.param(2, 64, 5, 5, 64, True, 16, id="packed_odd_h_window"),
+    pytest.param(2, 20, 4, 2, 32, False, None, id="packed_one_tile"),
+    pytest.param(2, 1000, 8, 8, 1000, True, None, id="ragged_s1000"),
+    pytest.param(1, 1000, 8, 1, 1000, True, 256, id="mqa_window_ragged"),
+    pytest.param(2, 512, 8, 8, 2048, False, None, id="noncausal_skv2048"),
+    pytest.param(1, 200, 4, 4, 333, False, None, id="noncausal_both_ragged"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,Skv,causal,window", TF32_HD128_SHAPES)
+def test_tf32x3_hd128_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, causal, window):
+    q, k, v = (t.to(cuda_device) for t in _t(*_qkv(S + Skv + H, B, S, H, KV, 128, Skv)))
+    geo = fa.launch_geometry(B, S, H, KV, Skv, 128)
+    assert geo["kernel"] == "flash_fwd_tf32x3" and geo["bk"] == 32
+    n0 = fa.variant_launches["flash_fwd_tf32x3"]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    assert fa.variant_launches["flash_fwd_tf32x3"] == n0 + 1
+    torch.testing.assert_close(o, want, **TOL)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
 

@@ -124,8 +124,35 @@ def test_prox_ref_is_the_references_arithmetic_in_fp32(jref):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("K,T,blocks,ticket", [
+    (4, 32, 1, False),            # the mlp launcher's K × B: the block finishes its worker
+    (1, 1024, 1, False),
+    (1, 1025, 2, True),           # past one block: the last block sums the partials
+    (8, 4096, 4, True),
+    (2, 65536, 64, True),         # over 32 blocks: lanes sum two partials each
+])
+def test_auc_launch_geometry_is_the_kernels(K, T, blocks, ticket):
+    """One launch a call, its grid and its ticket path as
+    ``csrc/coda_kernels.cu`` computes them (read from the source: there is
+    no compiler here)."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import auc_loss as K1
+    src = (_build.CSRC / "coda_kernels.cu").read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (kAuc\w+) = (\d+);", src)}
+    assert (const["kAucThreads"], const["kAucRowsPerThread"]) == (K1.THREADS,
+                                                                 K1.ROWS_PER_THREAD)
+    host = src[src.index("int coda_auc_loss("):src.index("int coda_auc_rows_per_block")]
+    assert host.count("<<<") == 1                       # one launch, no finishing kernel
+    geo = K1.launch_geometry(K, T)
+    assert geo["launches"] == 1 and geo["grid"] == (blocks, K) and geo["ticket"] == ticket
+    assert geo["threads"] == K1.THREADS and geo["rows_per_block"] == K1.ROWS_PER_BLOCK
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,T", [(1, 7), (4, 100), (4, 513), (4, 32), (8, 4096)])
+@pytest.mark.parametrize("K,T", [(1, 7), (4, 100), (4, 513), (4, 32), (8, 4096),
+                                 (3, 33_000), (2, 65_536)])
 def test_auc_kernel_matches_plain_on_card(cuda_device, K, T):
     from repro_torch.kernels.auc_loss import auc_loss
     h, y, a, b, alpha = (torch.from_numpy(x).to(cuda_device)
@@ -135,7 +162,31 @@ def test_auc_kernel_matches_plain_on_card(cuda_device, K, T):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **AUC_TOL)
     again = auc_loss(h, y, a, b, alpha, 0.71)
-    assert all(torch.equal(g, x) for g, x in zip(got, again))  # no atomics
+    assert all(torch.equal(g, x) for g, x in zip(got, again))  # no atomics in the sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,T", [(4, 32), (8, 4096), (2, 65_536)])
+def test_auc_kernel_is_one_launch_on_card(cuda_device, K, T):
+    """One kernel per call, as the profiler records it, and the library's
+    rows per block are the wrapper's; the ticket path leaves its tickets at
+    zero for the next call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import auc_loss as K1
+    assert _build.load().coda_auc_rows_per_block() == K1.ROWS_PER_BLOCK
+    h, y, a, b, alpha = (torch.from_numpy(x).to(cuda_device) for x in _auc_case(K, T, 0.71))
+    K1.auc_loss(h, y, a, b, alpha, 0.71)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        K1.auc_loss(h, y, a, b, alpha, 0.71)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len([n for n in kernels if "auc_loss" in n]) == 1, kernels
+    if K1.launch_geometry(K, T)["ticket"]:
+        assert int(K1._tickets[h.device].abs().sum()) == 0
 
 
 @pytest.mark.cuda

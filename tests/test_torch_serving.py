@@ -583,3 +583,52 @@ def test_serve_launcher_prints_the_references_lines():
                         r"ticks=\d+", lines[5]), lines[5]
     assert re.fullmatch(r"\[serve\] final \(5 scored\): streaming auc=\d\.\d{4}.* \(sketch\) "
                         r"n=5 state=16384B", lines[6]), lines[6]
+
+
+# the engine's options in combination, each run through the reference
+# engine and the port's on the same smoke weights: (arch, config fields,
+# engine options, batch trace)
+ENGINE_COMBOS = [
+    ("stablelm-1.6b", {},                                          # prefix pool, SJF, short max_len
+     dict(slots=2, max_len=24, prefill_chunk=4, prefix_cache_size=4, admission="sjf"),
+     dict(n_requests=6, prompt_len=(4, 14), max_new=(2, 6), prefix_pool=2, prefix_len=5)),
+    ("stablelm-1.6b", dict(window=8, window_mode="all_but_global", global_attn_every=2),
+     dict(slots=3, max_len=32, prefill_chunk=4),
+     dict(n_requests=5, prompt_len=(6, 20), max_new=(3, 8))),
+    ("qwen2.5-14b", {},                                            # a bounded queue rejects
+     dict(slots=2, max_len=32, prefill_chunk=4, queue_limit=3, prefix_cache_size=8),
+     dict(n_requests=7, prompt_len=(6, 12), max_new=(2, 5), prefix_pool=1, prefix_len=4)),
+    ("arctic-480b", {},                                            # prompts truncated to max_len
+     dict(slots=2, max_len=16, prefill_chunk=4),
+     dict(n_requests=4, prompt_len=(10, 24), max_new=(3, 6))),
+]
+ENGINE_COUNTERS = ("ticks", "tokens_prefilled", "tokens_decoded", "prefix_hits",
+                   "prefix_misses", "n_completed", "n_rejected", "n_expired", "n_failed")
+
+
+@pytest.mark.parametrize("arch,replace,ekw,tkw", ENGINE_COMBOS,
+                         ids=["stablelm_prefix_sjf", "stablelm_window_all_but_global",
+                              "qwen_queue_limit_prefix", "arctic_truncate"])
+def test_engine_combinations_equal_the_reference_engines(arch, replace, ekw, tkw):
+    """Tokens, statuses, truncation, prefix hits and every engine counter
+    equal the reference engine's; the AUC-head scores agree at the logits'
+    fp32 tolerance (atol 1e-5, rtol 1e-5)."""
+    jcfg, cfg, jp, p = _pair(arch, seed=11, **replace)
+    tcfg = dict(kind="batch", seed=11) | tkw
+    jeng = JEngine(jcfg, jp, **ekw)
+    jreqs, _ = JLG.run_trace(jeng, JLG.make_trace(JLG.TraceConfig(**tcfg), cfg.vocab_size))
+    eng = ServingEngine(cfg, p, **ekw)
+    reqs, _ = LG.run_trace(eng, LG.make_trace(LG.TraceConfig(**tcfg), cfg.vocab_size))
+    for field in ("generated", "status", "truncated", "prompt_used", "prefix_hit_tokens"):
+        assert [getattr(r, field) for r in reqs] == [getattr(r, field) for r in jreqs], field
+    assert {r.status for r in reqs} == ({"done", "rejected"} if "queue_limit" in ekw
+                                        else {"done"})
+    served = [(r.score, j.score) for r, j in zip(reqs, jreqs) if r.score is not None]
+    assert served and len(served) == sum(j.score is not None for j in jreqs)
+    np.testing.assert_allclose(*zip(*served), **TOL)
+    for name in ENGINE_COUNTERS:
+        assert getattr(eng, name) == getattr(jeng, name), name
+    if "prefix_cache_size" in ekw:
+        assert eng.prefix_hits > 0
+    if ekw["max_len"] == 16:
+        assert any(r.truncated for r in reqs)

@@ -108,3 +108,25 @@ def test_launcher_refuses_missing_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda is not available"):
         train.main(["--stages", "1"])
+
+
+def test_schedule_and_payload_equal_the_references_with_skew_and_int8():
+    """Non-IID shards, an int8 payload and a window at every step, with
+    eight workers: the same iterations, communication rounds, bytes per
+    round per worker and schedule total as the reference's launcher with
+    the same flags (its JAX runs on the CPU)."""
+    flags = ("--workers", "8", "--dirichlet-alpha", "0.1", "--compress", "int8",
+             "--interval", "0", "--stages", "2", "--t0", "16")
+    ours = _run(*flags)
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    theirs = subprocess.run([sys.executable, "-m", "repro.launch.train", *flags], cwd=ROOT,
+                            env=env, capture_output=True, text=True, timeout=300)
+    assert ours.returncode == 0, ours.stderr
+    assert theirs.returncode == 0, theirs.stderr
+    pattern = (r"^done: (\d+) iters, (\d+) comm rounds, .*\n"
+               r"bytes/round/worker=([\d,]+) \(schedule total ([\d,]+)\)$")
+    got, want = (re.search(pattern, out.stdout, re.M) for out in (ours, theirs))
+    assert got and want, (ours.stdout, theirs.stdout)
+    assert got.groups() == want.groups() == ("64", "66", "25,000", "1,600,008")
+    assert re.search(r"^non-IID shards \(Dirichlet α=0\.1\): sizes=\[(\d+, ){7}\d+\]",
+                     ours.stdout, re.M), ours.stdout

@@ -263,6 +263,27 @@ def test_stablelm_full_width_parameter_count():
     assert sum(t.numel() for t in leaves) == 1_644_369_921
 
 
+@pytest.mark.parametrize("arch,n_params,n_leaves", [
+    ("chatglm3-6b", 6_243_588_097, 17),      # chip_smoke.py's full-depth hd-128 prefill
+    ("qwen2.5-14b", 14_770_038_785, 17),
+    ("phi3-medium-14b", 14_659_512_321, 14),
+])
+def test_full_width_parameter_count_and_leaves(arch, n_params, n_leaves):
+    """The port's full-width tree, made on the meta device (no allocation),
+    has the reference's leaf shapes in the reference's order, as
+    ``jax.eval_shape`` of its init gives them, and the count chip_smoke.py
+    checks on the card."""
+    leaves = tree_leaves(M.init_params(get_config(arch), device="meta"))
+    shapes = jax.eval_shape(lambda k: JM.init_params(k, jax_get_config(arch)),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    jl = jax.tree_util.tree_leaves(shapes)
+    assert len(leaves) == len(jl) == n_leaves
+    assert [tuple(t.shape) for t in leaves] == [x.shape for x in jl]
+    assert [t.dtype for t in leaves] == [torch.float32] * n_leaves
+    assert {str(x.dtype) for x in jl} == {"float32"}
+    assert sum(t.numel() for t in leaves) == sum(int(np.prod(x.shape)) for x in jl) == n_params
+
+
 def _coda_pair(arch, K_, seed):
     jcfg, cfg = _cfgs(arch)
     jccfg = JC.CoDAConfig(n_workers=K_, p_pos=0.7)
