@@ -12,8 +12,8 @@ machine k's replica), plus ``opt`` for a stateful optimizer
 ``stream_bins > 0``, the streaming sketch ``sk_acc`` / ``sk_new`` /
 ``sk_loc`` ({"pos", "neg"}: [K, bins] fp32 counts; see
 ``metrics/streaming.py``).  A local step runs every worker at once: one batched
-forward over ``[K, B, ...]`` inputs, one ``auc_loss`` launch over the
-``[K, B]`` scores, autograd of ``losses.sum()`` (the workers are
+forward over ``[K, B, ...]`` inputs, the objective's loss over the ``[K, B]``
+scores (one ``auc_loss`` launch for ``auc``), autograd of ``losses.sum()`` (the workers are
 independent, so the sum gives each worker its own gradient — a mean would
 scale them by 1/K), then the optimizer's update: one ``prox_update``
 launch per parameter leaf (sgd, shampoo_blocked) or one ``opt_update``
@@ -26,8 +26,9 @@ into the old ones, so ``ref_params`` may share buffers with ``params``
 after ``stage_end`` (``init_state`` still gives it its own copy, as the
 reference does).
 
-Ported: ``algorithm="coda"`` with the ``auc`` objective over the mlp, cnn,
-dense and moe families (token batches ``[K, B, S]``; ``use_window`` and
+Ported: ``algorithm="coda"`` with every objective (``auc``, ``pauc_dro``,
+``bce``) over the mlp, cnn, dense and moe families, in fp32 or bf16
+parameters (``param_dtype``; token batches ``[K, B, S]``; ``use_window`` and
 ``impl`` reach ``M.score`` as in the reference; an moe local step adds
 ``moe_aux_coef`` times the load-balance loss and dispatches by capacity,
 its stage-end α batches by ``cfg.moe.dispatch`` through K5), every
@@ -170,8 +171,6 @@ class CoDAConfig:
         unported = [
             (self.algorithm != "coda", f"algorithm={self.algorithm!r}",
              "Queue 1 item 8 (CODASCA)"),
-            (self.objective != "auc", f"objective={self.objective!r}",
-             "Queue 1 item 3 (objectives)"),
             (self.faults_enabled or self.max_staleness != 0
              or self.straggler_windows != 1 or self.staleness_discount != 0.5
              or self.fault_seed != 0,
@@ -181,8 +180,6 @@ class CoDAConfig:
             (self.server_momentum != 0.0,
              f"server_momentum={self.server_momentum}",
              "Queue 1 item 8 (server momentum)"),
-            (self.param_dtype != torch.float32,
-             f"param_dtype={self.param_dtype}", "Queue 1 item 4 (bf16 params)"),
         ]
         for bad, what, item in unported:
             if bad:
@@ -318,7 +315,9 @@ def int8_quantize(xf, red_axes):
 
 def average(state: CoDAState, compress: str | None = None) -> CoDAState:
     """Periodic model averaging over the worker axis (params and duals);
-    ``compress="int8"`` averages each worker's int8-quantized replica."""
+    ``compress="int8"`` averages each worker's int8-quantized replica.  Each
+    leaf keeps its dtype: a bf16 leaf is summed in fp32 and rounded once, as
+    ``jnp.mean`` of a bf16 array is."""
     if compress == "int8":
         def avg(x):
             xf = x.to(torch.float32)
@@ -328,7 +327,8 @@ def average(state: CoDAState, compress: str | None = None) -> CoDAState:
             return m.expand(x.shape).to(x.dtype).contiguous()
     else:
         def avg(x):
-            return torch.mean(x, dim=0, keepdim=True).expand(x.shape).contiguous()
+            m = torch.mean(x.to(torch.float32), dim=0, keepdim=True)
+            return m.to(x.dtype).expand(x.shape).contiguous()
     new = dict(state)
     new["params"] = tree_map(avg, state["params"])
     new["duals"] = {k: avg(v) for k, v in state["duals"].items()}

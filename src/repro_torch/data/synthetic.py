@@ -27,8 +27,7 @@ MOTIF_FRAC = 0.1
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The reference's ``DataConfig`` fields that the ported kinds read
-    (the hard-negative mix comes with ``pauc_dro``)."""
+    """The reference's ``DataConfig`` fields that the ported kinds read."""
 
     kind: str = "features"     # features | images | tokens
     p_pos: float = 0.5
@@ -37,6 +36,8 @@ class DataConfig:
     image_hw: int = 32
     n_features: int = 64
     signal: float = 1.0        # planted signal strength
+    hard_neg_frac: float = 0.0  # features only: the fraction of negatives
+                                # drawn near the positives (hard_negative_features)
 
 
 def _draw(rng: np.random.Generator, dcfg: DataConfig, labels: np.ndarray) -> dict:
@@ -59,8 +60,34 @@ def _draw(rng: np.random.Generator, dcfg: DataConfig, labels: np.ndarray) -> dic
         raise ValueError(f"unknown data kind {dcfg.kind!r} "
                          "(want features | images | tokens)")
     x = rng.standard_normal((n, dcfg.n_features), dtype=np.float32)
+    if dcfg.hard_neg_frac > 0.0:
+        u = rng.random(n, dtype=np.float32)
+        return {"features": hard_negative_features(x, u, labels, dcfg)}
     x += ((labels * 2 - 1) * dcfg.signal * 0.3)[:, None].astype(np.float32)
     return {"features": x}
+
+
+def hard_negative_features(x: np.ndarray, u: np.ndarray, labels: np.ndarray,
+                           dcfg: DataConfig) -> np.ndarray:
+    """The heteroscedastic negatives of ``repro/data/synthetic.py:73-93``
+    from the draws: x [..., n_features] standard normal, u [...] uniform,
+    labels [...] float32.  A negative with u < ``hard_neg_frac`` is hard:
+    it sits at +0.25·s on the first half of the features, nearly on top of
+    the positives, and at −0.2·s on the second half, where the positives sit
+    at +0.2·s; the easy negatives stay at −0.3·s and 0.  Only the second
+    half tells a hard negative from a positive, which is what partial-AUC
+    training (``pauc_dro``) has to find.  fp32 throughout, as the
+    reference's, so the same draws give the same bits."""
+    half = x.shape[-1] // 2
+    hard = ((u < dcfg.hard_neg_frac) & (labels < 0.5)).astype(np.float32)
+    s = dcfg.signal
+    prim = np.where(hard > 0.5, np.float32(0.25 * s),
+                    (labels * 2 - 1) * np.float32(0.3) * np.float32(s))
+    sec = np.float32(0.2 * s) * labels - np.float32(0.2 * s) * hard
+    x = np.array(x, dtype=np.float32)
+    x[..., :half] += prim[..., None]
+    x[..., half:] += sec[..., None]
+    return x
 
 
 def dirichlet_partition(rng: np.random.Generator, labels: np.ndarray,

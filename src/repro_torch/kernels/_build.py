@@ -39,6 +39,8 @@ _SIGNATURES = {
                                             ctypes.c_float, ctypes.c_float, _P]),
     "coda_prox_update_bf16": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
                                              ctypes.c_float, ctypes.c_float, _P]),
+    "coda_prox_update_bf16_gf32": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
+                                                  ctypes.c_float, ctypes.c_float, _P]),
     "coda_opt_update": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                        ctypes.c_float, ctypes.c_float,

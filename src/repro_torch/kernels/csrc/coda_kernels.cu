@@ -168,9 +168,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-template <typename T>
+// The direction g may be fp32 under bf16 parameters (blocked Shampoo's
+// step, computed in fp32): TG is g's type, T that of v, v0 and the result.
+template <typename T, typename TG = T>
 __global__ void __launch_bounds__(kProxThreads)
-prox_update_kernel(const T* __restrict__ v, const T* __restrict__ g,
+prox_update_kernel(const T* __restrict__ v, const TG* __restrict__ g,
                    const T* __restrict__ v0, T* __restrict__ out, long long n,
                    float eta, float gamma) {
   const float denom = __fadd_rn(eta, gamma);
@@ -186,15 +188,15 @@ prox_update_kernel(const T* __restrict__ v, const T* __restrict__ g,
   }
 }
 
-template <typename T>
+template <typename T, typename TG = T>
 int launch_prox(const void* v, const void* g, const void* v0, void* out,
                 long long n, float eta, float gamma, void* stream) {
   if (n > 0) {
     long long blocks = (n + kProxThreads - 1) / kProxThreads;
     if (blocks > 132LL * 16) blocks = 132LL * 16;  // 16 blocks per SM, then stride
-    prox_update_kernel<T><<<static_cast<unsigned>(blocks), kProxThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(v), static_cast<const T*>(g),
+    prox_update_kernel<T, TG><<<static_cast<unsigned>(blocks), kProxThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(v), static_cast<const TG*>(g),
         static_cast<const T*>(v0), static_cast<T*>(out), n, eta, gamma);
   }
   return static_cast<int>(cudaGetLastError());
@@ -340,6 +342,12 @@ int coda_prox_update_f32(const void* v, const void* g, const void* v0, void* out
 int coda_prox_update_bf16(const void* v, const void* g, const void* v0, void* out,
                           long long n, float eta, float gamma, void* stream) {
   return launch_prox<__nv_bfloat16>(v, g, v0, out, n, eta, gamma, stream);
+}
+
+// bf16 v, v0 and result with an fp32 direction g
+int coda_prox_update_bf16_gf32(const void* v, const void* g, const void* v0, void* out,
+                               long long n, float eta, float gamma, void* stream) {
+  return launch_prox<__nv_bfloat16, float>(v, g, v0, out, n, eta, gamma, stream);
 }
 
 // mode: 0 momentum, 1 precond; v_bf16 / buf_bf16: 0 fp32, 1 bf16 (v, g, v0

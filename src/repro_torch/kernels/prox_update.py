@@ -27,19 +27,25 @@ from repro_torch.kernels import _build, ref
 # Kernel launches through this wrapper (one per call that reaches the card).
 launches = 0
 
-_ENTRY = {torch.float32: "coda_prox_update_f32",
-          torch.bfloat16: "coda_prox_update_bf16"}
+# entry point by (v and v0's dtype, g's dtype): g may be fp32 under bf16
+# parameters, as blocked Shampoo's fp32 step is (the reference's kernel
+# casts each input to fp32 on its own)
+_ENTRY = {(torch.float32, torch.float32): "coda_prox_update_f32",
+          (torch.bfloat16, torch.bfloat16): "coda_prox_update_bf16",
+          (torch.bfloat16, torch.float32): "coda_prox_update_bf16_gf32"}
 
 
 def prox_update(v, g, v0, eta: float, gamma: float):
-    """Elementwise proximal step over tensors of one shape and dtype (fp32
-    or bf16); returns a new tensor in v's dtype."""
+    """Elementwise proximal step over tensors of one shape: v and v0 of one
+    dtype (fp32 or bf16), g of theirs or fp32; returns a new tensor in v's
+    dtype."""
     if not (v.shape == g.shape == v0.shape):
         raise ValueError(f"prox_update wants one shape, got {tuple(v.shape)}, "
                          f"{tuple(g.shape)}, {tuple(v0.shape)}")
-    if not (v.dtype == g.dtype == v0.dtype) or v.dtype not in _ENTRY:
-        raise ValueError(f"prox_update wants v, g, v0 all float32 or all "
-                         f"bfloat16, got {v.dtype}, {g.dtype}, {v0.dtype}")
+    if v.dtype != v0.dtype or (v.dtype, g.dtype) not in _ENTRY:
+        raise ValueError(f"prox_update wants v and v0 all float32 or all "
+                         f"bfloat16, and g in their dtype or float32; got "
+                         f"{v.dtype}, {g.dtype}, {v0.dtype}")
     if len({v.device, g.device, v0.device}) != 1:
         raise ValueError("prox_update inputs lie on several devices")
     if v.device.type == "cpu":
@@ -51,7 +57,7 @@ def prox_update(v, g, v0, eta: float, gamma: float):
     v, g, v0 = (t.contiguous() for t in (v, g, v0))
     out = torch.empty_like(v)
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    err = getattr(lib, _ENTRY[v.dtype])(
+    err = getattr(lib, _ENTRY[(v.dtype, g.dtype)])(
         v.data_ptr(), g.data_ptr(), v0.data_ptr(), out.data_ptr(), v.numel(),
         float(eta), float(gamma), stream)
     _build.check(err, "prox_update launch")

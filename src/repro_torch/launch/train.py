@@ -36,6 +36,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --metrics sketch --metric-interval 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --objective pauc_dro --pauc-beta 0.3          # or --objective bce
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch stablelm-1.6b --smoke --stages 2 --t0 30 --interval 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
       --n-layers 2 --stages 1 --t0 16 --n-data 1024     # full width, 2 layers
@@ -118,8 +120,14 @@ def build_parser() -> argparse.ArgumentParser:
     # the reference's flags for features not ported yet: accepted, and
     # rejected unless left at their defaults (see UNPORTED_FLAGS)
     ap.add_argument("--algorithm", default="coda")
-    ap.add_argument("--objective", default="auc")
-    ap.add_argument("--pauc-beta", type=float, default=0.3)
+    ap.add_argument("--objective", choices=list(objective.names()),
+                    default="auc",
+                    help="min-max objective (core/objective.py registry): "
+                         "auc = the paper's; pauc_dro = one-way partial AUC "
+                         "via KL-DRO; bce = dual-free cross-entropy")
+    ap.add_argument("--pauc-beta", type=float, default=0.3,
+                    help="FPR budget β for --objective pauc_dro and its "
+                         "reported pAUC@β")
     ap.add_argument("--server-momentum", type=float, default=0.0)
     ap.add_argument("--optimizer", choices=list(optimizer.names()),
                     default="sgd",
@@ -160,8 +168,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flag → ROADMAP item that ports it; a non-default value is rejected
 UNPORTED_FLAGS = {
     "algorithm": "Queue 1 item 8 (CODASCA)",
-    "objective": "Queue 1 item 3 (objectives)",
-    "pauc_beta": "Queue 1 item 3 (objectives)",
     "server_momentum": "Queue 1 item 8 (server momentum)",
     "participation": "Queue 1 item 8 (faults)",
     "straggler_prob": "Queue 1 item 8 (faults)",
@@ -223,6 +229,8 @@ def main(argv=None) -> dict:
 
     ccfg = coda.CoDAConfig(n_workers=args.workers, p_pos=ds.p_pos,
                            avg_compress=args.compress,
+                           objective=args.objective,
+                           pauc_beta=args.pauc_beta,
                            stream_bins=args.metric_bins
                            if args.metrics == "sketch" else 0,
                            optimizer=args.optimizer,
@@ -296,8 +304,12 @@ def main(argv=None) -> dict:
     launches = {k: m.launches - before[k] for k, m in KERNELS.items()}
     h_test = test_scores(res.state)
     auc = objective.roc_auc(h_test, test["labels"])
+    extra, metric = "", None
+    if obj.metric_name != "auc":
+        metric = obj.metric("exact").compute(h_test, test["labels"])
+        extra = f", test {obj.metric_name}@{args.pauc_beta:g}={metric:.4f}"
     print(f"done: {res.iterations} iters, {res.comm_rounds} comm rounds, "
-          f"{dt:.1f}s, test AUC={auc:.4f}")
+          f"{dt:.1f}s, test AUC={auc:.4f}{extra}")
     if args.metrics == "sketch":
         sk = streaming.sketch_from_rows(res.state["sk_acc"], lo, hi)
         report("final train-stream", sk, int(sk.count))
@@ -313,7 +325,8 @@ def main(argv=None) -> dict:
     # algorithm choice); the steady per-step time excludes it
     steady = res.step_seconds[1:] or res.step_seconds
     ms_per_step = 1e3 * statistics.median(steady)
-    return {"auc": auc, "iterations": res.iterations, "history": res.history,
+    return {"auc": auc, "metric": metric, "iterations": res.iterations,
+            "history": res.history,
             "ms_per_local_step": ms_per_step, "leaves": len(leaves),
             "state": res.state, "test_scores": h_test, "launches": launches,
             "n_test": int(test["labels"].shape[0]), "stages": len(stage_list),

@@ -96,15 +96,27 @@ def backbone(cfg: ModelConfig, params, batch, *, use_window: bool = False,
     else:
         x = batch["features"]
         for lp in params["mlp"]:
-            x = torch.relu(torch.bmm(x, lp["w"]) + lp["b"][:, None, :])
+            x = torch.relu(_bmm(x, lp["w"]) + lp["b"][:, None, :])
     return x, torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
 
 
+def _bmm(x, w):
+    """x @ w under jnp's promotion: fp32 features against bf16 weights
+    compute in fp32, as the reference's ``x @ w`` does (torch would
+    refuse the mixed pair)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.bmm(x.to(dt), w.to(dt))
+
+
+def score_logit(sh, pooled):
+    """pooled @ w + b with the bias added in fp32 (``model.py:132-140``):
+    pooled [K, B, d] → [K, B] fp32."""
+    return _bmm(pooled, sh["w"])[..., 0].to(torch.float32) + sh["b"][:, :1]
+
+
 def _score_head(sh, pooled):
-    """sigmoid(pooled @ w + b) with the bias added in fp32
-    (``model.py:132-140``): pooled [K, B, d] → [K, B]."""
-    logit = torch.bmm(pooled, sh["w"])[..., 0].to(torch.float32) + sh["b"][:, :1]
-    return torch.sigmoid(logit)
+    """sigmoid of ``score_logit``: pooled [K, B, d] → [K, B]."""
+    return torch.sigmoid(score_logit(sh, pooled))
 
 
 def score(cfg: ModelConfig, params, batch, *, use_window: bool = False,

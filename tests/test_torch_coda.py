@@ -257,11 +257,10 @@ def test_config_rejects_what_the_reference_rejects(bad):
 
 
 @pytest.mark.parametrize("unported", [
-    dict(algorithm="codasca"), dict(objective="pauc_dro"), dict(objective="bce"),
+    dict(algorithm="codasca"),
     dict(straggler_prob=0.1), dict(fault_seed=3),
     dict(staleness_discount=0.25), dict(participation=0.5), dict(crashes=((0, 1),)),
     dict(max_staleness=2), dict(overlap_chunks=2), dict(server_momentum=0.5),
-    dict(param_dtype=torch.bfloat16),
 ])
 def test_config_rejects_unported_features(unported):
     """Valid in the reference, not ported yet: raise, never train plain CoDA."""

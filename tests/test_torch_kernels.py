@@ -113,6 +113,26 @@ def test_prox_ref_matches_reference(jref, N, dtype):
                                    np.asarray(want, np.float32), atol=tol)
 
 
+@pytest.mark.parametrize("N", [5, 4097])
+def test_prox_ref_takes_an_fp32_step_under_bf16_params(jref, N):
+    """bf16 v and v0 with an fp32 direction g (blocked Shampoo's step under
+    bf16 parameters): each input widened on its own, as the reference's
+    plain version and its Pallas kernel do, one rounding to bf16 at the end;
+    bitwise equal to both."""
+    jnp, jax_ref, _, pallas_prox = jref
+    rng = np.random.default_rng(N)
+    v, g, v0 = (rng.standard_normal(N).astype(np.float32) for _ in range(3))
+    jv, jv0 = (jnp.asarray(x, jnp.bfloat16) for x in (v, v0))
+    tv, tv0 = (torch.from_numpy(np.array(x, np.float32)).to(torch.bfloat16) for x in (jv, jv0))
+    got = ref.prox_update_ref(tv, torch.from_numpy(g), tv0, 0.05, 0.5)
+    assert got.dtype == torch.bfloat16
+    bits = got.view(torch.int16).numpy().view(np.uint16)
+    for want in (jax_ref.prox_update_ref(jv, jnp.asarray(g), jv0, 0.05, 0.5),
+                 pallas_prox(jv, jnp.asarray(g), jv0, 0.05, 0.5, block=256, interpret=True)):
+        assert want.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(bits, np.asarray(want).view(np.uint16))
+
+
 def test_prox_ref_is_the_references_arithmetic_in_fp32(jref):
     """In fp32 the plain version repeats the reference's operations in the
     same order, so the results are bitwise equal."""
@@ -201,6 +221,21 @@ def test_prox_kernel_matches_plain_on_card(cuda_device, N, dtype):
     want = ref.prox_update_ref(v, g, v0, 0.05, 0.5)
     assert got.dtype == dtype
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [5, 4097, 1 << 20])
+def test_prox_kernel_takes_an_fp32_step_under_bf16_params_on_card(cuda_device, N):
+    """bf16 v and v0 with an fp32 direction (blocked Shampoo's step under
+    bf16 parameters): bitwise the plain version, the result in bf16."""
+    from repro_torch.kernels.prox_update import prox_update
+    g_ = torch.Generator().manual_seed(N)
+    v, g, v0 = (torch.randn(N, generator=g_).to(cuda_device, dt)
+                for dt in (torch.bfloat16, torch.float32, torch.bfloat16))
+    got = prox_update(v, g, v0, 0.05, 0.5)
+    want = ref.prox_update_ref(v, g, v0, 0.05, 0.5)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def _opt_case(n, mode, v_dtype, buf_dtype, device):

@@ -3,8 +3,9 @@
 Two checks: a subprocess that imports repro_torch and runs one CPU local
 step of the mlp, one of the dense transformer (and a prefill), one of the
 moe transformer (an eval score and a prefill through the sorted dispatch)
-and a short serving-engine run must leave ``jax`` and ``repro`` out of
-``sys.modules``; and an AST
+a short serving-engine run, a ``pauc_dro`` and a ``bce`` local step on bf16
+parameters over hard-negative data, a ``bce_step`` and the quickstart
+module must leave ``jax`` and ``repro`` out of ``sys.modules``; and an AST
 scan of every module of the port and of chip_smoke.py finds no import of
 either (imports of ``repro_torch`` itself are allowed).
 """
@@ -65,6 +66,22 @@ req = Request(uid=0, prompt=[1, 2, 3], max_new_tokens=2)
 eng.add_request(req)
 eng.run()
 assert req.status == "done" and len(req.generated) == 2
+# the other objectives on bf16 parameters, the hard-negative data, the
+# baselines and the quickstart twin's module
+from repro_torch import quickstart  # noqa: F401
+from repro_torch.core import baselines
+fcfg = mlp_config(n_features=8, d=16)
+ds = ShardedDataset(DataConfig(kind="features", n_features=8, hard_neg_frac=0.25), 256, 2,
+                    target_p=0.7)
+batch = {k: v[0] for k, v in ds.sample_window(1, 8).items()}
+for obj in ("pauc_dro", "bce"):
+    c = coda.CoDAConfig(n_workers=2, p_pos=0.7, objective=obj, param_dtype=torch.bfloat16)
+    st = coda.init_state(fcfg, c, generator=torch.Generator().manual_seed(0))
+    st, losses = coda.local_step(fcfg, c, st, batch, 0.1)
+    assert bool(torch.isfinite(losses).all()) and st["params"]["mlp"][0]["w"].dtype == torch.bfloat16
+p = baselines.bce_init(fcfg, 2, generator=torch.Generator().manual_seed(0))
+p, loss = baselines.bce_step(fcfg, p, batch, 0.1)
+assert bool(torch.isfinite(loss))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)

@@ -86,7 +86,7 @@ def test_launcher_metric_reports_on_cpu(backend):
 
 @pytest.mark.parametrize("flag,item", [
     (("--algorithm", "codasca"), "Queue 1 item 8"),
-    (("--objective", "pauc_dro"), "Queue 1 item 3"),
+    (("--straggler-prob", "0.1"), "Queue 1 item 8"),
     (("--server-momentum", "0.5"), "Queue 1 item 8"),
     (("--executor", "shard_map"), "Queue 1 item 10"),
     (("--participation", "0.5"), "Queue 1 item 8"),
@@ -130,3 +130,31 @@ def test_schedule_and_payload_equal_the_references_with_skew_and_int8():
     assert got.groups() == want.groups() == ("64", "66", "25,000", "1,600,008")
     assert re.search(r"^non-IID shards \(Dirichlet α=0\.1\): sizes=\[(\d+, ){7}\d+\]",
                      ours.stdout, re.M), ours.stdout
+
+
+@pytest.mark.parametrize("objective,duals", [("pauc_dro", 4), ("bce", 0)])
+def test_launcher_objectives_print_the_references_lines(objective, duals):
+    """``--objective`` with ``--pauc-beta``: the same iterations,
+    communication rounds, bytes per round per worker (24,961 fp32 params
+    plus the objective's fp32 duals: a, b, α, λ for pauc_dro, none for bce)
+    and schedule total as the reference's launcher with the same flags, and
+    its ``done:`` line with the ``test pauc@β=`` suffix for pauc_dro."""
+    flags = ("--objective", objective, "--pauc-beta", "0.2", "--stages", "2", "--t0", "16",
+             "--n-data", "1024")
+    ours = _run(*flags)
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    theirs = subprocess.run([sys.executable, "-m", "repro.launch.train", *flags], cwd=ROOT,
+                            env=env, capture_output=True, text=True, timeout=300)
+    assert ours.returncode == 0, ours.stderr
+    assert theirs.returncode == 0, theirs.stderr
+    suffix = r", test pauc@0\.2=(?P<pauc>\d\.\d{4})" if objective == "pauc_dro" else ""
+    pattern = (r"^done: (?P<iters>\d+) iters, (?P<rounds>\d+) comm rounds, [\d.]+s, "
+               rf"test AUC=\d\.\d{{4}}{suffix}\n"
+               r"bytes/round/worker=(?P<bytes>[\d,]+) \(schedule total (?P<total>[\d,]+)\)$")
+    got, want = (re.search(pattern, out.stdout, re.M) for out in (ours, theirs))
+    assert got and want, (ours.stdout, theirs.stdout)
+    keys = ("iters", "rounds", "bytes", "total")
+    assert [got[k] for k in keys] == [want[k] for k in keys]
+    assert got["bytes"] == f"{(24961 + duals) * 4:,}"
+    if objective == "pauc_dro":
+        assert 0.0 <= float(got["pauc"]) <= 1.0
