@@ -25,16 +25,32 @@ last line):
      buffer), sm3, shampoo_blocked, the streaming sketch (``--metrics
      sketch --metric-interval 4``) and the other two objectives
      (``--objective pauc_dro``, ``--objective bce``: their losses are plain
-     tensor code, so auc_loss = 0); the quickstart twin
+     tensor code, so auc_loss = 0), CODASCA on Dirichlet(0.1) shards
+     (``--algorithm codasca --dirichlet-alpha 0.1``), the same with faults
+     and the sketch (``--participation 0.75 --straggler-prob 0.2
+     --straggler-windows 2 --max-staleness 2 --fault-seed 3 --metrics
+     sketch --metric-interval 4``: the masked averaging), the masked int8
+     CoDA average (``--participation 0.5 --compress int8 --fault-seed 1``)
+     and CODASCA with server momentum and the momentum optimizer
+     (``--server-momentum 0.9 --optimizer momentum``: opt_update); each
+     path's bytes/round/worker equal to the reference launcher's for the
+     same flags; the crash-resume through ``coda.fit`` (the faulted CODASCA
+     configuration, a window sampler that raises after window 5, a
+     checkpoint every 2 windows, then ``resume=True``: state, history,
+     rounds and bytes bitwise the uninterrupted run's); the quickstart twin
      (``python -m repro_torch.quickstart``, its own AUC > 0.85 assert);
      ResNet50 at full width (K=4, B=32, 32×32 images, one stage of 16 local
-     steps) with sgd, momentum (bf16 buffer) and sm3.  Counters: auc_loss =
+     steps) with sgd, momentum (bf16 buffer), sm3, and CODASCA on
+     Dirichlet(0.1) shards with the masked average (``--participation 0.75
+     --fault-seed 1``: 2 × the CoDA path's payload + 8 B of weight
+     lanes).  Counters: auc_loss =
      local steps (objective auc); prox_update or opt_update = local steps ×
      leaves (6 mlp, 153 ResNet50), the other 0; the sketch counts local
      steps × K × B scores.  Finite losses; ms per local step, peak memory
      and optimizer state bytes;
-  6. one more window under torch.profiler of mlp, ResNet50 and ResNet50 +
-     momentum: device busy time, idle share, the hand-written kernels'
+  6. one more window under torch.profiler of mlp, the faulted mlp CODASCA
+     path, ResNet50, ResNet50 + momentum and ResNet50 CODASCA (masked):
+     device busy time, idle share, the hand-written kernels'
      device time, the top kernels;
   7. the smoke paths again with ``--device cpu``: each test AUC (and the
      test pAUC of pauc_dro, and the quickstart's AUC) within 0.01 of the
@@ -82,7 +98,12 @@ last line):
      window; the same CoDA path with ``param_dtype=bfloat16`` through
      ``coda.init_state`` and ``coda.fit`` (one local step's losses and every
      gradient leaf held to impl="ref" under the bf16 rule against the fp32
-     step; every K4 launch flash_fwd_wgmma, K2 on bf16 leaves); and ``--arch
+     step; every K4 launch flash_fwd_wgmma, K2 on bf16 leaves); the same
+     in bf16 with CODASCA under faults (participation 0.75, stragglers 0.2,
+     max_staleness 1: the mixed bf16/f32 buckets, 2 × model_bytes + 8; one
+     local step's losses and one masked window's merged parameters held to
+     impl="ref" under the bf16 rule; exact launch counts, peak memory, a
+     profiled window); and ``--arch
      stablelm-1.6b --smoke`` on the card, its test AUC within 0.01 of the
      same command with ``--device cpu`` (run with the mlp paths' CPU
      twins);
@@ -164,6 +185,9 @@ PROX_OPS_PER_ELEMENT = 6    # 3 mul, 1 sub, 1 add, 1 div
 OPT_OPS_PER_ELEMENT = {"momentum": 2 + PROX_OPS_PER_ELEMENT,
                        "precond": 6 + PROX_OPS_PER_ELEMENT}
 MLP_LEAVES, RN_LEAVES = 6, 153
+CODASCA_ARGS = ["--algorithm", "codasca", "--dirichlet-alpha", "0.1"]
+FAULT_ARGS = ["--participation", "0.75", "--straggler-prob", "0.2", "--straggler-windows", "2",
+              "--max-staleness", "2", "--fault-seed", "3"]
 RN_ARGS = ["--arch", "resnet50", "--stages", "1", "--t0", "16", "--n-data", "1024"]
 
 
@@ -720,7 +744,8 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     out["peak_bytes"] = peak
     print(f"{label}: {steps} local steps, {out['ms_per_local_step']:.3f} ms per "
           f"local step (steady median), peak memory {peak / 2**30:.3f} GiB, "
-          f"optimizer state {out['opt_state_bytes']:,} B/worker, launches {counts}, "
+          f"optimizer state {out['opt_state_bytes']:,} B/worker, bytes/round/worker "
+          f"{out['bytes_per_round']:,}, launches {counts}, "
           f"first/last window loss {losses[0]:.5f}/{losses[-1]:.5f}, test AUC "
           f"{out['auc']:.4f}" + ("" if out["metric"] is None else
                                   f", test pauc {out['metric']:.4f}"))
@@ -738,9 +763,16 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     chunks = math.ceil(out["n_test"] / train.TEST_CHUNK)
     want_all = dict(want, flash_attention=want["flash_attention"] + attn_layers * chunks,
                     grouped_matmul=want["grouped_matmul"] + 3 * moe_layers * chunks)
+    if len(out["step_seconds"]) <= 8:     # the short paths: each window's ms per step
+        print(f"{label}: ms per local step by window "
+              f"{[round(1e3 * t, 3) for t in out['step_seconds']]}")
     if counts != want_all or out["launches"] != want:
         raise SystemExit(f"{label}: launch counts {counts} (fit's {out['launches']}), "
                          f"expected {want_all} (fit's {want})")
+    want_bytes = BYTES_PER_ROUND.get(label.removeprefix("main path "))
+    if want_bytes is not None and out["bytes_per_round"] != want_bytes:
+        raise SystemExit(f"{label}: bytes/round/worker {out['bytes_per_round']:,}, the "
+                         f"reference's launcher prints {want_bytes:,}")
     scores = out["test_scores"]
     if not (scores.dim() == 1 and bool(torch.isfinite(scores).all())):
         raise SystemExit(f"{label}: test scores not a finite vector")
@@ -765,12 +797,42 @@ MLP_PATHS = [
     ("mlp_sketch", ["--metrics", "sketch", "--metric-interval", "4"], "prox_update"),
     ("mlp_pauc_dro", ["--objective", "pauc_dro"], "prox_update"),
     ("mlp_bce", ["--objective", "bce"], "prox_update"),
+    # CODASCA on Dirichlet-skewed shards; with faults (dropout, stragglers
+    # merged up to 2 windows late) and the sketch; the masked int8 CoDA
+    # average; CODASCA with server momentum and the momentum optimizer (K3)
+    ("mlp_codasca", CODASCA_ARGS, "prox_update"),
+    ("mlp_codasca_faults", CODASCA_ARGS + FAULT_ARGS + ["--metrics", "sketch",
+                                                        "--metric-interval", "4"],
+     "prox_update"),
+    ("mlp_masked_int8", ["--participation", "0.5", "--compress", "int8", "--fault-seed", "1"],
+     "prox_update"),
+    ("mlp_codasca_server_momentum", ["--algorithm", "codasca", "--server-momentum", "0.9",
+                                     "--optimizer", "momentum"], "opt_update"),
 ]
 RN_PATHS = [
     ("resnet50", [], "prox_update"),
     ("resnet50_momentum", ["--optimizer", "momentum", "--opt-dtype", "bf16"], "opt_update"),
     ("resnet50_sm3", ["--optimizer", "sm3"], "opt_update"),
+    ("resnet50_codasca_masked", ["--algorithm", "codasca", "--dirichlet-alpha", "0.1",
+                                 "--participation", "0.75", "--fault-seed", "1"],
+     "prox_update"),
 ]
+# bytes/round/worker as the reference's launcher prints them for the same
+# flags (tests/test_torch_codasca.py holds these numbers against
+# repro.core.coda's accounting): the mlp's 24,961 fp32 parameters and its
+# objective's fp32 duals; CODASCA doubles them; the sketch adds 2·2048·4;
+# int8 ships 1 B an element and a 4-B scale a leaf; ResNet50's 23,494,721
+# parameters and 3 duals, doubled by CODASCA.  The masked window's weight
+# lanes (+4 B, +8 B for CODASCA) are not in the printed number.
+MLP_BYTES = (24961 + 3) * 4
+BYTES_PER_ROUND = {
+    "mlp": MLP_BYTES, "mlp_momentum": MLP_BYTES, "mlp_sm3": MLP_BYTES,
+    "mlp_shampoo": MLP_BYTES, "mlp_sketch": MLP_BYTES + 2 * 2048 * 4,
+    "mlp_pauc_dro": (24961 + 4) * 4, "mlp_bce": 24961 * 4,
+    "mlp_codasca": 2 * MLP_BYTES, "mlp_codasca_faults": 2 * MLP_BYTES + 2 * 2048 * 4,
+    "mlp_masked_int8": 24961 + 3 + 9 * 4, "mlp_codasca_server_momentum": 2 * MLP_BYTES,
+    "resnet50_codasca_masked": 2 * (23494721 + 3) * 4,
+}
 # stablelm-1.6b: full width with the depth cut to 2 of 24 layers (K=4 replicas,
 # their references, gradients and the step's new copy: ~33 GB at 2 layers,
 # ~105 GB at 24); and the launcher's smoke config, whose test AUC is held
@@ -868,7 +930,12 @@ def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
     its time: host wall time, device busy time, the hand-written kernels'
     share, and the kernels that take the most device time."""
     from repro_torch.core import coda
+    from repro_torch.core.faults import FaultPlan
     ccfg = coda.CoDAConfig(n_workers=4, p_pos=0.71, **ccfg_kw)
+    exe, fl = coda.make_executor(mcfg, ccfg), None
+    if ccfg.faults_enabled:                # window 0's fault vectors
+        fl = {k: torch.from_numpy(v).to(dev)
+              for k, v in zip(("weights", "resync"), FaultPlan.from_config(ccfg).window(0))}
     g = torch.Generator().manual_seed(2)
     y = (torch.rand((8, 4, 32), generator=g) < 0.71).float()
     if mcfg.family == "mlp":
@@ -878,8 +945,8 @@ def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
     else:
         wb = {"images": torch.randn((8, 4, 32, 32 * 32, 3), generator=g)}
     wb = {k: v.to(dev) for k, v in wb.items()} | {"labels": y.to(dev)}
-    coda.window_step(mcfg, ccfg, state, wb, 0.5)          # warm-up
-    wall, busy, per = device_profile(lambda: coda.window_step(mcfg, ccfg, state, wb, 0.5))
+    exe.window_step(state, wb, 0.5, faults=fl)          # warm-up
+    wall, busy, per = device_profile(lambda: exe.window_step(state, wb, 0.5, faults=fl))
     ours = {name: sum(v for k, v in per.items() if tag in k)
             for name, tag in KERNEL_TAGS.items()}
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
@@ -1081,10 +1148,13 @@ def settled(routes, B: int, S: int):
     return torch.cumsum(below.int(), dim=2) == 0
 
 
-def bf16_noise_check(label: str, kern: dict, plain: dict, exact: dict) -> dict:
+def bf16_noise_check(label: str, kern: dict, plain: dict, exact: dict, *,
+                     quiet: bool = False) -> dict:
     """The bf16 rule (BF16_NOISE_FACTOR): {name: tensor} of the kernels,
     impl="ref" and fp32; raises if the kernels are further from impl="ref"
-    than the rule allows.  Returns each output's distances and limit."""
+    than the rule allows.  Returns each output's distances and limit;
+    ``quiet`` prints one line for all of them (the largest distance, and
+    the output nearest its limit) instead of one an output."""
     out, bad = {}, []
     for name, f in exact.items():
         f = f.float()
@@ -1094,11 +1164,22 @@ def bf16_noise_check(label: str, kern: dict, plain: dict, exact: dict) -> dict:
         ek = float((kern[name].float() - f).abs().max())
         out[name] = {"kernel_vs_ref": direct, "ref_vs_fp32": er, "limit": lim,
                      "kernel_vs_fp32": ek}
-        print(f"{label}: {name}: kernels vs impl='ref' {direct:.3g} (limit {lim:.3g}: "
-              f"{BF16_NOISE_FACTOR:g}× impl='ref' vs fp32 {er:.3g} + one bf16 ulp); kernels "
-              f"vs fp32 {ek:.3g}")
+        if not quiet:
+            print(f"{label}: {name}: kernels vs impl='ref' {direct:.3g} (limit {lim:.3g}: "
+                  f"{BF16_NOISE_FACTOR:g}× impl='ref' vs fp32 {er:.3g} + one bf16 ulp); "
+                  f"kernels vs fp32 {ek:.3g}")
         if not direct <= lim:
             bad.append(name)
+    if quiet and out:
+        def used(n):                # the share of its limit an output uses
+            d, lim = out[n]["kernel_vs_ref"], out[n]["limit"]
+            return d / lim if lim else (math.inf if d else 0.0)
+        near = max(out, key=used)
+        print(f"{label}: {len(out)} outputs, kernels vs impl='ref' at most "
+              f"{max(o['kernel_vs_ref'] for o in out.values()):.3g}; nearest its limit: "
+              f"{near} {out[near]['kernel_vs_ref']:.3g} (limit {out[near]['limit']:.3g}: "
+              f"{BF16_NOISE_FACTOR:g}× impl='ref' vs fp32 {out[near]['ref_vs_fp32']:.3g} + "
+              "one bf16 ulp)")
     if bad:
         raise SystemExit(f"{label}: the kernels' bf16 {bad} differ from impl='ref' by more "
                          "than the bf16 rule allows")
@@ -1743,6 +1824,257 @@ def run_bf16_coda(dev) -> tuple[dict, dict]:
              "bf16_rule": rule, "variant_launches": variants, "profile": prof}, counts)
 
 
+# the crash-resume on the card: path (b)'s configuration (mlp_codasca_faults:
+# CODASCA on Dirichlet shards with dropout, stragglers and the sketch)
+# through coda.fit; the mlp's kernels are deterministic (K1's fixed-order
+# ticket, elementwise K2, cuBLAS at fixed shapes), so a resumed run must be
+# bitwise the uninterrupted one
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+CRASH_AFTER, CKPT_EVERY = 5, 2
+
+
+def run_crash_resume(dev) -> tuple[dict, dict]:
+    """``mlp_crash_resume``: the uninterrupted ``coda.fit`` (every counter
+    set to 0 just before: auc_loss once a local step, prox_update once a
+    leaf a local step), then the same run whose window sampler raises after
+    window 5 with a checkpoint every 2 windows, then ``resume=True``: the
+    final state, history, rounds and bytes bitwise the uninterrupted run's."""
+    import shutil
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.configs import mlp_config
+    from repro_torch.core import coda, schedules
+    from repro_torch.data import ShardedDataset
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    label, mcfg = "mlp_crash_resume", mlp_config()
+
+    class Crash(RuntimeError):
+        pass
+
+    def run(crash_after=None, **kw):
+        ds = ShardedDataset(train.data_config_for(mcfg, 0.71), 8192, 4, seed=0, target_p=0.71,
+                            dirichlet_alpha=0.1, device=dev)
+        ccfg = coda.CoDAConfig(n_workers=4, p_pos=ds.p_pos, algorithm="codasca",
+                               participation=0.75, straggler_prob=0.2, straggler_windows=2,
+                               max_staleness=2, fault_seed=3, stream_bins=2048)
+        sched = schedules.ScheduleConfig(n_workers=4, eta0=0.5, T0=60, I0=8, p_pos=ds.p_pos)
+        drawn = [0]
+
+        def sample_window(i):
+            if crash_after is not None and drawn[0] >= crash_after:
+                raise Crash(f"window draw {drawn[0]}")
+            drawn[0] += 1
+            return ds.sample_window(i, 32)
+
+        st = coda.init_state(mcfg, ccfg, generator=torch.Generator().manual_seed(0), device=dev)
+        return coda.fit(st, mcfg, ccfg, sched, 3, sample_window, ds.sample_alpha_batch,
+                        rng=ds.draw_rng, **kw)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    want = run()
+    torch.cuda.synchronize()
+    counts, variants = read_counts(), read_variants()
+    steps = want.iterations
+    expect = dict.fromkeys(counts, 0) | {"auc_loss": steps, "prox_update": steps * MLP_LEAVES}
+    if counts != expect:
+        raise SystemExit(f"{label}: launch counts {counts}, expected {expect}")
+    try:
+        run(CRASH_AFTER, ckpt_dir=CKPT_DIR, ckpt_every=CKPT_EVERY)
+        raise SystemExit(f"{label}: the crashing sampler did not crash")
+    except Crash:
+        pass
+    last = checkpoint.latest_step(CKPT_DIR)
+    got = run(ckpt_dir=CKPT_DIR, ckpt_every=CKPT_EVERY, resume=True)
+    torch.cuda.synchronize()
+    a, b = tree_leaves(want.state), tree_leaves(got.state)
+    same_state = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                          for x, y in zip(a, b))
+    same = {"state": same_state, "history": want.history == got.history,
+            "rounds": want.comm_rounds == got.comm_rounds,
+            "iterations": want.iterations == got.iterations,
+            "bytes": (want.exposed_bytes, want.overlapped_bytes)
+            == (got.exposed_bytes, got.overlapped_bytes)}
+    print(f"main path {label}: {steps} local steps, {want.comm_rounds} rounds, "
+          f"{want.exposed_bytes:,} bytes a worker (masked payload "
+          f"{coda.window_payload_bytes(want.state, masked=True):,} a window); crashed after "
+          f"window {CRASH_AFTER}, resumed from checkpoint {last} ({len(got.step_seconds)} "
+          f"windows run again); bitwise the uninterrupted run: {same}; launches {counts}")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if last != CRASH_AFTER - CRASH_AFTER % CKPT_EVERY or not all(same.values()):
+        raise SystemExit(f"{label}: the resumed run is not the uninterrupted run ({same}, "
+                         f"latest checkpoint {last})")
+    if not all(math.isfinite(h[2]) for h in want.history):
+        raise SystemExit(f"{label}: a non-finite loss")
+    return {"same": same, "steps": steps, "resumed_from": last, "variant_launches": variants,
+            "ms_per_local_step": 1e3 * statistics.median(want.step_seconds[1:])}, counts
+
+
+# stablelm-1.6b CODASCA under faults at full width with 2 layers and bf16
+# parameters (the bf16 CoDA path's cut), through coda.init_state / coda.fit
+BF16_CODASCA_FAULTS = dict(algorithm="codasca", participation=0.75, straggler_prob=0.2,
+                           max_staleness=1)
+
+
+def run_bf16_codasca(dev) -> tuple[dict, dict]:
+    """``bf16_stablelm_codasca``: from a state that has taken one window
+    (nonzero, unequal variates), one local step's losses and one masked
+    window's merged state (parameters, duals, and the refreshed ``cv`` and
+    ``cg``) with the kernels and with impl='ref', held to the same in fp32
+    under the bf16 rule; then ``coda.fit`` (one stage, 16
+    local steps) with every counter set to 0 just before and read just
+    after: auc_loss once a local step, prox_update once a leaf a local step,
+    flash_attention once a layer a forward, every K4 launch
+    flash_fwd_wgmma; peak memory, ms per local step, the mixed bf16/f32
+    buckets, the test AUC, one profiled window."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing, coda, objective, schedules
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.data import ShardedDataset
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+    label, c = "bf16_stablelm_codasca", BF16_CODA
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
+    print(f"main path {label}: reduced: {TRAIN_LAYERS} of 24 layers (full width), K={c['K']}, "
+          f"B={c['B']}, S=64, one stage of {c['T0']} local steps; param_dtype bfloat16 "
+          f"through coda.init_state and coda.fit; {BF16_CODASCA_FAULTS}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ds = ShardedDataset(train.data_config_for(cfg, 0.71), c["n_data"], c["K"], seed=0,
+                        target_p=0.71, device=dev)
+    ccfg = coda.CoDAConfig(n_workers=c["K"], p_pos=ds.p_pos, param_dtype=BF16,
+                           **BF16_CODASCA_FAULTS)
+    plan = FaultPlan.from_config(ccfg)
+
+    def window_faults(w):
+        return {k: torch.from_numpy(v).to(dev) for k, v in zip(("weights", "resync"),
+                                                                 plan.window(w))}
+
+    # the checked window: the first after window 0 with an absent worker, so
+    # its merge is a masked one
+    w0 = next(w for w in range(1, 64) if plan.window(w)[0].min() == 0.0)
+
+    def fresh():
+        return coda.init_state(cfg, ccfg, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+
+    state = fresh()
+    n_leaves = len(tree_leaves(state["params"]))
+    buckets = bucketing.bucket_layout(state, masked=True)
+    print(f"main path {label}: window buckets (bytes a worker) "
+          f"{ {t: b['bytes'] for t, b in buckets.items()} }, payload "
+          f"{coda.window_payload_bytes(state, masked=True):,} = 2 × model_bytes "
+          f"{coda.model_bytes(state):,} + {coda.mask_payload_bytes(state)} B of lanes")
+    if set(buckets) != {"bf16", "f32"} or coda.window_payload_bytes(state, masked=True) != \
+            2 * coda.model_bytes(state) + 8:
+        raise SystemExit(f"{label}: the window payload is not the mixed bf16/f32 buckets "
+                         "of 2 × model_bytes + 8")
+    # window 0 with the kernels: afterwards each participant holds its own
+    # variate c_k and cg their mean, so the checked window's correction
+    # g + (cg − c_k) is not the raw gradient
+    state, _ = coda.make_executor(cfg, ccfg).window_step(
+        state, ds.sample_window(c["I"], c["B"]), 0.5, faults=window_faults(0))
+    cv, cg = tree_leaves(state["cv_params"]), tree_leaves(state["cg_params"])
+    corrected = sum(bool((v != g).any()) for v, g in zip(cv, cg))
+    reached = sum(bool(g.any()) for g in cg)
+    print(f"main path {label}: after window 0, {corrected} of {n_leaves} parameter leaves "
+          f"carry a nonzero correction cg − c_k ({reached} leaves with a nonzero cg)")
+    if corrected == 0 or corrected < reached:
+        raise SystemExit(f"{label}: window 0 left equal variates on a leaf the loss reaches")
+    del cv, cg
+    # one local step's losses and window w0's merged state (params, duals and
+    # both variate trees): the kernels, impl='ref', and the same window in
+    # fp32 (impl='ref'; the replicated ref_params and cg widened from one row)
+    batch = ds.sample_alpha_batch(c["B"])
+    wb = ds.sample_window(c["I"], c["B"])
+    fl = window_faults(w0)
+    merged_keys = ("params", "duals", "cv_params", "cv_duals", "cg_params", "cg_duals")
+
+    def window(st, run_cfg, keep):
+        lo, _, _ = coda.grad_step_scores(cfg, run_cfg, st, batch)
+        new, _ = coda.make_executor(cfg, run_cfg).window_step(st, wb, 0.5, faults=fl)
+        # cg is replicated: one row of it
+        out = {k: {f"{k}{i}": (x[:1] if k.startswith("cg_") else x).to(keep)
+                   for i, x in enumerate(tree_leaves(new[k]))} for k in merged_keys}
+        del new
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return lo, out
+
+    losses, merged = {}, {}
+    for name, kw in (("kernels", {}), ("ref", {"impl": "ref"})):   # held on the host
+        losses[name], merged[name] = window(state, dataclasses.replace(ccfg, **kw), "cpu")
+
+    def widen(key, x):
+        if key not in ("ref_params", "cg_params"):
+            return x.to(F32)
+        if not torch.equal(x, x[:1].expand(x.shape)):
+            raise SystemExit(f"{label}: {key} is not replicated over the workers")
+        return x[:1].to(F32).expand(x.shape)
+
+    st32 = {k: tree_map(lambda x, k=k: widen(k, x), v) for k, v in state.items()}
+    del state
+    losses["fp32"], merged["fp32"] = window(
+        st32, dataclasses.replace(ccfg, impl="ref", param_dtype=F32), dev)
+    del st32
+    cmp_peak = torch.cuda.max_memory_allocated()
+    rule = {"losses": bf16_noise_check(f"main path {label} local step",
+                                       *({"losses": l} for l in losses.values()))}
+    for key in merged_keys:
+        rule[key] = bf16_noise_check(
+            f"main path {label} window {w0} merged {key}",
+            *({n: t.to(dev) for n, t in merged[run][key].items()} for run in ("kernels", "ref")),
+            merged["fp32"][key], quiet=True)
+    if not all(bool(torch.isfinite(t.float()).all())
+               for group in merged["kernels"].values() for t in group.values()):
+        raise SystemExit(f"{label}: a non-finite merged leaf")
+    del merged, losses
+    torch.cuda.empty_cache()
+    state = fresh()
+    sched = schedules.ScheduleConfig(n_workers=c["K"], eta0=0.5, T0=c["T0"], I0=c["I"],
+                                     p_pos=ds.p_pos)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = coda.fit(state, cfg, ccfg, sched, 1,
+                   sample_window=lambda i: ds.sample_window(i, c["B"]),
+                   sample_alpha_batch=ds.sample_alpha_batch)
+    torch.cuda.synchronize()
+    counts, variants = read_counts(), read_variants()
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    steps, stages = res.iterations, 1
+    want = dict.fromkeys(counts, 0) | {
+        "auc_loss": steps, "prox_update": steps * n_leaves,
+        "flash_attention": TRAIN_LAYERS * (steps + stages)}
+    k4 = variants["flash_attention"]
+    print(f"main path {label}: {steps} local steps, launches {counts}, K4 variants {k4}")
+    if counts != want or k4["flash_fwd_wgmma"] != want["flash_attention"]:
+        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
+                         "every K4 launch flash_fwd_wgmma")
+    losses = [h[2] for h in res.history]
+    ms = 1e3 * statistics.median(res.step_seconds[1:] or res.step_seconds)
+    test = ds.full(2048)
+    params0 = tree_map(lambda x: x[:1], res.state["params"])
+    with torch.no_grad():
+        h = torch.cat([M.score(cfg, params0, {"tokens": test["tokens"][i:i + 512][None]})[0][0]
+                       for i in range(0, test["labels"].shape[0], 512)])
+    auc = objective.roc_auc(h, test["labels"])
+    print(f"main path {label}: {ms:.3f} ms per local step (steady median), peak memory "
+          f"{peak / 2**30:.3f} GiB (the three-way window check: {cmp_peak / 2**30:.3f} GiB), "
+          f"window losses {[round(x, 5) for x in losses]}, rounds {res.comm_rounds}, "
+          f"bytes a worker {res.exposed_bytes:,}, test AUC {auc:.4f}")
+    if not (all(math.isfinite(x) for x in losses) and bool(torch.isfinite(h).all())):
+        raise SystemExit(f"{label}: a non-finite loss or test score")
+    prof = profile_window(label, cfg, res.state, dev, param_dtype=BF16, **BF16_CODASCA_FAULTS)
+    return ({"auc": auc, "ms_per_local_step": ms, "peak_bytes": peak,
+             "check_peak_bytes": cmp_peak, "losses": losses, "bf16_rule": rule,
+             "variant_launches": variants, "profile": prof,
+             "payload_by_dtype": {t: b["bytes"] for t, b in buckets.items()}}, counts)
+
+
 def run_quickstart() -> tuple[dict, dict]:
     """``python -m repro_torch.quickstart`` on the card (its own AUC > 0.85
     assert), every counter set to 0 just before: auc_loss once a local
@@ -1792,6 +2124,7 @@ def main() -> int:
 
 def run_phases(dev, rates, bf16_rate, twins) -> int:
     from repro_torch.configs import get_config, mlp_config
+    from repro_torch.core import coda
     gen = torch.Generator().manual_seed(0)
     auc_rows = check_auc_loss(dev, rates, gen)
     prox_rows = check_prox_update(dev, rates, gen)
@@ -1815,6 +2148,10 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     if n_scored != want:
         raise SystemExit("main path mlp_sketch: sketch count disagrees")
     profile_window("mlp", mlp_config(), runs["mlp"]["state"], dev)
+    profile_window("mlp_codasca_faults", mlp_config(), runs["mlp_codasca_faults"]["state"], dev,
+                   algorithm="codasca", participation=0.75, straggler_prob=0.2,
+                   straggler_windows=2, max_staleness=2, fault_seed=3, stream_bins=2048)
+    runs["mlp_crash_resume"], counts["mlp_crash_resume"] = run_crash_resume(dev)
     runs["quickstart"], counts["quickstart"] = run_quickstart()
     for label, args, per_leaf in RN_PATHS:
         runs[label], counts[label] = run_main_path(f"main path {label}", RN_ARGS + args,
@@ -1823,6 +2160,16 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     prof = profile_window("resnet50_momentum", get_config("resnet50"),
                           runs["resnet50_momentum"]["state"], dev, optimizer="momentum",
                           opt_dtype=torch.bfloat16)
+    label = "resnet50_codasca_masked"
+    st = runs[label]["state"]
+    masked = coda.window_payload_bytes(st, masked=True)
+    print(f"main path {label}: masked window payload {masked:,} B a worker = 2 × the CoDA "
+          f"path's model_bytes {coda.model_bytes(st):,} + 8")
+    if masked != 2 * (23494721 + 3) * 4 + 8:
+        raise SystemExit(f"{label}: masked payload {masked:,}")
+    profile_window(label, get_config("resnet50"), st, dev, algorithm="codasca",
+                   participation=0.75, fault_seed=1)
+    del st
     n_step = 4 * sum(resnet_leaf_sizes())
     k3_bound, _ = bound_ms(20 * n_step, OPT_OPS_PER_ELEMENT["momentum"] * n_step, rates)
     print(f"profile resnet50_momentum: opt_update {prof['hand_written_ms']['opt_update'] / 8:.4f} "
@@ -1857,6 +2204,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     profile_window(label, lm_cfg, runs[label].pop("state"), dev)
     torch.cuda.empty_cache()
     runs["bf16_stablelm_coda"], counts["bf16_stablelm_coda"] = run_bf16_coda(dev)
+    torch.cuda.empty_cache()
+    runs["bf16_stablelm_codasca"], counts["bf16_stablelm_codasca"] = run_bf16_codasca(dev)
     torch.cuda.empty_cache()
     label, args, per_leaf = LM_SMOKE
     runs[label], counts[label] = run_main_path(f"main path {label}", args, DENSE_LEAVES,

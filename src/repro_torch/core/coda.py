@@ -26,17 +26,20 @@ into the old ones, so ``ref_params`` may share buffers with ``params``
 after ``stage_end`` (``init_state`` still gives it its own copy, as the
 reference does).
 
-Ported: ``algorithm="coda"`` with every objective (``auc``, ``pauc_dro``,
-``bce``) over the mlp, cnn, dense and moe families, in fp32 or bf16
-parameters (``param_dtype``; token batches ``[K, B, S]``; ``use_window`` and
-``impl`` reach ``M.score`` as in the reference; an moe local step adds
-``moe_aux_coef`` times the load-balance loss and dispatches by capacity,
-its stage-end α batches by ``cfg.moe.dispatch`` through K5), every
-optimizer (sgd, momentum, sm3, shampoo_blocked; moe: sgd and momentum),
-the streaming sketch, plain or int8-compressed averaging, and the
-worker-batched executor (the reference's ``VmapExecutor``).  Every other
-``CoDAConfig`` feature raises ``NotImplementedError`` naming its ROADMAP
-item — it never silently trains plain CoDA.
+Ported: ``algorithm="coda"`` and ``"codasca"`` (``core/codasca.py``)
+with every objective (``auc``, ``pauc_dro``, ``bce``) over the mlp, cnn,
+dense and moe families, in fp32 or bf16 parameters (``param_dtype``; token
+batches ``[K, B, S]``; ``use_window`` and ``impl`` reach ``M.score`` as in
+the reference; an moe local step adds ``moe_aux_coef`` times the
+load-balance loss and dispatches by capacity, its stage-end α batches by
+``cfg.moe.dispatch`` through K5), every optimizer (sgd, momentum, sm3,
+shampoo_blocked; moe: sgd and momentum), the streaming sketch, plain or
+int8-compressed averaging, fault injection with the masked averaging
+(``core/faults.py``, ``core/bucketing.py``), server momentum, crash-resume
+checkpoints in ``fit``, and the worker-batched executor (the reference's
+``VmapExecutor``).  The overlapped ring averaging (``overlap_chunks``)
+raises ``NotImplementedError`` naming its ROADMAP item — it never silently
+trains plain CoDA.
 """
 from __future__ import annotations
 
@@ -45,10 +48,12 @@ import time
 from collections.abc import Callable
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import objective, optimizer, schedules
+from repro_torch.core import bucketing, objective, optimizer, schedules
+from repro_torch.core.faults import FaultPlan
 from repro_torch.metrics import streaming
 from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -168,24 +173,10 @@ class CoDAConfig:
 
     def _reject_unported(self):
         """Valid but not ported yet: raise rather than train plain CoDA."""
-        unported = [
-            (self.algorithm != "coda", f"algorithm={self.algorithm!r}",
-             "Queue 1 item 8 (CODASCA)"),
-            (self.faults_enabled or self.max_staleness != 0
-             or self.straggler_windows != 1 or self.staleness_discount != 0.5
-             or self.fault_seed != 0,
-             "fault injection knobs", "Queue 1 item 8 (faults)"),
-            (self.overlap_chunks != 0, f"overlap_chunks={self.overlap_chunks}",
-             "Queue 1 item 10 (distributed executor)"),
-            (self.server_momentum != 0.0,
-             f"server_momentum={self.server_momentum}",
-             "Queue 1 item 8 (server momentum)"),
-        ]
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"CoDAConfig {what} is not ported to repro_torch yet "
-                    f"(ROADMAP {item})")
+        if self.overlap_chunks != 0:
+            raise NotImplementedError(
+                f"CoDAConfig overlap_chunks={self.overlap_chunks} is not ported to "
+                "repro_torch yet (ROADMAP Queue 1 item 10, distributed executor)")
 
 
 CoDAState = dict[str, Any]
@@ -199,8 +190,9 @@ def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
                generator: torch.Generator | None = None,
                device: str | torch.device = "cpu") -> CoDAState:
     """A fresh state: one replica of ``M.init_params`` stacked K times,
-    ``ref_params`` in buffers of its own, the zero sketch counts when
-    ``stream_bins > 0``, and the optimizer's initial state."""
+    ``ref_params`` in buffers of its own, the fp32 server-momentum buffer
+    ``srv_m`` when β > 0, the zero sketch counts when ``stream_bins > 0``,
+    the optimizer's initial state, and CODASCA's zero control variates."""
     if mcfg.family == "moe" and ccfg.optimizer in ("sm3", "shampoo_blocked"):
         # their state follows the reference's axis order through
         # params.ref_order, which reads every 5-D leaf as a convolution
@@ -218,6 +210,9 @@ def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
         "ref_params": _stack(params, K),
         "ref_duals": {f: torch.zeros_like(duals[f]) for f in obj.prox_refs},
     }
+    if ccfg.server_momentum:
+        state["srv_m"] = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                                        device=x.device), state["params"])
     if ccfg.stream_bins:
         # sk_acc: the replicated global counts; sk_new: each worker's delta
         # since the last average; sk_loc: each worker's own merged deltas
@@ -228,6 +223,9 @@ def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
     opt = optimizer.for_config(ccfg).init(ccfg, state["params"])
     if opt is not None:
         state["opt"] = opt
+    if ccfg.algorithm == "codasca":
+        from repro_torch.core import codasca
+        state = codasca.extend_state(state)
     return state
 
 
@@ -301,60 +299,41 @@ def sketch_update(ccfg: CoDAConfig, sk, hs, labels):
     return {"pos": pos, "neg": neg}
 
 
-def int8_quantize(xf, red_axes):
-    """Max-abs int8 quantizer: per-tensor fp32 scale over ``red_axes``,
-    payload in [-127, 127].  Empty ``red_axes`` (a [K] dual) gives each
-    element its own scale, as ``jnp.max(axis=())`` does; ``torch.amax``
-    would reduce over every axis instead."""
-    absx = torch.abs(xf)
-    scale = (torch.amax(absx, dim=red_axes, keepdim=True) if red_axes
-             else absx) / 127.0 + 1e-12
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
+def server_momentum_step(state: CoDAState, start_params, beta: float) -> CoDAState:
+    """Server momentum on the averaged iterate (CODASCA's server update):
+
+        m ← β·m + (x̄ − x_start),    x ← x_start + m
+
+    in fp32, where ``start_params`` is the synced iterate the window started
+    from and ``state["params"]`` the fresh average.  The buffer ``srv_m`` is
+    a function of synced iterates, so it is replicated and never shipped."""
+    m = tree_map(lambda m_, xb, xs: beta * m_ + (xb.to(torch.float32) - xs.to(torch.float32)),
+                 state["srv_m"], state["params"], start_params)
+    new = dict(state)
+    new["srv_m"] = m
+    new["params"] = tree_map(lambda xs, m_, xb: (xs.to(torch.float32) + m_).to(xb.dtype),
+                             start_params, m, state["params"])
+    return new
 
 
 def average(state: CoDAState, compress: str | None = None) -> CoDAState:
-    """Periodic model averaging over the worker axis (params and duals);
-    ``compress="int8"`` averages each worker's int8-quantized replica.  Each
-    leaf keeps its dtype: a bf16 leaf is summed in fp32 and rounded once, as
-    ``jnp.mean`` of a bf16 array is."""
-    if compress == "int8":
-        def avg(x):
-            xf = x.to(torch.float32)
-            q, scale = int8_quantize(xf, tuple(range(1, x.dim())))
-            deq = q.to(torch.float32) * scale
-            m = torch.mean(deq, dim=0, keepdim=True)
-            return m.expand(x.shape).to(x.dtype).contiguous()
-    else:
-        def avg(x):
-            m = torch.mean(x.to(torch.float32), dim=0, keepdim=True)
-            return m.to(x.dtype).expand(x.shape).contiguous()
-    new = dict(state)
-    new["params"] = tree_map(avg, state["params"])
-    new["duals"] = {k: avg(v) for k, v in state["duals"].items()}
-    if "sk_new" in state:
-        new = merge_sketch(new)
-    return new
-
-
-def merge_sketch(state: CoDAState) -> CoDAState:
-    """Fold the per-worker sketch deltas into the replicated accumulator at
-    a window average: sk_acc += Σ_k sk_new[k], sk_loc[k] += sk_new[k], then
-    reset the deltas.  Exact: integer-valued fp32 counts below 2²⁴."""
-    new = dict(state)
-    new["sk_acc"] = {k: state["sk_acc"][k] + state["sk_new"][k].sum(0, keepdim=True)
-                     for k in ("pos", "neg")}
-    new["sk_loc"] = {k: state["sk_loc"][k] + state["sk_new"][k] for k in ("pos", "neg")}
-    new["sk_new"] = {k: torch.zeros_like(v) for k, v in state["sk_new"].items()}
-    return new
+    """Periodic model averaging over the worker axis (params and duals, and
+    the sketch deltas when the sketch is on): ``bucketing.average_state``
+    with every worker on this device."""
+    return bucketing.average_state(state, compress,
+                                   n_workers=tree_leaves(state["params"])[0].shape[0])
 
 
 def window_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
-                window_batch, eta, *, communicate: bool = True):
-    """``I`` local steps + (optionally) one averaging.  ``window_batch``
-    leaves: [I, K, per_worker_batch, ...].  Returns (state, losses [I],
-    each the mean over workers)."""
+                window_batch, eta, *, communicate: bool = True, faults=None):
+    """``I`` local steps + (optionally) one averaging, then server momentum
+    when β > 0.  ``window_batch`` leaves: [I, K, per_worker_batch, ...].
+    ``faults`` ({"weights": [K], "resync": [K]} f32, ``core/faults.py``)
+    switches the averaging to the exact masked participant mean
+    (``bucketing.masked_average_state``).  Returns (state, losses [I], each
+    the mean over workers)."""
     I = window_batch["labels"].shape[0]
+    start_params = state["params"] if communicate and ccfg.server_momentum else None
     losses = []
     for i in range(I):
         state, loss = local_step(mcfg, ccfg, state,
@@ -362,7 +341,13 @@ def window_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
                                  eta)
         losses.append(loss)
     if communicate:
-        state = average(state, compress=ccfg.avg_compress or None)
+        if faults is not None:
+            state = bucketing.masked_average_state(state, faults, ccfg.avg_compress or None)
+        else:
+            state = bucketing.average_state(state, ccfg.avg_compress or None,
+                                            n_workers=ccfg.n_workers)
+        if ccfg.server_momentum:          # rejected with faults at config time
+            state = server_momentum_step(state, start_params, ccfg.server_momentum)
     return state, torch.stack(losses).mean(dim=1)
 
 
@@ -434,10 +419,33 @@ def streaming_payload_bytes(state: CoDAState) -> int:
     return sum(l.numel() // l.shape[0] * 4 for l in state["sk_new"].values())
 
 
-def window_payload_bytes(state: CoDAState, compress: str | None = None) -> int:
-    """Bytes one worker ships in the single window all-reduce: CoDA's
-    ``model_bytes`` plus the sketch deltas when the sketch is on."""
-    return model_bytes(state, compress) + streaming_payload_bytes(state)
+def mask_payload_bytes(state: CoDAState) -> int:
+    """Extra f32 bytes of the masked window: the weight lane Σu (4), and
+    for CODASCA the participant-count lane Σm (4 more)."""
+    return 8 if "cv_params" in state else 4
+
+
+def window_payload_by_dtype(state: CoDAState, compress: str | None = None, *,
+                            masked: bool = False) -> dict[str, int]:
+    """Window-payload bytes per dtype bucket, keyed by the reference's HLO
+    dtype tags (``f32``, ``bf16``): the totals of ``bucketing.bucket_layout``
+    (CODASCA doubles each leaf's bytes, the sketch and the mask lanes ride
+    the f32 bucket).  Uncompressed layouts only."""
+    if compress:
+        raise ValueError("per-dtype payload is only defined for "
+                         "uncompressed averaging")
+    return {tag: b["bytes"] for tag, b in bucketing.bucket_layout(state, masked=masked).items()}
+
+
+def window_payload_bytes(state: CoDAState, compress: str | None = None, *,
+                         masked: bool = False) -> int:
+    """Bytes one worker ships in the single window averaging: CoDA's
+    ``model_bytes`` (twice that for CODASCA, whose variates ride the same
+    buckets), plus the sketch deltas when the sketch is on, plus the mask
+    lanes when ``masked``."""
+    mult = 2 if "cv_params" in state else 1
+    return (mult * model_bytes(state, compress) + streaming_payload_bytes(state)
+            + (mask_payload_bytes(state) if masked else 0))
 
 
 def stage_payload_bytes(ccfg: CoDAConfig) -> int:
@@ -464,18 +472,39 @@ class FitResult:
     comm_rounds: int
     iterations: int
     step_seconds: list     # per window: host seconds per local step
+    # per-worker payload bytes: every round is exposed on this executor
+    # (``overlapped_bytes`` counts rounds hidden under the next window's
+    # compute, which only an overlapping executor has)
+    exposed_bytes: int = 0
+    overlapped_bytes: int = 0
 
 
 class BatchedExecutor:
     """The single-device executor: the worker axis is a batched tensor axis
-    (the reference's ``VmapExecutor``): ``window_step(state, wb, eta)``,
-    ``stage_end(state, ab)``."""
+    (the reference's ``VmapExecutor``): ``window_step(state, wb, eta, *,
+    faults=None)``, ``stage_end(state, ab)``.  With fault injection on, a
+    window needs its fault vectors, and without it refuses them."""
 
     def __init__(self, mcfg: ModelConfig, ccfg: CoDAConfig):
         self.mcfg, self.ccfg = mcfg, ccfg
+        if ccfg.algorithm == "codasca":
+            from repro_torch.core import codasca
+            self._wstep = codasca.window_step
+        else:
+            self._wstep = window_step
 
-    def window_step(self, state: CoDAState, wb, eta):
-        return window_step(self.mcfg, self.ccfg, state, wb, eta)
+    def window_step(self, state: CoDAState, wb, eta, *, faults=None):
+        if self.ccfg.faults_enabled:
+            if faults is None:
+                raise ValueError(
+                    "CoDAConfig enables fault injection; window_step needs "
+                    "the per-window fault vectors (coda.fit builds them "
+                    "from the FaultPlan)")
+        elif faults is not None:
+            raise ValueError(
+                "fault vectors passed but CoDAConfig has fault injection "
+                "disabled (set participation / straggler / crash knobs)")
+        return self._wstep(self.mcfg, self.ccfg, state, wb, eta, faults=faults)
 
     def stage_end(self, state: CoDAState, ab) -> CoDAState:
         return stage_end(self.mcfg, self.ccfg, state, ab, resync=False)
@@ -499,10 +528,13 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
         sample_alpha_batch: Callable[[int], Any], *,
         eval_every: int = 0,
         eval_fn: Callable[[CoDAState], float] | None = None,
-        executor: Any = "vmap") -> FitResult:
-    """Run CoDA for ``n_stages`` proximal-point stages from ``state`` (the
-    reference draws its state from a PRNG key in this place; here it comes
-    from ``init_state`` or is carried across with ``params.py``).
+        executor: Any = "vmap", fault_plan: FaultPlan | None = None,
+        ckpt_dir: str = "", ckpt_every: int = 0, resume: bool = False,
+        rng: np.random.Generator | None = None) -> FitResult:
+    """Run CoDA (or CODASCA) for ``n_stages`` proximal-point stages from
+    ``state`` (the reference draws its state from a PRNG key in this place;
+    here it comes from ``init_state`` or is carried across with
+    ``params.py``).
 
     ``sample_window(I)`` returns a batch dict with leading [I, K, B, ...];
     ``sample_alpha_batch(m)`` one with [K, m, ...].  They are called in the
@@ -513,27 +545,89 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
     stage, and its value is appended to ``history`` after that window's
     loss, as the reference does.
 
-    ``step_seconds`` records, per window, its host time over its local steps,
-    taken after the per-window loss readout (which synchronises with the
-    device).
+    Fault tolerance: with ``ccfg.faults_enabled`` (or an explicit
+    ``fault_plan``) every window gets its seed-replayed fault vectors
+    (``FaultPlan.window`` of the global window count) and the executor runs
+    the masked averaging; each window then ships ``mask_payload_bytes``
+    more.
+
+    Checkpoints: ``ckpt_dir`` + ``ckpt_every`` save ``{"state"}`` and the
+    reference's loop counters (``stage``, ``w``, ``rounds``, ``iters``,
+    ``gw``, ``exposed``, ``overlapped``, ``history``) every ``ckpt_every``
+    windows, at window boundaries, with the samplers' numpy ``rng`` (its
+    ``bit_generator.state``, as ``rng``): ``ckpt_dir`` needs ``rng``.
+    ``resume=True`` restores the latest checkpoint (none: a cold start)
+    and continues bitwise as the uninterrupted run would: the state, the
+    sampler's stream, the counters and the fault schedule all resume
+    exactly.
+
+    ``step_seconds`` records, per window run by this call, its host time
+    over its local steps, taken after the per-window loss readout (which
+    synchronises with the device).
     """
     exe = executor if hasattr(executor, "window_step") else \
         make_executor(mcfg, ccfg, executor)
     stage_list = schedules.stages(sched, n_stages)
+    if fault_plan is None and ccfg.faults_enabled:
+        fault_plan = FaultPlan.from_config(ccfg)
+    masked = fault_plan is not None
     history, step_seconds = [], []
-    rounds = iters = 0
-    for st in stage_list:
+    rounds = iters = exposed = overlapped = 0
+    gw = 0                    # global window count: fault schedule + ckpt steps
+    start_stage = start_w = 0
+    payload = window_payload_bytes(state, ccfg.avg_compress or None, masked=masked)
+    stage_payload = stage_payload_bytes(ccfg)
+    if ckpt_dir:
+        if rng is None:
+            raise ValueError(
+                "fit(ckpt_dir=...) needs rng=, the numpy Generator the samplers "
+                "draw from: a checkpoint without its state cannot resume the "
+                "same windows")
+        from repro_torch.checkpoint import checkpoint as ckpt
+    if ckpt_dir and resume:
+        step = ckpt.latest_step(ckpt_dir)
+        if step is not None:
+            state = ckpt.restore(ckpt_dir, step, {"state": state})["state"]
+            meta = ckpt.load_metadata(ckpt_dir, step)
+            start_stage, start_w = meta["stage"], meta["w"]
+            rounds, iters, gw = meta["rounds"], meta["iters"], meta["gw"]
+            exposed, overlapped = meta["exposed"], meta["overlapped"]
+            history = [tuple(h) for h in meta["history"]]
+            rng.bit_generator.state = meta["rng"]
+    device = tree_leaves(state["params"])[0].device
+
+    def window_faults(w: int) -> dict:
+        u, r = fault_plan.window(w)
+        return {"weights": torch.from_numpy(u).to(device),
+                "resync": torch.from_numpy(r).to(device)}
+
+    for si, st in enumerate(stage_list):
+        if si < start_stage:
+            continue
         n_windows = -(-st.T // st.I)
-        for w in range(1, n_windows + 1):
+        w = start_w if si == start_stage else 0
+        while w < n_windows:
             t0 = time.perf_counter()
             wb = sample_window(st.I)
-            state, losses = exe.window_step(state, wb, st.eta)
+            state, losses = exe.window_step(state, wb, st.eta,
+                                            faults=window_faults(gw) if masked else None)
             rounds += 1
             iters += st.I
+            exposed += payload
+            w += 1
+            gw += 1
             history.append((st.s, iters, float(torch.mean(losses))))
             step_seconds.append((time.perf_counter() - t0) / st.I)
             if eval_fn is not None and eval_every and w % eval_every == 0:
                 history.append((st.s, iters, float(eval_fn(state))))
+            if ckpt_dir and ckpt_every and gw % ckpt_every == 0:
+                meta = {"stage": si, "w": w, "rounds": rounds, "iters": iters, "gw": gw,
+                        "exposed": exposed, "overlapped": overlapped,
+                        "history": [list(h) for h in history],
+                        "rng": rng.bit_generator.state}
+                ckpt.save(ckpt_dir, gw, {"state": state}, meta)
         state = exe.stage_end(state, sample_alpha_batch(st.m))
         rounds += 1
-    return FitResult(state, history, rounds, iters, step_seconds)
+        exposed += stage_payload          # the stage-end fp32 dual scalars
+    return FitResult(state, history, rounds, iters, step_seconds,
+                     exposed_bytes=exposed, overlapped_bytes=overlapped)

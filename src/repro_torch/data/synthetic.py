@@ -114,7 +114,8 @@ class ShardedDataset:
     """Fixed dataset partitioned across K workers (machine k sees shard k).
 
     ``seed`` seeds three independent numpy streams: the data, the
-    partition, and the minibatch draws."""
+    partition, and the minibatch draws (``draw_rng``, whose state a
+    checkpoint carries so a resumed run draws the same windows)."""
 
     def __init__(self, dcfg: DataConfig, n: int, n_workers: int, *,
                  seed: int = 0, target_p: float | None = None,
@@ -150,7 +151,7 @@ class ShardedDataset:
         self.shard_sizes = [len(s) for s in self.shards]
         self.shard_p_pos = [float(labels[s].mean()) if len(s) else 0.0
                             for s in self.shards]
-        self._draw_rng = np.random.default_rng(draw_ss)
+        self.draw_rng = np.random.default_rng(draw_ss)
 
     def _gather(self, idx: np.ndarray) -> dict:
         ix = torch.from_numpy(idx).to(self.device)
@@ -161,7 +162,7 @@ class ShardedDataset:
     def _pick(self, shape) -> np.ndarray:
         """Indices with replacement, worker k from shard k: shape [..., K, m]."""
         *lead, K, m = shape
-        cols = [s[self._draw_rng.integers(0, len(s), size=tuple(lead) + (m,))]
+        cols = [s[self.draw_rng.integers(0, len(s), size=tuple(lead) + (m,))]
                 for s in self.shards]
         return np.stack(cols, axis=-2)
 

@@ -11,8 +11,15 @@ on the reference's ``tokens`` data at ``seq_len=64``) also launch
 transformers (``--arch dbrx-132b | arctic-480b``) ``grouped_matmul`` three
 times per moe layer in every eval forward (the stage-end α batches and the
 held-out chunks; local steps dispatch by capacity and launch none).  It
-takes the reference's flags; those of features not ported yet are rejected
-with the ROADMAP item that will bring them.  ``--n-layers`` (the port's
+takes the reference's flags: ``--algorithm codasca`` (control-variate
+corrected local steps, twice the window payload), ``--server-momentum``,
+the fault-injection knobs (``--participation``, ``--straggler-prob``,
+``--straggler-windows``, ``--max-staleness``, ``--fault-seed``: the masked
+averaging) and the crash-resume checkpoints (``--ckpt-dir`` with
+``--ckpt-every``, ``--resume``; ``--ckpt-dir`` alone saves the final
+state).  The distributed executor's flags (``--executor shard_map``,
+``--policy``, ``--overlap``, ...) are rejected with the ROADMAP item that
+will bring them.  ``--n-layers`` (the port's
 own) cuts a dense or moe config's depth so a full-width model trains on
 one card.
 
@@ -43,6 +50,10 @@ Examples:
       --n-layers 2 --stages 1 --t0 16 --n-data 1024     # full width, 2 layers
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch dbrx-132b --smoke --stages 2 --t0 30 --interval 8
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --algorithm codasca --dirichlet-alpha 0.1 --participation 0.75
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --ckpt-dir build/ckpt --ckpt-every 4 --resume
 """
 from __future__ import annotations
 
@@ -56,6 +67,7 @@ import torch
 
 from repro_torch import disable_tf32, resolve_device
 from repro_torch.configs import DENSE_ARCHS, MOE_ARCHS, get_config, get_smoke_config, mlp_config
+from repro_torch.checkpoint import checkpoint
 from repro_torch.core import coda, objective, optimizer, schedules
 from repro_torch.data import DataConfig, ShardedDataset
 from repro_torch.kernels import auc_loss as _auc_mod
@@ -117,9 +129,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="int8 = compressed averaging")
     ap.add_argument("--executor", default="vmap",
                     help="vmap = the single-device worker-batched executor")
-    # the reference's flags for features not ported yet: accepted, and
-    # rejected unless left at their defaults (see UNPORTED_FLAGS)
-    ap.add_argument("--algorithm", default="coda")
+    ap.add_argument("--algorithm", choices=["coda", "codasca"], default="coda",
+                    help="codasca = control-variate corrected local steps "
+                         "for heterogeneous (non-IID) shards")
     ap.add_argument("--objective", choices=list(objective.names()),
                     default="auc",
                     help="min-max objective (core/objective.py registry): "
@@ -128,7 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pauc-beta", type=float, default=0.3,
                     help="FPR budget β for --objective pauc_dro and its "
                          "reported pAUC@β")
-    ap.add_argument("--server-momentum", type=float, default=0.0)
+    ap.add_argument("--server-momentum", type=float, default=0.0,
+                    help="β for server momentum on the averaged iterate "
+                         "(0 = off; the buffer is replicated, no extra "
+                         "wire bytes)")
     ap.add_argument("--optimizer", choices=list(optimizer.names()),
                     default="sgd",
                     help="local primal optimizer (core/optimizer.py "
@@ -148,14 +163,29 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--precond-every", type=int, default=1,
                     help="recompute the shampoo inverse root every N local "
                          "steps")
-    ap.add_argument("--participation", type=float, default=1.0)
-    ap.add_argument("--straggler-prob", type=float, default=0.0)
-    ap.add_argument("--straggler-windows", type=int, default=1)
-    ap.add_argument("--max-staleness", type=int, default=0)
-    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="per-window probability a worker's contribution "
+                         "makes the merge (< 1 turns on fault injection: the "
+                         "masked participant-mean averaging)")
+    ap.add_argument("--straggler-prob", type=float, default=0.0,
+                    help="per-window probability a worker starts straggling")
+    ap.add_argument("--straggler-windows", type=int, default=1,
+                    help="how many windows a straggler's contribution lags")
+    ap.add_argument("--max-staleness", type=int, default=0,
+                    help="merge straggler contributions up to this many "
+                         "windows late (discounted weight); later ones are "
+                         "dropped and the worker re-synced")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the replayable fault schedule (core/faults.py)")
     ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="with --ckpt-dir: save the state and the loop "
+                         "counters every N windows (resume with --resume)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir "
+                         "(bitwise the uninterrupted run)")
+    # the distributed executor's flags: accepted, and rejected unless left
+    # at their defaults (see UNPORTED_FLAGS)
     ap.add_argument("--policy", default="replica")
     ap.add_argument("--overlap", action="store_true")
     ap.add_argument("--overlap-chunks", type=int, default=4)
@@ -167,16 +197,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flag → ROADMAP item that ports it; a non-default value is rejected
 UNPORTED_FLAGS = {
-    "algorithm": "Queue 1 item 8 (CODASCA)",
-    "server_momentum": "Queue 1 item 8 (server momentum)",
-    "participation": "Queue 1 item 8 (faults)",
-    "straggler_prob": "Queue 1 item 8 (faults)",
-    "straggler_windows": "Queue 1 item 8 (faults)",
-    "max_staleness": "Queue 1 item 8 (faults)",
-    "fault_seed": "Queue 1 item 8 (faults)",
-    "ckpt_dir": "Queue 1 item 9 (checkpoints)",
-    "ckpt_every": "Queue 1 item 9 (checkpoints)",
-    "resume": "Queue 1 item 9 (checkpoints)",
     "executor": "Queue 1 item 10 (distributed executor)",
     "policy": "Queue 1 item 10 (distributed executor)",
     "overlap": "Queue 1 item 10 (distributed executor)",
@@ -229,10 +249,17 @@ def main(argv=None) -> dict:
 
     ccfg = coda.CoDAConfig(n_workers=args.workers, p_pos=ds.p_pos,
                            avg_compress=args.compress,
+                           algorithm=args.algorithm,
                            objective=args.objective,
                            pauc_beta=args.pauc_beta,
+                           server_momentum=args.server_momentum,
                            stream_bins=args.metric_bins
                            if args.metrics == "sketch" else 0,
+                           participation=args.participation,
+                           straggler_prob=args.straggler_prob,
+                           straggler_windows=args.straggler_windows,
+                           max_staleness=args.max_staleness,
+                           fault_seed=args.fault_seed,
                            optimizer=args.optimizer,
                            opt_dtype=torch.bfloat16
                            if args.opt_dtype == "bf16" else torch.float32,
@@ -253,6 +280,11 @@ def main(argv=None) -> dict:
         print(f"optimizer: {args.optimizer} ({args.opt_dtype}) "
               f"state={optimizer.abstract_state_bytes(ccfg, state['params']):,} "
               "B/worker (local only — never on the wire)")
+    if ccfg.faults_enabled:
+        print(f"fault injection: participation={args.participation:g} "
+              f"straggler_prob={args.straggler_prob:g} "
+              f"(lag {args.straggler_windows}, max_staleness "
+              f"{args.max_staleness}) seed={args.fault_seed}")
 
     test = ds.full(2048)
 
@@ -297,7 +329,9 @@ def main(argv=None) -> dict:
                    sample_alpha_batch=lambda m: ds.sample_alpha_batch(m),
                    eval_every=args.metric_interval,
                    eval_fn=eval_fn if args.metric_interval else None,
-                   executor=args.executor)
+                   executor=args.executor,
+                   ckpt_dir=args.ckpt_dir if args.ckpt_every else "",
+                   ckpt_every=args.ckpt_every, resume=args.resume, rng=ds.draw_rng)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -321,13 +355,22 @@ def main(argv=None) -> dict:
                             stage_bytes=coda.stage_payload_bytes(ccfg))
     per_round = coda.window_payload_bytes(res.state, compress)
     print(f"bytes/round/worker={per_round:,} (schedule total {total:,})")
+    if args.ckpt_dir and not args.ckpt_every:
+        # the final state only; --ckpt-every owns the directory for the
+        # window checkpoints --resume restarts from
+        path = checkpoint.save(args.ckpt_dir, res.iterations, res.state,
+                               {"auc": auc, "arch": mcfg.name})
+        print("checkpoint:", path)
     # the first window carries one-off set-up (allocator growth, cuDNN
-    # algorithm choice); the steady per-step time excludes it
+    # algorithm choice); the steady per-step time excludes it (none when a
+    # resumed run had no window left to run)
     steady = res.step_seconds[1:] or res.step_seconds
-    ms_per_step = 1e3 * statistics.median(steady)
+    ms_per_step = 1e3 * statistics.median(steady) if steady else float("nan")
     return {"auc": auc, "metric": metric, "iterations": res.iterations,
             "history": res.history,
             "ms_per_local_step": ms_per_step, "leaves": len(leaves),
+            "bytes_per_round": per_round, "comm_rounds": res.comm_rounds,
+            "step_seconds": res.step_seconds,
             "state": res.state, "test_scores": h_test, "launches": launches,
             "n_test": int(test["labels"].shape[0]), "stages": len(stage_list),
             "opt_state_bytes": coda.opt_state_bytes(res.state)}

@@ -110,21 +110,28 @@ def _opt_to_jax(mcfg, ccfg, opt):
 
 
 _SKETCH = ("sk_acc", "sk_new", "sk_loc")
+# CODASCA's variates and the server-momentum buffer: parameter-shaped trees
+# (the cnn's convolutions permuted as the parameters are) and dual dicts
+_PARAM_TREES = ("cv_params", "cg_params", "srv_m")
+_DUAL_DICTS = ("cv_duals", "cg_duals")
 
 
 def state_from_jax(mcfg: ModelConfig, ccfg, state, device="cpu"):
     """A whole reference CoDA state as numpy (params, duals, ref_params,
-    ref_duals, and where present the optimizer state ``opt`` and the sketch
-    trees) → the port's state.  ``ccfg.optimizer`` says how ``opt`` is laid
+    ref_duals, and where present the optimizer state ``opt``, the sketch
+    trees, CODASCA's variates and ``srv_m``) → the port's state.  ``ccfg.optimizer`` says how ``opt`` is laid
     out."""
     duals = lambda d: {k: _to_torch(v, device) for k, v in d.items()}
     out = {"params": from_jax_params(mcfg, state["params"], device),
            "duals": duals(state["duals"]),
            "ref_params": from_jax_params(mcfg, state["ref_params"], device),
            "ref_duals": duals(state["ref_duals"])}
-    for k in _SKETCH:
+    for k in _SKETCH + _DUAL_DICTS:
         if k in state:
             out[k] = duals(state[k])
+    for k in _PARAM_TREES:
+        if k in state:
+            out[k] = from_jax_params(mcfg, state[k], device)
     if "opt" in state:
         out["opt"] = _opt_from_jax(mcfg, ccfg, state["opt"], device)
     return out
@@ -138,9 +145,12 @@ def state_to_jax(mcfg: ModelConfig, state, ccfg=None):
            "duals": duals(state["duals"]),
            "ref_params": to_jax_params(mcfg, state["ref_params"]),
            "ref_duals": duals(state["ref_duals"])}
-    for k in _SKETCH:
+    for k in _SKETCH + _DUAL_DICTS:
         if k in state:
             out[k] = duals(state[k])
+    for k in _PARAM_TREES:
+        if k in state:
+            out[k] = to_jax_params(mcfg, state[k])
     if "opt" in state:
         out["opt"] = _opt_to_jax(mcfg, ccfg, state["opt"])
     return out

@@ -45,3 +45,13 @@ def tree_map(f: Callable, t, *rest) -> Any:
     """Apply ``f`` leafwise over ``t`` and trees of the same structure."""
     cols = [tree_leaves(r) for r in rest]
     return tree_unflatten(t, [f(*xs) for xs in zip(tree_leaves(t), *cols)])
+
+
+def tree_paths(t, prefix: str = "") -> list[str]:
+    """Each leaf's key path in ``tree_leaves`` order, written as
+    ``jax.tree_util.keystr`` writes it (``['params']['layers'][0]``)."""
+    if isinstance(t, dict):
+        return [p for k in sorted(t) for p in tree_paths(t[k], f"{prefix}[{k!r}]")]
+    if isinstance(t, (list, tuple)):
+        return [p for i, c in enumerate(t) for p in tree_paths(c, f"{prefix}[{i}]")]
+    return [prefix]

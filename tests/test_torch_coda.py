@@ -257,15 +257,17 @@ def test_config_rejects_what_the_reference_rejects(bad):
 
 
 @pytest.mark.parametrize("unported", [
-    dict(algorithm="codasca"),
-    dict(straggler_prob=0.1), dict(fault_seed=3),
-    dict(staleness_discount=0.25), dict(participation=0.5), dict(crashes=((0, 1),)),
-    dict(max_staleness=2), dict(overlap_chunks=2), dict(server_momentum=0.5),
+    dict(overlap_chunks=1), dict(overlap_chunks=2), dict(overlap_chunks=4),
+    dict(overlap_chunks=2, algorithm="codasca"), dict(overlap_chunks=2, participation=0.5),
 ])
 def test_config_rejects_unported_features(unported):
-    """Valid in the reference, not ported yet: raise, never train plain CoDA."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Valid in the reference, not ported yet (the overlapped ring
+    averaging of the distributed executor): raise, never train plain CoDA.
+    CODASCA, the fault knobs and server momentum are ported
+    (tests/test_torch_codasca.py, tests/test_torch_faults.py)."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         C.CoDAConfig(n_workers=2, **unported)
+    JC.CoDAConfig(n_workers=2, **unported)
 
 
 def test_executor_selection():

@@ -4,8 +4,9 @@ Two checks: a subprocess that imports repro_torch and runs one CPU local
 step of the mlp, one of the dense transformer (and a prefill), one of the
 moe transformer (an eval score and a prefill through the sorted dispatch)
 a short serving-engine run, a ``pauc_dro`` and a ``bce`` local step on bf16
-parameters over hard-negative data, a ``bce_step`` and the quickstart
-module must leave ``jax`` and ``repro`` out of ``sys.modules``; and an AST
+parameters over hard-negative data, a ``bce_step``, the quickstart
+module, a CODASCA window under faults and one with server momentum, and a
+checkpoint round trip must leave ``jax`` and ``repro`` out of ``sys.modules``; and an AST
 scan of every module of the port and of chip_smoke.py finds no import of
 either (imports of ``repro_torch`` itself are allowed).
 """
@@ -82,6 +83,25 @@ for obj in ("pauc_dro", "bce"):
 p = baselines.bce_init(fcfg, 2, generator=torch.Generator().manual_seed(0))
 p, loss = baselines.bce_step(fcfg, p, batch, 0.1)
 assert bool(torch.isfinite(loss))
+# CODASCA under faults (the masked averaging), server momentum, and a
+# checkpoint round trip
+import tempfile
+from repro_torch.checkpoint import checkpoint
+from repro_torch.core import faults
+for kw in (dict(participation=0.5), dict(server_momentum=0.9)):
+    c = coda.CoDAConfig(n_workers=2, p_pos=0.7, algorithm="codasca", **kw)
+    st = coda.init_state(fcfg, c, generator=torch.Generator().manual_seed(0))
+    fl = None
+    if c.faults_enabled:
+        u, r = faults.FaultPlan.from_config(c).window(0)
+        fl = {"weights": torch.from_numpy(u), "resync": torch.from_numpy(r)}
+    st, losses = coda.make_executor(fcfg, c).window_step(st, ds.sample_window(2, 8), 0.1,
+                                                         faults=fl)
+    assert bool(torch.isfinite(losses).all()) and "cg_params" in st
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save(d, 1, {"state": st})
+    back = checkpoint.restore(d, 1, {"state": st})["state"]
+    assert torch.equal(back["srv_m"]["score_head"]["w"], st["srv_m"]["score_head"]["w"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
