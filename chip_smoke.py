@@ -145,8 +145,39 @@ last line):
      card with exact launch counts, against their ``--device cpu`` twins:
      test AUC within 0.01; the printed requests' tokens equal and the served
      AUC within 0.01;
-then the ``{"kernels": [...]}`` line (all five kernels), nvidia-smi's line,
-and the ``{"ok": true, ...}`` line.  It imports nothing of JAX.
+ 14. the distributed executor (``--executor shard_map``: NCCL over R =
+     torch.cuda.device_count() ranks, one a card; R = 1 on one card, so one
+     rank holds all K workers and each bucket's all_reduce is a real NCCL
+     launch over one rank): the mlp at the launcher's defaults, with
+     ``--compress int8``, with ``--overlap --overlap-chunks 4``, as
+     CODASCA with ``--participation 0.75 --straggler-prob 0.2 --fault-seed
+     3`` and as CODASCA with ``--server-momentum 0.9 --optimizer momentum``
+     (opt_update), and ResNet50 at full width (K=4, B=32, one stage of 16
+     local steps), each with the launch counts of phase 5, its
+     bytes/round/worker the reference launcher's, its collectives the
+     reference's contract (a window one all_reduce per dtype bucket of
+     window_payload_by_dtype bytes; int8 the s8 + f32 all_gather pair; an
+     overlapped pair ring_hop_count hops an averaging, none at R = 1; a
+     stage end one all_reduce of its α), its test AUC within 0.01 of the
+     same flags on ``--executor vmap`` (the overlapped path beside the
+     plain one) and its ms per local step beside it; the mlp paths but the
+     overlapped one end with parameters bitwise the vmap path's; ResNet50's
+     vmap fit run twice (bitwise or not, printed), then the vmap and the
+     sharded fits under ``torch.backends.cudnn.deterministic``, bitwise
+     equal; one ResNet50 window through the sharded executor on a one-rank
+     NCCL group against the batched executor from the same state (bitwise,
+     or the differing leaves printed and held to SHARD_WINDOW_RTOL), and one
+     profiled (the NCCL kernels' device time, the idle share); the bf16
+     stablelm-1.6b CoDA path (2 layers, full width) through ``coda.fit`` on
+     the sharded executor: its window against the batched executor's as
+     above, two all_reduces a window (the bf16 and the f32 bucket) of
+     window_payload_by_dtype bytes, every K4 launch flash_fwd_wgmma, exact
+     K1/K2/K4 launches, its ms per local step the median of 5 steady
+     windows beside the batched fit's on the same windows (run after phase
+     10's bf16 paths);
+then the ``{"sharded": {...}}`` line, the ``{"kernels": [...]}`` line (all
+five kernels), nvidia-smi's line, and the ``{"ok": true, ...}`` line.  It
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -706,12 +737,15 @@ def check_step(dev):
 
 
 def zero_counts():
-    """Set every launch counter to 0: each kernel's, and each variant's."""
+    """Set every launch counter to 0: each kernel's, each variant's, and the
+    distributed executor's collective counts."""
+    from repro_torch.core import bucketing
     from repro_torch.launch import train
     for mod in train.KERNELS.values():
         mod.launches = 0
         if hasattr(mod, "zero_launches"):
             mod.zero_launches()
+    bucketing.zero_collectives()
 
 
 def read_counts() -> dict:
@@ -832,7 +866,41 @@ BYTES_PER_ROUND = {
     "mlp_codasca": 2 * MLP_BYTES, "mlp_codasca_faults": 2 * MLP_BYTES + 2 * 2048 * 4,
     "mlp_masked_int8": 24961 + 3 + 9 * 4, "mlp_codasca_server_momentum": 2 * MLP_BYTES,
     "resnet50_codasca_masked": 2 * (23494721 + 3) * 4,
+    "mlp_int8": 24961 + 3 + 9 * 4, "mlp_codasca_participation": 2 * MLP_BYTES,
+    "mlp_shard_map": MLP_BYTES, "mlp_shard_map_int8": 24961 + 3 + 9 * 4,
+    "mlp_shard_map_overlap": MLP_BYTES, "mlp_shard_map_codasca_faults": 2 * MLP_BYTES,
+    "mlp_shard_map_codasca_server_momentum": 2 * MLP_BYTES,
+    "resnet50_shard_map": (23494721 + 3) * 4, "resnet50_shard_map_det": (23494721 + 3) * 4,
 }
+# the distributed executor (--executor shard_map: NCCL, one rank a card): the
+# mlp at the launcher's defaults plain, int8, overlapped and as faulted
+# CODASCA, and ResNet50 at full width; each beside the --executor vmap path
+# with the same flags (the overlapped path beside the plain one: the vmap
+# executor has no ring)
+SHARD_ARGS = ["--executor", "shard_map"]
+SHARD_FAULTS = ["--algorithm", "codasca", "--participation", "0.75", "--straggler-prob", "0.2",
+                "--fault-seed", "3"]
+SHARD_VMAP_PATHS = [("mlp_int8", ["--compress", "int8"]),
+                    ("mlp_codasca_participation", SHARD_FAULTS)]
+# (label, launcher arguments, the vmap path beside it, the kernel launched once
+# per leaf per step, whether the final parameters are held bitwise the vmap
+# path's: at R = 1 the same arithmetic on the same draws, except the
+# overlapped path, whose vmap twin has no pairs, and ResNet50, whose two fits
+# are held bitwise under deterministic cuDNN in run_resnet50_determinism)
+SHARDED_PATHS = [
+    ("mlp_shard_map", SHARD_ARGS, "mlp", "prox_update", True),
+    ("mlp_shard_map_int8", SHARD_ARGS + ["--compress", "int8"], "mlp_int8", "prox_update",
+     True),
+    ("mlp_shard_map_overlap", SHARD_ARGS + ["--overlap", "--overlap-chunks", "4"], "mlp",
+     "prox_update", False),
+    ("mlp_shard_map_codasca_faults", SHARD_ARGS + SHARD_FAULTS, "mlp_codasca_participation",
+     "prox_update", True),
+    ("mlp_shard_map_codasca_server_momentum",
+     SHARD_ARGS + ["--algorithm", "codasca", "--server-momentum", "0.9", "--optimizer",
+                   "momentum"], "mlp_codasca_server_momentum", "opt_update", True),
+    ("resnet50_shard_map", RN_ARGS + SHARD_ARGS, "resnet50", "prox_update", False),
+]
+RN_SHARD_DET = ("resnet50_shard_map_det", RN_ARGS + SHARD_ARGS)    # under deterministic cuDNN
 # stablelm-1.6b: full width with the depth cut to 2 of 24 layers (K=4 replicas,
 # their references, gradients and the step's new copy: ~33 GB at 2 layers,
 # ~105 GB at 24); and the launcher's smoke config, whose test AUC is held
@@ -925,6 +993,19 @@ KERNEL_TAGS = {"auc_loss": "auc_loss", "prox_update": "prox_update",
                "grouped_matmul": "gmm_"}
 
 
+def window_batch(mcfg, dev) -> dict:
+    """A seeded window of I=8 local steps for K=4 workers, B=32 each."""
+    g = torch.Generator().manual_seed(2)
+    y = (torch.rand((8, 4, 32), generator=g) < 0.71).float()
+    if mcfg.family == "mlp":
+        wb = {"features": torch.randn((8, 4, 32, 64), generator=g)}
+    elif mcfg.family == "dense":
+        wb = {"tokens": torch.randint(0, mcfg.vocab_size, (8, 4, 32, 64), generator=g)}
+    else:
+        wb = {"images": torch.randn((8, 4, 32, 32 * 32, 3), generator=g)}
+    return {k: v.to(dev) for k, v in wb.items()} | {"labels": y.to(dev)}
+
+
 def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
     """Where one window (I=8 local steps + the average) of a main path spends
     its time: host wall time, device busy time, the hand-written kernels'
@@ -936,15 +1017,7 @@ def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
     if ccfg.faults_enabled:                # window 0's fault vectors
         fl = {k: torch.from_numpy(v).to(dev)
               for k, v in zip(("weights", "resync"), FaultPlan.from_config(ccfg).window(0))}
-    g = torch.Generator().manual_seed(2)
-    y = (torch.rand((8, 4, 32), generator=g) < 0.71).float()
-    if mcfg.family == "mlp":
-        wb = {"features": torch.randn((8, 4, 32, 64), generator=g)}
-    elif mcfg.family == "dense":
-        wb = {"tokens": torch.randint(0, mcfg.vocab_size, (8, 4, 32, 64), generator=g)}
-    else:
-        wb = {"images": torch.randn((8, 4, 32, 32 * 32, 3), generator=g)}
-    wb = {k: v.to(dev) for k, v in wb.items()} | {"labels": y.to(dev)}
+    wb = window_batch(mcfg, dev)
     exe.window_step(state, wb, 0.5, faults=fl)          # warm-up
     wall, busy, per = device_profile(lambda: exe.window_step(state, wb, 0.5, faults=fl))
     ours = {name: sum(v for k, v in per.items() if tag in k)
@@ -1735,6 +1808,9 @@ def serve_lines(text: str):
 # reference's have none), so the path is driven through coda.init_state and
 # coda.fit, which is how the reference reaches CoDAConfig.param_dtype.
 BF16_CODA = dict(K=4, B=32, I=8, T0=16, n_data=1024)
+# the sharded bf16 fit and its batched twin: 6 windows of 8 local steps, so
+# the ms per local step is a median over 5 steady windows
+BF16_SHARD_T0 = 48
 
 
 def run_bf16_coda(dev) -> tuple[dict, dict]:
@@ -2075,6 +2151,305 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
              "payload_by_dtype": {t: b["bytes"] for t, b in buckets.items()}}, counts)
 
 
+def collective_contract(argv: list, out: dict) -> tuple[dict, dict]:
+    """The collectives ``fit`` made on a launcher path (the summary's
+    ``collectives``) and what the reference's contract gives for the same
+    flags, schedule and state: a window one all_reduce per dtype bucket of
+    ``window_payload_by_dtype`` bytes (int8: the s8 and f32 all_gather
+    pair), each window of an overlapped pair ``ring_hop_count`` hops (none
+    at R = 1) and no all_reduce, a stage end one all_reduce of its 4-byte
+    α, and one loss read-out per window step.  Returns (got, want)."""
+    from repro_torch.core import bucketing, coda, schedules
+    from repro_torch.launch import train
+    a = train.build_parser().parse_args(argv)
+    sched = schedules.ScheduleConfig(n_workers=a.workers, eta0=a.eta0, T0=a.t0, I0=a.interval)
+    n = [-(-st.T // st.I) for st in schedules.stages(sched, a.stages)]
+    pairs = sum(x // 2 for x in n) if a.overlap else 0
+    single = sum(n) - 2 * pairs
+    st, R = out["state"], math.prod(out["mesh"].values())
+    masked = a.participation < 1.0 or a.straggler_prob > 0.0
+    want = {k: {"calls": 0, "bytes": 0} for k in ("all_reduce", "all_gather", "p2p")}
+    if a.compress == "int8":
+        leaves = coda._payload_leaves(st)
+        per_worker = sum(l.numel() // l.shape[0] for l in leaves) + 4 * len(leaves) \
+            + (4 if masked else 0)
+        want["all_gather"] = {"calls": 2 * single, "bytes": single * a.workers // R * per_worker}
+    else:
+        by = coda.window_payload_by_dtype(st, masked=masked)
+        want["all_reduce"] = {"calls": single * len(by), "bytes": single * sum(by.values())}
+        layout = bucketing.bucket_layout(st, masked=masked)
+        ring = bucketing.RingSpec(R, a.overlap_chunks)
+        size = {"f32": 4, "bf16": 2}
+        hop_bytes = sum(-(-(hi - lo) // R) * size[t] * 2 * (R - 1)
+                        for t, b in layout.items()
+                        for offs in [bucketing._chunk_offsets(
+                            b["elements"], bucketing._n_chunks(b["elements"], ring))]
+                        for lo, hi in zip(offs[:-1], offs[1:])) if R > 1 else 0
+        hops = bucketing.ring_hop_count({t: b["elements"] for t, b in layout.items()}, ring)
+        want["p2p"] = {"calls": 2 * pairs * hops, "bytes": 2 * pairs * hop_bytes}
+    want["all_reduce"]["calls"] += a.stages
+    want["all_reduce"]["bytes"] += 4 * a.stages
+    got = {k: v for k, v in out["collectives"].items() if k in want}
+    got["readout_calls"] = out["collectives"]["readout"]["calls"]
+    want["readout_calls"] = single + pairs
+    return got, want
+
+
+def params_equal(a: dict, b: dict) -> bool:
+    """Two launcher runs' final parameters bitwise equal."""
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(
+        *(tree_leaves(r["state"]["params"]) for r in (a, b)), strict=True))
+
+
+def run_sharded(runs: dict, counts: dict, label: str, argv: list, twin: str,
+                per_leaf: str, bitwise: bool) -> dict:
+    """One launcher path with ``--executor shard_map`` beside its vmap twin:
+    the launch counts of ``run_main_path``, the collectives against the
+    contract, test AUC within 0.01 of the twin's and, with ``bitwise``, the
+    final parameters bitwise the twin's."""
+    leaves = RN_LEAVES if "--arch" in argv else MLP_LEAVES
+    runs[label], counts[label] = run_main_path(f"main path {label}", argv, leaves, per_leaf)
+    r, v = runs[label], runs[twin]
+    got, want = collective_contract(argv, r)
+    same = params_equal(r, v)
+    print(f"main path {label}: mesh {r['mesh']}, collectives {got} (contract {want}); "
+          f"{r['ms_per_local_step']:.3f} ms per local step beside {twin}'s "
+          f"{v['ms_per_local_step']:.3f}; test AUC {r['auc']:.4f} beside {v['auc']:.4f} "
+          f"(limit 0.01); final parameters bitwise {twin}'s: {same}"
+          + (" (held)" if bitwise else " (not held)"))
+    if got != want:
+        raise SystemExit(f"main path {label}: collectives {got}, the contract gives {want}")
+    if not abs(r["auc"] - v["auc"]) <= 0.01:
+        raise SystemExit(f"main path {label}: test AUC {r['auc']:.4f} against {twin}'s "
+                         f"{v['auc']:.4f}")
+    if bitwise and not same:
+        raise SystemExit(f"main path {label}: final parameters differ from {twin}'s")
+    return {"mesh": r["mesh"], "collectives": got, "ms_per_local_step":
+            r["ms_per_local_step"], "vmap_ms_per_local_step": v["ms_per_local_step"],
+            "auc": r["auc"], "vmap_auc": v["auc"], "params_equal_vmap": same}
+
+
+def run_sharded_paths(runs: dict, counts: dict) -> dict:
+    """The launcher paths with ``--executor shard_map`` (NCCL, one rank a
+    card), each beside the --executor vmap path with the same flags (run
+    here when no earlier phase ran it): every counter set to 0 just before
+    and read just after (``run_sharded``), ms per local step beside the
+    twin's."""
+    for label, args in SHARD_VMAP_PATHS:
+        runs[label], counts[label] = run_main_path(f"main path {label}", args, MLP_LEAVES)
+    return {label: run_sharded(runs, counts, label, argv, twin, per_leaf, bitwise)
+            for label, argv, twin, per_leaf, bitwise in SHARDED_PATHS}
+
+
+def run_resnet50_determinism(runs: dict, counts: dict) -> dict:
+    """Why the sharded and vmap ResNet50 fits end apart: the vmap fit run
+    again with the same flags (bitwise the first or not: cuDNN's default
+    algorithms may add in a different order from call to call), then both
+    fits again under ``torch.backends.cudnn.deterministic``, which must end
+    bitwise equal."""
+    runs["resnet50_repeat"], counts["resnet50_repeat"] = run_main_path(
+        "main path resnet50_repeat", RN_ARGS, RN_LEAVES)
+    repeat = params_equal(runs["resnet50_repeat"], runs["resnet50"])
+    print(f"main path resnet50_repeat: the vmap fit again, final parameters bitwise the "
+          f"first's: {repeat}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs["resnet50_det"], counts["resnet50_det"] = run_main_path(
+            "main path resnet50_det", RN_ARGS, RN_LEAVES)
+        out = run_sharded(runs, counts, *RN_SHARD_DET, "resnet50_det", "prox_update", True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["vmap_repeat_bitwise"] = repeat
+    for label in ("resnet50_repeat", "resnet50_det", "resnet50_shard_map_det"):
+        runs[label].pop("state")
+    return out
+
+
+def compare_states(a: dict, b: dict) -> dict:
+    """Each leaf where two states differ: (max |a − b|, that over max |b|);
+    empty when they are bitwise equal."""
+    from repro_torch.tree import tree_leaves, tree_paths
+    diff = {}
+    for p, x, y in zip(tree_paths(a), tree_leaves(a), tree_leaves(b), strict=True):
+        if not torch.equal(x, y):
+            d = float((x.float() - y.float()).abs().max())
+            diff[p] = (d, d / max(float(y.float().abs().max()), 1e-30))
+    return diff
+
+
+# a sharded window's state against the batched executor's from the same state:
+# bitwise expected at R = 1; where not, each leaf within this relative tolerance
+SHARD_WINDOW_RTOL = 1e-6
+
+
+def sharded_window(label: str, mcfg, state, wb, dev, *, profile: bool = False, **ccfg_kw):
+    """One window from ``state`` through the sharded executor on a one-rank
+    NCCL group and through the batched executor, twice (so a difference
+    between the two executors can be told from run-to-run noise): bitwise,
+    or where the arithmetic differs and by how much (held to
+    SHARD_WINDOW_RTOL of each leaf's largest value); the window's
+    collectives; with ``profile``, one profiled window of each executor:
+    wall and device busy time, idle share, the NCCL kernels' device time,
+    and the kernels the sharded window runs that the batched one does not
+    (what the wire adds)."""
+    from repro_torch.core import bucketing, coda
+    from repro_torch.launch import mesh as mesh_mod
+
+    def body(rank):
+        ccfg = coda.CoDAConfig(n_workers=4, p_pos=0.71, **ccfg_kw)
+        exe = coda.make_executor(mcfg, ccfg, "shard_map", mesh=mesh_mod.make_worker_mesh())
+        batched = coda.make_executor(mcfg, ccfg)
+        bucketing.zero_collectives()
+        a, _ = exe.window_step(exe.place(state), wb, 0.5)
+        torch.cuda.synchronize()
+        comms = {k: dict(v) for k, v in bucketing.collectives.items()}
+        b, _ = batched.window_step(state, wb, 0.5)
+        diff = compare_states(a, b)
+        del a
+        b2, _ = batched.window_step(state, wb, 0.5)
+        repeat = not compare_states(b2, b)
+        del b, b2
+        res = {"bitwise": not diff, "differs": diff, "collectives": comms,
+               "batched_repeat_bitwise": repeat,
+               "worst_rel": max((rel for _, rel in diff.values()), default=0.0)}
+        if profile:
+            prof = {}
+            for name, ex in (("sharded", exe), ("batched", batched)):
+                ex.window_step(state, wb, 0.5)                  # warm-up
+                wall, busy, per = device_profile(lambda ex=ex: ex.window_step(state, wb, 0.5))
+                prof[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                              "idle_share": 1.0 - busy / wall, "kernels": per}
+            sh, bt = prof["sharded"], prof["batched"]
+            res["profile"] = {
+                **{k: sh[k] for k in ("wall_ms", "device_busy_ms", "idle_share")},
+                "batched": {k: bt[k] for k in ("wall_ms", "device_busy_ms", "idle_share")},
+                "nccl_ms": sum(v for k, v in sh["kernels"].items() if "nccl" in k.lower()),
+                "sharded_only_ms": {k[:80]: v for k, v in sh["kernels"].items()
+                                    if k not in bt["kernels"]}}
+        return res
+
+    out = mesh_mod.run_ranks(body, 1, backend="nccl")
+    print(f"main path {label}: one window through the sharded executor (NCCL, one rank) "
+          f"against the batched executor from the same state: bitwise {out['bitwise']}"
+          + ("" if out["bitwise"] else f"; differing leaves {out['differs']} (largest "
+             f"relative {out['worst_rel']:.3g}, limit {SHARD_WINDOW_RTOL})")
+          + f"; the batched window twice bitwise: {out['batched_repeat_bitwise']}"
+          + f"; collectives {out['collectives']}")
+    if "profile" in out:
+        pr = out["profile"]
+        print(f"profile {label} sharded window: wall {pr['wall_ms']:.3f} ms, device busy "
+              f"{pr['device_busy_ms']:.3f} ms (idle share {pr['idle_share']:.3f}); batched "
+              f"window wall {pr['batched']['wall_ms']:.3f} ms, busy "
+              f"{pr['batched']['device_busy_ms']:.3f} ms; NCCL kernels {pr['nccl_ms']:.4f} ms; "
+              f"kernels only in the sharded window (ms) {pr['sharded_only_ms']}")
+        print(json.dumps({"profile": {"path": label + "_sharded", **pr}}))
+    if not out["bitwise"] and not out["worst_rel"] <= SHARD_WINDOW_RTOL:
+        raise SystemExit(f"{label}: the sharded window is not the batched executor's")
+    return out
+
+
+def run_bf16_sharded(dev) -> tuple[dict, dict]:
+    """``bf16_stablelm_shard_map``: the bf16 CoDA path (full width, 2
+    layers) through ``coda.fit`` on the sharded executor, NCCL at one rank:
+    one window against the batched executor from the same state (bitwise,
+    or the stated tolerance), then the fit with every counter set to 0 just
+    before and read just after: auc_loss once a local step, prox_update
+    once a leaf a local step, flash_attention once a layer a forward, every
+    K4 launch flash_fwd_wgmma; two all_reduces a window (the bf16 and the
+    f32 bucket) of ``window_payload_by_dtype`` bytes and one a stage end;
+    then the same fit on the batched executor, for its ms per local step
+    and peak memory beside them.  The fits run one stage of BF16_SHARD_T0
+    local steps (the median over every window after the first), and each
+    draws from its own dataset made from the same seed, so both see the
+    same windows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing, coda, schedules
+    from repro_torch.data import ShardedDataset
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    label, c = "bf16_stablelm_shard_map", dict(BF16_CODA, T0=BF16_SHARD_T0)
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
+    print(f"main path {label}: reduced: {TRAIN_LAYERS} of 24 layers (full width), K={c['K']}, "
+          f"B={c['B']}, S=64, one stage of {c['T0']} local steps; param_dtype bfloat16, "
+          "through coda.fit on the sharded executor (NCCL, one rank)")
+    torch.cuda.empty_cache()
+
+    def dataset():
+        return ShardedDataset(train.data_config_for(cfg, 0.71), c["n_data"], c["K"], seed=0,
+                              target_p=0.71, device=dev)
+
+    ds = dataset()
+    ccfg = coda.CoDAConfig(n_workers=c["K"], p_pos=ds.p_pos, param_dtype=BF16)
+    state = coda.init_state(cfg, ccfg, generator=torch.Generator().manual_seed(0), device=dev)
+    by_dtype = coda.window_payload_by_dtype(state)
+    check = sharded_window(label, cfg, state, ds.sample_window(c["I"], c["B"]), dev,
+                           param_dtype=BF16)
+    torch.cuda.empty_cache()
+    n_leaves = len(tree_leaves(state["params"]))
+    sched = schedules.ScheduleConfig(n_workers=c["K"], eta0=0.5, T0=c["T0"], I0=c["I"],
+                                     p_pos=ds.p_pos)
+
+    def body(rank):
+        exe = coda.make_executor(cfg, ccfg, "shard_map", mesh=mesh_mod.make_worker_mesh())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = coda.fit(state, cfg, ccfg, sched, 1,
+                       sample_window=lambda i: ds.sample_window(i, c["B"]),
+                       sample_alpha_batch=ds.sample_alpha_batch, executor=exe)
+        torch.cuda.synchronize()
+        return (res, read_counts(), read_variants(),
+                {k: dict(v) for k, v in bucketing.collectives.items()})
+
+    ds = dataset()
+    res, counts, variants, comms = mesh_mod.run_ranks(body, 1, backend="nccl")
+    peak = torch.cuda.max_memory_allocated()
+    del res.state
+    torch.cuda.empty_cache()
+    # the same fit on the batched executor, for its peak and ms beside these
+    torch.cuda.reset_peak_memory_stats()
+    ds = dataset()
+    twin = coda.fit(state, cfg, ccfg, sched, 1,
+                    sample_window=lambda i: ds.sample_window(i, c["B"]),
+                    sample_alpha_batch=ds.sample_alpha_batch)
+    torch.cuda.synchronize()
+    twin_peak = torch.cuda.max_memory_allocated()
+    twin_ms = 1e3 * statistics.median(twin.step_seconds[1:])
+    twin_losses = [h[2] for h in twin.history]
+    del state, twin
+    steps, windows = res.iterations, res.comm_rounds - 1
+    want = dict.fromkeys(counts, 0) | {
+        "auc_loss": steps, "prox_update": steps * n_leaves,
+        "flash_attention": TRAIN_LAYERS * (steps + 1)}
+    want_ar = {"calls": windows * len(by_dtype) + 1,
+               "bytes": windows * sum(by_dtype.values()) + 4}
+    k4 = variants["flash_attention"]
+    ms = 1e3 * statistics.median(res.step_seconds[1:])
+    losses = [h[2] for h in res.history]
+    print(f"main path {label}: {steps} local steps, {windows} windows, buckets {by_dtype} B a "
+          f"worker, collectives {comms}, launches {counts}, K4 variants {k4}; {ms:.3f} ms per "
+          f"local step (median of {windows - 1} steady windows; the batched executor's fit "
+          f"{twin_ms:.3f}), peak memory {peak / 2**30:.3f} GiB (batched "
+          f"{twin_peak / 2**30:.3f}), window losses {[round(x, 5) for x in losses]}, "
+          f"bitwise the batched fit's: {losses == twin_losses}")
+    if counts != want or k4["flash_fwd_wgmma"] != want["flash_attention"]:
+        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
+                         "every K4 launch flash_fwd_wgmma")
+    if set(by_dtype) != {"bf16", "f32"} or comms["all_reduce"] != want_ar \
+            or comms["all_gather"]["calls"] or comms["p2p"]["calls"]:
+        raise SystemExit(f"{label}: collectives {comms}, expected all_reduce {want_ar} over "
+                         "the bf16 and f32 buckets and nothing else")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{label}: a non-finite loss")
+    return ({"window_check": check, "collectives": comms, "payload_by_dtype": by_dtype,
+             "ms_per_local_step": ms, "peak_bytes": peak, "losses": losses,
+             "batched_ms_per_local_step": twin_ms, "batched_peak_bytes": twin_peak,
+             "losses_equal_batched": losses == twin_losses,
+             "variant_launches": variants}, counts)
+
+
 def run_quickstart() -> tuple[dict, dict]:
     """``python -m repro_torch.quickstart`` on the card (its own AUC > 0.85
     assert), every counter set to 0 just before: auc_loss once a local
@@ -2176,7 +2551,16 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
           f"ms of device time per local step ({RN_LEAVES} launches) against a bound of "
           f"{k3_bound:.4f} ms (20 B per element, bf16 buffer)")
 
-    for label, _, _ in RN_PATHS:
+    # the distributed executor: NCCL at R = torch.cuda.device_count(); one
+    # ResNet50 window against the batched executor's, and a profiled one
+    sharded = run_sharded_paths(runs, counts)
+    sharded["resnet50_shard_map_det"] = run_resnet50_determinism(runs, counts)
+    rn_cfg = get_config("resnet50")
+    sharded["resnet50_window"] = sharded_window(
+        "resnet50_shard_map", rn_cfg, runs["resnet50"]["state"], window_batch(rn_cfg, dev), dev,
+        profile=True)
+
+    for label in [label for label, _, _ in RN_PATHS] + ["resnet50_shard_map"]:
         runs[label].pop("state")                 # free the card for stablelm
 
     # full-depth fp32 prefills: stablelm-1.6b (head_dim 64) and chatglm3-6b
@@ -2206,6 +2590,10 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     runs["bf16_stablelm_coda"], counts["bf16_stablelm_coda"] = run_bf16_coda(dev)
     torch.cuda.empty_cache()
     runs["bf16_stablelm_codasca"], counts["bf16_stablelm_codasca"] = run_bf16_codasca(dev)
+    torch.cuda.empty_cache()
+    label = "bf16_stablelm_shard_map"
+    runs[label], counts[label] = run_bf16_sharded(dev)
+    sharded[label] = runs[label]
     torch.cuda.empty_cache()
     label, args, per_leaf = LM_SMOKE
     runs[label], counts[label] = run_main_path(f"main path {label}", args, DENSE_LEAVES,
@@ -2393,6 +2781,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
             "bf16_rule")},
         "serve": {k: v for k, v in dbrx_serve.items() if k != "profile"},
         "serve_bf16": {k: v for k, v in bf16_serve.items() if k != "profile"}})
+    print(json.dumps({"sharded": sharded}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -61,9 +61,11 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int, template: Any) -> Any:
+def restore(directory: str, step: int, template: Any, *, device=None) -> Any:
     """``template``'s structure filled with the checkpoint's arrays, each
-    as a tensor of the template leaf's dtype on its device."""
+    as a tensor of the template leaf's dtype on its device (or on
+    ``device``: a template of ``meta`` tensors gives only shapes and
+    dtypes)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -83,5 +85,5 @@ def restore(directory: str, step: int, template: Any) -> Any:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            out.append(t.to(device=tmpl.device, dtype=tmpl.dtype))
+            out.append(t.to(device=device or tmpl.device, dtype=tmpl.dtype))
     return tree_unflatten(template, out)

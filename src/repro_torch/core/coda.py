@@ -36,10 +36,10 @@ load-balance loss and dispatches by capacity, its stage-end α batches by
 shampoo_blocked; moe: sgd and momentum), the streaming sketch, plain or
 int8-compressed averaging, fault injection with the masked averaging
 (``core/faults.py``, ``core/bucketing.py``), server momentum, crash-resume
-checkpoints in ``fit``, and the worker-batched executor (the reference's
-``VmapExecutor``).  The overlapped ring averaging (``overlap_chunks``)
-raises ``NotImplementedError`` naming its ROADMAP item — it never silently
-trains plain CoDA.
+checkpoints in ``fit``, and both executors: the worker-batched one (the
+reference's ``VmapExecutor``) and the distributed one
+(``core/coda_sharded.py``: the workers over ``torch.distributed`` ranks,
+with the overlapped ring averaging of ``overlap_chunks``).
 """
 from __future__ import annotations
 
@@ -169,14 +169,6 @@ class CoDAConfig:
         if self.precond_every < 1:
             raise ValueError(f"precond_every must be >= 1, got "
                              f"{self.precond_every}")
-        self._reject_unported()
-
-    def _reject_unported(self):
-        """Valid but not ported yet: raise rather than train plain CoDA."""
-        if self.overlap_chunks != 0:
-            raise NotImplementedError(
-                f"CoDAConfig overlap_chunks={self.overlap_chunks} is not ported to "
-                "repro_torch yet (ROADMAP Queue 1 item 10, distributed executor)")
 
 
 CoDAState = dict[str, Any]
@@ -324,14 +316,16 @@ def average(state: CoDAState, compress: str | None = None) -> CoDAState:
                                    n_workers=tree_leaves(state["params"])[0].shape[0])
 
 
-def window_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
-                window_batch, eta, *, communicate: bool = True, faults=None):
+def run_window(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, window_batch, eta,
+               *, wa=None, ring=None, communicate: bool = True, faults=None):
     """``I`` local steps + (optionally) one averaging, then server momentum
     when β > 0.  ``window_batch`` leaves: [I, K, per_worker_batch, ...].
     ``faults`` ({"weights": [K], "resync": [K]} f32, ``core/faults.py``)
     switches the averaging to the exact masked participant mean
-    (``bucketing.masked_average_state``).  Returns (state, losses [I], each
-    the mean over workers)."""
+    (``bucketing.masked_average_state``).  ``wa`` / ``ring``: the
+    averaging's wire when the K rows are one rank's share of the workers
+    (``core/coda_sharded.py``); the local steps issue no collective.
+    Returns (state, losses [I, K])."""
     I = window_batch["labels"].shape[0]
     start_params = state["params"] if communicate and ccfg.server_momentum else None
     losses = []
@@ -341,14 +335,24 @@ def window_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
                                  eta)
         losses.append(loss)
     if communicate:
+        compress = ccfg.avg_compress or None
         if faults is not None:
-            state = bucketing.masked_average_state(state, faults, ccfg.avg_compress or None)
+            state = bucketing.masked_average_state(state, faults, compress, wa=wa, ring=ring)
         else:
-            state = bucketing.average_state(state, ccfg.avg_compress or None,
+            state = bucketing.average_state(state, compress, wa=wa, ring=ring,
                                             n_workers=ccfg.n_workers)
         if ccfg.server_momentum:          # rejected with faults at config time
             state = server_momentum_step(state, start_params, ccfg.server_momentum)
-    return state, torch.stack(losses).mean(dim=1)
+    return state, torch.stack(losses)
+
+
+def window_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
+                window_batch, eta, *, communicate: bool = True, faults=None):
+    """``run_window`` on one device: (state, losses [I], each the mean over
+    workers)."""
+    state, losses = run_window(mcfg, ccfg, state, window_batch, eta,
+                               communicate=communicate, faults=faults)
+    return state, losses.mean(dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -369,19 +373,27 @@ def estimate_stage_duals(mcfg: ModelConfig, ccfg: CoDAConfig, params, duals,
 
 
 def stage_end(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, batch,
-              *, resync: bool = True):
+              *, resync: bool = True, wa=None):
     """Re-estimate the stage duals on every worker, worker-mean them, and
     move the proximal references to the (averaged) iterate.  ``resync=False``
-    (what the executor passes) skips the redundant re-average: every window
-    already ends in one."""
+    (what the executors pass) skips the redundant re-average: every window
+    already ends in one.  ``wa``: the worker group (``bucketing.Wire``) of a
+    sharded state, whose rows are this rank's: the means over them meet in
+    one ``all_reduce`` of the stage-dual scalars."""
     obj = objective.for_config(ccfg)
     if resync:
         state = average(state)
     upd = estimate_stage_duals(mcfg, ccfg, state["params"], state["duals"],
                                batch)
+    if wa is not None and upd:
+        vals = torch.stack([torch.mean(v) for v in upd.values()])
+        vals = bucketing.div(wa.all_reduce(vals), wa.size)
+        upd = {f: v.reshape(1) for f, v in zip(upd, vals)}
+    else:
+        upd = {f: torch.mean(v, dim=0, keepdim=True) for f, v in upd.items()}
     new_duals = dict(state["duals"])
     for f, v in upd.items():
-        new_duals[f] = torch.mean(v, dim=0, keepdim=True).expand(v.shape).contiguous()
+        new_duals[f] = v.expand(state["duals"][f].shape).contiguous()
     new = dict(state)
     new["duals"] = new_duals
     new["ref_params"] = state["params"]   # safe: updates are out of place
@@ -472,9 +484,10 @@ class FitResult:
     comm_rounds: int
     iterations: int
     step_seconds: list     # per window: host seconds per local step
-    # per-worker payload bytes: every round is exposed on this executor
-    # (``overlapped_bytes`` counts rounds hidden under the next window's
-    # compute, which only an overlapping executor has)
+    # per-worker window-payload bytes split by schedule position, as the
+    # reference splits them: a round whose averaging is the first of a
+    # window pair (an overlapping executor's) is ``overlapped``, every other
+    # round ``exposed``; the sum is ``comm_bytes``'s total
     exposed_bytes: int = 0
     overlapped_bytes: int = 0
 
@@ -483,7 +496,11 @@ class BatchedExecutor:
     """The single-device executor: the worker axis is a batched tensor axis
     (the reference's ``VmapExecutor``): ``window_step(state, wb, eta, *,
     faults=None)``, ``stage_end(state, ab)``.  With fault injection on, a
-    window needs its fault vectors, and without it refuses them."""
+    window needs its fault vectors, and without it refuses them.  It holds
+    every worker, so ``place`` and ``gather`` return the state as it is,
+    and it is its own rank 0."""
+
+    rank = 0
 
     def __init__(self, mcfg: ModelConfig, ccfg: CoDAConfig):
         self.mcfg, self.ccfg = mcfg, ccfg
@@ -492,6 +509,18 @@ class BatchedExecutor:
             self._wstep = codasca.window_step
         else:
             self._wstep = window_step
+
+    def place(self, state: CoDAState) -> CoDAState:
+        return state
+
+    def gather(self, tree):
+        return tree
+
+    def barrier(self) -> None:
+        pass
+
+    def mean_loss(self, losses) -> float:
+        return float(torch.mean(losses))
 
     def window_step(self, state: CoDAState, wb, eta, *, faults=None):
         if self.ccfg.faults_enabled:
@@ -510,15 +539,19 @@ class BatchedExecutor:
         return stage_end(self.mcfg, self.ccfg, state, ab, resync=False)
 
 
-def make_executor(mcfg: ModelConfig, ccfg: CoDAConfig, executor: str = "vmap"):
+def make_executor(mcfg: ModelConfig, ccfg: CoDAConfig, executor: str = "vmap", *,
+                  mesh=None, policy: str = "replica"):
     """``"vmap"`` — the single-device worker-batched executor.
-    ``"shard_map"`` (workers over devices) is not ported yet."""
+    ``"shard_map"`` — the workers over the ranks of ``mesh``
+    (``launch/mesh.make_worker_mesh``; core/coda_sharded.py)."""
     if executor == "vmap":
         return BatchedExecutor(mcfg, ccfg)
     if executor == "shard_map":
-        raise NotImplementedError("executor='shard_map' is not ported yet "
-                                  "(ROADMAP Queue 1 item 10, distributed "
-                                  "executor)")
+        if mesh is None:
+            raise ValueError("executor='shard_map' needs a mesh "
+                             "(see launch/mesh.py)")
+        from repro_torch.core import coda_sharded
+        return coda_sharded.ShardedExecutor(mcfg, ccfg, mesh, policy=policy)
     raise ValueError(f"unknown executor {executor!r}")
 
 
@@ -528,22 +561,36 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
         sample_alpha_batch: Callable[[int], Any], *,
         eval_every: int = 0,
         eval_fn: Callable[[CoDAState], float] | None = None,
-        executor: Any = "vmap", fault_plan: FaultPlan | None = None,
+        executor: Any = "vmap",
+        fault_plan: FaultPlan | None = None,
         ckpt_dir: str = "", ckpt_every: int = 0, resume: bool = False,
         rng: np.random.Generator | None = None) -> FitResult:
     """Run CoDA (or CODASCA) for ``n_stages`` proximal-point stages from
-    ``state`` (the reference draws its state from a PRNG key in this place;
-    here it comes from ``init_state`` or is carried across with
-    ``params.py``).
+    ``state``, the whole [K, ...] state (the reference draws it from a PRNG
+    key in this place; here it comes from ``init_state`` or is carried
+    across with ``params.py``), or a state the executor has already
+    placed.  ``executor``: ``"vmap"`` or a built executor (for the
+    sharded one, ``make_executor(..., "shard_map", mesh=, policy=)``); the
+    executor ``place``s the state, so
+    under the sharded executor each rank trains, and ``FitResult.state``
+    holds, its own workers' rows.
 
     ``sample_window(I)`` returns a batch dict with leading [I, K, B, ...];
     ``sample_alpha_batch(m)`` one with [K, m, ...].  They are called in the
-    reference's order (each window, then one alpha batch per stage), so a
-    caller can replay the reference's draws.
+    reference's order (each window, or one ``sample_window(2·I)`` per
+    window pair, then one alpha batch per stage), so a caller can replay
+    the reference's draws; every rank draws the same global batches.
+
+    When the executor overlaps (``CoDAConfig(overlap_chunks > 0)`` on the
+    sharded executor) the loop feeds window PAIRS ([2, I, K, ...]), whose
+    averagings run as rings; an odd trailing window runs alone.  Each
+    pair's first payload is counted in ``overlapped_bytes``, the rest in
+    ``exposed_bytes``, as the reference counts them.
 
     ``eval_fn(state)`` runs after every ``eval_every``-th window of each
-    stage, and its value is appended to ``history`` after that window's
-    loss, as the reference does.
+    stage (a pair evaluates once if either of its windows is one), and its
+    value is appended to ``history`` after that window's loss, as the
+    reference does.  A history loss is the mean over all K workers.
 
     Fault tolerance: with ``ccfg.faults_enabled`` (or an explicit
     ``fault_plan``) every window gets its seed-replayed fault vectors
@@ -551,19 +598,20 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
     the masked averaging; each window then ships ``mask_payload_bytes``
     more.
 
-    Checkpoints: ``ckpt_dir`` + ``ckpt_every`` save ``{"state"}`` and the
-    reference's loop counters (``stage``, ``w``, ``rounds``, ``iters``,
-    ``gw``, ``exposed``, ``overlapped``, ``history``) every ``ckpt_every``
-    windows, at window boundaries, with the samplers' numpy ``rng`` (its
+    Checkpoints: ``ckpt_dir`` + ``ckpt_every`` save ``{"state"}`` (the
+    whole [K, ...] state, gathered; rank 0 writes it) and the reference's
+    loop counters (``stage``, ``w``, ``rounds``, ``iters``, ``gw``,
+    ``exposed``, ``overlapped``, ``history``) every ``ckpt_every`` windows,
+    at window boundaries, with the samplers' numpy ``rng`` (its
     ``bit_generator.state``, as ``rng``): ``ckpt_dir`` needs ``rng``.
-    ``resume=True`` restores the latest checkpoint (none: a cold start)
-    and continues bitwise as the uninterrupted run would: the state, the
-    sampler's stream, the counters and the fault schedule all resume
-    exactly.
+    ``resume=True`` restores the latest checkpoint (none: a cold start) on
+    every rank and continues bitwise as the uninterrupted run would: the
+    state, the sampler's stream, the counters and the fault schedule all
+    resume exactly.
 
     ``step_seconds`` records, per window run by this call, its host time
-    over its local steps, taken after the per-window loss readout (which
-    synchronises with the device).
+    over its local steps (a pair's time split evenly over its two windows),
+    taken after the loss readout (which synchronises with the device).
     """
     exe = executor if hasattr(executor, "window_step") else \
         make_executor(mcfg, ccfg, executor)
@@ -577,6 +625,8 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
     start_stage = start_w = 0
     payload = window_payload_bytes(state, ccfg.avg_compress or None, masked=masked)
     stage_payload = stage_payload_bytes(ccfg)
+    pairs = getattr(exe, "overlap_pairs", False)
+    device = tree_leaves(state["params"])[0].device
     if ckpt_dir:
         if rng is None:
             raise ValueError(
@@ -584,22 +634,28 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
                 "draw from: a checkpoint without its state cannot resume the "
                 "same windows")
         from repro_torch.checkpoint import checkpoint as ckpt
+        # the whole [K, ...] state's shapes and dtypes, to restore into
+        template = tree_map(lambda l: torch.empty((ccfg.n_workers,) + l.shape[1:],
+                                                  dtype=l.dtype, device="meta"), state)
+    state = exe.place(state)
     if ckpt_dir and resume:
         step = ckpt.latest_step(ckpt_dir)
         if step is not None:
-            state = ckpt.restore(ckpt_dir, step, {"state": state})["state"]
+            restored = ckpt.restore(ckpt_dir, step, {"state": template}, device=device)
+            state = exe.place(restored["state"])
+            del restored
             meta = ckpt.load_metadata(ckpt_dir, step)
             start_stage, start_w = meta["stage"], meta["w"]
             rounds, iters, gw = meta["rounds"], meta["iters"], meta["gw"]
             exposed, overlapped = meta["exposed"], meta["overlapped"]
             history = [tuple(h) for h in meta["history"]]
             rng.bit_generator.state = meta["rng"]
-    device = tree_leaves(state["params"])[0].device
 
-    def window_faults(w: int) -> dict:
-        u, r = fault_plan.window(w)
-        return {"weights": torch.from_numpy(u).to(device),
-                "resync": torch.from_numpy(r).to(device)}
+    def window_faults(w0: int, n: int) -> dict:
+        """Fault vectors of windows w0..w0+n−1 ([2, K] leaves for a pair)."""
+        us, rs = zip(*(fault_plan.window(w0 + j) for j in range(n)))
+        out = {"weights": np.stack(us), "resync": np.stack(rs)}
+        return {k: torch.from_numpy(v[0] if n == 1 else v).to(device) for k, v in out.items()}
 
     for si, st in enumerate(stage_list):
         if si < start_stage:
@@ -608,24 +664,38 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
         w = start_w if si == start_stage else 0
         while w < n_windows:
             t0 = time.perf_counter()
-            wb = sample_window(st.I)
-            state, losses = exe.window_step(state, wb, st.eta,
-                                            faults=window_faults(gw) if masked else None)
-            rounds += 1
-            iters += st.I
+            done = 2 if pairs and w + 1 < n_windows else 1
+            fl = window_faults(gw, done) if masked else None
+            if done == 2:
+                wb = {k: v.reshape((2, st.I) + v.shape[1:])
+                      for k, v in sample_window(2 * st.I).items()}
+                state, losses = exe.window_pair_step(state, wb, st.eta, faults=fl)
+                overlapped += payload
+            else:
+                state, losses = exe.window_step(state, sample_window(st.I), st.eta,
+                                                faults=fl)
+            rounds += done
+            iters += done * st.I
             exposed += payload
-            w += 1
-            gw += 1
-            history.append((st.s, iters, float(torch.mean(losses))))
-            step_seconds.append((time.perf_counter() - t0) / st.I)
-            if eval_fn is not None and eval_every and w % eval_every == 0:
+            w += done
+            gw += done
+            history.append((st.s, iters, exe.mean_loss(losses)))
+            step_seconds += [(time.perf_counter() - t0) / (done * st.I)] * done
+            # a pair completes TWO windows: it evaluates once if either of
+            # them hits the cadence (no mid-pair state exists to evaluate)
+            if eval_fn is not None and eval_every and any(
+                    j % eval_every == 0 for j in range(w - done + 1, w + 1)):
                 history.append((st.s, iters, float(eval_fn(state))))
             if ckpt_dir and ckpt_every and gw % ckpt_every == 0:
                 meta = {"stage": si, "w": w, "rounds": rounds, "iters": iters, "gw": gw,
                         "exposed": exposed, "overlapped": overlapped,
                         "history": [list(h) for h in history],
                         "rng": rng.bit_generator.state}
-                ckpt.save(ckpt_dir, gw, {"state": state}, meta)
+                whole = exe.gather(state)
+                if exe.rank == 0:
+                    ckpt.save(ckpt_dir, gw, {"state": whole}, meta)
+                del whole
+                exe.barrier()
         state = exe.stage_end(state, sample_alpha_batch(st.m))
         rounds += 1
         exposed += stage_payload          # the stage-end fp32 dual scalars

@@ -52,9 +52,12 @@ def local_step(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, batch, eta):
 
 
 def run_window(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, eta, *,
-               communicate: bool = True, faults=None):
+               wa=None, ring=None, communicate: bool = True, faults=None):
     """I corrected local steps + the combined average-and-refresh (masked
-    when ``faults`` are given), then server momentum when β > 0.  Returns
+    when ``faults`` are given), then server momentum when β > 0.  ``wa`` /
+    ``ring``: the wire of the sharded executor (``coda.run_window``); the
+    refresh rides the model average's buckets, so a window is still one
+    collective per dtype bucket, of twice the payload.  Returns
     (new_state, losses [I, K])."""
     I = window_batch["labels"].shape[0]
     wire = {"params": state["params"], "duals": state["duals"]}
@@ -78,9 +81,10 @@ def run_window(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, et
         del cv, wire
         compress = ccfg.avg_compress or None
         if faults is not None:
-            state = bucketing.masked_average_and_refresh(state, cv_new, faults, compress)
+            state = bucketing.masked_average_and_refresh(state, cv_new, faults, compress,
+                                                         wa=wa, ring=ring)
         else:
-            state = bucketing.average_and_refresh(state, cv_new, compress,
+            state = bucketing.average_and_refresh(state, cv_new, compress, wa=wa, ring=ring,
                                                   n_workers=ccfg.n_workers)
         if ccfg.server_momentum:          # rejected with faults at config time
             state = coda.server_momentum_step(state, start_params, ccfg.server_momentum)

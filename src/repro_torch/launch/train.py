@@ -1,7 +1,16 @@
 """CoDA training launcher (counterpart of ``repro.launch.train``).
 
-Runs CoDA on one device: the K workers are a batched tensor axis (the
-reference's ``--executor vmap``).  Every local step launches the
+Executors (``--executor``): ``vmap`` runs the K workers as a batched
+tensor axis on one device; ``shard_map`` lays them over ranks of
+``torch.distributed`` (core/coda_sharded.py): one rank a card under NCCL,
+R = ``torch.cuda.device_count()``, or R = ``--force-host-devices`` gloo
+ranks on the CPU; under ``torchrun`` (``WORLD_SIZE`` set) it joins that
+group instead.  The I local steps issue no collective, and each window
+one all_reduce per dtype bucket (``--compress int8``: an s8 + f32
+all_gather pair; ``--overlap``: window pairs whose averagings run as
+``--overlap-chunks`` point-to-point rings).  Rank 0 prints and returns the
+summary; ``--policy`` and ``--multi-pod`` choose the mesh and the worker
+axes, as in the reference.  Every local step launches the
 hand-written ``auc_loss`` kernel once, then per parameter leaf one
 ``prox_update`` (``--optimizer sgd``, the default, and ``shampoo_blocked``)
 or one ``opt_update`` (``momentum``, ``sm3``); the dense transformers
@@ -17,9 +26,7 @@ the fault-injection knobs (``--participation``, ``--straggler-prob``,
 ``--straggler-windows``, ``--max-staleness``, ``--fault-seed``: the masked
 averaging) and the crash-resume checkpoints (``--ckpt-dir`` with
 ``--ckpt-every``, ``--resume``; ``--ckpt-dir`` alone saves the final
-state).  The distributed executor's flags (``--executor shard_map``,
-``--policy``, ``--overlap``, ...) are rejected with the ROADMAP item that
-will bring them.  ``--n-layers`` (the port's
+state).  ``--n-layers`` (the port's
 own) cuts a dense or moe config's depth so a full-width model trains on
 one card.
 
@@ -54,27 +61,36 @@ Examples:
       --algorithm codasca --dirichlet-alpha 0.1 --participation 0.75
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --ckpt-dir build/ckpt --ckpt-every 4 --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --executor shard_map --force-host-devices 4 [--overlap] [--compress int8]
+  PYTHONPATH=src python -m repro_torch.launch.train --executor shard_map  # every card
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
+import os
 import statistics
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import disable_tf32, resolve_device
 from repro_torch.configs import DENSE_ARCHS, MOE_ARCHS, get_config, get_smoke_config, mlp_config
 from repro_torch.checkpoint import checkpoint
-from repro_torch.core import coda, objective, optimizer, schedules
+from repro_torch.core import bucketing, coda, objective, optimizer, schedules
 from repro_torch.data import DataConfig, ShardedDataset
 from repro_torch.kernels import auc_loss as _auc_mod
 from repro_torch.kernels import flash_attention as _fa_mod
 from repro_torch.kernels import moe_dispatch as _moe_mod
 from repro_torch.kernels import opt_update as _opt_mod
 from repro_torch.kernels import prox_update as _prox_mod
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.metrics import report as metric_report
 from repro_torch.metrics import streaming
 from repro_torch.models import model as M
@@ -127,8 +143,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(inf = IID even split, the paper's setting)")
     ap.add_argument("--compress", choices=["", "int8"], default="",
                     help="int8 = compressed averaging")
-    ap.add_argument("--executor", default="vmap",
-                    help="vmap = the single-device worker-batched executor")
+    ap.add_argument("--executor", choices=["vmap", "shard_map"], default="vmap",
+                    help="vmap = the single-device worker-batched executor; "
+                         "shard_map = the workers over torch.distributed ranks, "
+                         "one all_reduce per dtype bucket a window")
     ap.add_argument("--algorithm", choices=["coda", "codasca"], default="coda",
                     help="codasca = control-variate corrected local steps "
                          "for heterogeneous (non-IID) shards")
@@ -184,43 +202,69 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in --ckpt-dir "
                          "(bitwise the uninterrupted run)")
-    # the distributed executor's flags: accepted, and rejected unless left
-    # at their defaults (see UNPORTED_FLAGS)
-    ap.add_argument("--policy", default="replica")
-    ap.add_argument("--overlap", action="store_true")
-    ap.add_argument("--overlap-chunks", type=int, default=4)
-    ap.add_argument("--force-host-devices", type=int, default=0)
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--policy", choices=["replica", "fsdp"], default="replica",
+                    help="worker placement: replica = workers over the data "
+                         "axis; fsdp = workers over the pod axis only")
+    ap.add_argument("--overlap", action="store_true",
+                    help="shard_map only: feed window pairs whose averagings run "
+                         "as chunked point-to-point rings instead of all_reduce "
+                         "(same mean, same bytes)")
+    ap.add_argument("--overlap-chunks", type=int, default=4,
+                    help="ring chains per dtype bucket under --overlap")
+    ap.add_argument("--force-host-devices", type=int, default=0,
+                    help="with --device cpu: the number of gloo ranks "
+                         "--executor shard_map runs (on the card: one rank a card)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="use the 3-axis (pod, data, model) mesh layout")
     metric_report.add_metric_args(ap)
     return ap
-
-
-# flag → ROADMAP item that ports it; a non-default value is rejected
-UNPORTED_FLAGS = {
-    "executor": "Queue 1 item 10 (distributed executor)",
-    "policy": "Queue 1 item 10 (distributed executor)",
-    "overlap": "Queue 1 item 10 (distributed executor)",
-    "overlap_chunks": "Queue 1 item 10 (distributed executor)",
-    "force_host_devices": "Queue 1 item 10 (distributed executor)",
-    "multi_pod": "Queue 1 item 10 (distributed executor)",
-}
-
-
-def reject_unported(ap: argparse.ArgumentParser, args) -> None:
-    for name, item in UNPORTED_FLAGS.items():
-        if getattr(args, name) != ap.get_default(name):
-            ap.error(f"--{name.replace('_', '-')}={getattr(args, name)!r} is "
-                     f"not ported to repro_torch yet (ROADMAP {item})")
 
 
 def main(argv=None) -> dict:
     """Parse ``argv``, train, print the reference's summary lines, and
     return a summary dict (used by ``chip_smoke.py``), with the kernel
-    launches made during training under ``launches``."""
+    launches and the collectives made during training under ``launches``
+    and ``collectives``.  ``--executor shard_map`` runs on R ranks (this
+    process is rank 0, the others are spawned and print nothing), or on
+    the group ``torchrun`` set up."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = build_parser()
     args = ap.parse_args(argv)
-    reject_unported(ap, args)
+    if args.overlap and args.executor != "shard_map":
+        raise SystemExit("--overlap needs --executor shard_map (the vmap "
+                         "oracle has no wire to overlap)")
     device = resolve_device(args.device)
+    if args.executor == "vmap":
+        return _train(args)
+    if device.type == "cuda" and args.force_host_devices:
+        ap.error("--force-host-devices sets the number of CPU ranks (--device cpu); "
+                 "on the card shard_map runs one rank a card")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:            # torchrun started this rank
+        rank = int(os.environ["RANK"])
+        mesh_mod.init_rank(backend, int(os.environ.get("LOCAL_RANK", rank)),
+                           int(os.environ["WORLD_SIZE"]))
+        try:
+            with contextlib.redirect_stdout(open(os.devnull, "w")) if rank \
+                    else contextlib.nullcontext():
+                return _train(args)
+        finally:
+            dist.destroy_process_group()
+    world = torch.cuda.device_count() if device.type == "cuda" \
+        else max(args.force_host_devices, 1)
+    return mesh_mod.run_ranks(_rank_main, world, (argv,), backend=backend)
+
+
+def _rank_main(rank: int, argv: list) -> dict:
+    """One spawned rank of ``--executor shard_map``."""
+    return _train(build_parser().parse_args(argv))
+
+
+def _train(args) -> dict:
+    device = resolve_device(args.device)
+    sharded = args.executor == "shard_map"
+    if sharded and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     if device.type == "cuda":
         disable_tf32()
 
@@ -232,7 +276,7 @@ def main(argv=None) -> dict:
         mcfg = get_config(args.arch)
     if args.n_layers:
         if mcfg.family not in M.LM_FAMILIES:
-            ap.error(f"--n-layers cuts a dense or moe config's depth; {args.arch} "
+            build_parser().error(f"--n-layers cuts a dense or moe config's depth; {args.arch} "
                      f"is {mcfg.family}")
         mcfg = dataclasses.replace(mcfg, n_layers=args.n_layers)
 
@@ -253,6 +297,7 @@ def main(argv=None) -> dict:
                            objective=args.objective,
                            pauc_beta=args.pauc_beta,
                            server_momentum=args.server_momentum,
+                           overlap_chunks=args.overlap_chunks if args.overlap else 0,
                            stream_bins=args.metric_bins
                            if args.metrics == "sketch" else 0,
                            participation=args.participation,
@@ -272,9 +317,9 @@ def main(argv=None) -> dict:
                                      p_pos=ds.p_pos)
     gen = torch.Generator().manual_seed(args.seed)
     state = coda.init_state(mcfg, ccfg, generator=gen, device=device)
-    leaves = tree_leaves(state["params"])
-    n_params = sum(l.numel() for l in leaves) // args.workers
-    print(f"model: {mcfg.name} params/worker={n_params:,} leaves={len(leaves)} "
+    n_leaves = len(tree_leaves(state["params"]))
+    n_params = sum(l.numel() for l in tree_leaves(state["params"])) // args.workers
+    print(f"model: {mcfg.name} params/worker={n_params:,} leaves={n_leaves} "
           f"device={device}")
     if args.optimizer != "sgd":
         print(f"optimizer: {args.optimizer} ({args.opt_dtype}) "
@@ -285,6 +330,12 @@ def main(argv=None) -> dict:
               f"straggler_prob={args.straggler_prob:g} "
               f"(lag {args.straggler_windows}, max_staleness "
               f"{args.max_staleness}) seed={args.fault_seed}")
+    mesh = None
+    if sharded:
+        mesh = mesh_mod.make_worker_mesh(multi_pod=args.multi_pod)
+        print(f"mesh: {mesh_mod.axis_sizes(mesh)} policy={args.policy} "
+              f"devices={mesh.size()}")
+    exe = coda.make_executor(mcfg, ccfg, args.executor, mesh=mesh, policy=args.policy)
 
     test = ds.full(2048)
 
@@ -315,27 +366,31 @@ def main(argv=None) -> dict:
             sk = streaming.sketch_from_rows(st["sk_acc"], lo, hi)
             out = report(f"eval {n_evals[0]}", sk, int(sk.count))
             print(metric_report.worker_skew_line(
-                "train", f"eval {n_evals[0]}", met, st["sk_loc"], lo, hi))
+                "train", f"eval {n_evals[0]}", met, exe.gather(st["sk_loc"]), lo, hi))
             return out
         ms = met.update(met.init(), test_scores(st), test["labels"])
         return report(f"eval {n_evals[0]}", ms, int(test["labels"].numel()))
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    state = exe.place(state)              # each rank keeps its own workers' rows
     before = {k: m.launches for k, m in KERNELS.items()}
+    comm_before = copy.deepcopy(bucketing.collectives)
     t0 = time.perf_counter()
     res = coda.fit(state, mcfg, ccfg, sched, args.stages,
                    sample_window=lambda i: ds.sample_window(i, args.batch),
                    sample_alpha_batch=lambda m: ds.sample_alpha_batch(m),
                    eval_every=args.metric_interval,
                    eval_fn=eval_fn if args.metric_interval else None,
-                   executor=args.executor,
+                   executor=exe,
                    ckpt_dir=args.ckpt_dir if args.ckpt_every else "",
                    ckpt_every=args.ckpt_every, resume=args.resume, rng=ds.draw_rng)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     launches = {k: m.launches - before[k] for k, m in KERNELS.items()}
+    comms = {k: {f: v[f] - comm_before[k][f] for f in v}
+             for k, v in bucketing.collectives.items()}
     h_test = test_scores(res.state)
     auc = objective.roc_auc(h_test, test["labels"])
     extra, metric = "", None
@@ -348,19 +403,26 @@ def main(argv=None) -> dict:
         sk = streaming.sketch_from_rows(res.state["sk_acc"], lo, hi)
         report("final train-stream", sk, int(sk.count))
         print(metric_report.worker_skew_line("train", "final", met,
-                                             res.state["sk_loc"], lo, hi))
+                                             exe.gather(res.state["sk_loc"]), lo, hi))
     compress = args.compress or None
     stage_list = schedules.stages(sched, args.stages)
     total = coda.comm_bytes(stage_list, res.state, compress,
                             stage_bytes=coda.stage_payload_bytes(ccfg))
     per_round = coda.window_payload_bytes(res.state, compress)
     print(f"bytes/round/worker={per_round:,} (schedule total {total:,})")
+    if args.overlap:
+        print(f"overlap: {res.overlapped_bytes:,} bytes in the first window of each "
+              f"pair (its rings run before the second window's steps, not under "
+              f"them), {res.exposed_bytes:,} exposed (chunks={args.overlap_chunks})")
     if args.ckpt_dir and not args.ckpt_every:
         # the final state only; --ckpt-every owns the directory for the
         # window checkpoints --resume restarts from
-        path = checkpoint.save(args.ckpt_dir, res.iterations, res.state,
-                               {"auc": auc, "arch": mcfg.name})
-        print("checkpoint:", path)
+        whole = exe.gather(res.state)
+        if exe.rank == 0:
+            path = checkpoint.save(args.ckpt_dir, res.iterations, whole,
+                                   {"auc": auc, "arch": mcfg.name})
+            print("checkpoint:", path)
+        del whole
     # the first window carries one-off set-up (allocator growth, cuDNN
     # algorithm choice); the steady per-step time excludes it (none when a
     # resumed run had no window left to run)
@@ -368,10 +430,12 @@ def main(argv=None) -> dict:
     ms_per_step = 1e3 * statistics.median(steady) if steady else float("nan")
     return {"auc": auc, "metric": metric, "iterations": res.iterations,
             "history": res.history,
-            "ms_per_local_step": ms_per_step, "leaves": len(leaves),
+            "ms_per_local_step": ms_per_step, "leaves": n_leaves,
             "bytes_per_round": per_round, "comm_rounds": res.comm_rounds,
             "step_seconds": res.step_seconds,
             "state": res.state, "test_scores": h_test, "launches": launches,
+            "collectives": comms,
+            "mesh": None if mesh is None else mesh_mod.axis_sizes(mesh),
             "n_test": int(test["labels"].shape[0]), "stages": len(stage_list),
             "opt_state_bytes": coda.opt_state_bytes(res.state)}
 

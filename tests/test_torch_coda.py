@@ -256,24 +256,93 @@ def test_config_rejects_what_the_reference_rejects(bad):
         C.CoDAConfig(n_workers=2, **bad)
 
 
-@pytest.mark.parametrize("unported", [
+OVERLAP_CONFIGS = [
     dict(overlap_chunks=1), dict(overlap_chunks=2), dict(overlap_chunks=4),
     dict(overlap_chunks=2, algorithm="codasca"), dict(overlap_chunks=2, participation=0.5),
-])
-def test_config_rejects_unported_features(unported):
-    """Valid in the reference, not ported yet (the overlapped ring
-    averaging of the distributed executor): raise, never train plain CoDA.
-    CODASCA, the fault knobs and server momentum are ported
-    (tests/test_torch_codasca.py, tests/test_torch_faults.py)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        C.CoDAConfig(n_workers=2, **unported)
-    JC.CoDAConfig(n_workers=2, **unported)
+]
+
+# each rank: every overlap configuration's window pair on the sharded
+# executor against two windows of the batched executor from the same state
+_PAIRS = """
+import json, sys
+import torch
+from repro_torch.configs import mlp_config
+from repro_torch.core import bucketing as B, coda
+from repro_torch.core.faults import FaultPlan
+from repro_torch.launch import mesh as M
+from repro_torch.tree import tree_leaves
+
+rank, world, store, configs, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \\
+    json.loads(sys.argv[4]), sys.argv[5]
+torch.set_num_threads(1)
+M.init_rank("gloo", rank, world, "file://" + store, timeout_s=120)
+mcfg, mesh, res = mlp_config(n_features=16, d=32), M.make_worker_mesh(), []
+for kw in configs:
+    ccfg = coda.CoDAConfig(n_workers=4, p_pos=0.7, **kw)
+    st = coda.init_state(mcfg, ccfg, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    wb = {"features": torch.randn((2, 3, 4, 8, 16), generator=g),
+          "labels": (torch.rand((2, 3, 4, 8), generator=g) < 0.7).float()}
+    fl = None
+    if ccfg.faults_enabled:
+        plan = FaultPlan.from_config(ccfg)
+        us, rs = zip(*(plan.window(w) for w in range(2)))
+        fl = {"weights": torch.tensor(us), "resync": torch.tensor(rs)}
+    exe = coda.make_executor(mcfg, ccfg, "shard_map", mesh=mesh)
+    B.zero_collectives()
+    got, losses = exe.window_pair_step(exe.place(st), wb, 0.1, faults=fl)
+    hops = B.collectives["p2p"]["calls"]
+    got = exe.gather(got)
+    bt = coda.make_executor(mcfg, ccfg)
+    for w in range(2):
+        st, _ = bt.window_step(st, {k: v[w] for k, v in wb.items()}, 0.1,
+                               faults=None if fl is None else {k: v[w] for k, v in fl.items()})
+    sizes = {t: b["elements"] for t, b in
+             B.bucket_layout(st, masked=ccfg.faults_enabled).items()}
+    res.append({"pairs": exe.overlap_pairs, "loss_rows": list(losses.shape), "hops": hops,
+                "want_hops": 2 * B.ring_hop_count(sizes, exe._ring_spec()),
+                "all_reduce": B.collectives["all_reduce"]["calls"],
+                "err": max(float((a - b).abs().max())
+                           for a, b in zip(tree_leaves(got), tree_leaves(st)))})
+if rank == 0:
+    with open(out, "w") as f:
+        json.dump(res, f)
+M.dist.destroy_process_group()
+print("RANK OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def overlap_pairs(tmp_path_factory):
+    import json
+
+    from _torch_ranks import run_ranks
+    d = tmp_path_factory.mktemp("overlap_pairs")
+    run_ranks(_PAIRS, 2, d / "store", json.dumps(OVERLAP_CONFIGS), str(d / "out.json"))
+    return json.loads((d / "out.json").read_text())
+
+
+@pytest.mark.parametrize("i", range(len(OVERLAP_CONFIGS)),
+                         ids=[",".join(f"{k}={v}" for k, v in c.items()) for c in OVERLAP_CONFIGS])
+def test_overlap_configs_run_a_window_pair_on_two_ranks(overlap_pairs, i):
+    """The overlapped ring averaging (``overlap_chunks``), with CODASCA and
+    with faults: both packages accept each configuration, and on 2 gloo
+    ranks the sharded executor's window pair (each averaging C rings of
+    2·(R−1) hops a chunk, no all_reduce) equals two windows of the batched
+    executor from the same state within 1e-6."""
+    kw = OVERLAP_CONFIGS[i]
+    C.CoDAConfig(n_workers=2, **kw)
+    JC.CoDAConfig(n_workers=2, **kw)
+    got = overlap_pairs[i]
+    assert got["pairs"] and got["loss_rows"] == [6, 2]
+    assert got["hops"] == got["want_hops"] > 0 and got["all_reduce"] == 0
+    assert got["err"] <= 1e-6, got["err"]
 
 
 def test_executor_selection():
     ccfg = C.CoDAConfig(n_workers=2)
     assert isinstance(C.make_executor(MCFG, ccfg, "vmap"), C.BatchedExecutor)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         C.make_executor(MCFG, ccfg, "shard_map")
     with pytest.raises(ValueError):
         C.make_executor(MCFG, ccfg, "pmap")

@@ -607,6 +607,9 @@ def _chip_smoke():
 SMOKE = _chip_smoke()
 SMOKE_PATHS = {label: args for label, args, _ in SMOKE.MLP_PATHS}
 SMOKE_PATHS.update({label: SMOKE.RN_ARGS + args for label, args, _ in SMOKE.RN_PATHS})
+SMOKE_PATHS.update(SMOKE.SHARD_VMAP_PATHS)
+SMOKE_PATHS.update({label: args for label, args, *_ in SMOKE.SHARDED_PATHS})
+SMOKE_PATHS.update([SMOKE.RN_SHARD_DET])
 
 
 @pytest.mark.parametrize("label", sorted(SMOKE.BYTES_PER_ROUND))

@@ -5,8 +5,11 @@ step of the mlp, one of the dense transformer (and a prefill), one of the
 moe transformer (an eval score and a prefill through the sorted dispatch)
 a short serving-engine run, a ``pauc_dro`` and a ``bce`` local step on bf16
 parameters over hard-negative data, a ``bce_step``, the quickstart
-module, a CODASCA window under faults and one with server momentum, and a
-checkpoint round trip must leave ``jax`` and ``repro`` out of ``sys.modules``; and an AST
+module, a CODASCA window under faults and one with server momentum, a
+checkpoint round trip, and one window of the distributed executor on 2 gloo
+ranks (``core/coda_sharded.py``, ``launch/mesh.py``, ``sharding/rules.py``
+through the launcher) must leave ``jax`` and ``repro`` out of
+``sys.modules``; and an AST
 scan of every module of the port and of chip_smoke.py finds no import of
 either (imports of ``repro_torch`` itself are allowed).
 """
@@ -102,6 +105,13 @@ with tempfile.TemporaryDirectory() as d:
     checkpoint.save(d, 1, {"state": st})
     back = checkpoint.restore(d, 1, {"state": st})["state"]
     assert torch.equal(back["srv_m"]["score_head"]["w"], st["srv_m"]["score_head"]["w"])
+# the distributed executor: one window on 2 gloo ranks through the launcher
+from repro_torch.core import bucketing, coda_sharded  # noqa: F401
+from repro_torch.launch import mesh  # noqa: F401
+from repro_torch.sharding import rules  # noqa: F401
+out = train.main(["--device", "cpu", "--executor", "shard_map", "--force-host-devices", "2",
+                  "--stages", "1", "--t0", "4", "--interval", "4", "--n-data", "256"])
+assert out["mesh"] == {"data": 2, "model": 1} and out["collectives"]["all_reduce"]["calls"] == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
