@@ -22,7 +22,7 @@ last line):
   5. the paths through ``train.main``, each with every launch counter set
      to 0 just before and read just after: mlp at the launcher's defaults
      (coda, auc, K=4, I=8, B=32, 3 stages) with sgd, momentum (bf16
-     buffer), sm3, shampoo_blocked, the streaming sketch (``--metrics
+     buffer), sm3, shampoo_blocked (one stage), the streaming sketch (``--metrics
      sketch --metric-interval 4``) and the other two objectives
      (``--objective pauc_dro``, ``--objective bce``: their losses are plain
      tensor code, so auc_loss = 0), CODASCA on Dirichlet(0.1) shards
@@ -175,9 +175,32 @@ last line):
      K1/K2/K4 launches, its ms per local step the median of 5 steady
      windows beside the batched fit's on the same windows (run after phase
      10's bf16 paths);
-then the ``{"sharded": {...}}`` line, the ``{"kernels": [...]}`` line (all
-five kernels), nvidia-smi's line, and the ``{"ok": true, ...}`` line.  It
-imports nothing of JAX.
+ 15. the vlm, hybrid and audio families at full width (K4 held against its
+     plain version at their shapes in phase 8: internvl2-2b's prefill
+     [4, 2048, 16/8, 128] in fp32 and bf16 and its training length 257,
+     hymba-1.5b's prefill [2, 4096, 25/5, 64] with and without its 2048
+     window in fp32 and bf16 and its training shape [128, 64] (two heads a
+     block, odd H), seamless-m4t-medium's encoder [4, 2048] non-causal,
+     decoder [4, 512] causal, cross attention 512 over 2048 and its training
+     shapes): full-depth prefills of internvl2-2b (256 patches + 1792
+     tokens on B=4; fp32 and bf16), hymba-1.5b ([2, 4096]; fp32 and bf16;
+     the SSM scan's and the SSM branch's share of device time) and
+     seamless-m4t-medium (frames [4, 2048, 1024], 512 tokens; 36 K4
+     launches: 12 encoder, 12 self, 12 cross), each against ``impl="ref"``
+     as in phase 9; hymba's 32 layers through ``ServingEngine`` (tokens equal
+     impl='ref''s, no kernel launched: decode and the SSM step are plain);
+     seamless's ``encode_for_decode`` and 64 ``serve_step``s against the
+     parallel forward on the same 64 tokens (atol = rtol = 2e-3); the three
+     CoDA paths through ``train.main`` at full width with their depth cut
+     (internvl2-2b 2 of 24 layers, 257 positions; hymba-1.5b 3 of 32: global,
+     windowed, global; seamless-m4t-medium 2 + 2 of 12 + 12) with exact
+     K1/K2/K4 launches and one local step's losses and gradients held to
+     impl='ref'; and ``--arch internvl2-2b|hymba-1.5b|seamless-m4t-medium
+     --smoke`` on the card, each test AUC within 0.01 of the same command
+     with ``--device cpu`` (run with the other CPU twins);
+then the ``{"sharded": {...}}`` and ``{"zoo": {...}}`` lines, the
+``{"kernels": [...]}`` line (all five kernels), nvidia-smi's line, and the
+``{"ok": true, ...}`` line.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -549,6 +572,27 @@ ATTN_CASES = [
     ("ragged_s1000_hd128_bf16", 2, 1000, 8, 8, 1000, 128, True, None, BF16),
     ("smoke_hd32", 2, 256, 8, 2, 256, 32, True, None, F32),
     ("smoke_hd32_bf16", 2, 256, 8, 2, 256, 32, True, None, BF16),
+    # the vlm, hybrid and audio paths: internvl2-2b's prefill (GQA 16/8 at
+    # head_dim 128) and its training sequence of 256 patches + 1 token (a
+    # ragged last query tile); hymba-1.5b's prefill (25/5 heads of 64; its
+    # windowed layers' 2048 band inside S = 4096) and training shape (two
+    # heads a block, odd H: the last block holds one head, and pairs straddle
+    # KV groups); seamless-m4t-medium's non-causal encoder, causal decoder and
+    # cross attention (S 512 over Skv 2048), and its training shapes
+    ("internvl_prefill", 4, 2048, 16, 8, 2048, 128, True, None, F32),
+    ("internvl_prefill_bf16", 4, 2048, 16, 8, 2048, 128, True, None, BF16),
+    ("internvl_train", 128, 257, 16, 8, 257, 128, True, None, F32),
+    ("hymba_prefill", 2, 4096, 25, 5, 4096, 64, True, None, F32),
+    ("hymba_prefill_window2048", 2, 4096, 25, 5, 4096, 64, True, 2048, F32),
+    ("hymba_prefill_bf16", 2, 4096, 25, 5, 4096, 64, True, None, BF16),
+    ("hymba_prefill_window2048_bf16", 2, 4096, 25, 5, 4096, 64, True, 2048, BF16),
+    ("hymba_train", 128, 64, 25, 5, 64, 64, True, None, F32),
+    ("seamless_encoder", 4, 2048, 16, 16, 2048, 64, False, None, F32),
+    ("seamless_decoder", 4, 512, 16, 16, 512, 64, True, None, F32),
+    ("seamless_cross", 4, 512, 16, 16, 2048, 64, False, None, F32),
+    ("seamless_train_encoder", 128, 64, 16, 16, 64, 64, False, None, F32),
+    ("seamless_train_decoder", 128, 16, 16, 16, 16, 64, True, None, F32),
+    ("seamless_train_cross", 128, 16, 16, 16, 64, 64, False, None, F32),
 ]
 # (atol, rtol): fp32 is the reference's own; bf16 through flash_fwd (head_dim
 # 16/32): kernel and plain version both compute in fp32 and round once, so
@@ -827,7 +871,9 @@ MLP_PATHS = [
     ("mlp", [], "prox_update"),
     ("mlp_momentum", ["--optimizer", "momentum", "--opt-dtype", "bf16"], "opt_update"),
     ("mlp_sm3", ["--optimizer", "sm3"], "opt_update"),
-    ("mlp_shampoo", ["--optimizer", "shampoo_blocked"], "prox_update"),
+    # one stage (64 local steps): its CPU twin, ~0.3 s a step, was the
+    # longest of the twins at the launcher's three stages
+    ("mlp_shampoo", ["--optimizer", "shampoo_blocked", "--stages", "1"], "prox_update"),
     ("mlp_sketch", ["--metrics", "sketch", "--metric-interval", "4"], "prox_update"),
     ("mlp_pauc_dro", ["--objective", "pauc_dro"], "prox_update"),
     ("mlp_bce", ["--objective", "bce"], "prox_update"),
@@ -913,10 +959,30 @@ LM_SMOKE = ("stablelm_smoke", ["--arch", "stablelm-1.6b", "--smoke", "--stages",
 MOE_SMOKE = ("dbrx_smoke", ["--arch", "dbrx-132b", "--smoke", "--stages", "2", "--t0", "30"],
              "prox_update")
 MOE_LEAVES = 18
+# the vlm, hybrid and audio families through the launcher: (label, arguments,
+# leaves, K4 launches a forward).  At full width with their depth cut
+# (internvl2-2b to 2 of 24 layers: 257 positions, 256 patches + 1 token;
+# hymba-1.5b to 3 of 32: global, windowed, global; seamless-m4t-medium to 2 +
+# 2 of 12 + 12: 64 frames, 16 tokens), one stage of 16 local steps; and their
+# smoke configs, each test AUC held against the same command with --device cpu
+ZOO_TRAIN_ARGS = ["--stages", "1", "--t0", "16", "--n-data", "1024"]
+ZOO_TRAIN = [
+    ("internvl_train", ["--arch", "internvl2-2b", "--n-layers", "2"] + ZOO_TRAIN_ARGS, 15, 2),
+    ("hymba_train", ["--arch", "hymba-1.5b", "--n-layers", "3"] + ZOO_TRAIN_ARGS, 24, 3),
+    ("seamless_train", ["--arch", "seamless-m4t-medium", "--n-layers", "2"] + ZOO_TRAIN_ARGS,
+     35, 6),
+]
+ZOO_SMOKE_ARGS = ["--smoke", "--stages", "1", "--t0", "32"]
+ZOO_SMOKE = [
+    ("internvl_smoke", ["--arch", "internvl2-2b"] + ZOO_SMOKE_ARGS, 15, 2),
+    ("hymba_smoke", ["--arch", "hymba-1.5b"] + ZOO_SMOKE_ARGS, 24, 2),
+    ("seamless_smoke", ["--arch", "seamless-m4t-medium"] + ZOO_SMOKE_ARGS, 35, 6),
+]
 # (label, module, arguments): the commands run again with --device cpu
 TRAIN, SERVE, QUICKSTART = ("repro_torch.launch.train", "repro_torch.launch.serve",
                             "repro_torch.quickstart")
 TWIN_PATHS = ([(label, TRAIN, args) for label, args, _ in MLP_PATHS + [LM_SMOKE, MOE_SMOKE]]
+              + [(label, TRAIN, args) for label, args, _, _ in ZOO_SMOKE]
               + [("dbrx_serve_smoke", SERVE, ["--arch", "dbrx-132b", "--labeled",
                                               "--metrics", "sketch"]),
                  ("quickstart", QUICKSTART, [])])
@@ -937,6 +1003,7 @@ class CpuTwins:
         self.auc: dict[str, float] = {}
         self.pauc: dict[str, float] = {}
         self.out: dict[str, str] = {}
+        self.seconds: dict[str, float] = {}
         self.errors: list[str] = []
         self._lock = threading.Lock()
         self._proc = None
@@ -958,7 +1025,9 @@ class CpuTwins:
                     ["nice", "-n", "19", sys.executable, "-m", module,
                      "--device", "cpu", *args], cwd=ROOT, env=env,
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            t0 = time.perf_counter()
             out, err = self._proc.communicate()
+            self.seconds[label] = time.perf_counter() - t0
             found = re.search(DONE_RE[module], out, re.M) if module in DONE_RE else None
             if self._proc.returncode != 0 or (module in DONE_RE and not found):
                 self.errors.append(f"{label}: exit {self._proc.returncode}\n"
@@ -978,7 +1047,8 @@ class CpuTwins:
         if self.errors:
             raise SystemExit("a CPU run of a smoke path failed:\n" + "\n".join(self.errors))
         print(f"cpu runs: waited {time.perf_counter() - t0:.1f} s for the --device cpu "
-              "runs of the smoke paths")
+              "runs of the smoke paths; each took (s) "
+              + ", ".join(f"{k} {v:.1f}" for k, v in self.seconds.items()))
 
     def stop(self):
         with self._lock:
@@ -1108,14 +1178,44 @@ BF16_DBRX_PREFILL = PrefillPath(
     n_layers=BF16_DBRX_LAYERS, dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma")
 
 
-def hidden_fp32(cfg, params, tokens):
+# the vlm, hybrid and audio families at full width
+INTERNVL_PREFILL = PrefillPath(
+    "internvl_prefill", "internvl2-2b", 1_893_343_233, 4, 2048,
+    PREFILL_32K + " positions: 256 patch embeddings (the ViT stub) + 1792 tokens; one "
+    "replica (K=1); full width and depth (24 layers: d=2048, 16/8 heads of 128, d_ff 8192, "
+    "vocab 92,553)")
+BF16_INTERNVL_PREFILL = dataclasses.replace(
+    INTERNVL_PREFILL, label="bf16_internvl_prefill", dtype=BF16, k4="flash_fwd_wgmma",
+    reduced=INTERNVL_PREFILL.reduced + "; bf16 weights (the fp32 patches project in fp32)")
+HYMBA_PREFILL = PrefillPath(
+    "hymba_prefill", "hymba-1.5b", 1_662_214_401, 2, 4096,
+    "prefill_32k [B=32, S=32768] cut to [B={B}, S={S}], one replica (K=1); full width and "
+    "depth (32 layers: d=1600, 25/5 heads of 64, d_ff 5504, vocab 32,001, an SSM branch "
+    "of d_inner 3200 and state 16 in every layer, a 2048 window but on layers 0, 16 and 31)")
+BF16_HYMBA_PREFILL = dataclasses.replace(
+    HYMBA_PREFILL, label="bf16_hymba_prefill", dtype=BF16, k4="flash_fwd_wgmma",
+    reduced=HYMBA_PREFILL.reduced + "; bf16 weights (A_log, D and the scan in fp32)")
+SEAMLESS_PREFILL = PrefillPath(
+    "seamless_prefill", "seamless-m4t-medium", 878_208_001, 4, 2048,
+    "prefill_32k [B=32, S=32768] cut to [B={B}, S={S}] frames (the speech-encoder stub, "
+    "fp32 [4, 2048, 1024]) and S/4 = 512 target tokens, one replica (K=1); full width and "
+    "depth (12 encoder + 12 decoder layers: d=1024, 16 heads of 64, d_ff 4096, vocab "
+    "256,206; logits at the last position only)")
+ZOO_PREFILLS = (INTERNVL_PREFILL, BF16_INTERNVL_PREFILL, HYMBA_PREFILL, BF16_HYMBA_PREFILL,
+                SEAMLESS_PREFILL)
+
+
+def hidden_fp32(cfg, params, batch):
     """The final normed hidden states [1, B, S, d] in fp32 of a transformer
     with bf16 weights, each layer's weights widened to fp32 only while it
     runs (the plain versions, ``impl="ref"``), so a model that fits only in
-    bf16 gets its fp32 result; and the stacked bf16 (K, V) caches."""
+    bf16 gets its fp32 result; and the stacked bf16 (K, V) caches.
+    ``batch``: tokens [1, B, S] (and a vlm's patches)."""
     from repro_torch.models import blocks
-    from repro_torch.models.embeddings import apply_norm, embed
-    x = embed(_f32(params["embed"]), tokens)
+    from repro_torch.models import model as M
+    from repro_torch.models.embeddings import apply_norm
+    x = M._embed_inputs(cfg, _f32({k: params[k] for k in ("embed", "projector")
+                                   if k in params}), batch)
     positions = torch.arange(x.shape[2], device=x.device)
     windows = blocks.layer_windows_static(cfg, False)
     ks, vs = [], []
@@ -1141,7 +1241,7 @@ def prefill_fp32(cfg, params, batch):
     """``prefill_step``'s outputs in fp32 from bf16 weights (``hidden_fp32``):
     (scores, last logits, bf16 caches)."""
     from repro_torch.models import model as M
-    h, kv = hidden_fp32(cfg, params, batch["tokens"])
+    h, kv = hidden_fp32(cfg, params, batch)
     logits = M.lm_logits(cfg, _lm_head_f32(params), h[:, :, -1])
     scores = M._score_head(_f32(params["score_head"]), torch.mean(h, dim=2))
     return scores, logits, kv
@@ -1158,7 +1258,7 @@ def last_fp32(cfg, params, seqs):
     toks = torch.zeros((1, n, L), dtype=torch.int64, device=dev)
     for i, q in enumerate(seqs):
         toks[0, i, :len(q)] = torch.tensor(q, device=dev)
-    h, _ = hidden_fp32(cfg, params, toks)
+    h, _ = hidden_fp32(cfg, params, {"tokens": toks})
     last = h[0, torch.arange(n, device=dev),
              torch.tensor([len(q) - 1 for q in seqs], device=dev)]          # [n, d]
     logits = M.lm_logits(cfg, _lm_head_f32(params), last[None])[0]
@@ -1259,6 +1359,60 @@ def bf16_noise_check(label: str, kern: dict, plain: dict, exact: dict, *,
     return out
 
 
+def attention_layers(cfg) -> int:
+    """K4 launches in one forward: a layer's self attention, and an
+    encoder-decoder's encoder layers and the decoder's cross attentions."""
+    if cfg.is_encoder_decoder:
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def prefill_batch(cfg, B: int, S: int, dev) -> dict:
+    """A seeded prefill batch of one replica: S positions of tokens, or for
+    vlm ``n_patches`` fp32 patch embeddings and S - n_patches tokens, or for
+    audio S fp32 frames and S // decoder_fraction tokens."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    n_tok = {"vlm": S - cfg.n_patches, "audio": S // cfg.decoder_fraction}.get(cfg.family, S)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, B, n_tok), generator=g,
+                                     device=dev)}
+    stub = {"vlm": cfg.n_patches, "audio": S}.get(cfg.family)
+    if stub:
+        batch["patches" if cfg.family == "vlm" else "frames"] = torch.randn(
+            (1, B, stub, cfg.d_model), generator=g, device=dev)
+    return batch
+
+
+def ssm_scan_share(cfg, params, B: int, S: int, busy_ms: float) -> dict:
+    """The SSM branch's share of a hybrid prefill's device time: the
+    chunked scan (``models/ssm.linear_scan``) and the whole branch
+    (``apply_ssm``: projections, convolution, the recurrence's inputs, the
+    scan, its readout) of layer 0, timed with CUDA events on the prefill's
+    [1, B, S] shape, times the layers, over the prefill's device busy time."""
+    from repro_torch.models import blocks, ssm
+    from repro_torch.models.mlp import linear
+    di, N, _ = ssm._dims(cfg)
+    table = params["embed"]["table"]
+    g = torch.Generator(device=table.device).manual_seed(3)
+    lp = blocks.unstack(params["layers"], cfg.n_layers)[0]["ssm"]
+    x = torch.randn((1, B, S, cfg.d_model), generator=g, device=table.device).to(table.dtype)
+    with torch.no_grad():
+        xi = torch.nn.functional.silu(ssm._causal_conv(
+            lp, torch.chunk(linear(x, lp["in_proj"]), 2, dim=-1)[0]))
+        dA, dBx, _ = ssm._ssm_inputs(cfg, lp, xi)
+        scan = cuda_ms(lambda: ssm.linear_scan(dA, dBx, 2), iters=3, warmup=1)
+        del xi, dA, dBx
+        branch = cuda_ms(lambda: ssm.apply_ssm(cfg, lp, x), iters=3, warmup=1)
+    L = cfg.n_layers
+    out = {"scan_ms_per_layer": scan, "ssm_ms_per_layer": branch,
+           "scan_share": L * scan / busy_ms, "ssm_share": L * branch / busy_ms,
+           "shape": [B, S, di, N]}
+    print(f"ssm share: the scan {scan:.3f} ms and the SSM branch {branch:.3f} ms a layer "
+          f"(CUDA events, [B={B}, S={S}, di={di}, N={N}] fp32); × {L} layers = "
+          f"{100 * out['scan_share']:.1f} % and {100 * out['ssm_share']:.1f} % of the "
+          f"prefill's {busy_ms:.2f} ms of device busy time")
+    return out
+
+
 def run_prefill(dev, path: PrefillPath, k5_checked: set):
     """``prefill_step`` of ``path`` with the kernels (every counter set to 0
     just before one prefill and read just after: one K4 launch per layer,
@@ -1295,10 +1449,12 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
     if n != path.n_params:
         raise SystemExit(f"{label}: {n:,} parameters, expected {path.n_params:,}")
     params = tree_map(lambda x: x[None], params)               # K = 1 (views)
-    g = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, B, S), generator=g, device=dev)}
+    batch = prefill_batch(cfg, B, S, dev)
+    # the decoder's positions: an encoder-decoder's tokens, else all S
+    Sd = batch["tokens"].shape[2] if cfg.is_encoder_decoder else S
     prefill = lambda impl="auto": M.prefill_step(cfg, params, batch, impl=impl)
     moe_layers = cfg.n_layers if cfg.family == "moe" else 0
+    n_attn = attention_layers(cfg)
     with torch.no_grad():
         prefill()                                               # warm-up
         torch.cuda.synchronize()
@@ -1306,10 +1462,10 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
         (s, logits, (kc, vc)), k5_shapes, k_routes = recorded(prefill, routes=True)
         torch.cuda.synchronize()
         counts, variants = read_counts(), read_variants()
-        want = dict.fromkeys(counts, 0) | {"flash_attention": cfg.n_layers,
+        want = dict.fromkeys(counts, 0) | {"flash_attention": n_attn,
                                            "grouped_matmul": 3 * moe_layers}
         k4, k5 = variants["flash_attention"], variants["grouped_matmul"]
-        if (counts != want or k4[path.k4] != cfg.n_layers
+        if (counts != want or k4[path.k4] != n_attn
                 or k5[path.k5] != 3 * moe_layers):
             raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
                              f"every K4 launch {path.k4}, every K5 launch {path.k5}")
@@ -1338,7 +1494,7 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
         finite = all(bool(torch.isfinite(t.float()).all()) for t in (s, logits, kc, vc))
         shapes_ok = (tuple(s.shape) == (1, B) and s.dtype == torch.float32
                      and tuple(logits.shape) == (1, B, cfg.vocab_size)
-                     and tuple(kc.shape) == (1, cfg.n_layers, B, S, cfg.n_kv_heads,
+                     and tuple(kc.shape) == (1, cfg.n_layers, B, Sd, cfg.n_kv_heads,
                                              cfg.head_dim)
                      and kc.dtype == vc.dtype == torch.bfloat16)
         if path.dtype == torch.float32:
@@ -1396,11 +1552,13 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
                                 ("grouped_matmul", (KERNEL_TAGS["grouped_matmul"],)),
                                 ("cublas_gemm", ("gemm", "nvjet")))}
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
-    tokens = B * S
+    # positions through the stacks: an encoder-decoder's frames and tokens
+    tokens = B * (S + Sd if cfg.is_encoder_decoder else S)
+    ssm_share = ssm_scan_share(cfg, params, B, S, busy) if cfg.family == "hybrid" else None
     out = {"path": label, "dtype": dname, "ms_per_prefill": ms, "ms_runs": times,
            "ref_ms_per_prefill": sorted(ref_ms)[0], "tokens_per_s": tokens / ms * 1e3,
            "peak_bytes": peak, "launches": counts, "variant_launches": variants, "errs": errs,
-           "bf16_rule": noise,
+           "bf16_rule": noise, "ssm": ssm_share,
            "profile": {"wall_ms": wall, "device_busy_ms": busy, "kernel_sum_ms": total,
                        "idle_share": 1.0 - busy / wall,
                        **{f"{k}_ms": v for k, v in share.items()},
@@ -1638,22 +1796,25 @@ def _serve(cfg, params, impl, tick_log=None):
     return eng, reqs, wall
 
 
-def run_dbrx_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_serve") -> dict:
-    """The dbrx-132b parameters (full width, ``cfg.n_layers`` layers)
-    through the continuous-batching engine: a batch trace of 8 requests with
+def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_serve") -> dict:
+    """A model's parameters (full width, ``cfg.n_layers`` layers: dbrx-132b's,
+    hymba-1.5b's) through the continuous-batching engine: a batch trace of 8 requests with
     impl='auto', then a second engine with impl='ref'; tokens equal, a flip
     allowed only where the ref run's top-2 logit gap is under the noise
     (fp32 weights: SERVE_GAP_TOL; bf16: the bf16 rule's limit for those
     logits against fp32), printed; scores within SERVE_SCORE_ATOL (bf16: the
     bf16 rule against each request's score logit in fp32); exactly 3 × layers K5
-    launches per serve step (the variant the counters show printed), at
-    shapes in ``k5_checked``; ms per
+    launches per serve step of an moe model (the variant the counters show
+    printed), at shapes in ``k5_checked``, and no launch of any other kernel
+    (decode attention and the SSM step are plain tensor code); ms per
     prefill and per decode tick, tokens/s, TTFT and latency; one profiled
-    decode tick."""
+    decode tick (its idle share; an moe model's K5 time against its
+    bound)."""
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving import loadgen as LG
     layers = cfg.n_layers
+    moe_layers = layers if cfg.family == "moe" else 0
     dname = str(tree_dtype(params)).replace("torch.", "")
     print(f"{label}: the {label.replace('serve', 'prefill')} parameters ({dname}, {layers} "
           f"layers); engine {SERVE_KW}; trace {SERVE_TRACE}")
@@ -1666,10 +1827,10 @@ def run_dbrx_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_serve
         ticks = []
         (eng, reqs, wall), k5_shapes, _ = recorded(lambda: _serve(cfg, params, "auto", ticks))
         counts, variants = read_counts(), read_variants()
-        want = dict.fromkeys(counts, 0) | {"grouped_matmul": 3 * layers * eng.steps}
+        want = dict.fromkeys(counts, 0) | {"grouped_matmul": 3 * moe_layers * eng.steps}
         if counts != want:
             raise SystemExit(f"{label}: launch counts {counts}, expected {want} (3 × "
-                             f"{layers} layers × {eng.steps} serve steps)")
+                             f"{moe_layers} moe layers × {eng.steps} serve steps)")
         print(f"{label}: K5 variants by the wrapper's counters: "
               f"{variants['grouped_matmul']}")
         require_k5_checked(label, k5_shapes, k5_checked)
@@ -1755,9 +1916,10 @@ def run_dbrx_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_serve
             "top_kernels_ms": {k[:90]: v for k, v in
                                sorted(per.items(), key=lambda kv: -kv[1])[:6]}}
     print(f"profile {label} decode tick: wall {wall_t:.2f} ms, device busy {busy_t:.2f} "
-          f"ms (idle share {1.0 - busy_t / wall_t:.3f}); grouped_matmul {k5:.3f} ms over "
-          f"{len(seen)} calls against a bound of {bound:.3f} ms (bytes of the hit experts), "
-          f"{100 * k5 / total:.1f} % of kernel time")
+          f"ms (idle share {1.0 - busy_t / wall_t:.3f}), kernel time {total:.3f} ms"
+          + (f"; grouped_matmul {k5:.3f} ms over {len(seen)} calls against a bound of "
+             f"{bound:.3f} ms (bytes of the hit experts), {100 * k5 / total:.1f} % of kernel "
+             "time" if moe_layers else ""))
     print(json.dumps({"profile": prof | {"path": f"{label}_decode_tick"}}))
     return {"path": label, "launches": counts, "variant_launches": variants,
             "steps": eng.steps, "ticks": eng.ticks,
@@ -2469,6 +2631,169 @@ def run_quickstart() -> tuple[dict, dict]:
     return out, counts
 
 
+# one local step of a full-width path with the kernels and with impl='ref'
+# from the same state: the per-worker losses within atol 1e-5, and every
+# gradient leaf within 1e-4 of its largest magnitude (fp32: K4's split-TF32
+# products are within 3·2^-22 of fp32's, and the sums run in another order)
+STEP_LOSS_ATOL, STEP_GRAD_RTOL = 1e-5, 1e-4
+
+
+def check_local_step(label: str, mcfg, state, dev) -> dict:
+    """One local step's losses and gradients with the kernels (K1, and K4 in
+    every attention layer) against impl='ref', from the path's final state,
+    on a seeded window of the launcher's shapes (K=4, B=32, 64 tokens before
+    the modality stubs)."""
+    from repro_torch.core import coda
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    g = torch.Generator().manual_seed(4)
+    K, B = 4, 32
+    batch = train.make_batch_adapters(mcfg, 0, dev)(
+        {"tokens": torch.randint(0, mcfg.vocab_size, (K, B, 64), generator=g).to(dev)})
+    batch["labels"] = (torch.rand((K, B), generator=g) < 0.71).float().to(dev)
+    got = {}
+    for impl in ("auto", "ref"):
+        ccfg = coda.CoDAConfig(n_workers=K, p_pos=0.71, impl=impl)
+        loss, (gp, _), _ = coda.grad_step_scores(mcfg, ccfg, state, batch)
+        got[impl] = (loss, tree_leaves(gp))
+        del gp
+    loss_err = float((got["auto"][0] - got["ref"][0]).abs().max())
+    worst = 0.0
+    for a, b in zip(got["auto"][1], got["ref"][1], strict=True):
+        scale = float(b.abs().max())
+        if scale:
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        elif a.any():
+            worst = math.inf
+    print(f"main path {label}: one local step, kernels vs impl='ref': losses max_abs_err "
+          f"{loss_err:.3g} (atol {STEP_LOSS_ATOL}), gradients max |Δ| / max |g| over "
+          f"{len(got['ref'][1])} leaves {worst:.3g} (limit {STEP_GRAD_RTOL})")
+    if not (loss_err <= STEP_LOSS_ATOL and worst <= STEP_GRAD_RTOL):
+        raise SystemExit(f"{label}: the local step with kernels disagrees with impl='ref'")
+    return {"loss_max_abs_err": loss_err, "grad_max_rel_err": worst}
+
+
+def run_zoo_train(label: str, argv: list, leaves: int, n_attn: int, dev, *,
+                  step_check: bool) -> tuple[dict, dict]:
+    """A vlm, hybrid or audio path through ``train.main`` (run_main_path:
+    exact K1, K2 and K4 launches, K4 ``flash_fwd_tf32x3`` throughout) and,
+    at full width, one local step held to impl='ref'."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model as M
+    out, counts = run_main_path(f"main path {label}", argv, leaves, attn_layers=n_attn)
+    require_k4_variant(label, out, "flash_fwd_tf32x3", "fp32")
+    arch = argv[argv.index("--arch") + 1]
+    mcfg = get_smoke_config(arch) if "--smoke" in argv else get_config(arch)
+    if "--n-layers" in argv:
+        n = int(argv[argv.index("--n-layers") + 1])
+        mcfg = dataclasses.replace(mcfg, n_layers=n, **(
+            {"encoder_layers": n} if mcfg.is_encoder_decoder else {}))
+    want = (M.count_params(mcfg) + 3) * 4             # the parameters and the 3 fp32 duals
+    if out["bytes_per_round"] != want:
+        raise SystemExit(f"{label}: bytes/round/worker {out['bytes_per_round']:,}, "
+                         f"count_params gives {want:,}")
+    if step_check:
+        out["local_step"] = check_local_step(label, mcfg, out["state"], dev)
+    out.pop("state")
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+SEAMLESS_DECODE_STEPS = 64
+DECODE_TOL = 2e-3          # atol = rtol, tests/test_decode_consistency.py's
+
+
+def run_seamless_decode(cfg, params, dev) -> dict:
+    """seamless-m4t-medium served as the reference serves it:
+    ``encode_for_decode`` over the prefill's frames [4, 2048, 1024] (K4
+    once an encoder layer, nothing else), then SEAMLESS_DECODE_STEPS
+    ``serve_step``s (no kernel: decode and cross attention are plain), the
+    last logits within DECODE_TOL of the parallel forward on the same 64
+    tokens; ms for the encoding and per serve step."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import decode as D
+    batch = prefill_batch(cfg, 4, 2048, dev)
+    frames, tokens = batch["frames"][0], batch["tokens"][0, :, :SEAMLESS_DECODE_STEPS]
+    B, T = tokens.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        cache = D.init_cache(cfg, B, frames.shape[1], use_window=False, dtype=torch.float32,
+                             device=dev)
+        cache = D.encode_for_decode(cfg, params, cache, frames)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        enc_counts = read_counts()
+        steps = []
+        for t in range(T):
+            t0 = time.perf_counter()
+            logits, _, cache = D.serve_step(cfg, params, cache, tokens[:, t:t + 1],
+                                            torch.full((B,), t, dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        counts, variants = read_counts(), read_variants()
+        h, _ = M.backbone(cfg, params, {"frames": frames[None], "tokens": tokens[None]})
+        want = M.lm_logits(cfg, params, h[:, :, -1])[0]
+    err = float((logits - want).abs().max())
+    ok = bool(((logits - want).abs() <= DECODE_TOL + DECODE_TOL * want.abs()).all())
+    expect = dict.fromkeys(counts, 0) | {"flash_attention": cfg.encoder_layers}
+    print(f"seamless_decode: encode_for_decode over frames {list(frames.shape)} in "
+          f"{enc_ms:.2f} ms, then {T} serve_steps at {statistics.median(steps):.2f} ms each "
+          f"(median); launches {counts} (after the encoding {enc_counts}); the last logits "
+          f"[{B}, {cfg.vocab_size}] vs the parallel forward on the {T} tokens: max_abs_err "
+          f"{err:.3g} (atol = rtol = {DECODE_TOL})")
+    if counts != expect or enc_counts != expect:
+        raise SystemExit(f"seamless_decode: launch counts {counts}, expected {expect}")
+    if not (ok and bool(torch.isfinite(logits).all())):
+        raise SystemExit("seamless_decode: incremental logits disagree with the parallel "
+                         "forward")
+    return {"path": "seamless_decode", "encode_ms": enc_ms,
+            "ms_per_serve_step": statistics.median(steps), "steps": T,
+            "logits_max_abs_err": err, "launches": counts, "variant_launches": variants}
+
+
+def run_zoo(dev, rates, k5_checked: set, runs: dict, counts: dict, prefills: dict) -> dict:
+    """The vlm, hybrid and audio families on the card: the full-width
+    prefills (internvl2-2b and hymba-1.5b in fp32 and bf16, seamless
+    fp32), hymba's weights through the engine, seamless's
+    encode-then-decode against its parallel forward, and the three CoDA
+    paths at full width through the launcher.  Returns the summary printed
+    as the ``{"zoo": ...}`` line."""
+    zoo = {}
+    for path in ZOO_PREFILLS:
+        prefills[path.label], cfg, params = run_prefill(dev, path, k5_checked)
+        counts[path.label] = prefills[path.label]["launches"]
+        zoo[path.label] = {k: prefills[path.label][k] for k in (
+            "ms_per_prefill", "ref_ms_per_prefill", "tokens_per_s", "peak_bytes", "launches",
+            "variant_launches", "errs", "ssm", "profile")}
+        if path is HYMBA_PREFILL:
+            serve = run_engine_serve(rates, cfg, params, k5_checked, "hymba_serve")
+            counts["hymba_serve"] = serve["launches"]
+            zoo["hymba_serve"] = serve
+        if path is SEAMLESS_PREFILL:
+            zoo["seamless_decode"] = run_seamless_decode(cfg, params, dev)
+            counts["seamless_decode"] = zoo["seamless_decode"]["launches"]
+        del params
+        torch.cuda.empty_cache()
+    for label, args, leaves, n_attn in ZOO_TRAIN:
+        runs[label], counts[label] = run_zoo_train(label, args, leaves, n_attn, dev,
+                                                   step_check=True)
+        zoo[label] = {k: runs[label][k] for k in (
+            "ms_per_local_step", "peak_bytes", "launches", "auc", "bytes_per_round",
+            "local_step")}
+    return zoo
+
+
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """A phase boundary with the seconds since the script started, so a
+    log shows where the run's time went."""
+    print(f"[t={time.perf_counter() - T_START:.1f} s] {what}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -2506,10 +2831,13 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     opt_rows = check_opt_update(dev, rates, gen)
     attn_rows, attn_bwd = check_flash_attention(dev, rates, bf16_rate, gen)
     gmm_rows = check_grouped_matmul(dev, rates, bf16_rate)
+    stamp("kernel checks done")
     k5_checked = {(r["N"], r["Kd"], r["F"], r["dtype"]) for r in gmm_rows}
     check_step(dev)
 
     runs, counts = {}, {}
+    print("main path mlp_shampoo: reduced: one stage of the launcher's three (its CPU twin "
+          "takes ~0.3 s a step)")
     for label, args, per_leaf in MLP_PATHS:
         runs[label], counts[label] = run_main_path(f"main path {label}", args,
                                                    MLP_LEAVES, per_leaf)
@@ -2522,6 +2850,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
           f"(local steps × K × B = {want:,})")
     if n_scored != want:
         raise SystemExit("main path mlp_sketch: sketch count disagrees")
+    stamp("mlp paths done")
     profile_window("mlp", mlp_config(), runs["mlp"]["state"], dev)
     profile_window("mlp_codasca_faults", mlp_config(), runs["mlp_codasca_faults"]["state"], dev,
                    algorithm="codasca", participation=0.75, straggler_prob=0.2,
@@ -2551,6 +2880,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
           f"ms of device time per local step ({RN_LEAVES} launches) against a bound of "
           f"{k3_bound:.4f} ms (20 B per element, bf16 buffer)")
 
+    stamp("resnet50 paths done")
     # the distributed executor: NCCL at R = torch.cuda.device_count(); one
     # ResNet50 window against the batched executor's, and a profiled one
     sharded = run_sharded_paths(runs, counts)
@@ -2562,6 +2892,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
 
     for label in [label for label, _, _ in RN_PATHS] + ["resnet50_shard_map"]:
         runs[label].pop("state")                 # free the card for stablelm
+    stamp("distributed executor paths done")
 
     # full-depth fp32 prefills: stablelm-1.6b (head_dim 64) and chatglm3-6b
     # (head_dim 128), every K4 launch flash_fwd_tf32x3
@@ -2575,6 +2906,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         counts[path.label] = prefills[path.label]["launches"]
         del params
         torch.cuda.empty_cache()
+    stamp("dense prefills done")
     # stablelm-1.6b CoDA training at full width, 2 layers; the smoke config
     # (its CPU twin runs in the background)
     print(f"main path stablelm_train: reduced: {TRAIN_LAYERS} of 24 layers (full width "
@@ -2600,12 +2932,13 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                                per_leaf, attn_layers=2)
     torch.cuda.empty_cache()
 
+    stamp("stablelm CoDA paths done")
     # dbrx-132b: prefill and the serving engine at full width, 2 layers;
     # then the launchers' smoke configs (their CPU twins run in the background)
     dbrx_prefill, dbrx_cfg, dbrx_params = run_prefill(dev, DBRX_PREFILL, k5_checked)
     prefills[DBRX_PREFILL.label] = dbrx_prefill
     counts["dbrx_prefill"] = dbrx_prefill["launches"]
-    dbrx_serve = run_dbrx_serve(rates, dbrx_cfg, dbrx_params, k5_checked)
+    dbrx_serve = run_engine_serve(rates, dbrx_cfg, dbrx_params, k5_checked)
     counts["dbrx_serve"] = dbrx_serve["launches"]
     del dbrx_params
     torch.cuda.empty_cache()
@@ -2615,7 +2948,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     label = BF16_DBRX_PREFILL.label
     prefills[label], bdbrx_cfg, bdbrx_params = run_prefill(dev, BF16_DBRX_PREFILL, k5_checked)
     counts[label] = prefills[label]["launches"]
-    bf16_serve = run_dbrx_serve(rates, bdbrx_cfg, bdbrx_params, k5_checked, "bf16_dbrx_serve")
+    bf16_serve = run_engine_serve(rates, bdbrx_cfg, bdbrx_params, k5_checked, "bf16_dbrx_serve")
     counts["bf16_dbrx_serve"] = bf16_serve["launches"]
     del bdbrx_params
     torch.cuda.empty_cache()
@@ -2625,8 +2958,19 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     require_k4_variant(label, runs[label], "flash_fwd_tf32x3", "fp32, head_dim 128")
     serve_out, counts["dbrx_serve_smoke"], serve_text = run_serve_smoke()
 
+    # the vlm, hybrid and audio families: full-width prefills, hymba's engine,
+    # seamless's decode, the CoDA paths at full width and the smoke configs
+    # (their CPU twins run in the background)
+    stamp("dbrx paths done")
+    zoo = run_zoo(dev, rates, k5_checked, runs, counts, prefills)
+    stamp("zoo paths done")
+    for label, args, leaves, n_attn in ZOO_SMOKE:
+        runs[label], counts[label] = run_zoo_train(label, args, leaves, n_attn, dev,
+                                                   step_check=False)
+
     # the same commands on the CPU: test AUC within 0.01; the served tokens
     # equal and the served AUC within 0.01
+    stamp("card phases done")
     twins.wait()
     card_reqs, card_auc = serve_lines(serve_text)
     cpu_reqs, cpu_auc = serve_lines(twins.out["dbrx_serve_smoke"])
@@ -2690,6 +3034,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     # before each path, read just after), and each variant's headline case
     variants = {label: r["variant_launches"] for label, r in runs.items()}
     variants.update({label: r["variant_launches"] for label, r in prefills.items()},
+                    hymba_serve=zoo["hymba_serve"]["variant_launches"],
+                    seamless_decode=zoo["seamless_decode"]["variant_launches"],
                     dbrx_serve=dbrx_serve["variant_launches"],
                     bf16_dbrx_serve=bf16_serve["variant_launches"],
                     dbrx_serve_smoke=serve_out["variant_launches"])
@@ -2739,13 +3085,19 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                  {"flash_fwd": ["smoke_hd32"],
                                   "flash_fwd_wgmma": ["stablelm_prefill_bf16",
                                                       "qwen_prefill_bf16", "dbrx_prefill_bf16",
-                                                      "stablelm_train_bf16"],
+                                                      "stablelm_train_bf16",
+                                                      "internvl_prefill_bf16",
+                                                      "hymba_prefill_bf16"],
                                   "flash_fwd_tf32x3": ["stablelm_prefill", "chatglm_prefill",
-                                                       "qwen_gqa", "dbrx_prefill"]}),
+                                                       "qwen_gqa", "dbrx_prefill",
+                                                       "internvl_prefill", "internvl_train",
+                                                       "hymba_prefill", "hymba_train",
+                                                       "seamless_encoder", "seamless_cross"]}),
         "prefills": {label: {k: prefills[label][k] for k in (
             "ms_per_prefill", "ref_ms_per_prefill", "tokens_per_s", "peak_bytes", "errs")}
             for label in (STABLELM_PREFILL.label, CHATGLM_PREFILL.label,
-                          BF16_STABLELM_PREFILL.label, BF16_QWEN_PREFILL.label)}})
+                          BF16_STABLELM_PREFILL.label, BF16_QWEN_PREFILL.label)
+            + tuple(p.label for p in ZOO_PREFILLS)}})
     # grouped_matmul: headline at dbrx-132b's decode gate/up shape in fp32,
     # the call every moe layer of every served token makes twice
     h = next(r for r in gmm_rows if r["case"] == "dbrx_decode_gate")
@@ -2782,6 +3134,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "serve": {k: v for k, v in dbrx_serve.items() if k != "profile"},
         "serve_bf16": {k: v for k, v in bf16_serve.items() if k != "profile"}})
     print(json.dumps({"sharded": sharded}, default=str))
+    print(json.dumps({"zoo": zoo}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

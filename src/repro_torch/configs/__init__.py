@@ -1,10 +1,11 @@
 """Architecture registry (``get_config`` / ``get_smoke_config``).
 
 Ported: the ``cnn`` family (resnet50), the ``dense`` family
-(stablelm-1.6b, qwen2.5-14b, phi3-medium-14b, chatglm3-6b) and the ``moe``
-family (dbrx-132b, arctic-480b); the ``mlp`` scorer is ``mlp_config()``.
-The other four architectures of ``repro.configs`` arrive with the rest of
-the model zoo (ROADMAP Queue 1, item 11).
+(stablelm-1.6b, qwen2.5-14b, phi3-medium-14b, chatglm3-6b), the ``moe``
+family (dbrx-132b, arctic-480b), the ``vlm`` family (internvl2-2b), the
+``hybrid`` family (hymba-1.5b) and the ``audio`` encoder-decoder
+(seamless-m4t-medium); the ``mlp`` scorer is ``mlp_config()``.  The
+``ssm`` family (xlstm-350m) arrives with ROADMAP Queue 1 item 11d.
 """
 from __future__ import annotations
 
@@ -12,9 +13,12 @@ from repro_torch.configs import (
     arctic_480b,
     chatglm3_6b,
     dbrx_132b,
+    hymba_1_5b,
+    internvl2_2b,
     phi3_medium_14b,
     qwen2_5_14b,
     resnet50,
+    seamless_m4t_medium,
     stablelm_1_6b,
 )
 from repro_torch.configs.base import ModelConfig, MoEConfig, mlp_config
@@ -23,21 +27,26 @@ _MODULES = {
     "chatglm3-6b": chatglm3_6b,
     "arctic-480b": arctic_480b,
     "dbrx-132b": dbrx_132b,
+    "internvl2-2b": internvl2_2b,
     "qwen2.5-14b": qwen2_5_14b,
     "stablelm-1.6b": stablelm_1_6b,
+    "seamless-m4t-medium": seamless_m4t_medium,
+    "hymba-1.5b": hymba_1_5b,
     "phi3-medium-14b": phi3_medium_14b,
     "resnet50": resnet50,
 }
 
 DENSE_ARCHS = ("stablelm-1.6b", "qwen2.5-14b", "phi3-medium-14b", "chatglm3-6b")
 MOE_ARCHS = ("dbrx-132b", "arctic-480b")
+# the vlm, hybrid and audio families, one architecture each
+ZOO_ARCHS = ("internvl2-2b", "hymba-1.5b", "seamless-m4t-medium")
 
 
 def _module(arch: str):
     if arch not in _MODULES:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 11, model "
-            f"zoo); ported: mlp, {', '.join(_MODULES)}")
+            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 11d, model "
+            f"zoo: the ssm family); ported: mlp, {', '.join(_MODULES)}")
     return _MODULES[arch]
 
 
@@ -49,5 +58,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["DENSE_ARCHS", "MOE_ARCHS", "ModelConfig", "MoEConfig", "get_config",
+__all__ = ["DENSE_ARCHS", "MOE_ARCHS", "ZOO_ARCHS", "ModelConfig", "MoEConfig", "get_config",
            "get_smoke_config", "mlp_config"]

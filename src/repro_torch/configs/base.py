@@ -2,8 +2,8 @@
 ``mlp_config`` (the reference module imports jax).
 
 Only the fields the ported families (``mlp``, ``cnn``, ``dense``,
-``moe``) read are used; the rest are kept so a config reads the same in
-both packages.  ``MoEConfig`` is the reference's, field for field.
+``moe``, ``vlm``, ``hybrid``, ``audio``) read are used; the rest (the
+xLSTM's) are kept so a config reads the same in both packages.  ``MoEConfig`` is the reference's, field for field.
 """
 from __future__ import annotations
 

@@ -28,8 +28,9 @@ reference does).
 
 Ported: ``algorithm="coda"`` and ``"codasca"`` (``core/codasca.py``)
 with every objective (``auc``, ``pauc_dro``, ``bce``) over the mlp, cnn,
-dense and moe families, in fp32 or bf16 parameters (``param_dtype``; token
-batches ``[K, B, S]``; ``use_window`` and ``impl`` reach ``M.score`` as in
+dense, moe, vlm, hybrid and audio families, in fp32 or bf16 parameters
+(``param_dtype``; token batches ``[K, B, S]``, with a vlm's ``patches`` or
+an audio model's ``frames``; ``use_window`` and ``impl`` reach ``M.score`` as in
 the reference; an moe local step adds ``moe_aux_coef`` times the
 load-balance loss and dispatches by capacity, its stage-end α batches by
 ``cfg.moe.dispatch`` through K5), every optimizer (sgd, momentum, sm3,
@@ -190,7 +191,7 @@ def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
         # params.ref_order, which reads every 5-D leaf as a convolution
         raise NotImplementedError(
             f"optimizer {ccfg.optimizer!r} on the moe family is not ported yet "
-            "(ROADMAP Queue 1 item 11: the expert leaves' axis order)")
+            "(ROADMAP Queue 1 item 11e: the expert leaves' axis order)")
     params = M.init_params(mcfg, generator=generator, dtype=ccfg.param_dtype,
                            device=device)
     K = ccfg.n_workers

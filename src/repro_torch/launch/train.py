@@ -27,8 +27,14 @@ the fault-injection knobs (``--participation``, ``--straggler-prob``,
 averaging) and the crash-resume checkpoints (``--ckpt-dir`` with
 ``--ckpt-every``, ``--resume``; ``--ckpt-dir`` alone saves the final
 state).  ``--n-layers`` (the port's
-own) cuts a dense or moe config's depth so a full-width model trains on
-one card.
+own) cuts a transformer config's depth so a full-width model trains on
+one card (an encoder-decoder's encoder too), and prints what it cut on a
+``reduced:`` line.  The vlm and audio families (``--arch internvl2-2b``,
+``--arch seamless-m4t-medium``) get the reference's modality stubs on top
+of the token batches (``make_batch_adapters``): ``n_patches`` patch
+embeddings in front of the tokens, or ``seq_len`` frames under
+``seq_len // decoder_fraction`` target tokens; ``--arch hymba-1.5b`` runs
+the hybrid stack, its SSM branch beside every attention layer.
 
 Metric reporting, as the reference's: ``--metrics exact`` scores the
 held-out split every ``--metric-interval`` windows; ``--metrics sketch``
@@ -58,6 +64,10 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch dbrx-132b --smoke --stages 2 --t0 30 --interval 8
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch hymba-1.5b --smoke --stages 2 --t0 30   # or internvl2-2b, seamless-m4t-medium
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \
+      --n-layers 2 --stages 1 --t0 16 --n-data 1024     # full width, 2 layers
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --algorithm codasca --dirichlet-alpha 0.1 --participation 0.75
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --ckpt-dir build/ckpt --ckpt-every 4 --resume
@@ -81,7 +91,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import disable_tf32, resolve_device
-from repro_torch.configs import DENSE_ARCHS, MOE_ARCHS, get_config, get_smoke_config, mlp_config
+from repro_torch.configs import (DENSE_ARCHS, MOE_ARCHS, ZOO_ARCHS, get_config,
+                                  get_smoke_config, mlp_config)
 from repro_torch.checkpoint import checkpoint
 from repro_torch.core import bucketing, coda, objective, optimizer, schedules
 from repro_torch.data import DataConfig, ShardedDataset
@@ -115,18 +126,54 @@ def data_config_for(mcfg, p_pos: float) -> DataConfig:
         return DataConfig(kind="tokens", p_pos=p_pos, vocab_size=mcfg.vocab_size,
                           seq_len=64)
     raise NotImplementedError(f"family {mcfg.family!r} is not ported yet "
-                              "(ROADMAP Queue 1 item 11, model zoo)")
+                              "(ROADMAP Queue 1 item 11d, model zoo)")
+
+
+def make_batch_adapters(mcfg, seed: int, device):
+    """The modality stubs on top of a token batch (``launch/train.py:
+    99-117``): vlm batches get ``n_patches`` patch embeddings of width d in
+    front of their first ``seq_len - n_patches`` tokens (at least one);
+    audio batches get ``seq_len`` frames of width d and keep their first
+    ``seq_len // decoder_fraction`` tokens as the decoder's targets.  The
+    reference draws the stub with the same key for every batch, so it
+    carries no signal from batch to batch; here one stub ([n_patches, d] or
+    [seq_len, d], standard normal) is drawn once from a CPU generator
+    seeded by ``seed`` and broadcast to every example.  Other families pass
+    through."""
+    if mcfg.family not in ("vlm", "audio"):
+        return lambda b: b
+    stubs = {}
+
+    def stub(n: int):
+        if n not in stubs:
+            gen = torch.Generator().manual_seed(seed)
+            stubs[n] = torch.randn((n, mcfg.d_model), generator=gen).to(device)
+        return stubs[n]
+
+    def adapt(b):
+        b = dict(b)
+        lead, S = tuple(b["tokens"].shape[:-1]), b["tokens"].shape[-1]
+        if mcfg.family == "vlm":
+            b["patches"] = stub(mcfg.n_patches).expand(lead + (mcfg.n_patches, mcfg.d_model))
+            b["tokens"] = b["tokens"][..., :max(1, S - mcfg.n_patches)]
+        else:
+            b["frames"] = stub(S).expand(lead + (S, mcfg.d_model))
+            b["tokens"] = b["tokens"][..., :max(1, S // mcfg.decoder_fraction)]
+        return b
+
+    return adapt
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="mlp",
-                    help=f"mlp | resnet50 | {' | '.join(DENSE_ARCHS + MOE_ARCHS)}")
+                    help=f"mlp | resnet50 | {' | '.join(DENSE_ARCHS + MOE_ARCHS + ZOO_ARCHS)}")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
     ap.add_argument("--n-layers", type=int, default=0,
-                    help="cut a dense or moe config's depth to this many "
-                         "layers (0 = the config's own; widths stay as they are)")
+                    help="cut a transformer config's depth to this many "
+                         "layers, an encoder-decoder's encoder too (0 = the "
+                         "config's own; widths stay as they are)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless you ask for cpu)")
     ap.add_argument("--workers", type=int, default=4)
@@ -276,9 +323,14 @@ def _train(args) -> dict:
         mcfg = get_config(args.arch)
     if args.n_layers:
         if mcfg.family not in M.LM_FAMILIES:
-            build_parser().error(f"--n-layers cuts a dense or moe config's depth; {args.arch} "
-                     f"is {mcfg.family}")
-        mcfg = dataclasses.replace(mcfg, n_layers=args.n_layers)
+            build_parser().error(f"--n-layers cuts a transformer config's depth; "
+                                 f"{args.arch} is {mcfg.family}")
+        cut = {"n_layers": args.n_layers}
+        if mcfg.is_encoder_decoder:
+            cut["encoder_layers"] = args.n_layers
+        print("reduced: " + ", ".join(f"{k} {getattr(mcfg, k)} -> {v}"
+                                      for k, v in cut.items()) + " (widths as published)")
+        mcfg = dataclasses.replace(mcfg, **cut)
 
     dcfg = data_config_for(mcfg, args.p_pos)
     ds = ShardedDataset(dcfg, args.n_data, args.workers, seed=args.seed,
@@ -337,13 +389,14 @@ def _train(args) -> dict:
               f"devices={mesh.size()}")
     exe = coda.make_executor(mcfg, ccfg, args.executor, mesh=mesh, policy=args.policy)
 
-    test = ds.full(2048)
+    adapt = make_batch_adapters(mcfg, args.seed, device)
+    test = adapt(ds.full(2048))
+    inputs = [k for k in test if k != "labels"]
 
     def test_scores(st, chunk: int = TEST_CHUNK):
         params0 = tree_map(lambda x: x[:1], st["params"])
-        key = next(k for k in test if k != "labels")
         with torch.no_grad():
-            hs = [M.score(mcfg, params0, {key: test[key][i:i + chunk][None]})[0][0]
+            hs = [M.score(mcfg, params0, {k: test[k][i:i + chunk][None] for k in inputs})[0][0]
                   for i in range(0, test["labels"].shape[0], chunk)]
         return torch.cat(hs)
 
@@ -378,8 +431,8 @@ def _train(args) -> dict:
     comm_before = copy.deepcopy(bucketing.collectives)
     t0 = time.perf_counter()
     res = coda.fit(state, mcfg, ccfg, sched, args.stages,
-                   sample_window=lambda i: ds.sample_window(i, args.batch),
-                   sample_alpha_batch=lambda m: ds.sample_alpha_batch(m),
+                   sample_window=lambda i: adapt(ds.sample_window(i, args.batch)),
+                   sample_alpha_batch=lambda m: adapt(ds.sample_alpha_batch(m)),
                    eval_every=args.metric_interval,
                    eval_fn=eval_fn if args.metric_interval else None,
                    executor=exe,

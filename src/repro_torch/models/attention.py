@@ -16,7 +16,14 @@ reference's layout, with the slot axis at dim 0 and no K axis:
   * int8 — k/v stored as int8 with per-(row, head) fp32 scales
     ``k_scale``/``v_scale [B, W, KV]``.
 
-``cross_decode`` (encoder-decoder serving) waits for the audio family.
+Cross attention (``attend`` with ``x_kv``, the encoder-decoder's) has
+S ≠ Skv, no RoPE and no causal mask, and runs through K4 as self attention
+does; ``cross_decode`` is its decode step against the encoder's static K/V.
+Under bf16 parameters the audio family's encoder output stays fp32 (its
+input frames are fp32, and jnp promotes them against bf16 weights), so
+cross attention meets bf16 q with fp32 k/v: the reference's plain
+attention computes that in fp32 and returns q's dtype, and so does
+``attend`` here, with K4 on fp32 inputs.
 """
 from __future__ import annotations
 
@@ -68,9 +75,10 @@ def attend(cfg: ModelConfig, p, x, positions, *, window: int | None, causal=True
         q = apply_rope(cfg, q, positions)
         k = apply_rope(cfg, k, positions if kv_positions is None else kv_positions)
     K, B, S = q.shape[:3]
-    fold = lambda t: t.reshape(K * B, *t.shape[2:])
+    dt = torch.promote_types(q.dtype, k.dtype)
+    fold = lambda t: t.to(dt).reshape(K * B, *t.shape[2:])
     o = kops.attention(fold(q), fold(k), fold(v), causal=causal, window=window,
-                       impl=impl)
+                       impl=impl).to(q.dtype)
     out = linear(o.reshape(K, B, S, cfg.n_heads * cfg.head_dim), p["wo"])
     if return_kv:
         return out, (k.to(torch.bfloat16), v.to(torch.bfloat16))
@@ -151,3 +159,20 @@ def decode_step(cfg: ModelConfig, p, cache, x, positions, *, window: int | None)
     o = o.reshape(1, B, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
     new_cache.update(k=k_all, v=v_all, pos=pos_all)
     return linear(o, p["wo"]), new_cache
+
+
+def cross_decode(cfg: ModelConfig, p, enc_k, enc_v, x):
+    """Cross attention during decode (``attention.py:153-166``): x [1, B, 1,
+    d] of one replica against the static encoder K/V ``[B, Se, KV, hd]``,
+    every encoder position visible.  Returns [1, B, 1, d]."""
+    B = x.shape[1]
+    q = linear(x, p["wq"])
+    if "bq" in p:
+        q = q + bcast(p["bq"], q)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q[0, :, 0].reshape(B, cfg.n_kv_heads, G, cfg.head_dim).to(torch.float32)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg, enc_k.to(torch.float32)) / (cfg.head_dim ** 0.5)
+    w = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", w, enc_v.to(torch.float32))
+    o = o.reshape(1, B, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return linear(o, p["wo"])

@@ -1,6 +1,11 @@
 """Per-layer blocks and the layer stack (counterpart of
-``repro.models.blocks``), for the decoder layers of the ``dense`` and
-``moe`` families (an moe layer has ``moe`` where a dense one has ``mlp``).
+``repro.models.blocks``) for the scanned families: ``dense`` and ``moe``
+decoder layers (an moe layer has ``moe`` where a dense one has ``mlp``),
+``vlm`` (a dense stack behind the patch projector), ``hybrid`` (each
+decoder layer also runs the SSM branch on its own norm, ``ssm`` +
+``norm_h``, and averages it with attention) and the ``audio``
+encoder-decoder (``encoder`` layers, non-causal; ``xdecoder`` layers with a
+cross attention, ``cross`` + ``norm_x``, over the encoder's output).
 
 Layer parameters are stacked along a leading ``n_layers`` axis, as
 ``blocks.init_stack`` stacks them (``blocks.py:75``); with the worker axis
@@ -8,10 +13,11 @@ in front a stacked leaf is ``[K, L, ...]``.  The reference scans the stack
 with ``jax.lax.scan`` and hands each layer its window as a *traced* scalar,
 so its attention never reaches the Pallas kernel; here the stack is a
 Python loop and every layer's window is a Python int or None
-(``layer_windows_static``), so every attention layer launches K4.
+(``layer_windows_static``), so every attention layer — self and cross —
+launches K4.
 
-The ``hybrid``, encoder-decoder (``cross``) and ``xlstm`` branches are not
-ported yet and raise, naming their ROADMAP item.
+The ``ssm`` family's xLSTM layers are not ported yet and raise, naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,16 +28,20 @@ from repro_torch.models.attention import attend, init_attention
 from repro_torch.models.embeddings import ParamInit, apply_norm, init_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.ssm import apply_ssm, init_ssm
 from repro_torch.tree import tree_leaves, tree_unflatten
 
-_UNPORTED = "ROADMAP Queue 1 item 11 (model zoo: hybrid, audio, ssm)"
+KINDS = ("decoder", "encoder", "xdecoder")
+STACK_FAMILIES = ("dense", "moe", "vlm", "hybrid", "audio")
 
 
-def _check_decoder(cfg: ModelConfig, kind: str):
-    if cfg.family not in ("dense", "moe") or kind != "decoder":
+def _check_kind(cfg: ModelConfig, kind: str):
+    if cfg.family not in STACK_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.family!r} layers of kind {kind!r} are not ported yet "
-            f"({_UNPORTED}); ported: dense and moe decoder layers")
+            f"{cfg.family!r} layers are not ported yet (ROADMAP Queue 1 item 11d, "
+            f"model zoo: the xLSTM layers); ported: {', '.join(STACK_FAMILIES)}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown layer kind {kind!r} (want {' | '.join(KINDS)})")
 
 
 def layer_windows(cfg: ModelConfig, S: int, use_window: bool) -> torch.Tensor:
@@ -58,15 +68,22 @@ def layer_windows_static(cfg: ModelConfig, use_window: bool):
 
 
 def init_layer(cfg: ModelConfig, kind: str, init: ParamInit, lead=()):
-    """One decoder layer's parameters (``lead`` = a stack of layers)."""
-    _check_decoder(cfg, kind)
+    """One layer's parameters (``lead`` = a stack of layers), kind
+    ``decoder | encoder | xdecoder`` (``blocks.py:56-75``)."""
+    _check_kind(cfg, kind)
     d = cfg.d_model
     p = {"norm1": init_norm(cfg, d, init, lead), "norm2": init_norm(cfg, d, init, lead),
          "attn": init_attention(cfg, init, lead)}
-    if cfg.family == "moe":
+    if kind == "xdecoder":
+        p["norm_x"] = init_norm(cfg, d, init, lead)
+        p["cross"] = init_attention(cfg, init, lead)
+    if cfg.family == "moe" and kind == "decoder":
         p["moe"] = init_moe(cfg, init, lead)
     else:
         p["mlp"] = init_mlp(cfg, init, lead)
+    if cfg.family == "hybrid" and kind == "decoder":
+        p["ssm"] = init_ssm(cfg, init, lead)
+        p["norm_h"] = init_norm(cfg, d, init, lead)
     return p
 
 
@@ -76,21 +93,31 @@ def init_stack(cfg: ModelConfig, n_layers: int, kind: str, init: ParamInit):
 
 
 def apply_layer(cfg: ModelConfig, p, x, positions, window, *, kind: str = "decoder",
-                causal: bool = True, train: bool = False, impl: str = "auto",
-                return_kv: bool = False):
-    """One block over x [K, B, S, d].  ``window``: int | None.  Returns
-    (x, aux [K], kv) — aux is the MoE load-balance loss (zeros for dense
-    layers), kv the bf16 (K, V) pair when ``return_kv``.  ``train`` picks
-    the MoE dispatch (capacity with drops); it changes nothing for dense
-    layers."""
-    _check_decoder(cfg, kind)
+                causal: bool = True, enc_out=None, train: bool = False,
+                impl: str = "auto", return_kv: bool = False):
+    """One block over x [K, B, S, d] (``blocks.py:101-130``).  ``window``:
+    int | None.  A hybrid layer averages attention with its SSM branch,
+    ``0.5 * (a + s)``; an xdecoder layer adds cross attention over
+    ``enc_out [K, B, Se, d]`` after the self-attention residual.  Returns
+    (x, aux [K], kv) — aux is the MoE load-balance loss (zeros for the
+    other layers), kv the self attention's bf16 (K, V) pair when
+    ``return_kv``.  ``train`` picks the MoE dispatch (capacity with drops);
+    it changes nothing for the other layers."""
+    _check_kind(cfg, kind)
     h = apply_norm(cfg, p["norm1"], x)
     a = attend(cfg, p["attn"], h, positions, window=window, causal=causal,
                impl=impl, return_kv=return_kv)
     kv = None
     if return_kv:
         a, kv = a
+    if cfg.family == "hybrid" and "ssm" in p:
+        s = apply_ssm(cfg, p["ssm"], apply_norm(cfg, p["norm_h"], x))
+        a = 0.5 * (a + s)
     x = x + a
+    if "cross" in p:
+        hx = apply_norm(cfg, p["norm_x"], x)
+        x = x + attend(cfg, p["cross"], hx, positions, window=None, causal=False,
+                       x_kv=enc_out, impl=impl)
     h2 = apply_norm(cfg, p["norm2"], x)
     if "moe" in p:
         y, aux = apply_moe(cfg, p["moe"], h2, train=train, impl=impl)
@@ -115,14 +142,14 @@ def apply_stack(cfg: ModelConfig, stacked, x, positions, windows, *,
     """The layers in order (the reference's scan as a Python loop).
     ``windows``: one ``int | None`` per layer.  Returns (hidden, aux [K]
     summed over the layers) — plus the stacked per-layer bf16 (K, V) caches
-    ``[K, L, B, S, KV, hd]`` when ``return_kv`` (the prefill path)."""
-    if enc_out is not None:
-        raise NotImplementedError(f"cross attention is not ported yet ({_UNPORTED})")
+    ``[K, L, B, S, KV, hd]`` when ``return_kv`` (the prefill path).
+    ``enc_out``: the encoder's output that xdecoder layers attend to."""
     aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for lp, w in zip(unstack(stacked, len(windows)), windows, strict=True):
         x, a, kv = apply_layer(cfg, lp, x, positions, w, kind=kind, causal=causal,
-                               train=train, impl=impl, return_kv=return_kv)
+                               enc_out=enc_out, train=train, impl=impl,
+                               return_kv=return_kv)
         aux = aux + a
         if return_kv:
             ks.append(kv[0])

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.embeddings import ParamInit
-from repro_torch.models.mlp import apply_mlp, init_mlp, linear
+from repro_torch.models.mlp import apply_mlp, init_mlp, linear, silu
 
 
 def init_moe(cfg: ModelConfig, init: ParamInit, lead=()):
@@ -106,7 +106,7 @@ def _expert_mlp(p, xe):
     """SwiGLU experts over per-expert rows: xe [K, E, C, d] -> [K, E, C, d]."""
     h = torch.matmul(xe, p["w_gate"])
     u = torch.matmul(xe, p["w_up"])
-    return torch.matmul(F.silu(h) * u, p["w_down"])
+    return torch.matmul(silu(h) * u, p["w_down"])
 
 
 def _dispatch_capacity(cfg: ModelConfig, p, xf, top_g, top_e, C: int):
@@ -164,7 +164,7 @@ def _dispatch_sorted(cfg: ModelConfig, p, xf, top_g, top_e, *, impl: str = "auto
     gm = lambda a, w: ops.grouped_matmul(a, w.to(wdt), counts, impl=impl)
     h = gm(xs, p["w_gate"])
     u = gm(xs, p["w_up"])
-    ys = gm(F.silu(h) * u, p["w_down"])
+    ys = gm(silu(h) * u, p["w_down"])
     ys = ys * top_g.reshape(-1)[order][:, None].to(ys.dtype)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=dev)

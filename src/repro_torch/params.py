@@ -8,8 +8,9 @@ weights of the ``cnn`` family: HWIO ``[K, kh, kw, cin, cout]`` in the
 reference, OIHW ``[K, cout, cin, kh, kw]`` here.  The mlp and the
 transformers keep their ``[d_in, d_out]`` matmul layouts, and a
 transformer's layers stay stacked ``[K, L, ...]`` as ``blocks.init_stack``
-stacks them: an moe layer's experts are ``[K, L, E, d, ff]`` in both
-packages, and its router stays fp32.  Only the cnn family's 5-D leaves are
+stacks them (an encoder-decoder's ``encoder`` stack too): an moe layer's
+experts are ``[K, L, E, d, ff]`` in both packages, and its router stays
+fp32, as a hybrid layer's SSM ``A_log`` and ``D`` do.  Only the cnn family's 5-D leaves are
 permuted.  bf16 leaves travel through their bits.
 
 The optimizer state follows suit: a momentum buffer has its parameter's
@@ -36,9 +37,10 @@ def ref_order(leaf: torch.Tensor) -> tuple[int, ...]:
     """The permutation that puts a stacked parameter leaf in the
     reference's axis order: ``leaf.permute(ref_order(leaf))``.  It reads
     every 5-D leaf as a convolution weight, which is right for the families
-    the axis-order optimizers (sm3, shampoo_blocked) run on: mlp, cnn and
-    dense (``coda.init_state`` refuses them on the moe family, whose expert
-    leaves are 5-D and not permuted)."""
+    the axis-order optimizers (sm3, shampoo_blocked) run on: mlp, cnn, dense,
+    vlm, hybrid and audio, whose stacked layer leaves (the SSM's included)
+    are at most 4-D with K (``coda.init_state`` refuses them on the moe
+    family, whose expert leaves are 5-D and not permuted)."""
     return TO_REF if leaf.dim() == 5 else tuple(range(leaf.dim()))
 
 

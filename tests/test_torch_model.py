@@ -142,8 +142,8 @@ def test_resnet50_has_the_references_parameter_count():
 
 def test_unported_family_raises():
     import dataclasses
-    cfg = dataclasses.replace(mlp_config(), family="hybrid")
+    cfg = dataclasses.replace(mlp_config(), family="ssm")
     with pytest.raises(NotImplementedError, match="model zoo"):
         M.init_params(cfg)
     with pytest.raises(NotImplementedError, match="model zoo"):
-        get_smoke_config("hymba-1.5b")
+        get_smoke_config("xlstm-350m")

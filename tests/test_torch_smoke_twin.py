@@ -30,7 +30,7 @@ _spec = importlib.util.spec_from_file_location("chip_smoke",
 CS = sys.modules["chip_smoke"] = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(CS)
 
-ARCHS = ["stablelm-1.6b", "chatglm3-6b", "qwen2.5-14b", "dbrx-132b"]
+ARCHS = ["stablelm-1.6b", "chatglm3-6b", "qwen2.5-14b", "dbrx-132b", "hymba-1.5b"]
 
 
 def _bf16_params(cfg, seed=0):
@@ -39,12 +39,15 @@ def _bf16_params(cfg, seed=0):
     return tree_map(lambda x: x[None], p)                       # K = 1
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["internvl2-2b"])
 def test_prefill_fp32_equals_prefill_step_on_widened_weights(arch):
     cfg = get_smoke_config(arch)
     p = _bf16_params(cfg)
     rng = np.random.default_rng(1)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2, 12)))}
+    if cfg.family == "vlm":             # fp32 patches, as the launcher's stub
+        batch["patches"] = torch.from_numpy(
+            rng.standard_normal((1, 2, cfg.n_patches, cfg.d_model)).astype(np.float32))
     with torch.no_grad():
         s, logits, (k, v) = CS.prefill_fp32(cfg, p, batch)
         ws, wlogits, (wk, wv) = M.prefill_step(cfg, CS._f32(p), batch, impl="ref")

@@ -396,11 +396,11 @@ def test_unported_families_and_kinds_raise():
     cfg = get_smoke_config("stablelm-1.6b")
     init = E.ParamInit(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        B.init_layer(dataclasses.replace(cfg, family="hybrid"), "decoder", init)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        B.init_layer(cfg, "xdecoder", init)
+        B.init_layer(dataclasses.replace(cfg, family="ssm"), "decoder", init)
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        B.init_layer(cfg, "xlstm", init)
     with pytest.raises(NotImplementedError, match="model zoo"):
-        M.init_params(dataclasses.replace(cfg, family="hybrid"))
+        M.init_params(dataclasses.replace(cfg, family="ssm"))
     with pytest.raises(NotImplementedError, match="model zoo"):
         get_smoke_config("xlstm-350m")
 
