@@ -4,8 +4,8 @@ Ported: the ``cnn`` family (resnet50), the ``dense`` family
 (stablelm-1.6b, qwen2.5-14b, phi3-medium-14b, chatglm3-6b), the ``moe``
 family (dbrx-132b, arctic-480b), the ``vlm`` family (internvl2-2b), the
 ``hybrid`` family (hymba-1.5b) and the ``audio`` encoder-decoder
-(seamless-m4t-medium); the ``mlp`` scorer is ``mlp_config()``.  The
-``ssm`` family (xlstm-350m) arrives with ROADMAP Queue 1 item 11d.
+(seamless-m4t-medium) and the ``ssm`` family (xlstm-350m); the ``mlp``
+scorer is ``mlp_config()``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.configs import (
     resnet50,
     seamless_m4t_medium,
     stablelm_1_6b,
+    xlstm_350m,
 )
 from repro_torch.configs.base import ModelConfig, MoEConfig, mlp_config
 
@@ -34,19 +35,18 @@ _MODULES = {
     "hymba-1.5b": hymba_1_5b,
     "phi3-medium-14b": phi3_medium_14b,
     "resnet50": resnet50,
+    "xlstm-350m": xlstm_350m,
 }
 
 DENSE_ARCHS = ("stablelm-1.6b", "qwen2.5-14b", "phi3-medium-14b", "chatglm3-6b")
 MOE_ARCHS = ("dbrx-132b", "arctic-480b")
-# the vlm, hybrid and audio families, one architecture each
-ZOO_ARCHS = ("internvl2-2b", "hymba-1.5b", "seamless-m4t-medium")
+# the vlm, hybrid, audio and ssm families, one architecture each
+ZOO_ARCHS = ("internvl2-2b", "hymba-1.5b", "seamless-m4t-medium", "xlstm-350m")
 
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP Queue 1 item 11d, model "
-            f"zoo: the ssm family); ported: mlp, {', '.join(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; ported: mlp, {', '.join(_MODULES)}")
     return _MODULES[arch]
 
 

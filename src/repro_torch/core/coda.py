@@ -27,14 +27,14 @@ after ``stage_end`` (``init_state`` still gives it its own copy, as the
 reference does).
 
 Ported: ``algorithm="coda"`` and ``"codasca"`` (``core/codasca.py``)
-with every objective (``auc``, ``pauc_dro``, ``bce``) over the mlp, cnn,
-dense, moe, vlm, hybrid and audio families, in fp32 or bf16 parameters
+with every objective (``auc``, ``pauc_dro``, ``bce``) over every family
+(mlp, cnn, dense, moe, vlm, hybrid, audio and ssm), in fp32 or bf16 parameters
 (``param_dtype``; token batches ``[K, B, S]``, with a vlm's ``patches`` or
 an audio model's ``frames``; ``use_window`` and ``impl`` reach ``M.score`` as in
 the reference; an moe local step adds ``moe_aux_coef`` times the
 load-balance loss and dispatches by capacity, its stage-end α batches by
 ``cfg.moe.dispatch`` through K5), every optimizer (sgd, momentum, sm3,
-shampoo_blocked; moe: sgd and momentum), the streaming sketch, plain or
+shampoo_blocked) on every family, the streaming sketch, plain or
 int8-compressed averaging, fault injection with the masked averaging
 (``core/faults.py``, ``core/bucketing.py``), server momentum, crash-resume
 checkpoints in ``fit``, and both executors: the worker-batched one (the
@@ -186,12 +186,6 @@ def init_state(mcfg: ModelConfig, ccfg: CoDAConfig, *,
     ``ref_params`` in buffers of its own, the fp32 server-momentum buffer
     ``srv_m`` when β > 0, the zero sketch counts when ``stream_bins > 0``,
     the optimizer's initial state, and CODASCA's zero control variates."""
-    if mcfg.family == "moe" and ccfg.optimizer in ("sm3", "shampoo_blocked"):
-        # their state follows the reference's axis order through
-        # params.ref_order, which reads every 5-D leaf as a convolution
-        raise NotImplementedError(
-            f"optimizer {ccfg.optimizer!r} on the moe family is not ported yet "
-            "(ROADMAP Queue 1 item 11e: the expert leaves' axis order)")
     params = M.init_params(mcfg, generator=generator, dtype=ccfg.param_dtype,
                            device=device)
     K = ccfg.n_workers

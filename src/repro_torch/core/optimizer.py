@@ -32,7 +32,8 @@ Layout.  The port keeps convolution weights OIHW where the reference keeps
 them HWIO (``params.py``).  Momentum is elementwise and does not care.  SM3
 keeps its accumulators, and the index j of their stochastic-rounding seeds,
 in the reference's axis order: accumulator j covers the port axis
-``ref_order(v)[1 + j]``.  Shampoo blocks the leaf flattened in the
+``ref_orders(params)[i][1 + j]`` of leaf i (the convolutions are found by
+their place in the tree, ``params.conv_flags``).  Shampoo blocks the leaf flattened in the
 reference's order (g is permuted before blocking, d back after), so both
 packages run the same algorithm and carry the same state.
 """
@@ -45,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.params import ref_order
+from repro_torch.params import ref_orders
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 _GOLD = 0x9E3779B9   # 2^32/φ — the classic Weyl increment
@@ -112,8 +113,8 @@ class _Momentum:
                 {"t": opt["t"] + 1, "leaves": new_m})
 
 
-def _ref_shape(v) -> list[int]:
-    return [v.shape[a] for a in ref_order(v)]
+def _ref_shape(v, order) -> list[int]:
+    return [v.shape[a] for a in order]
 
 
 class _SM3:
@@ -130,16 +131,17 @@ class _SM3:
                                            device=device)
         return {"t": _counter(leaves),
                 "leaves": [[z(device=l.device)] if l.dim() == 1 else
-                           [z(d, device=l.device) for d in _ref_shape(l)[1:]]
-                           for l in leaves]}
+                           [z(d, device=l.device) for d in _ref_shape(l, o)[1:]]
+                           for l, o in zip(leaves, ref_orders(params))]}
 
     def step(self, ccfg, opt, params, gp, ref_params, eta):
         vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
         seeds = leaf_seeds(opt["t"], len(vs))
         dt = ccfg.opt_dtype
         new_v, new_s = [], []
-        for i, (v, g, v0, accs) in enumerate(zip(vs, gs, rs, opt["leaves"])):
-            K, order = v.shape[0], ref_order(v)
+        for i, (v, g, v0, accs, order) in enumerate(zip(vs, gs, rs, opt["leaves"],
+                                                        ref_orders(params))):
+            K = v.shape[0]
             if v.dim() == 1:
                 cover = accs[0].to(torch.float32)
             else:
@@ -232,8 +234,9 @@ class _ShampooBlocked:
         seeds = leaf_seeds(t, len(vs))
         dt = ccfg.opt_dtype
         new_v, new_s = [], []
-        for i, (v, g, v0, st) in enumerate(zip(vs, gs, rs, opt["leaves"])):
-            K, order = v.shape[0], ref_order(v)
+        for i, (v, g, v0, st, order) in enumerate(zip(vs, gs, rs, opt["leaves"],
+                                                      ref_orders(params))):
+            K = v.shape[0]
             N, b, nb = self._geom(ccfg, v)
             gf = g.permute(order).to(torch.float32).reshape(K, N)
             gb = F.pad(gf, (0, nb * b - N)).reshape(K, nb, b)
@@ -248,7 +251,7 @@ class _ShampooBlocked:
             ga = (gb * kref.rsqrt(diag + ccfg.opt_eps)).reshape(K, nb * b)[:, :N]
             gn = torch.sqrt(torch.sum(ga * ga, dim=1, keepdim=True))
             dn = torch.sqrt(torch.sum(df * df, dim=1, keepdim=True))
-            d = (df * gn / (dn + 1e-30)).reshape(_ref_shape(v))
+            d = (df * gn / (dn + 1e-30)).reshape(_ref_shape(v, order))
             d = d.permute([order.index(a) for a in range(v.dim())]).contiguous()
             new_v.append(kops.prox_update_tree(v, d, v0, eta, ccfg.gamma,
                                                impl=ccfg.impl))

@@ -8,9 +8,10 @@ AUC over served traffic.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \\
       --trace batch --requests 24 --labeled --metrics sketch --metric-interval 8
 
-Like the reference it serves smoke configs only (the dense, moe, vlm and
-hybrid families: ``--arch internvl2-2b``, ``--arch hymba-1.5b``; the engine
-refuses the encoder-decoder, as the reference's does).  The parameters are drawn from a CPU generator seeded by
+Like the reference it serves smoke configs only (the dense, moe, vlm,
+hybrid and ssm families: ``--arch internvl2-2b``, ``--arch hymba-1.5b``,
+``--arch xlstm-350m``; the engine refuses the encoder-decoder, as the
+reference's does).  The parameters are drawn from a CPU generator seeded by
 ``--seed`` and moved to the device, so the card and the CPU serve the same
 weights.  The device is ``cuda`` unless ``--device cpu`` is given; asking
 for ``cuda`` without a card raises.  On the card every moe layer of every

@@ -34,7 +34,9 @@ one card (an encoder-decoder's encoder too), and prints what it cut on a
 of the token batches (``make_batch_adapters``): ``n_patches`` patch
 embeddings in front of the tokens, or ``seq_len`` frames under
 ``seq_len // decoder_fraction`` target tokens; ``--arch hymba-1.5b`` runs
-the hybrid stack, its SSM branch beside every attention layer.
+the hybrid stack, its SSM branch beside every attention layer, and
+``--arch xlstm-350m`` the ssm family's mLSTM/sLSTM layers on token-only
+batches (no attention: ``flash_attention`` is not launched).
 
 Metric reporting, as the reference's: ``--metrics exact`` scores the
 held-out split every ``--metric-interval`` windows; ``--metrics sketch``
@@ -67,6 +69,8 @@ Examples:
       --arch hymba-1.5b --smoke --stages 2 --t0 30   # or internvl2-2b, seamless-m4t-medium
   PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \
       --n-layers 2 --stages 1 --t0 16 --n-data 1024     # full width, 2 layers
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch xlstm-350m --smoke --stages 2 --t0 30 [--optimizer sm3]
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --algorithm codasca --dirichlet-alpha 0.1 --participation 0.75
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -125,8 +129,7 @@ def data_config_for(mcfg, p_pos: float) -> DataConfig:
     if mcfg.family in M.LM_FAMILIES:
         return DataConfig(kind="tokens", p_pos=p_pos, vocab_size=mcfg.vocab_size,
                           seq_len=64)
-    raise NotImplementedError(f"family {mcfg.family!r} is not ported yet "
-                              "(ROADMAP Queue 1 item 11d, model zoo)")
+    raise ValueError(f"no data kind for family {mcfg.family!r}")
 
 
 def make_batch_adapters(mcfg, seed: int, device):
@@ -323,7 +326,7 @@ def _train(args) -> dict:
         mcfg = get_config(args.arch)
     if args.n_layers:
         if mcfg.family not in M.LM_FAMILIES:
-            build_parser().error(f"--n-layers cuts a transformer config's depth; "
+            build_parser().error(f"--n-layers cuts a language model's depth; "
                                  f"{args.arch} is {mcfg.family}")
         cut = {"n_layers": args.n_layers}
         if mcfg.is_encoder_decoder:

@@ -16,14 +16,17 @@ Python loop and every layer's window is a Python int or None
 (``layer_windows_static``), so every attention layer — self and cross —
 launches K4.
 
-The ``ssm`` family's xLSTM layers are not ported yet and raise, naming
-their ROADMAP item.
+The ``ssm`` family's xLSTM layers are heterogeneous (mLSTM and sLSTM),
+so, as in the reference, they are a *list* of per-layer dicts
+(``init_xlstm_layers``; each leaf ``[K, ...]`` behind the worker axis) run
+by an unrolled loop (``apply_xlstm_layers``), never a stack.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import attend, init_attention
 from repro_torch.models.embeddings import ParamInit, apply_norm, init_norm
 from repro_torch.models.mlp import apply_mlp, init_mlp
@@ -37,9 +40,9 @@ STACK_FAMILIES = ("dense", "moe", "vlm", "hybrid", "audio")
 
 def _check_kind(cfg: ModelConfig, kind: str):
     if cfg.family not in STACK_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.family!r} layers are not ported yet (ROADMAP Queue 1 item 11d, "
-            f"model zoo: the xLSTM layers); ported: {', '.join(STACK_FAMILIES)}")
+        raise ValueError(
+            f"{cfg.family!r} layers are not a stack (the xLSTM layers are a list: "
+            f"init_xlstm_layers); stacked: {', '.join(STACK_FAMILIES)}")
     if kind not in KINDS:
         raise ValueError(f"unknown layer kind {kind!r} (want {' | '.join(KINDS)})")
 
@@ -90,6 +93,22 @@ def init_layer(cfg: ModelConfig, kind: str, init: ParamInit, lead=()):
 def init_stack(cfg: ModelConfig, n_layers: int, kind: str, init: ParamInit):
     """``n_layers`` layers with every leaf stacked ``[L, ...]``."""
     return init_layer(cfg, kind, init, lead=(n_layers,))
+
+
+def xlstm_layer_kinds(cfg: ModelConfig):
+    """Per-layer kind, ``"mlstm" | "slstm"``: every ``slstm_every``-th
+    layer is an sLSTM, xLSTM[7:1] style (``blocks.py:80-86``)."""
+    e = cfg.slstm_every
+    return tuple("slstm" if e > 0 and i % e == e - 1 else "mlstm"
+                 for i in range(cfg.n_layers))
+
+
+def init_xlstm_layers(cfg: ModelConfig, init: ParamInit):
+    """The xLSTM layers, a list of ``{"norm1", "core"}`` dicts
+    (``blocks.py:89-95``)."""
+    return [{"norm1": init_norm(cfg, cfg.d_model, init),
+             "core": (xl.init_slstm if kind == "slstm" else xl.init_mlstm)(cfg, init)}
+            for kind in xlstm_layer_kinds(cfg)]
 
 
 def apply_layer(cfg: ModelConfig, p, x, positions, window, *, kind: str = "decoder",
@@ -157,3 +176,13 @@ def apply_stack(cfg: ModelConfig, stacked, x, positions, windows, *,
     if return_kv:
         return x, aux, (torch.stack(ks, dim=1), torch.stack(vs, dim=1))
     return x, aux
+
+
+def apply_xlstm_layers(cfg: ModelConfig, layers, x):
+    """The xLSTM layers in turn, each a pre-norm residual block
+    (``blocks.py:160-167``).  Returns (hidden, zeros [K]: no aux loss)."""
+    for kind, lp in zip(xlstm_layer_kinds(cfg), layers, strict=True):
+        h = apply_norm(cfg, lp["norm1"], x)
+        core = xl.apply_slstm if kind == "slstm" else xl.apply_mlstm
+        x = x + core(cfg, lp["core"], h)
+    return x, torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)

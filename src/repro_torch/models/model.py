@@ -1,5 +1,5 @@
-"""Top-level model for the ported families ``mlp``, ``cnn``, ``dense``,
-``moe``, ``vlm``, ``hybrid`` and ``audio`` (counterpart of
+"""Top-level model for every family, ``mlp``, ``cnn``, ``dense``, ``moe``,
+``vlm``, ``hybrid``, ``audio`` and ``ssm`` (counterpart of
 ``repro.models.model``).
 
 ``score(cfg, params, batch)`` is the scoring function h(w; x) ∈ [0, 1]
@@ -16,7 +16,8 @@ d_out]``, layers stacked ``[L, ...]`` behind K, images ``[K, B, hw·hw,
 a vlm's patch embeddings ``[K, B, n_patches, d]`` (projected and put in
 front of the tokens), an audio model's frames ``[K, B, Se, d]`` (encoded,
 then attended to by every decoder layer).  The ``ssm`` family (xLSTM)
-arrives with ROADMAP Queue 1 item 11d.
+keeps its layers as a list of per-layer dicts, as the reference does, and
+has no KV caches (``prefill_step`` returns ``kv=None`` for it).
 """
 from __future__ import annotations
 
@@ -28,15 +29,9 @@ from repro_torch.models.embeddings import ParamInit, apply_norm, embed, init_emb
 from repro_torch.models.mlp import linear
 from repro_torch.tree import tree_leaves
 
-FAMILIES = ("mlp", "cnn", "dense", "moe", "vlm", "hybrid", "audio")
-# the transformer families: token inputs, a layer stack, an LM head
-LM_FAMILIES = ("dense", "moe", "vlm", "hybrid", "audio")
-
-
-def _check_family(cfg: ModelConfig):
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported "
-                                  "yet (ROADMAP Queue 1 item 11d, model zoo)")
+# the language-model families: token inputs, a layer stack (a layer list
+# for ssm), an LM head
+LM_FAMILIES = ("dense", "moe", "vlm", "hybrid", "audio", "ssm")
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
@@ -47,7 +42,6 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     generator's device (a CUDA generator keeps a full-width model off the
     host).  The numbers differ from ``jax.random``'s; carry the reference's
     weights across with ``params.py`` to compare the two."""
-    _check_family(cfg)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     d = cfg.d_model
     randn = lambda *shape: torch.randn(shape, generator=gen, dtype=torch.float32)
@@ -55,8 +49,11 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     if cfg.family in LM_FAMILIES:
         init = ParamInit(gen, dtype, device)
         p["embed"] = init_embed(cfg.vocab_size, d, init)
-        p["layers"] = blocks.init_stack(
-            cfg, cfg.n_layers, "xdecoder" if cfg.is_encoder_decoder else "decoder", init)
+        if cfg.family == "ssm":
+            p["layers"] = blocks.init_xlstm_layers(cfg, init)
+        else:
+            p["layers"] = blocks.init_stack(
+                cfg, cfg.n_layers, "xdecoder" if cfg.is_encoder_decoder else "decoder", init)
         if cfg.is_encoder_decoder:
             p["encoder"] = blocks.init_stack(cfg, cfg.encoder_layers, "encoder", init)
             p["enc_norm"] = init_norm(cfg, d, init)
@@ -93,9 +90,12 @@ def backbone(cfg: ModelConfig, params, batch, *, use_window: bool = False,
     (the reference keeps a length-1 sequence axis there that its mean-pool
     removes; here it is left out, and ``use_window``/``train``/``impl``
     change nothing)."""
-    _check_family(cfg)
     if cfg.family == "audio":
         return _encdec(cfg, params, batch, train=train, impl=impl)
+    if cfg.family == "ssm":
+        x = embed(params["embed"], batch["tokens"])
+        h, aux = blocks.apply_xlstm_layers(cfg, params["layers"], x)
+        return apply_norm(cfg, params["final_norm"], h), aux
     if cfg.family in LM_FAMILIES:
         x = _embed_inputs(cfg, params, batch)
         S = x.shape[2]
@@ -186,12 +186,15 @@ def prefill_step(cfg: ModelConfig, params, batch, *, use_window: bool = False,
     for audio), emitting the scores [K, B], the last-position logits
     [K, B, vocab] and the stacked per-layer bf16 KV caches of the decoder's
     self attention ``([K, L, B, S, KV, hd], same)``.  mlp and cnn have no
-    caches and no vocabulary: (scores, None, None)."""
-    _check_family(cfg)
+    caches and no vocabulary: (scores, None, None); the ssm family's O(1)
+    recurrent states are rebuilt by the decode path, so it returns
+    (scores, logits, None) as the reference does."""
     if cfg.family not in LM_FAMILIES:
         s, _ = score(cfg, params, batch, use_window=use_window, impl=impl)
         return s, None, None
-    if cfg.family == "audio":
+    if cfg.family == "ssm":
+        (h, _), kv = backbone(cfg, params, batch, impl=impl), None
+    elif cfg.family == "audio":
         h, _, kv = _encdec(cfg, params, batch, train=False, impl=impl, return_kv=True)
     else:
         x = _embed_inputs(cfg, params, batch)

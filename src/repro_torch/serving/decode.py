@@ -6,10 +6,12 @@ encoder-decoder, ``encode_for_decode``.
 The layer loop is unrolled in Python, as in the reference, so per-layer
 caches may differ: full ``[B, S, KV, hd]`` caches, ``[B, W, KV, hd]`` rings
 for window layers, a hybrid layer's O(1) SSM state beside its attention
-cache (``{"conv", "h"}``, ``models/ssm.py``), and an encoder-decoder
-layer's static cross-attention K/V ``enc_k``/``enc_v`` (filled by
+cache (``{"conv", "h"}``, ``models/ssm.py``), an encoder-decoder layer's
+static cross-attention K/V ``enc_k``/``enc_v`` (filled by
 ``encode_for_decode``) beside a short self cache of ``S //
-decoder_fraction``.  The reference's ``lax.scan`` over steps becomes a
+decoder_fraction``, and an xLSTM layer's O(1) fp32 memory and no
+length-S cache at all (``{"mlstm": {"C", "n", "m"}}`` or ``{"slstm": (c,
+n, h, m)}``, ``models/xlstm.py``).  The reference's ``lax.scan`` over steps becomes a
 Python loop; masking a finished row is a per-row ``torch.where`` on the
 device, so no step reads anything back to the host.
 
@@ -17,9 +19,9 @@ These functions serve one replica: the port's parameter tree with K = 1
 (what ``params.py`` and ``init_params(...)[None]`` give, and what
 ``prefill_step`` takes); they raise for K ≠ 1.  Every cache leaf carries
 the slot (batch row) axis at dim 0, the contract
-``ServingEngine._reset_slot`` enforces.  Ported: the dense, moe, vlm
-(served from tokens, as the reference serves it), hybrid and audio
-families; the ssm family's xLSTM states wait for ROADMAP Queue 1 item 11d.
+``ServingEngine._reset_slot`` enforces.  Every language-model family is
+served: dense, moe, vlm (from tokens, as the reference serves it), hybrid,
+audio and ssm.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import blocks
+from repro_torch.models import xlstm as xl
 from repro_torch.models.embeddings import apply_norm, embed
 from repro_torch.models.mlp import apply_mlp, linear
 from repro_torch.models.model import LM_FAMILIES, _encdec_encoder, lm_logits
@@ -38,9 +41,8 @@ from repro_torch.tree import tree_map
 
 def _check_cfg(cfg: ModelConfig):
     if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(
-            f"serving the {cfg.family!r} family is not ported yet (ROADMAP "
-            f"Queue 1 item 11d); ported: {', '.join(LM_FAMILIES)}")
+        raise ValueError(f"the {cfg.family!r} family has no decoder to serve; "
+                         f"served: {', '.join(LM_FAMILIES)}")
 
 
 def _check_replica(params):
@@ -55,8 +57,14 @@ def init_cache(cfg: ModelConfig, B: int, S: int, *, use_window: bool = True,
     ``{"layers": [{"attn": ...}, ...]}``, ring caches for window layers,
     each hybrid layer's fp32 SSM state under ``"ssm"``, and each
     encoder-decoder layer's ``enc_k``/``enc_v [B, S, KV, hd]`` with a self
-    cache of ``max(1, S // decoder_fraction)`` positions."""
+    cache of ``max(1, S // decoder_fraction)`` positions; for the ssm family
+    one fp32 xLSTM state a layer, whatever ``dtype`` (``decode.py:39-46``)."""
     _check_cfg(cfg)
+    if cfg.family == "ssm":
+        return {"layers": [
+            {"slstm": xl.init_slstm_state(cfg, B, device=device)} if kind == "slstm"
+            else {"mlstm": xl.init_mlstm_state(cfg, B, device=device)}
+            for kind in blocks.xlstm_layer_kinds(cfg)]}
     S_self = max(1, S // cfg.decoder_fraction) if cfg.is_encoder_decoder else S
     layers = []
     for w in blocks.layer_windows_static(cfg, use_window):
@@ -110,10 +118,36 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, positions, *,
     new_cache).  A hybrid layer averages its attention with the SSM step,
     an xdecoder layer adds cross attention against its ``enc_k``/``enc_v``,
     and an moe layer dispatches the B tokens by ``cfg.moe.dispatch`` (K5 on
-    the card for ``sorted``)."""
+    the card for ``sorted``); an xLSTM layer steps its recurrent state and
+    ignores ``positions`` (``decode.py:104-115``)."""
     _check_cfg(cfg)
     _check_replica(params)
     x = embed(params["embed"], tokens[None])                     # [1, B, 1, d]
+    if cfg.family == "ssm":
+        x, new_layers = _xlstm_step(cfg, params, cache, x)
+    else:
+        x, new_layers = _stack_step(cfg, params, cache, x, positions, use_window, impl)
+    h = apply_norm(cfg, params["final_norm"], x)[:, :, 0]         # [1, B, d]
+    logits = lm_logits(cfg, params, h)[0]
+    sh = params["score_head"]
+    score_logit = (torch.bmm(h, sh["w"])[0, :, 0].to(torch.float32)
+                   + sh["b"][0, 0])
+    return logits, score_logit, {"layers": new_layers}
+
+
+def _xlstm_step(cfg: ModelConfig, params, cache, x):
+    new_layers = []
+    for kind, lp, lc in zip(blocks.xlstm_layer_kinds(cfg), params["layers"],
+                            cache["layers"], strict=True):
+        h = apply_norm(cfg, lp["norm1"], x)
+        step = xl.decode_slstm if kind == "slstm" else xl.decode_mlstm
+        o, st = step(cfg, lp["core"], lc[kind], h)
+        new_layers.append({kind: st})
+        x = x + o
+    return x, new_layers
+
+
+def _stack_step(cfg: ModelConfig, params, cache, x, positions, use_window, impl):
     wins = blocks.layer_windows_static(cfg, use_window)
     new_layers = []
     for lp, lc, w in zip(blocks.unstack(params["layers"], cfg.n_layers),
@@ -137,12 +171,7 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, positions, *,
             y = apply_mlp(cfg, lp["mlp"], h2)
         x = x + y
         new_layers.append(nc)
-    h = apply_norm(cfg, params["final_norm"], x)[:, :, 0]         # [1, B, d]
-    logits = lm_logits(cfg, params, h)[0]
-    sh = params["score_head"]
-    score_logit = (torch.bmm(h, sh["w"])[0, :, 0].to(torch.float32)
-                   + sh["b"][0, 0])
-    return logits, score_logit, {"layers": new_layers}
+    return x, new_layers
 
 
 def masked_chunk_step(cfg: ModelConfig, params, cache, tokens, positions,

@@ -11,13 +11,14 @@
   * ``run_trace`` — paces a trace against the wall clock through an engine.
   * ``summarize`` — p50/p99 time to first token and latency, tokens/s and
     the engine's counters.
+  * ``serve_load_report`` — one smoke config served on one trace after a
+    warm-up engine: the ``serve_load`` record.
 
 Every draw except the labeled prompts' tokens comes from the reference's
 ``np.random.RandomState(seed)`` stream in the reference's order, so an
 unlabeled trace equals the reference's request for request; the labeled
 prompts come from ``data.synthetic._draw`` on a numpy generator, since the
-reference draws them with ``jax.random``.  ``serve_load_report`` waits for
-the benchmark tiers (ROADMAP Queue 1 item 13).
+reference draws them with ``jax.random``.
 """
 from __future__ import annotations
 
@@ -25,9 +26,15 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
+from repro_torch import resolve_device
+from repro_torch.configs import get_smoke_config
 from repro_torch.data import synthetic
+from repro_torch.metrics import streaming
+from repro_torch.models import model as M
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -165,3 +172,35 @@ def summarize(reqs: list[Request], wall: float,
                        streaming_scored=sm["scored"],
                        streaming_state_bytes=sm["state_bytes"])
     return rec
+
+
+def serve_load_report(arch: str = "stablelm-1.6b", *, engine_kw: dict | None = None,
+                      trace_kw: dict | None = None, seed: int = 0,
+                      metric_backend: str = "", device="cuda") -> dict:
+    """Serve one trace on ``arch``'s smoke config (``loadgen.py:191-227``)
+    and return ``{"arch", "knobs", "trace", "metrics"}``, ``metrics`` being
+    ``summarize``'s record.  The weights are the port's own init from
+    ``seed`` (not the reference's ``jax.random`` draw); the engine defaults
+    to 4 slots, max_len 64, chunk 8.  ``metric_backend`` ("exact" |
+    "sketch") attaches a streaming AUC to the engine, whose record then has
+    the ``streaming_auc`` row (meaningful on a ``labeled`` trace).  A
+    throwaway engine serves one request first, so the timed trace runs on a
+    warm host (the kernels built, the allocator filled).  ``device`` is
+    ``cuda`` unless the caller asks for the CPU."""
+    device = resolve_device(device)
+    cfg = get_smoke_config(arch)
+    params = tree_map(lambda x: x[None], M.init_params(
+        cfg, generator=torch.Generator().manual_seed(seed), device=device))
+    engine_kw = dict(engine_kw or {})
+    engine_kw.setdefault("slots", 4)
+    engine_kw.setdefault("max_len", 64)
+    engine_kw.setdefault("prefill_chunk", 8)
+    tcfg = TraceConfig(**(trace_kw or {}))
+    metric = streaming.make_metric("auc", metric_backend) if metric_backend else None
+    warm = ServingEngine(cfg, params, **engine_kw)
+    warm.add_request(Request(uid=-1, prompt=list(range(1, 12)), max_new_tokens=2))
+    warm.run()
+    eng = ServingEngine(cfg, params, metric=metric, **engine_kw)
+    reqs, wall = run_trace(eng, make_trace(tcfg, cfg.vocab_size))
+    return {"arch": arch, "knobs": engine_kw, "trace": dataclasses.asdict(tcfg),
+            "metrics": summarize(reqs, wall, eng)}

@@ -38,6 +38,7 @@ from repro.models import model as JM
 from repro.serving import decode as JD
 from repro.serving import loadgen as JLG
 from repro.serving.engine import ServingEngine as JEngine
+from _torch_threads import one_torch_thread  # noqa: F401  (re-exported for the family modules)
 from repro_torch import params as P
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import coda as C
@@ -51,16 +52,6 @@ from repro_torch.tree import tree_leaves
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The smoke models' tensors are tiny: torch's intra-op threads only
-    spin, and on a host the test workers already fill they slow a file
-    several-fold (the replayed ``fit`` 10×).  One thread for the module,
-    the worker's count restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 TOL = {"atol": 1e-5, "rtol": 1e-5}
 DECODE_TOL = {"atol": 2e-3, "rtol": 2e-3}
 FACTOR, ULP = 2.0, 2 ** -7
@@ -150,6 +141,12 @@ def inputs(cfg, lead, seed, S=16, labels=False):
     return out
 
 
+def init_state_np(jcfg, jccfg, seed):
+    """The reference's ``init_state`` from ``PRNGKey(seed)``, compiled (op by
+    op it takes seconds), as numpy."""
+    return np_tree(jax.jit(lambda k: JC.init_state(k, jcfg, jccfg))(jax.random.PRNGKey(seed)))
+
+
 def vmapped(fn, tree, batch):
     """The reference's ``fn(params, batch)`` over the leading worker axis,
     compiled (op-by-op dispatch of a scanned stack is slower)."""
@@ -205,8 +202,7 @@ def check_round_trip(arch, dtype):
         [str(x.dtype) for x in jl]
     # the state crosses too, with every new leaf
     ccfg = C.CoDAConfig(n_workers=K, p_pos=0.7)
-    jst = np_tree(JC.init_state(jax.random.PRNGKey(1), jcfg,
-                                JC.CoDAConfig(n_workers=K, p_pos=0.7)))
+    jst = init_state_np(jcfg, JC.CoDAConfig(n_workers=K, p_pos=0.7), 1)
     back = P.state_to_jax(cfg, P.state_from_jax(cfg, ccfg, jst))
     for a, b in zip(jax.tree_util.tree_leaves(jst), jax.tree_util.tree_leaves(back),
                     strict=True):
@@ -230,7 +226,7 @@ def coda_pair(arch, n, seed, **ccfg_kw):
     jkw = {k: (jnp.bfloat16 if v is torch.bfloat16 else v) for k, v in ccfg_kw.items()}
     jccfg = JC.CoDAConfig(n_workers=n, p_pos=0.7, **jkw)
     ccfg = C.CoDAConfig(n_workers=n, p_pos=0.7, **ccfg_kw)
-    jst = np_tree(JC.init_state(jax.random.PRNGKey(seed), jcfg, jccfg))
+    jst = init_state_np(jcfg, jccfg, seed)
     return jcfg, cfg, jccfg, ccfg, jst, P.state_from_jax(cfg, ccfg, jst)
 
 

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as fa
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 TOL = {"atol": 2e-5, "rtol": 2e-5}
 BWD_TOL = {"atol": 5e-5, "rtol": 5e-5}

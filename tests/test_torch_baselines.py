@@ -38,6 +38,8 @@ from repro_torch.configs import mlp_config
 from repro_torch.core import baselines as B
 from repro_torch.core import coda as C
 from repro_torch.tree import tree_leaves
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JMCFG, MCFG = jax_mlp_config(n_features=16, d=32), mlp_config(n_features=16, d=32)
@@ -158,7 +160,7 @@ def test_quickstart_prints_the_references_lines():
     """``python -m repro_torch.quickstart --device cpu``: the reference's
     four summary lines (its counters exactly) and its AUC > 0.85 assert."""
     out = subprocess.run([sys.executable, "-m", "repro_torch.quickstart", "--device", "cpu"],
-                         cwd=ROOT, env=dict(os.environ, PYTHONPATH="src"),
+                         cwd=ROOT, env=one_thread_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()

@@ -39,6 +39,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ref as R
 from repro_torch.models import embeddings as E
 from repro_torch.models.mlp import gelu, linear, silu
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ARCH = "stablelm-1.6b"
 B, S = 4, 16

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import bucketing as B
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 
 @pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])

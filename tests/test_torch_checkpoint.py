@@ -31,6 +31,8 @@ from repro_torch.core import coda as C
 from repro_torch.core import schedules as S
 from repro_torch.data import DataConfig, ShardedDataset
 from repro_torch.tree import tree_leaves, tree_paths
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JMCFG = jax_mlp_config(n_features=8, d=16)
@@ -237,7 +239,7 @@ def test_port_checkpoint_restores_into_the_reference_bitwise(tmp_path, case):
 # the launcher
 # --------------------------------------------------------------------------
 def _launch(*args):
-    env = dict(os.environ, PYTHONPATH="src")
+    env = one_thread_env()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
                           "--stages", "1", "--t0", "8", "--interval", "2", "--n-data", "512",
                           "--algorithm", "codasca", "--participation", "0.75", *args],

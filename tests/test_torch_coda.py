@@ -35,6 +35,7 @@ from repro_torch.core import objective as O
 from repro_torch.core import schedules as S
 from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves, tree_map
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 JMCFG = jax_mlp_config(n_features=16, d=32)
 MCFG = mlp_config(n_features=16, d=32)
@@ -309,6 +310,12 @@ if rank == 0:
         json.dump(res, f)
 M.dist.destroy_process_group()
 print("RANK OK")
+# leave without the interpreter's teardown, where gloo's threads can abort
+# the process ("terminate called without an active exception") after the
+# rank has done all its work
+sys.stdout.flush()
+import os
+os._exit(0)
 """
 
 

@@ -40,6 +40,8 @@ from repro_torch.core import schedules as S
 from repro_torch.data import DataConfig, ShardedDataset
 from repro_torch.data.synthetic import dirichlet_partition
 from repro_torch.tree import tree_leaves, tree_map
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JMCFG = jax_mlp_config(n_features=16, d=32)
@@ -574,7 +576,7 @@ def test_launchers_print_the_same_counters(flags):
     iterations, communication rounds, bytes per round per worker (twice
     the mlp's 99,856) and schedule total, and the same fault line."""
     args = ("--stages", "2", "--t0", "16", "--n-data", "1024", *flags)
-    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    env = one_thread_env(JAX_PLATFORMS="cpu")
     ours = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device",
                            "cpu", *args], cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)

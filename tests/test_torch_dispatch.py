@@ -9,6 +9,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import auc_loss as auc_mod
 from repro_torch.kernels import opt_update as opt_mod
 from repro_torch.kernels import prox_update as prox_mod
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 
 @pytest.mark.parametrize("device,impl,want", [

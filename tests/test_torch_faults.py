@@ -26,6 +26,7 @@ from repro_torch.core import faults as F
 from repro_torch.core import schedules as S
 from repro_torch.data.synthetic import dirichlet_partition
 from repro_torch.tree import tree_leaves
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 JMCFG = jax_mlp_config(n_features=8, d=16)
 MCFG = mlp_config(n_features=8, d=16)

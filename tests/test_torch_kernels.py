@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 AUC_TOL = {"atol": 1e-5, "rtol": 1e-4}
 

@@ -19,6 +19,7 @@ from repro_torch import params as P
 from repro_torch.configs import get_smoke_config, mlp_config
 from repro_torch.models import model as M
 from repro_torch.models import resnet as R
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 
 def _stacked_jax_params(jcfg, K, seed):
@@ -141,9 +142,10 @@ def test_resnet50_has_the_references_parameter_count():
 
 
 def test_unported_family_raises():
+    """A family or arch name that does not exist is refused (every family
+    of the reference is ported)."""
     import dataclasses
-    cfg = dataclasses.replace(mlp_config(), family="ssm")
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        M.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        get_smoke_config("xlstm-350m")
+    with pytest.raises(ValueError, match="unknown family"):
+        M.init_params(dataclasses.replace(mlp_config(), family="quantum"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_smoke_config("quantum-1b")

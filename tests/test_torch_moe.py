@@ -43,6 +43,8 @@ from repro_torch.kernels import moe_dispatch as md
 from repro_torch.models import model as M
 from repro_torch.models import moe
 from repro_torch.tree import tree_leaves, tree_map
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"atol": 1e-5, "rtol": 1e-5}
@@ -548,19 +550,69 @@ def test_fit_matches_reference_on_replayed_windows(J):
         np.testing.assert_allclose(g, w, atol=1e-4)
 
 
-def test_moe_refuses_axis_order_optimizers():
+def test_moe_refuses_axis_order_optimizers(J):
+    """sm3 and shampoo_blocked were refused on the moe family while
+    ``params.ref_order`` read every 5-D leaf as a convolution; now the
+    convolutions are found by their place in the tree, and ``init_state``
+    builds their state with the reference's shapes: the expert leaves
+    ``[K, L, E, d, ff]`` keep their axis order."""
     from repro_torch.core import coda as C
     cfg = get_smoke_config("dbrx-132b")
     for name in ("sm3", "shampoo_blocked"):
-        with pytest.raises(NotImplementedError, match="moe family"):
-            C.init_state(cfg, C.CoDAConfig(n_workers=2, optimizer=name))
+        st = C.init_state(cfg, C.CoDAConfig(n_workers=2, optimizer=name, shampoo_block=8))
+        jst = J.jax.eval_shape(lambda k: J.C.init_state(
+            k, J.smoke("dbrx-132b"), J.C.CoDAConfig(n_workers=2, optimizer=name,
+                                                      shampoo_block=8)),
+            J.jax.random.PRNGKey(0))
+        assert [tuple(t.shape) for t in tree_leaves(st["opt"])] == \
+            [x.shape for x in J.jax.tree_util.tree_leaves(jst["opt"])]
+    assert not any(P.conv_flags(st["params"]))
+
+
+@pytest.mark.parametrize("optimizer", ["sm3", "shampoo_blocked"])
+def test_axis_order_optimizers_match_reference(J, optimizer):
+    """The same gradients through both packages' ``apply_grads`` on
+    dbrx-132b's smoke config (expert leaves ``[K, L, E, d, ff]``): sm3's
+    accumulators bitwise and parameters at atol 1e-6 (the port's 1/√x
+    against XLA's rsqrt); Shampoo (8-wide blocks over the reference's
+    flattening) statistics bitwise, preconditioners at atol 1e-4 and
+    parameters at atol 1e-5, as tests/test_torch_optimizer.py holds them."""
+    from repro_torch.core import coda as C
+    jcfg, cfg = J.smoke("dbrx-132b"), get_smoke_config("dbrx-132b")
+    kw = dict(n_workers=K, p_pos=0.7, optimizer=optimizer, shampoo_block=8)
+    jccfg, ccfg = J.C.CoDAConfig(**kw), C.CoDAConfig(**kw)
+    jst = _np(J, J.jax.jit(lambda k: J.C.init_state(k, jcfg, jccfg))(J.jax.random.PRNGKey(32)))
+    st = P.state_from_jax(cfg, ccfg, jst)
+    rng = np.random.default_rng(32)
+    jgp = J.jax.tree_util.tree_map(
+        lambda l: (0.1 * rng.standard_normal(l.shape)).astype(np.float32), jst["params"])
+    jgd = {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+           for k, v in jst["duals"].items()}
+    want = _np(J, J.jax.jit(lambda s_, g_: J.C.apply_grads(jccfg, s_, g_, J.jnp.float32(0.05)))(
+        _jx(J, jst), (_jx(J, jgp), _jx(J, jgd))))
+    gd = {k: torch.from_numpy(v) for k, v in jgd.items()}
+    got = P.state_to_jax(cfg, C.apply_grads(ccfg, st, (P.from_jax_params(cfg, jgp), gd), 0.05),
+                         ccfg)
+    if optimizer == "sm3":
+        fields = (("opt", 0), ("params", 1e-6))
+    else:
+        fields = (("s", 0), ("p", 1e-4), ("params", 1e-5))
+    leaves = J.jax.tree_util.tree_leaves
+    for field, atol in fields:
+        if field in ("s", "p"):
+            pairs = zip([l[field] for l in got["opt"]["leaves"]],
+                        [l[field] for l in want["opt"]["leaves"]], strict=True)
+        else:
+            pairs = zip(leaves(got[field]), leaves(want[field]), strict=True)
+        for g, w in pairs:
+            np.testing.assert_allclose(g, w, rtol=0, atol=atol, err_msg=field)
 
 
 def test_launcher_runs_dbrx_smoke_on_cpu(J):
     """``--arch dbrx-132b --smoke --device cpu`` (depth cut to 1 by
     ``--n-layers``): the reference's output lines, with the reference's
     parameter count and bytes per round at that depth."""
-    env = dict(os.environ, PYTHONPATH="src")
+    env = one_thread_env()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
                           "--arch", "dbrx-132b", "--smoke", "--n-layers", "1", "--stages", "1",
                           "--t0", "4", "--interval", "2", "--batch", "8", "--n-data", "256"],

@@ -14,10 +14,12 @@ scan of every module of the port and of chip_smoke.py finds no import of
 either (imports of ``repro_torch`` itself are allowed).
 """
 import ast
-import os
 import pathlib
 import subprocess
 import sys
+
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -120,7 +122,7 @@ print("LOADED", bad)
 
 def test_cpu_step_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _STEP], cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH="src"),
+                         env=one_thread_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout

@@ -31,6 +31,7 @@ from repro_torch.core import schedules as S
 from repro_torch.data import synthetic as Syn
 from repro_torch.models import model as M
 from repro_torch.tree import tree_map
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 TOL = {"atol": 1e-5, "rtol": 1e-4}
 

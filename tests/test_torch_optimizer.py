@@ -47,6 +47,7 @@ from repro_torch.core import optimizer as Opt
 from repro_torch.core import schedules as S
 from repro_torch.kernels import ops, ref
 from repro_torch.tree import tree_leaves
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 NF = 8
 ARCHS = {"mlp": (mlp_config(n_features=NF, d=16), jax_mlp_config(n_features=NF, d=16)),

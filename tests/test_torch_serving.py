@@ -41,6 +41,8 @@ from repro_torch.serving import decode as D
 from repro_torch.serving import loadgen as LG
 from repro_torch.serving.engine import Request, ServingEngine, TicksExhausted
 from repro_torch.tree import tree_leaves, tree_map
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"atol": 1e-5, "rtol": 1e-5}
@@ -570,7 +572,7 @@ def test_serve_launcher_prints_the_references_lines():
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
                           "dbrx-132b", "--device", "cpu", "--requests", "5", "--max-new", "3",
                           "--labeled", "--metrics", "sketch"],
-                         cwd=ROOT, env=dict(os.environ, PYTHONPATH="src"),
+                         cwd=ROOT, env=one_thread_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()

@@ -53,6 +53,7 @@ from repro_torch.sharding import rules as PR
 from repro_torch.tree import tree_leaves
 
 from _torch_ranks import REFERENCE_UNDER_JAX_09, ROOT, TIMEOUT, env, run_ranks
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ATOL, RTOL = 1e-6, 1e-5
 
@@ -384,6 +385,12 @@ if rank == 0:
         json.dump(COUNTS, f)
 M.dist.destroy_process_group()
 print("RANK OK", rank)
+# leave without the interpreter's teardown, where gloo's threads can abort
+# the process ("terminate called without an active exception") after the
+# rank has done all its work
+sys.stdout.flush()
+import os
+os._exit(0)
 """
 
 

@@ -23,6 +23,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import model as M
 from repro_torch.serving import decode as D
 from repro_torch.tree import tree_map
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location("chip_smoke",

@@ -34,6 +34,7 @@ from repro_torch.core import coda as C
 from repro_torch.core import objective as O
 from repro_torch.core import schedules as S
 from repro_torch.metrics import report, streaming
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 NF = 8
 MCFG, JMCFG = mlp_config(n_features=NF, d=16), jax_mlp_config(n_features=NF, d=16)

@@ -1,8 +1,8 @@
 """``python -m repro_torch.launch.train --device cpu`` end to end in a
-subprocess (small stages), and the distributed executor's flags on both
-launchers (CODASCA, the fault knobs, server momentum and the checkpoints:
-tests/test_torch_codasca.py, tests/test_torch_checkpoint.py)."""
-import json
+subprocess (small stages); the distributed executor's flags on both
+launchers are tests/test_torch_train_sharded.py (CODASCA, the fault knobs,
+server momentum and the checkpoints: tests/test_torch_codasca.py,
+tests/test_torch_checkpoint.py)."""
 import os
 import re
 import subprocess
@@ -12,12 +12,14 @@ import pytest
 import torch
 
 from repro_torch.launch import train
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(*args, timeout=120):
-    env = dict(os.environ, PYTHONPATH="src")
+    env = one_thread_env()
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                            "--device", "cpu", *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
@@ -88,102 +90,6 @@ def test_launcher_metric_reports_on_cpu(backend):
 
 # the distributed executor's flags, each run on 2 ranks (gloo processes for
 # the port, 2 forced host devices for the reference) with a short schedule
-SHARDED_FLAGS = [
-    ("--executor", "shard_map"),
-    ("--policy", "fsdp"),
-    ("--overlap",),
-    ("--overlap-chunks", "2", "--overlap"),
-    ("--force-host-devices", "2", "--compress", "int8"),
-    ("--multi-pod",),
-    ("--algorithm", "codasca", "--executor", "shard_map"),
-    ("--participation", "0.5", "--overlap"),
-]
-SHORT = ("--stages", "2", "--t0", "8", "--interval", "4", "--n-data", "512")
-
-_PORT_RUNS = """
-import json, sys
-from repro_torch.launch import train
-for argv in json.loads(sys.argv[1]):
-    print("=== run", flush=True)
-    train.main(["--device", "cpu", *argv])
-    sys.stdout.flush()
-"""
-
-
-def _sharded_argv(flags):
-    """``flags`` with whichever of ``--executor shard_map`` and
-    ``--force-host-devices 2`` they lack, and the short schedule."""
-    extra = [] if "--executor" in flags else ["--executor", "shard_map"]
-    extra += [] if "--force-host-devices" in flags else ["--force-host-devices", "2"]
-    return [*flags, *extra, *SHORT]
-
-
-@pytest.fixture(scope="module")
-def sharded_runs():
-    """Every flag set through both launchers, each package's 8 runs in one
-    subprocess (the two subprocesses at once): the outputs split by run."""
-    from _torch_ranks import REFERENCE_UNDER_JAX_09, env
-    argvs = json.dumps([_sharded_argv(f) for f in SHARDED_FLAGS])
-    ref = REFERENCE_UNDER_JAX_09 + """
-import json, sys
-from repro.launch import train
-for argv in json.loads(sys.argv[1]):
-    print("=== run", flush=True)
-    sys.argv = ["train", *argv]
-    train.main()
-    sys.stdout.flush()
-"""
-    procs = {name: subprocess.Popen(
-        [sys.executable, "-c", "import os\nos.environ['XLA_FLAGS'] = "
-         "'--xla_force_host_platform_device_count=2'\n" + ref if name == "ref" else
-         _PORT_RUNS, argvs], cwd=ROOT, env=env(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for name in ("ref", "port")}
-    out = {}
-    try:
-        for name, p in procs.items():
-            so, se = p.communicate(timeout=600)
-            assert p.returncode == 0, f"{name}:\n{so[-2000:]}\n{se[-4000:]}"
-            out[name] = so.split("=== run\n")[1:]
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert len(out["ref"]) == len(out["port"]) == len(SHARDED_FLAGS)
-    return out
-
-
-def _lines(text):
-    """The lines both launchers print alike (the data are each package's
-    own draws): mesh, fault injection, the iterations and rounds of
-    ``done:``, bytes/round and the overlap split's numbers."""
-    keep = []
-    for line in text.splitlines():
-        if line.startswith(("mesh:", "fault injection:", "bytes/round/worker=")):
-            keep.append(line)
-        elif line.startswith("done:"):
-            keep.append(re.match(r"done: \d+ iters, \d+ comm rounds", line).group(0))
-        elif line.startswith("overlap:"):
-            keep.append(re.findall(r"[\d,]{2,}|chunks=\d+", line))
-    return keep
-
-
-@pytest.mark.parametrize("i", range(len(SHARDED_FLAGS)),
-                         ids=[" ".join(f) for f in SHARDED_FLAGS])
-def test_sharded_flags_run_both_launchers_alike(sharded_runs, i):
-    """The distributed executor's flags on 2 ranks: the port's launcher
-    prints the reference's ``mesh: {...} policy=... devices=2`` line, the
-    same schedule (iterations, comm rounds), bytes/round/worker and
-    schedule total, and under ``--overlap`` the same overlapped and
-    exposed bytes."""
-    ours, theirs = _lines(sharded_runs["port"][i]), _lines(sharded_runs["ref"][i])
-    assert ours == theirs, (ours, theirs)
-    assert any(str(line).startswith("mesh:") for line in ours)
-    assert re.search(r"^done: .* test AUC=\d\.\d{4}$", sharded_runs["port"][i], re.M)
-    if "--overlap" in SHARDED_FLAGS[i]:
-        assert any(isinstance(line, list) for line in ours)
-
-
 def test_launcher_refuses_missing_cuda(monkeypatch):
     """The default device is cuda; without a card the launcher raises
     instead of falling back to the CPU."""

@@ -50,6 +50,8 @@ from repro_torch.models import embeddings as E
 from repro_torch.models import mlp as MLP
 from repro_torch.models import model as M
 from repro_torch.tree import tree_leaves
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"atol": 1e-5, "rtol": 1e-5}
@@ -393,16 +395,20 @@ def test_tokens_dataset():
 
 
 def test_unported_families_and_kinds_raise():
+    """Every family of the reference is ported: a family name that does not
+    exist is refused by the config, an arch name by the registry; the ssm
+    family's layers are a list (``init_xlstm_layers``), never a stacked
+    ``init_layer``; an unknown layer kind is refused."""
     cfg = get_smoke_config("stablelm-1.6b")
     init = E.ParamInit(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        B.init_layer(dataclasses.replace(cfg, family="ssm"), "decoder", init)
+    with pytest.raises(ValueError, match="not a stack"):
+        B.init_layer(get_smoke_config("xlstm-350m"), "decoder", init)
     with pytest.raises(ValueError, match="unknown layer kind"):
         B.init_layer(cfg, "xlstm", init)
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        M.init_params(dataclasses.replace(cfg, family="ssm"))
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        get_smoke_config("xlstm-350m")
+    with pytest.raises(ValueError, match="unknown family"):
+        M.init_params(dataclasses.replace(cfg, family="quantum"))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_smoke_config("quantum-1b")
 
 
 @pytest.mark.parametrize("n_layers", [0, 1])
@@ -411,7 +417,7 @@ def test_launcher_runs_stablelm_smoke_on_cpu(n_layers):
     by ``--n-layers``): the reference's output lines, with the parameter
     count and bytes per round of the reference's smoke config at that depth
     (params + the three fp32 duals)."""
-    env = dict(os.environ, PYTHONPATH="src")
+    env = one_thread_env()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
                           "--arch", "stablelm-1.6b", "--smoke", "--stages", "1", "--t0", "4",
                           "--interval", "2", "--batch", "8", "--n-data", "256",

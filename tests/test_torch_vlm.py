@@ -107,7 +107,7 @@ def test_count_params():
     check_count_params(ARCH, 1_893_343_233, 738_049)
 
 
-@pytest.mark.parametrize("arch", [a for a in JALL_ARCHS if a != "xlstm-350m"])
+@pytest.mark.parametrize("arch", JALL_ARCHS)
 def test_count_params_every_ported_arch(arch):
     """``count_params`` (from the meta device's shapes) equals the
     reference's (``jax.eval_shape``) for every ported architecture, at full
