@@ -220,7 +220,20 @@ last line):
      AUC after each) on the card, each held to the same command with
      ``--device cpu`` after the first window; and
      ``serving.loadgen.serve_load_report("xlstm-350m")`` on the card;
-then the ``{"sharded": {...}}``, ``{"zoo": {...}}`` and ``{"ssm": {...}}`` lines, the
+ 17. the program audit on the card (``launch/audit.py``'s matrix, R1–R5:
+     the batched and the sharded executor on NCCL at R = 1, serving, the
+     kernels through the seam), the bf16 stablelm-1.6b CoDA window and stage
+     at full width with 2 of 24 layers (K=4, B=32, S=64; R1–R3, R5's
+     auc_loss, prox_update and flash_fwd_wgmma records equal to the
+     kernels' own geometry queries, R2's allocated bytes against the new
+     state's) and the bf16 dbrx-132b engine on the 4-layer weights of
+     phase 12 (R3, R4's two chunk shapes, R5's gmm_wgmma records against
+     the query); a finding fails the run.  With it, the dry run's parameter
+     bytes of the bf16 stablelm-1.6b weights on a 1 × 1 mesh against the
+     bytes the card holds for them (phase 9's weights), and the dry run's
+     FLOPs of that prefill beside its measured time;
+then the ``{"sharded": {...}}``, ``{"zoo": {...}}``, ``{"ssm": {...}}`` and
+``{"audit": {...}}`` lines, the
 ``{"kernels": [...]}`` line (all five kernels), nvidia-smi's line, and the
 ``{"ok": true, ...}`` line.  It imports nothing of JAX.
 """
@@ -3154,6 +3167,113 @@ def run_xlstm(dev, rates, k5_checked: set, runs: dict, counts: dict) -> dict:
 T_START = time.perf_counter()
 
 
+def dryrun_param_check(cfg, params) -> dict:
+    """The dry run's parameter bytes a device on a 1 × 1 mesh for ``cfg``
+    in bf16 (``launch/dryrun.py``, the meta device) against the bytes of
+    the parameters' storage on the card; they must be equal."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.tree import tree_leaves
+    rec = DR.param_record(cfg.name, abstract_mesh((1, 1), ("data", "model")),
+                          n_layers=cfg.n_layers)
+    seen, held = set(), 0
+    for t in tree_leaves(params):
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            held += t.untyped_storage().nbytes()
+    out = {"predicted_bytes_per_device": rec["param_bytes_per_device"], "card_bytes": held}
+    print(f"dry run: {cfg.name} bf16 parameters {rec['param_bytes_per_device']:,} B a device "
+          f"on a 1 × 1 mesh (predicted on the meta device); the card holds {held:,} B for them")
+    if rec["param_bytes_per_device"] != held:
+        raise SystemExit(f"dry run: predicted {rec['param_bytes_per_device']:,} B of "
+                         f"parameters, the card holds {held:,} B")
+    return out
+
+
+def _audit_variants(rep) -> dict:
+    """{variant: (calls, launched, every record's query equal)} of an audit
+    report's launch records."""
+    out: dict = {}
+    for l in rep.details.get("launches", []):
+        c, n, q = out.get(l["variant"], (0, 0, True))
+        out[l["variant"]] = (c + l["calls"], n + (l["launched"] or 0), q and bool(l["query_equal"]))
+    return out
+
+
+def run_audit(dev, dbrx_cfg, dbrx_params, param_check: dict, prefill_ms: float) -> dict:
+    """Phase 17: the audit matrix on the card, the two full-width legs, the
+    dry run's FLOPs of the bf16 stablelm prefill.  A finding fails the run."""
+    from repro_torch.analysis import audit as A
+    from repro_torch.configs import get_config
+    from repro_torch.core import coda
+    from repro_torch.launch import audit as LA
+    from repro_torch.launch import dryrun as DR
+    t0 = time.perf_counter()
+    art = LA.run_matrix(dev, n_devices=torch.cuda.device_count(), smoke=True)
+    out = {"matrix_ok": art["ok"], "legs": {r["leg"]: r["ok"] for r in art["legs"]},
+           "not_checked": sum(r["n_not_checked"] for r in art["legs"]),
+           "checks": sum(r["n_checked"] for r in art["legs"]),
+           "matrix_s": time.perf_counter() - t0}
+    if not art["ok"]:
+        raise SystemExit("audit: the matrix failed: " + ", ".join(
+            r["leg"] for r in art["legs"] if not r["ok"]))
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
+    ccfg = coda.CoDAConfig(n_workers=4, p_pos=0.71, param_dtype=BF16)
+    rep = A.run_rules(A.capture_vmap_programs(cfg, ccfg, I=2, B=32, S=64, device=dev,
+                                              tag="full/bf16_stablelm_coda", query=True))
+    LA.print_record(dict(rep.to_dict(), leg="full/bf16_stablelm_coda",
+                         seconds=round(time.perf_counter() - t1, 3)))
+    var = _audit_variants(rep)
+    mem = {k.rsplit("/", 2)[-2]: v for k, v in rep.details.items() if k.endswith("/memory")}
+    for prog, m in mem.items():
+        print(f"audit full/bf16_stablelm_coda/{prog}: {m['allocated_after']:,} B allocated "
+              f"after it, the caller's other tensors {m['held_by_caller']:,} B + the new "
+              f"state and outputs {m['new_bytes']:,} B (excess {m['excess']:,} B, slack "
+              f"{A.R2_SLACK_BYTES:,}); peak {m['peak_above_state']:,} B above the state")
+    print(f"audit full/bf16_stablelm_coda: variants (calls, launches, query equal) {var}")
+    need = {"auc_loss_kernel", "prox_update_kernel", "flash_fwd_wgmma"}
+    if not rep.ok or not need <= set(var) or not all(v[2] and v[0] == v[1] for v in var.values()):
+        raise SystemExit(f"audit full/bf16_stablelm_coda: {[str(f) for f in rep.findings]}, "
+                         f"variants {var}")
+    out["bf16_stablelm_coda"] = {"ok": rep.ok, "checks": len(rep.checked), "variants": var,
+                                 "memory": mem, "s": time.perf_counter() - t1}
+
+    t1 = time.perf_counter()
+    g = np.random.default_rng(5)
+    prompts = [g.integers(0, dbrx_cfg.vocab_size, 12).tolist() for _ in range(5)]
+    progs = A.capture_serving_programs(dbrx_cfg, params=dbrx_params, slots=4, max_len=64,
+                                       prefill_chunk=8, device=dev, prompts=prompts,
+                                       tag="full/bf16_dbrx_engine", query=True)
+    rep = A.run_rules(progs)
+    LA.print_record(dict(rep.to_dict(), leg="full/bf16_dbrx_engine",
+                         seconds=round(time.perf_counter() - t1, 3)))
+    var = _audit_variants(rep)
+    shapes = sorted(next(p.chunk_shapes for p in progs if p.chunk_shapes is not None))
+    print(f"audit full/bf16_dbrx_engine: chunk shapes {shapes}; variants (calls, launches, "
+          f"query equal) {var}")
+    if not rep.ok or "gmm_wgmma" not in var or not all(v[2] and v[0] == v[1]
+                                                        for v in var.values()):
+        raise SystemExit(f"audit full/bf16_dbrx_engine: {[str(f) for f in rep.findings]}, "
+                         f"variants {var}")
+    out["bf16_dbrx_engine"] = {"ok": rep.ok, "checks": len(rep.checked), "variants": var,
+                               "chunk_shapes": shapes, "s": time.perf_counter() - t1}
+
+    lm = get_config("stablelm-1.6b")
+    flops = DR.prefill_flops(lm, B=4, S=2048)
+    share = flops / (prefill_ms * 1e-3) / 989e12
+    print(f"dry run: the bf16 stablelm-1.6b prefill [4, 2048] is {flops:.4e} FLOPs (meta "
+          f"FlopCounterMode); at this run's {prefill_ms:.2f} ms that is {share:.3f} of 989 "
+          "TFLOP/s")
+    out["dryrun"] = dict(param_check, prefill_flops=flops, prefill_ms=prefill_ms,
+                         share_of_989=share)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"audit phase: {out['phase_s']:.1f} s on {nvidia_smi()}")
+    return out
+
+
 def stamp(what: str) -> None:
     """A phase boundary with the seconds since the script started, so a
     log shows where the run's time went."""
@@ -3268,8 +3388,10 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     prefills = {}
     for path in (STABLELM_PREFILL, CHATGLM_PREFILL, BF16_STABLELM_PREFILL,
                  BF16_QWEN_PREFILL):
-        prefills[path.label], _, params = run_prefill(dev, path, k5_checked)
+        prefills[path.label], cfg, params = run_prefill(dev, path, k5_checked)
         counts[path.label] = prefills[path.label]["launches"]
+        if path is BF16_STABLELM_PREFILL:
+            param_check = dryrun_param_check(cfg, params)
         del params
         torch.cuda.empty_cache()
     stamp("dense prefills done")
@@ -3316,6 +3438,11 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     counts[label] = prefills[label]["launches"]
     bf16_serve = run_engine_serve(rates, bdbrx_cfg, bdbrx_params, k5_checked, "bf16_dbrx_serve")
     counts["bf16_dbrx_serve"] = bf16_serve["launches"]
+    stamp("dbrx engine done")
+    # the program audit (phase 17) on these weights and at full width
+    audit = run_audit(dev, bdbrx_cfg, bdbrx_params, param_check,
+                      prefills[BF16_STABLELM_PREFILL.label]["ms_per_prefill"])
+    stamp("audit done")
     del bdbrx_params
     torch.cuda.empty_cache()
     label, args, per_leaf = MOE_SMOKE
@@ -3523,6 +3650,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     print(json.dumps({"sharded": sharded}, default=str))
     print(json.dumps({"zoo": zoo}, default=str))
     print(json.dumps({"ssm": ssm}, default=str))
+    print(json.dumps({"audit": audit}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

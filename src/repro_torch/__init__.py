@@ -29,8 +29,13 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
 
 
 def disable_tf32() -> None:
-    """Keep fp32 math in full fp32 on the card.  cuDNN convolutions default
-    to TF32 (about three decimal digits) while the JAX reference computes
-    in fp32; TF32 is left to a later performance change."""
+    """Keep matmul accumulation in full fp32 on the card.  cuDNN
+    convolutions default to TF32 (about three decimal digits) while the JAX
+    reference computes in fp32; TF32 is left to a later performance change.
+    cuBLAS may also reduce bf16 and fp16 products' split-K partials in
+    their own precision unless told not to; the reference accumulates them
+    in fp32, and the audit's R3 holds every program to that."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False

@@ -22,7 +22,8 @@ from repro_torch.configs import (
     stablelm_1_6b,
     xlstm_350m,
 )
-from repro_torch.configs.base import ModelConfig, MoEConfig, mlp_config
+from repro_torch.configs.base import (SHAPES, ModelConfig, MoEConfig, ShapeSpec, input_specs,
+                                      mlp_config)
 
 _MODULES = {
     "chatglm3-6b": chatglm3_6b,
@@ -42,6 +43,8 @@ DENSE_ARCHS = ("stablelm-1.6b", "qwen2.5-14b", "phi3-medium-14b", "chatglm3-6b")
 MOE_ARCHS = ("dbrx-132b", "arctic-480b")
 # the vlm, hybrid, audio and ssm families, one architecture each
 ZOO_ARCHS = ("internvl2-2b", "hymba-1.5b", "seamless-m4t-medium", "xlstm-350m")
+# the ten language models the dry run sweeps (``configs/__init__.py:33``)
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "resnet50")
 
 
 def _module(arch: str):
@@ -58,5 +61,6 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["DENSE_ARCHS", "MOE_ARCHS", "ZOO_ARCHS", "ModelConfig", "MoEConfig", "get_config",
-           "get_smoke_config", "mlp_config"]
+__all__ = ["ASSIGNED_ARCHS", "DENSE_ARCHS", "MOE_ARCHS", "SHAPES", "ZOO_ARCHS", "ModelConfig",
+           "MoEConfig", "ShapeSpec", "get_config", "get_smoke_config", "input_specs",
+           "mlp_config"]

@@ -1,13 +1,13 @@
-"""Jax-free copy of ``repro.configs.base``'s ``ModelConfig`` and
-``mlp_config`` (the reference module imports jax).
-
-Only the fields the ported families (``mlp``, ``cnn``, ``dense``,
-``moe``, ``vlm``, ``hybrid``, ``audio``) read are used; the rest (the
-xLSTM's) are kept so a config reads the same in both packages.  ``MoEConfig`` is the reference's, field for field.
+"""Jax-free copy of ``repro.configs.base``: ``ModelConfig``, ``MoEConfig``
+(field for field), ``mlp_config``, and the dry run's four global input
+shapes (``ShapeSpec``, ``SHAPES``) with ``input_specs``, which gives their
+stand-ins as ``meta`` tensors (the reference module imports jax).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +83,54 @@ def mlp_config(n_features: int = 64, d: int = 128, n_layers: int = 2) -> ModelCo
     return ModelConfig(name="mlp", family="mlp", n_layers=n_layers, d_model=d,
                        n_heads=1, n_kv_heads=1, d_ff=d, vocab_size=0,
                        rope="none", n_features=n_features)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One of the four assigned global input shapes (``base.py:121-128``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, n_workers: int = 1,
+                window_steps: int = 1, dtype=torch.bfloat16) -> dict:
+    """``meta`` tensors of every model input of a shape, the reference's
+    shapes and dtypes (``base.py:148-188``): for train and prefill the CoDA
+    window batch ``[window_steps, n_workers, per-worker batch, ...]``, for
+    decode the request batch (the caches come from
+    ``serving.decode.cache_specs``).  Token ids are int32, as the
+    reference's are.  Nothing is allocated."""
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    S, B = shape.seq_len, shape.global_batch
+    if shape.kind in ("train", "prefill"):
+        if B % n_workers:
+            raise ValueError(f"{cfg.name} {shape.name}: global batch {B} does not split "
+                             f"over {n_workers} workers")
+        lead = (window_steps, n_workers, B // n_workers)
+        specs = {}
+        if cfg.family == "vlm":
+            specs["patches"] = meta(lead + (cfg.n_patches, cfg.d_model), dtype)
+            specs["tokens"] = meta(lead + (S - cfg.n_patches,), torch.int32)
+        elif cfg.family == "audio":
+            specs["frames"] = meta(lead + (S, cfg.d_model), dtype)
+            specs["tokens"] = meta(lead + (S // cfg.decoder_fraction,), torch.int32)
+        elif cfg.family == "cnn":
+            specs["images"] = meta(lead + (S, 3), dtype)          # flattened pixels
+        elif cfg.family == "mlp":
+            specs["features"] = meta(lead + (cfg.n_features,), dtype)
+        else:
+            specs["tokens"] = meta(lead + (S,), torch.int32)
+        specs["labels"] = meta(lead, torch.float32)
+        return specs
+    return {"tokens": meta((B, 1), torch.int32), "positions": meta((B,), torch.int32)}

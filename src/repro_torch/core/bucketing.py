@@ -15,7 +15,8 @@ point-to-point hops, each hop a ``batch_isend_irecv`` pair in the
 reference's hop order, so the ring's sums are added in the reference's
 order.  ``bucket_layout``'s byte totals are
 ``coda.window_payload_by_dtype``.  Every collective is counted by kind in
-``collectives`` (calls and bytes), zeroed by ``zero_collectives``.
+``collectives`` (calls and bytes), and each call in ``wire_log`` (its kind,
+dtype tag and bytes, in order), both zeroed by ``zero_collectives``.
 
 Two payloads, as in the reference:
 
@@ -87,10 +88,13 @@ def mean0(x: torch.Tensor) -> torch.Tensor:
 # that are no part of a window (readout: the losses fit reports, a
 # checkpoint's state)
 collectives: dict[str, dict[str, int]] = {}
+# every counted call, in order: (kind, dtype tag, bytes of this rank's operand)
+wire_log: list[tuple[str, str, int]] = []
 
 
 def zero_collectives() -> None:
     collectives.clear()
+    wire_log.clear()
     collectives.update({k: {"calls": 0, "bytes": 0}
                         for k in ("all_reduce", "all_gather", "p2p", "readout")})
 
@@ -99,8 +103,10 @@ zero_collectives()
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
     collectives[kind]["calls"] += 1
-    collectives[kind]["bytes"] += t.numel() * t.element_size()
+    collectives[kind]["bytes"] += n
+    wire_log.append((kind, DTYPE_TAG.get(t.dtype, str(t.dtype)), n))
 
 
 # ``all_gather_into_tensor`` is ``all_gather_single`` in newer torch

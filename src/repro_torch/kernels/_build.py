@@ -46,6 +46,8 @@ _SIGNATURES = {
                                        ctypes.c_float, ctypes.c_float,
                                        ctypes.c_float, _P, _P]),
     "coda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    "coda_kernels_geometry": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                             _P]),
     "flash_attention_forward": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -53,11 +55,13 @@ _SIGNATURES = {
     "flash_attention_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "flash_attention_wgmma_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "flash_attention_tf32x3_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
+    "flash_attention_geometry": (ctypes.c_int, [ctypes.c_int] * 6 + [_P]),
     "grouped_matmul": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]),
     "grouped_matmul_geometry": (None, [_P]),
+    "grouped_matmul_launch_geometry": (ctypes.c_int, [ctypes.c_int] * 5 + [_P]),
 }
 
 

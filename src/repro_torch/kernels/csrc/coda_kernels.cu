@@ -40,6 +40,9 @@ constexpr int kAucThreads = 256;
 constexpr int kAucRowsPerThread = 4;
 constexpr int kAucRows = kAucThreads * kAucRowsPerThread;  // rows per block
 
+// blocks of a worker's row of the grid
+inline int auc_blocks(int T) { return (T + kAucRows - 1) / kAucRows; }
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
@@ -163,6 +166,13 @@ auc_loss_kernel(const float* __restrict__ h, const float* __restrict__ y,
 // ---------------------------------------------------------------------------
 constexpr int kProxThreads = 256;
 
+// blocks of a grid-stride launch over n elements: one thread an element, at
+// most 16 blocks per SM of the H100's 132, past that each thread strides
+inline long long stride_blocks(long long n, int threads) {
+  const long long blocks = (n + threads - 1) / threads;
+  return blocks > 132LL * 16 ? 132LL * 16 : blocks;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -192,8 +202,7 @@ template <typename T, typename TG = T>
 int launch_prox(const void* v, const void* g, const void* v0, void* out,
                 long long n, float eta, float gamma, void* stream) {
   if (n > 0) {
-    long long blocks = (n + kProxThreads - 1) / kProxThreads;
-    if (blocks > 132LL * 16) blocks = 132LL * 16;  // 16 blocks per SM, then stride
+    const long long blocks = stride_blocks(n, kProxThreads);
     prox_update_kernel<T, TG><<<static_cast<unsigned>(blocks), kProxThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(v), static_cast<const TG*>(g),
@@ -293,8 +302,7 @@ int launch_opt(const void* v, const void* g, const void* v0, const void* buf,
                void* out_v, void* out_buf, long long n, float eta, float gamma,
                float coef, const void* seed, void* stream) {
   if (n > 0) {
-    long long blocks = (n + kOptThreads - 1) / kOptThreads;
-    if (blocks > 132LL * 16) blocks = 132LL * 16;  // 16 blocks per SM, then stride
+    const long long blocks = stride_blocks(n, kOptThreads);
     opt_update_kernel<kMode, T, B><<<static_cast<unsigned>(blocks), kOptThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(v), static_cast<const T*>(g),
@@ -319,7 +327,7 @@ int coda_auc_loss(const void* h, const void* y, const void* a, const void* b,
                   const void* alpha, float p, int K, int T, void* dh,
                   void* partials, void* tickets, void* out, void* stream) {
   if (K > 0 && T > 0) {
-    const int n_blocks = (T + kAucRows - 1) / kAucRows;
+    const int n_blocks = auc_blocks(T);
     if (n_blocks > 1 && (partials == nullptr || tickets == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     auc_loss_kernel<<<dim3(n_blocks, K), kAucThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -333,6 +341,29 @@ int coda_auc_loss(const void* h, const void* y, const void* a, const void* b,
 }
 
 int coda_auc_rows_per_block(void) { return kAucRows; }
+
+// The launch geometry the entry points here use, for the wrappers'
+// launch_geometry to be held against: kernel 0 auc_loss over k workers of
+// n scores, 1 prox_update and 2 opt_update over n elements.  out: grid x,
+// y, z, threads a block, dynamic shared memory bytes.  Returns 0, or -1 for
+// an unknown kernel.
+int coda_kernels_geometry(int kernel, long long n, int k, long long* out) {
+  if (kernel == 0) {
+    out[0] = auc_blocks(static_cast<int>(n));
+    out[1] = k;
+    out[3] = kAucThreads;
+  } else if (kernel == 1 || kernel == 2) {
+    const int threads = kernel == 1 ? kProxThreads : kOptThreads;
+    out[0] = n > 0 ? stride_blocks(n, threads) : 0;
+    out[1] = 1;
+    out[3] = threads;
+  } else {
+    return -1;
+  }
+  out[2] = 1;
+  out[4] = 0;
+  return 0;
+}
 
 int coda_prox_update_f32(const void* v, const void* g, const void* v0, void* out,
                          long long n, float eta, float gamma, void* stream) {

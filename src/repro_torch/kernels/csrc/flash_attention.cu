@@ -172,6 +172,9 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// one query tile a block row, a block for each (tile, head, batch row)
+inline dim3 fwd_grid(int S, int H, int B) { return dim3((S + kBQ - 1) / kBQ, H, B); }
+
 template <int HD>
 constexpr int smem_floats() {
   // qt [HD][kLdQ], ks [kBK][HD + 1], vs [kBK][HD], pt [kBK][kLdQ]
@@ -348,7 +351,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid = fwd_grid(S, H, B);
   flash_fwd<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Skv, KV,
@@ -374,6 +377,9 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 constexpr int kWgBQ = 128;        // query rows per block: two warpgroups of 64
 constexpr int kWgBK = 128;        // keys per K/V tile
 constexpr int kWgThreads = 384;   // warpgroups 0-1 consume, warpgroup 2 produces
+// the K and V tensor maps' box: 64 dims (one 128-byte row) × kWgBK keys
+constexpr uint32_t kWgKBox[4] = {64, 1, kWgBK, 1};
+inline dim3 wg_grid(int S, int H, int B) { return dim3((S + kWgBQ - 1) / kWgBQ, H, B); }
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -663,10 +669,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
                              static_cast<uint64_t>(B)};
   const uint64_t kstr[3] = {HD * e, static_cast<uint64_t>(KV) * HD * e,
                             static_cast<uint64_t>(Skv) * KV * HD * e};
-  const uint32_t kbox[4] = {64, 1, kWgBK, 1};
   int err = hopper::encode_bf16_map(&qm, q, 4, qdims, qstr, qbox);
-  if (err == 0) err = hopper::encode_bf16_map(&km, k, 4, kdims, kstr, kbox);
-  if (err == 0) err = hopper::encode_bf16_map(&vm, v, 4, kdims, kstr, kbox);
+  if (err == 0) err = hopper::encode_bf16_map(&km, k, 4, kdims, kstr, kWgKBox);
+  if (err == 0) err = hopper::encode_bf16_map(&vm, v, 4, kdims, kstr, kWgKBox);
   if (err != 0) return err;
   static bool attr_set = false;  // per instantiation, once per process
   if (!attr_set) {
@@ -675,7 +680,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
     attr_set = true;
   }
-  const dim3 grid((S + kWgBQ - 1) / kWgBQ, H, B);
+  const dim3 grid = wg_grid(S, H, B);
   flash_fwd_wgmma<HD><<<grid, kWgThreads, bytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, S, H, Skv, KV, causal, window,
       scale * kLog2e);
@@ -704,7 +709,16 @@ struct TfTile {
   static constexpr int kKVRegion = BK * 128;     // K, K_small, V: BK keys × 32 dims
   static constexpr int kVtRegion = HD * 128;     // Vᵀ: HD dims × 32 keys
   static constexpr int kHalves = HD / kTfPvN;    // P·V products a tile, n64 each
+  // the K and V tensor maps' box: 32 dims (one 128-byte row) × BK keys
+  static constexpr uint32_t kKBox[4] = {32, 1, BK, 1};
 };
+
+// S, Skv ≤ kTfPack (one warpgroup's rows; one K/V tile at HD 64, two at HD
+// 128): two heads a block, one per consumer warpgroup
+inline bool tf_packed(int S, int Skv) { return S <= kTfPack && Skv <= kTfPack; }
+inline dim3 tf_grid(int S, int Skv, int H, int B) {
+  return tf_packed(S, Skv) ? dim3(1, (H + 1) / 2, B) : dim3((S + kTfBQ - 1) / kTfBQ, H, B);
+}
 
 template <int HD>
 __host__ __device__ constexpr int tf_smem_bytes() {
@@ -1112,9 +1126,8 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* l
                              static_cast<uint64_t>(B)};
   const uint64_t kstr[3] = {HD * e, static_cast<uint64_t>(KV) * HD * e,
                             static_cast<uint64_t>(Skv) * KV * HD * e};
-  const uint32_t kbox[4] = {32, 1, TfTile<HD>::BK, 1};
-  int err = hopper::encode_f32_map(&km, k, 4, kdims, kstr, kbox);
-  if (err == 0) err = hopper::encode_f32_map(&vm, v, 4, kdims, kstr, kbox);
+  int err = hopper::encode_f32_map(&km, k, 4, kdims, kstr, TfTile<HD>::kKBox);
+  if (err == 0) err = hopper::encode_f32_map(&vm, v, 4, kdims, kstr, TfTile<HD>::kKBox);
   if (err != 0) return err;
   static bool attr_set = false;  // per instantiation, once per process
   if (!attr_set) {
@@ -1123,10 +1136,8 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* l
     if (cerr != cudaSuccess) return static_cast<int>(cerr);
     attr_set = true;
   }
-  // S, Skv ≤ 64 (one warpgroup's rows; one K/V tile at HD 64, two at HD
-  // 128): two heads per block, one per warpgroup
-  const int packed = S <= kTfPack && Skv <= kTfPack;
-  const dim3 grid = packed ? dim3(1, (H + 1) / 2, B) : dim3((S + kTfBQ - 1) / kTfBQ, H, B);
+  const int packed = tf_packed(S, Skv);
+  const dim3 grid = tf_grid(S, Skv, H, B);
   flash_fwd_tf32x3<HD><<<grid, kTfThreads, bytes, stream>>>(
       km, vm, static_cast<const float*>(q), static_cast<float*>(o), lse, S, H, Skv, KV, causal,
       window, scale, packed);
@@ -1194,6 +1205,48 @@ int flash_attention_tf32x3_smem_bytes(int hd) {
     case 128: return tf_smem_bytes<128>();
     default: return -1;
   }
+}
+
+// The launch geometry of one call as the launchers above make it, for the
+// wrapper's launch_geometry to be held against.  variant: 0 flash_fwd, 1
+// flash_fwd_wgmma, 2 flash_fwd_tf32x3.  out: grid x, y, z, threads a block,
+// dynamic shared memory bytes, query rows a block, keys a K/V tile, stages,
+// then the K/V tensor maps' box (4 dims; zeros for flash_fwd).  Returns 0,
+// or -1 for a variant and head_dim with no kernel.
+int flash_attention_geometry(int variant, int hd, int B, int S, int H, int Skv, int* out) {
+  dim3 grid;
+  const uint32_t* box = nullptr;
+  if (variant == 0 && (hd == 16 || hd == 32 || hd == 64 || hd == 128)) {
+    grid = fwd_grid(S, H, B);
+    out[3] = kThreads;
+    out[4] = flash_attention_smem_bytes(hd);
+    out[5] = kBQ;
+    out[6] = kBK;
+    out[7] = 1;
+  } else if (variant == 1 && (hd == 64 || hd == 128)) {
+    grid = wg_grid(S, H, B);
+    out[3] = kWgThreads;
+    out[4] = flash_attention_wgmma_smem_bytes(hd);
+    out[5] = kWgBQ;
+    out[6] = kWgBK;
+    out[7] = hd == 64 ? wg_stages<64>() : wg_stages<128>();
+    box = kWgKBox;
+  } else if (variant == 2 && (hd == 64 || hd == 128)) {
+    grid = tf_grid(S, Skv, H, B);
+    out[3] = kTfThreads;
+    out[4] = flash_attention_tf32x3_smem_bytes(hd);
+    out[5] = kTfBQ;
+    out[6] = hd == 64 ? TfTile<64>::BK : TfTile<128>::BK;
+    out[7] = kTfStages;
+    box = hd == 64 ? TfTile<64>::kKBox : TfTile<128>::kKBox;
+  } else {
+    return -1;
+  }
+  out[0] = static_cast<int>(grid.x);
+  out[1] = static_cast<int>(grid.y);
+  out[2] = static_cast<int>(grid.z);
+  for (int i = 0; i < 4; ++i) out[8 + i] = box == nullptr ? 0 : static_cast<int>(box[i]);
+  return 0;
 }
 
 }  // extern "C"

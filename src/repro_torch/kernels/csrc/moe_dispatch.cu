@@ -107,6 +107,13 @@ constexpr int kWgBM = 64;
 constexpr int kWgBK = 64;
 constexpr int kWgThreads = 160;
 constexpr int kRasterGroup = 8;  // column tiles walked together
+// the tensor maps' boxes: x 64 columns (one 128-byte row) × 64 rows; w 64
+// columns × 64 k-rows of one group
+constexpr uint32_t kWgXBox[2] = {kWgBK, kWgBM};
+constexpr uint32_t kWgWBox[4] = {64, kWgBK, 1, 1};
+
+// row tiles of a call: every group may start a partial tile
+inline int gmm_row_tiles(int N, int G, int bm) { return (N + bm - 1) / bm + (G < N ? G : N); }
 
 template <int BN>
 __host__ __device__ constexpr int wg_stages() { return BN == 256 ? 5 : 4; }
@@ -545,7 +552,7 @@ int launch(int kernel, const void* x, const void* w, void* out, const int* sizes
   gmm_offsets<<<1, kScanThreads, 0, stream>>>(sizes, G, N, bm, offs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_tiles = (N + bm - 1) / bm + (G < N ? G : N);
+  const int row_tiles = gmm_row_tiles(N, G, bm);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
@@ -576,15 +583,13 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* sizes, int*
   CUtensorMap xmap, wmap;
   const uint64_t xdims[2] = {static_cast<uint64_t>(Kd), static_cast<uint64_t>(N)};
   const uint64_t xstr[1] = {static_cast<uint64_t>(Kd) * 2};
-  const uint32_t xbox[2] = {kWgBK, kWgBM};
-  int err = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstr, xbox);
+  int err = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstr, kWgXBox);
   if (err != 0) return err;
   const uint64_t wdims[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(Kd),
                              static_cast<uint64_t>(e_in), static_cast<uint64_t>(R)};
   const uint64_t wstr[3] = {static_cast<uint64_t>(s_k) * 2, static_cast<uint64_t>(s_inner) * 2,
                             static_cast<uint64_t>(s_outer) * 2};
-  const uint32_t wbox[4] = {64, kWgBK, 1, 1};
-  err = hopper::encode_bf16_map(&wmap, w, 4, wdims, wstr, wbox);
+  err = hopper::encode_bf16_map(&wmap, w, 4, wdims, wstr, kWgWBox);
   if (err != 0) return err;
   gmm_offsets<<<1, kScanThreads, 0, stream>>>(sizes, G, N, kWgBM, offs);
   cudaError_t cerr = cudaGetLastError();
@@ -595,7 +600,7 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* sizes, int*
     if (err != 0) return err;
     attr_set = true;
   }
-  const int row_tiles = (N + kWgBM - 1) / kWgBM + (G < N ? G : N);
+  const int row_tiles = gmm_row_tiles(N, G, kWgBM);
   const int col_tiles = (F + BN - 1) / BN;
   gmm_wgmma<BN><<<row_tiles * col_tiles, kWgThreads, wg_smem_bytes<BN>(), stream>>>(
       xmap, wmap, static_cast<__nv_bfloat16*>(out), offs, G, Kd, F, e_in, row_tiles, col_tiles);
@@ -651,6 +656,45 @@ void grouped_matmul_geometry(int* out) {
   out[6] = kWgBM;
   out[7] = wg_smem_bytes<128>();
   out[8] = wg_smem_bytes<256>();
+}
+
+// The launch geometry of one call as the launchers above make it, for the
+// wrapper's launch_geometry to be held against: kernel 0 gmm_rows, 1
+// gmm_tiles, 2 gmm_wgmma at bn 128 or 256 columns.  out: grid x, y, z,
+// threads a block, dynamic shared memory bytes, rows a tile, columns a
+// tile, then the x and w tensor maps' boxes (2 + 4 dims; zeros but for
+// gmm_wgmma).  The offsets scan before it is one block of kScanThreads.
+// Returns 0, or -1 for an unknown kernel or bn.
+int grouped_matmul_launch_geometry(int kernel, int bn, int N, int G, int F, int* out) {
+  for (int i = 0; i < 13; ++i) out[i] = 0;
+  out[2] = 1;
+  if (kernel == 0) {
+    const int cols = kRowsThreads * kRowsTN;
+    out[0] = gmm_row_tiles(N, G, kRowsBM);
+    out[1] = (F + cols - 1) / cols;
+    out[3] = kRowsThreads;
+    out[5] = kRowsBM;
+    out[6] = cols;
+  } else if (kernel == 1) {
+    out[0] = gmm_row_tiles(N, G, kTileBM) * ((F + kTileBN - 1) / kTileBN);
+    out[1] = 1;
+    out[3] = kTileThreads;
+    out[4] = kTileSmemBytes;
+    out[5] = kTileBM;
+    out[6] = kTileBN;
+  } else if (kernel == 2 && (bn == 128 || bn == 256)) {
+    out[0] = gmm_row_tiles(N, G, kWgBM) * ((F + bn - 1) / bn);
+    out[1] = 1;
+    out[3] = kWgThreads;
+    out[4] = bn == 256 ? wg_smem_bytes<256>() : wg_smem_bytes<128>();
+    out[5] = kWgBM;
+    out[6] = bn;
+    for (int i = 0; i < 2; ++i) out[7 + i] = static_cast<int>(kWgXBox[i]);
+    for (int i = 0; i < 4; ++i) out[9 + i] = static_cast<int>(kWgWBox[i]);
+  } else {
+    return -1;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -85,6 +85,8 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
     warpgroup's rows; one K/V tile at head_dim 64, two at 128) it packs two
     heads into a block, one per consumer warpgroup: grid = (1, ceil(H / 2),
     B).
+    ``tma_box``: the K/V tensor maps' box (dims, KV heads, keys, batch) of
+    the two TMA variants.
     Unlike the Pallas kernel, S and Skv need not divide by the tiles: the
     ragged edge is masked (or zero-filled by TMA), and the KV tiles are a
     loop inside the block, so Skv does not enter the grid otherwise."""
@@ -93,7 +95,8 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
         smem = WG_BLOCK_Q * hd * 2 + stages * (2 * WG_BLOCK_K * hd * 2 + 24) + 8 + 1024
         return {"kernel": "flash_fwd_wgmma", "bq": WG_BLOCK_Q, "bk": WG_BLOCK_K,
                 "G": H // KV, "threads": WG_THREADS, "stages": stages,
-                "grid": (math.ceil(S / WG_BLOCK_Q), H, B), "smem_bytes": smem}
+                "grid": (math.ceil(S / WG_BLOCK_Q), H, B), "smem_bytes": smem,
+                "tma_box": (64, 1, WG_BLOCK_K, 1)}
     if dtype == torch.float32 and hd in TF_HEAD_DIMS and aligned:
         # q_small of the 128 rows; per stage five fp32 tiles of bk keys (K
         # rounded in place, K_small, V as loaded, Vᵀ_big, Vᵀ_small) and 7
@@ -104,7 +107,7 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
         grid = (1, math.ceil(H / 2), B) if packed else (math.ceil(S / TF_BLOCK_Q), H, B)
         return {"kernel": "flash_fwd_tf32x3", "bq": TF_BLOCK_Q, "bk": bk,
                 "G": H // KV, "threads": TF_THREADS, "stages": TF_STAGES, "packed": packed,
-                "grid": grid, "smem_bytes": smem}
+                "grid": grid, "smem_bytes": smem, "tma_box": (32, 1, bk, 1)}
     smem_floats = hd * (BLOCK_Q + 4) + BLOCK_K * (hd + 1) + BLOCK_K * hd \
         + BLOCK_K * (BLOCK_Q + 4)
     return {"kernel": "flash_fwd", "bq": BLOCK_Q, "bk": BLOCK_K, "G": H // KV,

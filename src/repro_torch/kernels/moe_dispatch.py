@@ -73,13 +73,15 @@ def launch_geometry(N: int, Kd: int, G: int, F: int, dtype=torch.float32,
     aligned: ``tma_aligned``); else ``gmm_rows`` below 16 rows per group on
     average and ``gmm_tiles`` above.  Unlike the Pallas kernel, Kd and F
     need not be padded: the edges are masked (or zero-filled by TMA), and
-    Kd is a loop inside the block."""
+    Kd is a loop inside the block.  ``tma_boxes``: gmm_wgmma's x and w
+    tensor-map boxes."""
     small = N < ROWS_PER_GROUP_SMALL * G
     n = max(N, 1)
     if dtype == torch.bfloat16 and tma_ok and Kd % 8 == 0 and F % 8 == 0:
         bn = 128 if small else 256
         geo = {"kernel": "gmm_wgmma", "bm": WG_BM, "bn": bn, "threads": WG_THREADS,
-               "stages": WG_STAGES[bn], "smem_bytes": wgmma_smem(bn)}
+               "stages": WG_STAGES[bn], "smem_bytes": wgmma_smem(bn),
+               "tma_boxes": ((WG_BK, WG_BM), (64, WG_BK, 1, 1))}
     elif small:
         geo = {"kernel": "gmm_rows", "bm": ROWS_BM, "bn": ROWS_BN,
                "threads": ROWS_THREADS, "smem_bytes": 0}

@@ -27,6 +27,22 @@ from repro_torch.kernels import _build, ref
 # Kernel launches through this wrapper (one per call that reaches the card).
 launches = 0
 
+# csrc/coda_kernels.cu's kProxThreads and its grid-stride cap: 16 blocks per SM
+# of the H100's 132
+THREADS = 256
+MAX_BLOCKS = 132 * 16
+
+
+def launch_geometry(n: int) -> dict:
+    """The one launch over a leaf of ``n`` elements (every worker's): a
+    grid-stride pass of ``THREADS``-thread blocks, one thread an element up
+    to ``MAX_BLOCKS`` blocks, past that each thread strides
+    (``coda_kernels.cu``'s ``stride_blocks``); no shared memory."""
+    return {"kernel": "prox_update_kernel", "launches": 1 if n > 0 else 0,
+            "grid": (min(-(-n // THREADS), MAX_BLOCKS),), "threads": THREADS,
+            "smem_bytes": 0}
+
+
 # entry point by (v and v0's dtype, g's dtype): g may be fp32 under bf16
 # parameters, as blocked Shampoo's fp32 step is (the reference's kernel
 # casts each input to fp32 on its own)

@@ -15,11 +15,13 @@ a timeout and every spawned rank a join deadline, so a deadlock fails
 instead of hanging, and a failed rank fails the run: nothing falls back to
 another backend or to the CPU.
 
-``abstract_mesh`` serves only the reference's dry run and is not ported
-(ROADMAP Queue 1 item 13b).
+``abstract_mesh`` is the dry run's mesh: axis names and sizes, no
+process group and no devices (``launch/dryrun.py`` reads the reference's
+(16, 16) and (2, 16, 16) meshes through it).
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -40,6 +42,43 @@ def _device_type() -> str:
 def axis_sizes(mesh) -> dict[str, int]:
     """{axis name: extent} in mesh order (the reference's ``mesh.shape``)."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh as a plain record of axis names and sizes, readable where a
+    ``DeviceMesh`` is (``mesh_dim_names``, ``shape``; ``axis_sizes``)."""
+
+    shape: tuple
+    mesh_dim_names: tuple
+
+    @property
+    def axis_names(self) -> tuple:
+        return self.mesh_dim_names
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+def abstract_mesh(shape, axis_names) -> AbstractMesh:
+    """The counterpart of the reference's ``abstract_mesh`` (``mesh.py:62``)."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axis names {axis_names} differ in length")
+    return AbstractMesh(shape, axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production meshes as abstract meshes: (16, 16) over
+    (data, model), and (2, 16, 16) over (pod, data, model) with
+    ``multi_pod``."""
+    if multi_pod:
+        return abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    return abstract_mesh((16, 16), ("data", "model"))
 
 
 def make_worker_mesh(n_devices: int = 0, *, multi_pod: bool = False):

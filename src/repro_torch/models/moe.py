@@ -33,7 +33,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -53,6 +52,14 @@ def init_moe(cfg: ModelConfig, init: ParamInit, lead=()):
     if m.dense_residual:
         p["dense"] = init_mlp(cfg, init, lead, d_ff=m.dense_d_ff)
     return p
+
+
+def tokens_per_forward(spec) -> int:
+    """Tokens one forward pass dispatches for a shape of ``configs.SHAPES``
+    (``moe.py:102-108``): the whole batch for train and prefill, one token a
+    sequence for decode."""
+    return (spec.global_batch if spec.kind == "decode"
+            else spec.global_batch * spec.seq_len)
 
 
 def capacity(cfg: ModelConfig, n_tokens: int, *, train: bool = True) -> int:
@@ -102,6 +109,13 @@ def _sum_choices(y, K: int, T: int, k: int):
     return out
 
 
+def one_hot(idx, n: int):
+    """``F.one_hot(idx, n)`` (int64 0/1) by a comparison: ``F.one_hot``
+    reads the indices' minimum and maximum back to the host on the CPU to
+    validate them, a sync in every moe layer (on CUDA it skips the check)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.int64)
+
+
 def _expert_mlp(p, xe):
     """SwiGLU experts over per-expert rows: xe [K, E, C, d] -> [K, E, C, d]."""
     h = torch.matmul(xe, p["w_gate"])
@@ -119,7 +133,7 @@ def _dispatch_capacity(cfg: ModelConfig, p, xf, top_g, top_e, C: int):
     e_flat = top_e.reshape(K, T * k)
     t_flat = torch.arange(T, device=xf.device).repeat_interleave(k)
     g_flat = top_g.reshape(K, T * k)
-    onehot = F.one_hot(e_flat, E)
+    onehot = one_hot(e_flat, E)
     pos = torch.gather(torch.cumsum(onehot, dim=1) - onehot, 2, e_flat[..., None])[..., 0]
     keep = pos < C
     # every kept pair owns one buffer slot e·C + pos; dropped pairs go to
@@ -189,7 +203,7 @@ def apply_moe(cfg: ModelConfig, p, x, *, train: bool = False, impl: str = "auto"
         out = _dispatch_sorted(cfg, p, xf, top_g, top_e, impl=impl)
     out = out.reshape(K, B, S, d).to(x.dtype)
     me = torch.mean(gates, dim=1)                                    # [K, E]
-    ce = torch.mean(torch.sum(F.one_hot(top_e, E).to(torch.float32), dim=2), dim=1) / k
+    ce = torch.mean(torch.sum(one_hot(top_e, E).to(torch.float32), dim=2), dim=1) / k
     aux = E * torch.sum(me * ce, dim=-1)
     if m.dense_residual:
         out = out + apply_mlp(cfg, p["dense"], x)

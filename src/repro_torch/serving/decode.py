@@ -130,7 +130,8 @@ def serve_step(cfg: ModelConfig, params, cache, tokens, positions, *,
     h = apply_norm(cfg, params["final_norm"], x)[:, :, 0]         # [1, B, d]
     logits = lm_logits(cfg, params, h)[0]
     sh = params["score_head"]
-    score_logit = (torch.bmm(h, sh["w"])[0, :, 0].to(torch.float32)
+    # h is fp32 after an sLSTM whatever the weights' dtype: promote as jnp does
+    score_logit = (linear(h, sh["w"])[0, :, 0].to(torch.float32)
                    + sh["b"][0, 0])
     return logits, score_logit, {"layers": new_layers}
 

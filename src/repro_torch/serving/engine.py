@@ -271,14 +271,20 @@ class ServingEngine:
             self._prefix.popitem(last=False)
 
     # -- the tick -----------------------------------------------------------
-    def _chunk_step(self, toks, pos0, nst):
+    def _chunk_program(self, cache, toks, pos0, nst):
+        """The tick's device program: one ``masked_chunk_step`` over device
+        tensors, returning (cache, tokens, scores) on the device (the
+        reference's jitted ``_chunk_step``)."""
         with torch.no_grad():
-            cache, out_toks, out_scores = D.masked_chunk_step(
-                self.cfg, self.params, self.cache,
-                torch.from_numpy(toks).to(self.device),
-                torch.from_numpy(pos0).to(self.device),
-                torch.from_numpy(nst).to(self.device),
-                use_window=self.use_window, impl=self.impl)
+            return D.masked_chunk_step(self.cfg, self.params, cache, toks, pos0, nst,
+                                       use_window=self.use_window, impl=self.impl)
+
+    def _chunk_step(self, toks, pos0, nst):
+        """The tick's inputs to the device, its program, and its tokens and
+        scores back to the host (once a tick, outside the program)."""
+        dev = lambda a: torch.from_numpy(a).to(self.device)
+        cache, out_toks, out_scores = self._chunk_program(self.cache, dev(toks), dev(pos0),
+                                                          dev(nst))
         return cache, out_toks.cpu().numpy(), out_scores.cpu().numpy()
 
     def step(self) -> int:

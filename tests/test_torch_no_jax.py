@@ -148,3 +148,32 @@ def test_port_sources_import_no_jax_or_reference():
            for f in files for mod, line in _imported_roots(f)
            if mod in ("jax", "jaxlib", "repro", "flax", "optax")]
     assert not bad, bad
+
+
+_ANALYSIS = """
+import sys
+from repro_torch import disable_tf32
+from repro_torch.analysis import audit, roofline  # noqa: F401
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import audit as LA
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import make_production_mesh
+disable_tf32()                  # as the entry points do: R3 holds fp32 accumulation
+art = LA.run_matrix("cpu", only="vmap/coda/fp32", verbose=False)
+assert art["ok"] and len(art["legs"]) == 1
+rec = DR.build_record("stablelm-1.6b", "train_4k", make_production_mesh(), flops=False)
+assert rec["arg_bytes_per_device"]["total"] > 0
+assert DR.prefill_flops(get_smoke_config("dbrx-132b"), B=1, S=8) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+
+
+def test_audit_and_dry_run_import_no_jax():
+    """``analysis/`` and ``launch/dryrun.py`` (with the audit CLI) run one
+    leg, one record's bytes and one meta FLOP count without jax."""
+    out = subprocess.run([sys.executable, "-c", _ANALYSIS], cwd=ROOT, env=one_thread_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
