@@ -40,10 +40,14 @@ last line):
      rounds and bytes bitwise the uninterrupted run's); the quickstart twin
      (``python -m repro_torch.quickstart``, its own AUC > 0.85 assert);
      ResNet50 at full width (K=4, B=32, 32×32 images, one stage of 16 local
-     steps) with sgd, momentum (bf16 buffer), sm3, and CODASCA on
+     steps) with sgd, momentum (bf16 buffer), sm3, CODASCA on
      Dirichlet(0.1) shards with the masked average (``--participation 0.75
      --fault-seed 1``: 2 × the CoDA path's payload + 8 B of weight
-     lanes).  Counters: auc_loss =
+     lanes), and blocked Shampoo (``--optimizer shampoo_blocked``,
+     ``--precond-every 1``: its peak memory, ms per local step, one step
+     from its final state with the kernels against the plain versions, and
+     the ms of one refresh, a refresh step against a step that keeps its
+     preconditioners).  Counters: auc_loss =
      local steps (objective auc); prox_update or opt_update = local steps ×
      leaves (6 mlp, 153 ResNet50), the other 0; the sketch counts local
      steps × K × B scores.  Finite losses; ms per local step, peak memory
@@ -164,7 +168,14 @@ last line):
      overlapped one end with parameters bitwise the vmap path's; ResNet50's
      vmap fit run twice (bitwise or not, printed), then the vmap and the
      sharded fits under ``torch.backends.cudnn.deterministic``, bitwise
-     equal; one ResNet50 window through the sharded executor on a one-rank
+     equal, and the sharded fit with ``--overlap --overlap-chunks 4``
+     (window pairs, the first averaging under the second window's steps:
+     launch counts, the contract, ms per local step beside the sharded
+     fit's), then from the sharded fit's final state one overlapped pair
+     bitwise the same two windows in sequence and one profiled (the side
+     stream's kernel time, the share of it under compute-stream kernels,
+     ms per local step against the sequential windows'); one ResNet50
+     window through the sharded executor on a one-rank
      NCCL group against the batched executor from the same state (bitwise,
      or the differing leaves printed and held to SHARD_WINDOW_RTOL), and one
      profiled (the NCCL kernels' device time, the idle share); the bf16
@@ -940,6 +951,13 @@ RN_PATHS = [
     ("resnet50_codasca_masked", ["--algorithm", "codasca", "--dirichlet-alpha", "0.1",
                                  "--participation", "0.75", "--fault-seed", "1"],
      "prox_update"),
+    # blocked Shampoo with --precond-every 1: ~730,000 32×32 blocks a worker,
+    # statistics and inverse roots 6.0 GB a worker in fp32.  K cut to 2 of
+    # RN_ARGS' 4: a local step holds three copies of that state (fit's, the
+    # window's current and the new one): 72 GB at K = 4 ran out of memory,
+    # and K = 3 peaked at 72.8 GiB alone, out of memory beside this
+    # script's other paths
+    ("resnet50_shampoo", ["--optimizer", "shampoo_blocked", "--workers", "2"], "prox_update"),
 ]
 # bytes/round/worker as the reference's launcher prints them for the same
 # flags (tests/test_torch_codasca.py holds these numbers against
@@ -961,6 +979,7 @@ BYTES_PER_ROUND = {
     "mlp_shard_map_overlap": MLP_BYTES, "mlp_shard_map_codasca_faults": 2 * MLP_BYTES,
     "mlp_shard_map_codasca_server_momentum": 2 * MLP_BYTES,
     "resnet50_shard_map": (23494721 + 3) * 4, "resnet50_shard_map_det": (23494721 + 3) * 4,
+    "resnet50_shampoo": (23494721 + 3) * 4, "resnet50_shard_map_overlap": (23494721 + 3) * 4,
 }
 # the distributed executor (--executor shard_map: NCCL, one rank a card): the
 # mlp at the launcher's defaults plain, int8, overlapped and as faulted
@@ -991,6 +1010,10 @@ SHARDED_PATHS = [
     ("resnet50_shard_map", RN_ARGS + SHARD_ARGS, "resnet50", "prox_update", False),
 ]
 RN_SHARD_DET = ("resnet50_shard_map_det", RN_ARGS + SHARD_ARGS)    # under deterministic cuDNN
+# the overlapped pair at full width, also under deterministic cuDNN (its pairs
+# draw other windows than RN_SHARD_DET's, so the two fits end apart)
+RN_OVERLAP = ("resnet50_shard_map_overlap",
+              RN_ARGS + SHARD_ARGS + ["--overlap", "--overlap-chunks", "4"])
 # stablelm-1.6b: full width with the depth cut to 2 of 24 layers (K=4 replicas,
 # their references, gradients and the step's new copy: ~33 GB at 2 layers,
 # ~105 GB at 24); and the launcher's smoke config, whose test AUC is held
@@ -2484,12 +2507,241 @@ def run_resnet50_determinism(runs: dict, counts: dict) -> dict:
         runs["resnet50_det"], counts["resnet50_det"] = run_main_path(
             "main path resnet50_det", RN_ARGS, RN_LEAVES)
         out = run_sharded(runs, counts, *RN_SHARD_DET, "resnet50_det", "prox_update", True)
+        out["overlap"] = run_resnet50_overlap(runs, counts)
     finally:
         torch.backends.cudnn.deterministic = False
     out["vmap_repeat_bitwise"] = repeat
-    for label in ("resnet50_repeat", "resnet50_det", "resnet50_shard_map_det"):
+    for label in ("resnet50_repeat", "resnet50_det", "resnet50_shard_map_det", RN_OVERLAP[0]):
         runs[label].pop("state")
     return out
+
+
+def run_resnet50_overlap(runs: dict, counts: dict) -> dict:
+    """The overlapped pair at full width, under deterministic cuDNN: the
+    launcher path (``RN_OVERLAP``) with the launch counts of phase 5 and the
+    collectives of the contract, its ms per local step beside the
+    non-overlapped sharded path's (its test AUC printed, not held: a pair
+    draws its two windows in one call, as the reference's ``fit`` does, so
+    its data are not the other path's); then, from the sharded path's final
+    state, one pair against the same two windows one after the other
+    (bitwise) and a profiled pair (``profile_overlap_pair``)."""
+    label, argv = RN_OVERLAP
+    det = runs[RN_SHARD_DET[0]]
+    runs[label], counts[label] = run_main_path(f"main path {label}", argv, RN_LEAVES)
+    ov = runs[label]
+    got, want = collective_contract(argv, ov)
+    print(f"main path {label}: mesh {ov['mesh']}, collectives {got} (contract {want}); "
+          f"{ov['ms_per_local_step']:.3f} ms per local step (steady median) against the "
+          f"non-overlapped sharded path's {det['ms_per_local_step']:.3f}; test AUC "
+          f"{ov['auc']:.4f} beside its {det['auc']:.4f} (not held: other draws)")
+    if got != want:
+        raise SystemExit(f"main path {label}: collectives {got}, the contract gives {want}")
+    return {"mesh": ov["mesh"], "collectives": got,
+            "ms_per_local_step": ov["ms_per_local_step"],
+            "sharded_ms_per_local_step": det["ms_per_local_step"], "auc": ov["auc"],
+            "pair": profile_overlap_pair(label, det["state"], det["ms_per_local_step"])}
+
+
+def stream_spans(fn, mark: str) -> tuple[float, dict, set]:
+    """Run ``fn`` once under torch.profiler: (host wall ms, {CUDA stream id:
+    [(start ns, end ns), ...] of its kernels}, the ids of the streams whose
+    kernels ran inside the profiler range ``mark``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans: dict = {}
+    marked = set()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation():
+            if e.name() == mark:
+                marked.add(e.device_resource_id())
+        else:
+            spans.setdefault(e.device_resource_id(), []).append((e.start_ns(), e.end_ns()))
+    return wall, spans, marked
+
+
+def _union(spans) -> list:
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _covered_ns(spans, cover) -> int:
+    """How much of ``spans`` lies inside ``cover`` (both sorted unions)."""
+    total, j = 0, 0
+    for a, b in spans:
+        while j < len(cover) and cover[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(cover) and cover[k][0] < b:
+            total += min(b, cover[k][1]) - max(a, cover[k][0])
+            k += 1
+    return total
+
+
+PAIR_I = 4           # the profiled pair: window_batch's 8 steps as two windows of 4
+
+
+def profile_overlap_pair(label: str, state, det_ms: float) -> dict:
+    """ResNet50 at full width on a one-rank NCCL group, from ``state``: one
+    overlapped window pair, which must end bitwise the same two windows
+    run one after the other (``_one_window`` twice; the caller holds cuDNN
+    deterministic); then a pair under torch.profiler: the kernel time of
+    the side stream the first averaging runs on
+    (``bucketing.PendingAverage``: the per-row means, the division and the
+    broadcasts into the averaged leaves), how much of it lies under
+    compute-stream kernels (the second window's first local step), and the
+    pair's ms per local step beside the sequential windows', timed alike.
+    The side stream must have run kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing, coda
+    from repro_torch.launch import mesh as mesh_mod
+    mcfg = get_config("resnet50")
+    dev = torch.device("cuda:0")
+    wb = window_batch(mcfg, dev)
+    wb2 = {k: v.reshape((2, PAIR_I) + v.shape[1:]) for k, v in wb.items()}
+
+    def body(rank):
+        ccfg = coda.CoDAConfig(n_workers=4, p_pos=0.71, overlap_chunks=4)
+        exe = coda.make_executor(mcfg, ccfg, "shard_map", mesh=mesh_mod.make_worker_mesh())
+        st = exe.place(state)
+        ring = exe._ring_spec()
+
+        def pair():
+            return exe.window_pair_step(st, wb2, 0.5)
+
+        def sequential():
+            s = st
+            for i in range(2):
+                s, _ = exe._one_window(s, {k: v[i] for k, v in wb2.items()}, 0.5,
+                                       communicate=True, ring=ring, fl=None)
+            return s
+
+        cudnn = torch.backends.cudnn.deterministic
+
+        a, la = pair()
+        b = sequential()
+        diff = compare_states(a, b)
+        del a, b
+        bucketing.zero_collectives()
+        wall, spans, side_ids = stream_spans(pair, bucketing.SIDE_STREAM_RANGE)
+        log = list(bucketing.overlap_log)
+        # the side stream: where the kernels enqueued inside PendingAverage's
+        # profiler range ran; every other stream (cuDNN's among them) computes
+        compute = _union([x for k, v in spans.items() if k not in side_ids for x in v])
+        side = _union([x for k, v in spans.items() if k in side_ids for x in v])
+        side_ns = sum(b - a for a, b in side)
+        under = _covered_ns(side, compute)
+        walls = {}
+        for name, fn in (("pair", pair), ("sequential", sequential),
+                         ("sequential", sequential), ("pair", pair)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return {"bitwise_sequential": not diff, "differs": {k: v for k, v in
+                                                             list(diff.items())[:4]},
+                "deterministic_cudnn": cudnn, "side_stream_ms": side_ns / 1e6, "under_compute_ms": under / 1e6,
+                "under_compute_share": under / side_ns if side_ns else 0.0,
+                "side_kernels": sum(len(v) for k, v in spans.items() if k in side_ids),
+                "side_streams": len(side_ids), "streams": len(spans),
+                "profiled_wall_ms": wall,
+                "pair_ms_per_local_step": [w / (2 * PAIR_I) for w in walls["pair"]],
+                "sequential_ms_per_local_step": [w / (2 * PAIR_I)
+                                                 for w in walls["sequential"]],
+                "waits": sum(1 for e in log if e[0] == "wait"),
+                "waits_in_window_2": sum(1 for e in log if e[0] == "wait"
+                                         and e[2] > next(t for ev, _, t in log if ev == "step")),
+                "summary": dict(exe.overlap_summary)}
+
+    out = mesh_mod.run_ranks(body, 1, backend="nccl")
+    print(f"main path {label}: one pair from the sharded path's final state, bitwise the same "
+          f"two windows one after the other: {out['bitwise_sequential']} (deterministic cuDNN "
+          f"{out['deterministic_cudnn']})" + ("" if out["bitwise_sequential"] else
+                                               f"; differing leaves {out['differs']}"))
+    print(f"profile {label} pair (two windows of {PAIR_I} local steps, one NCCL rank): side "
+          f"stream {out['side_stream_ms']:.4f} ms of kernel time in {out['side_kernels']} "
+          f"kernels, {out['under_compute_ms']:.4f} ms of it ({out['under_compute_share']:.3f})"
+          f" under compute-stream kernels; {out['side_streams']} side and "
+          f"{out['streams'] - out['side_streams']} compute streams; ms per local step: "
+          f"pair {[round(x, 3) for x in out['pair_ms_per_local_step']]}, the same windows "
+          f"one after the other {[round(x, 3) for x in out['sequential_ms_per_local_step']]}"
+          f" (launcher medians: overlapped path beside the non-overlapped sharded path's "
+          f"{det_ms:.3f}, deterministic cuDNN); {out['waits']} unit waits, "
+          f"{out['waits_in_window_2']} after the second window began; "
+          f"summary {out['summary']}")
+    print(json.dumps({"profile": {"path": label + "_pair", **out}}))
+    if not out["bitwise_sequential"]:
+        raise SystemExit(f"{label}: the overlapped pair is not the sequential windows bitwise")
+    if not out["side_kernels"] or out["side_streams"] != 1:
+        raise SystemExit(f"{label}: {out['side_kernels']} kernels on {out['side_streams']} "
+                         "streams for the overlapped averaging, expected one side stream")
+    return out
+
+
+SHAMPOO_STEP_ATOL = 1e-5         # params after one step, kernels vs plain versions
+
+
+def check_shampoo_step(label: str, state, dev) -> dict:
+    """One ResNet50 local step of blocked Shampoo from the path's final
+    state (the path's K), with the kernels and with the plain versions: the new
+    parameters within SHAMPOO_STEP_ATOL (K2 is bitwise; the rest is the same
+    tensor code on the same inputs); then timed with CUDA events as a
+    refresh step (``precond_every = 1``) and as a step that keeps its
+    preconditioners (``precond_every = 2`` at an odd step count): their
+    difference is the ms of one refresh (the inverse roots of every block)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import coda, optimizer
+    from repro_torch.tree import tree_leaves
+    mcfg = get_config("resnet50")
+    K = tree_leaves(state["params"])[0].shape[0]
+    batch = {k: v[0, :K] for k, v in window_batch(mcfg, dev).items()}
+    got = {}
+    for impl in ("kernel", "ref"):
+        ccfg = coda.CoDAConfig(n_workers=K, p_pos=0.71, impl=impl, optimizer="shampoo_blocked")
+        new, _ = coda.local_step(mcfg, ccfg, state, batch, 0.5)
+        got[impl] = tree_leaves(new["params"])
+        del new
+    err = max(float((a - b).abs().max()) for a, b in zip(got["kernel"], got["ref"], strict=True))
+    del got
+    t = state["opt"]["t"]
+    odd = dict(state, opt=dict(state["opt"], t=t + (1 - optimizer.host_count(t) % 2)))
+    optimizer.read_host_count(odd["opt"])
+    ms = {}
+    for name, every, st in (("refresh", 1, state), ("keep", 2, odd), ("refresh", 1, state),
+                            ("keep", 2, odd)):
+        ccfg = coda.CoDAConfig(n_workers=K, p_pos=0.71, optimizer="shampoo_blocked",
+                               precond_every=every)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        new, _ = coda.local_step(mcfg, ccfg, st, batch, 0.5)
+        end.record()
+        torch.cuda.synchronize()
+        del new
+        ms.setdefault(name, []).append(start.elapsed_time(end))
+    refresh = min(ms["refresh"]) - min(ms["keep"])
+    print(f"main path {label}: one local step, kernels vs plain versions: params "
+          f"max_abs_err {err:.3g} (atol {SHAMPOO_STEP_ATOL}); a refresh step "
+          f"{[round(x, 2) for x in ms['refresh']]} ms, a step that keeps its "
+          f"preconditioners {[round(x, 2) for x in ms['keep']]} ms: {refresh:.2f} ms a "
+          f"refresh (CUDA events, K = {K})")
+    if not err <= SHAMPOO_STEP_ATOL:
+        raise SystemExit(f"{label}: the Shampoo step with kernels disagrees with the plain "
+                         "versions")
+    return {"params_max_abs_err": err, "step_ms": ms, "ms_per_refresh": refresh}
 
 
 def compare_states(a: dict, b: dict) -> dict:
@@ -3212,7 +3464,6 @@ def run_audit(dev, dbrx_cfg, dbrx_params, param_check: dict, prefill_ms: float) 
     t0 = time.perf_counter()
     art = LA.run_matrix(dev, n_devices=torch.cuda.device_count(), smoke=True)
     out = {"matrix_ok": art["ok"], "legs": {r["leg"]: r["ok"] for r in art["legs"]},
-           "not_checked": sum(r["n_not_checked"] for r in art["legs"]),
            "checks": sum(r["n_checked"] for r in art["legs"]),
            "matrix_s": time.perf_counter() - t0}
     if not art["ok"]:
@@ -3343,9 +3594,20 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                    straggler_windows=2, max_staleness=2, fault_seed=3, stream_bins=2048)
     runs["mlp_crash_resume"], counts["mlp_crash_resume"] = run_crash_resume(dev)
     runs["quickstart"], counts["quickstart"] = run_quickstart()
+    print("main path resnet50_shampoo: reduced: K=2 of the other ResNet50 paths' 4 (a "
+          "local step holds three copies of the 6.0 GB/worker optimizer state: 72 GB at K=4 "
+          "ran out of the card's memory, and K=3 peaked at 72.8 GiB alone, out of memory "
+          "beside this script's other paths); --precond-every 1, full width, one stage of "
+          "16 local steps")
     for label, args, per_leaf in RN_PATHS:
         runs[label], counts[label] = run_main_path(f"main path {label}", RN_ARGS + args,
                                                    RN_LEAVES, per_leaf)
+    shampoo = check_shampoo_step("resnet50_shampoo", runs["resnet50_shampoo"].pop("state"), dev)
+    shampoo.update(peak_bytes=runs["resnet50_shampoo"]["peak_bytes"],
+                   ms_per_local_step=runs["resnet50_shampoo"]["ms_per_local_step"],
+                   opt_state_bytes=runs["resnet50_shampoo"]["opt_state_bytes"])
+    print(json.dumps({"resnet50_shampoo": shampoo}))
+    torch.cuda.empty_cache()
     profile_window("resnet50", get_config("resnet50"), runs["resnet50"]["state"], dev)
     prof = profile_window("resnet50_momentum", get_config("resnet50"),
                           runs["resnet50_momentum"]["state"], dev, optimizer="momentum",
@@ -3377,7 +3639,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         profile=True)
 
     for label in [label for label, _, _ in RN_PATHS] + ["resnet50_shard_map"]:
-        runs[label].pop("state")                 # free the card for stablelm
+        runs[label].pop("state", None)           # free the card for stablelm
     stamp("distributed executor paths done")
 
     # full-depth fp32 prefills: stablelm-1.6b (head_dim 64) and chatglm3-6b

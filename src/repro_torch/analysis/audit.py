@@ -16,12 +16,17 @@ rules read what the recorders saw.
     ``avg_compress="int8"`` is the s8 + f32 ``all_gather`` pair of
     ``window_payload_bytes(state, "int8")`` a row; ``overlap_chunks`` is
     2·``ring_hop_count`` point-to-point hops in 2·``ring_chain_count``
-    chains of 2·(R−1) equal hops and no blocking collective; a stage is one
-    ``all_reduce`` of ``stage_payload_bytes``; a replicated partition and
-    the batched executor put nothing on the wire.  The reference's ring
-    check also asks for compute between the hops; the port runs a pair's
-    two windows one after the other, so that half is recorded as not
-    checked, with its reason, and is neither passed nor a finding.
+    independent chains of 2·(R−1) equal hops, grouped by the chain tag each
+    hop carries (the chains may interleave), and no blocking collective; a
+    stage is one ``all_reduce`` of ``stage_payload_bytes``; a replicated
+    partition and the batched executor put nothing on the wire.  The
+    reference's ring check also asks for compute between the hops: from
+    the pair's host schedule (``bucketing.overlap_log``), every unit of the
+    first averaging (a chunk's chain; at R = 1 a row's local mean) is
+    issued before the second window's first local step, and the second
+    window dispatches a matmul-bearing op after the unit's issue and before
+    its wait on it — for every unit but those the first such op itself
+    waits for, and for one unit at least.
   * **R2 buffer reuse** — the counterpart of the donation audit for a
     functional eager executor: once the caller holds only the program's
     outputs, no tensor of its consumed input (the old state, the old serving
@@ -164,10 +169,12 @@ class Program:
     ``retained``: R2 messages (None when the program consumes nothing);
     ``memory``: R2's allocated bytes on the card; ``launches``: R5
     records of the kernel calls; ``chunk_shapes``: the engine's C values;
-    ``library_loads``: loads of the kernel library in this process."""
+    ``library_loads``: loads of the kernel library in this process;
+    ``schedule``: an overlapped pair's host schedule (R1)."""
     name: str
     expect: dict = dataclasses.field(default_factory=dict)
     wire: list = dataclasses.field(default_factory=list)
+    schedule: list = dataclasses.field(default_factory=list)
     lint: list = dataclasses.field(default_factory=list)
     retained: list | None = None
     memory: dict | None = None
@@ -189,12 +196,10 @@ class Finding:
 @dataclasses.dataclass
 class AuditReport:
     """``findings`` fail the audit; ``checked`` are the (rule, program)
-    pairs that ran; ``not_checked`` are (rule, program, reason) halves of a
-    rule the port cannot check (neither passed nor failed); ``waived`` are
-    (rule, program, site, name) findings an expectation names."""
+    pairs that ran; ``waived`` are (rule, program, site, name) findings an
+    expectation names."""
     findings: list
     checked: list
-    not_checked: list = dataclasses.field(default_factory=list)
     waived: list = dataclasses.field(default_factory=list)
     details: dict = dataclasses.field(default_factory=dict)
 
@@ -208,21 +213,17 @@ class AuditReport:
 
     def to_dict(self) -> dict:
         per_rule: dict = {}
-        blank = lambda: {"checked": [], "findings": [], "not_checked": [], "waived": []}
+        blank = lambda: {"checked": [], "findings": [], "waived": []}
         for rule, prog in self.checked:
             per_rule.setdefault(rule, blank())["checked"].append(prog)
         for f in self.findings:
             per_rule.setdefault(f.rule, blank())["findings"].append(
                 {"program": f.program, "message": f.message})
-        for rule, prog, reason in self.not_checked:
-            per_rule.setdefault(rule, blank())["not_checked"].append(
-                {"program": prog, "reason": reason})
         for rule, prog, site, name in self.waived:
             per_rule.setdefault(rule, blank())["waived"].append(
                 {"program": prog, "site": site, "name": name})
         return {"ok": self.ok, "n_checked": len(self.checked),
-                "n_findings": len(self.findings), "n_not_checked": len(self.not_checked),
-                "rules": per_rule, "details": self.details}
+                "n_findings": len(self.findings), "rules": per_rule, "details": self.details}
 
     def to_json(self, **kw) -> str:
         return json.dumps(self.to_dict(), **kw)
@@ -232,7 +233,12 @@ class AuditReport:
 # R1 — collective placement
 # --------------------------------------------------------------------------
 def _fmt(entries) -> list:
-    return [(k, t, b) for k, t, b in entries]
+    return [tuple(e[:3]) for e in entries]
+
+
+def _chain(entry):
+    """The ring chain a wire entry belongs to (None: not a chain hop)."""
+    return entry[3] if len(entry) > 3 else None
 
 
 def window_payload_problems(wire, expected_bytes: int, *, by_dtype: dict,
@@ -273,9 +279,9 @@ def window_payload_problems(wire, expected_bytes: int, *, by_dtype: dict,
 
 def ring_problems(wire, *, n_hops: int, n_chains: int, hop_len: int) -> list:
     """An overlapped pair's wire: no blocking collective, ``n_hops``
-    point-to-point hops, forming ``n_chains`` consecutive chains of
-    ``hop_len`` = 2·(R−1) hops of one size each (a chunk's reduce-scatter
-    and all-gather)."""
+    point-to-point hops forming ``n_chains`` independent chains (grouped by
+    their chain tags, not by position) of ``hop_len`` = 2·(R−1) hops of one
+    size each (a chunk's reduce-scatter and all-gather)."""
     problems = []
     stray = [e for e in wire if e[0] != "p2p"]
     if stray:
@@ -285,11 +291,56 @@ def ring_problems(wire, *, n_hops: int, n_chains: int, hop_len: int) -> list:
     if len(hops) != n_hops:
         problems.append(f"expected {n_hops} ring hops, found {len(hops)}")
     elif hop_len and hops:
-        chains = [hops[i:i + hop_len] for i in range(0, len(hops), hop_len)]
-        ragged = [c for c in chains if len({(e[1], e[2]) for e in c}) != 1]
+        chains: dict = {}
+        for e in hops:
+            chains.setdefault(_chain(e), []).append(e)
+        untagged = chains.pop(None, [])
+        if untagged:
+            problems.append(f"{len(untagged)} ring hops carry no chain tag")
+        ragged = [c for c in chains.values()
+                  if len(c) != hop_len or len({(e[1], e[2]) for e in c}) != 1]
         if len(chains) != n_chains or ragged:
-            problems.append(f"expected {n_chains} chains of {hop_len} equal hops, found "
-                            f"{len(chains)} ({len(ragged)} ragged)")
+            problems.append(f"expected {n_chains} independent chains of {hop_len} equal hops, "
+                            f"found {len(chains)} ({len(ragged)} ragged)")
+    return problems
+
+
+def compute_between_problems(schedule) -> list:
+    """R1's compute-between half, from an overlapped pair's host schedule
+    (``bucketing.overlap_log`` entries (event, unit or op, time)): every
+    unit of the first averaging is issued before the second window's
+    first local step; for each unit the second window dispatches a
+    matmul-bearing op after the unit's issue and before its wait on it,
+    except the units that its first such op itself waits for (the leaves
+    that op reads: nothing of the window can run under them, in the
+    reference's fused pair either); and one unit at least has such an op,
+    or the pair ran one window after the other."""
+    ev = [(e, w) for e, w, *_ in schedule]
+    issued = {w: i for i, (e, w) in enumerate(ev) if e == "issue"}
+    if not issued:
+        return ["the pair's first averaging issued no unit beside the second window"]
+    problems = []
+    steps = [i for i, (e, _) in enumerate(ev) if e == "step"]
+    if not steps:
+        return ["the second window ran no local step while the first averaging was pending"]
+    late = [w for w, i in issued.items() if i > steps[0]]
+    if late:
+        problems.append(f"units issued after the second window began (the host blocked): "
+                        f"{late}")
+    waits: dict = {}
+    for i, (e, w) in enumerate(ev):
+        if e == "wait":
+            waits.setdefault(w, i)
+    computes = [i for i, (e, _) in enumerate(ev) if e == "compute"]
+    first = computes[0] if computes else len(ev)
+    between = {w: sum(1 for c in computes if i < c < waits.get(w, len(ev)))
+               for w, i in issued.items()}
+    bare = [w for w in issued if not between[w] and waits.get(w, len(ev)) > first]
+    if bare:
+        problems.append(f"no compute between the issue of and the wait on {bare}")
+    if not any(between.values()):
+        problems.append(f"no unit of {sorted(issued)} has compute of the second window between "
+                        "its issue and its wait: the windows ran one after the other")
     return problems
 
 
@@ -302,7 +353,7 @@ def gather_pair_problems(wire, *, payload_bytes: int, n_rows: int) -> list:
         problems.append(f"int8 averaging must ship all_gather only, found {_fmt(stray)}")
     ops = [e for e in wire if e[0] == "all_gather"]
     by: dict = {}
-    for _, t, b in ops:
+    for _, t, b, *_ in ops:
         by[t] = by.get(t, 0) + b
     if set(by) - {"s8", "f32"}:
         problems.append(f"int8 wire must be s8 payload + f32 scales, found dtypes {sorted(by)}")
@@ -318,34 +369,29 @@ def gather_pair_problems(wire, *, payload_bytes: int, n_rows: int) -> list:
     return problems
 
 
-def rule_collective_placement(prog: Program):
-    """R1: returns (findings, not-checked halves)."""
+def rule_collective_placement(prog: Program) -> list:
+    """R1's findings."""
     spec = prog.expect.get("collectives")
     if spec is None:
-        return [], []
+        return []
     kind = spec["kind"]
     if kind == "none":
         return ([Finding("R1", prog.name, f"must be collective-free, found {_fmt(prog.wire)}")]
-                if prog.wire else []), []
+                if prog.wire else [])
     if kind == "window":
         problems = window_payload_problems(prog.wire, spec["expected_bytes"],
                                            by_dtype=spec["by_dtype"],
                                            opt_bytes=spec.get("opt_bytes"))
     elif kind == "ring":
         problems = ring_problems(prog.wire, n_hops=spec["n_hops"], n_chains=spec["n_chains"],
-                                 hop_len=spec["hop_len"])
-        return [Finding("R1", prog.name, p) for p in problems], [(
-            "R1", prog.name,
-            "compute between the ring hops (the reference's require_compute_between): the "
-            "port runs a pair's two windows one after the other "
-            "(core/coda_sharded.py window_pair_step), so no compute is scheduled between "
-            "the first window's hops; ROADMAP Queue 3")]
+                                 hop_len=spec["hop_len"]) \
+            + compute_between_problems(prog.schedule)
     elif kind == "gather_pair":
         problems = gather_pair_problems(prog.wire, payload_bytes=spec["payload_bytes"],
                                         n_rows=spec["n_rows"])
     else:
         raise ValueError(f"unknown R1 expectation kind {kind!r}")
-    return [Finding("R1", prog.name, p) for p in problems], []
+    return [Finding("R1", prog.name, p) for p in problems]
 
 
 # --------------------------------------------------------------------------
@@ -948,6 +994,7 @@ def run_program(prog: Program, fn, args: list, *, consumed=(0,), query: bool = F
             out = fn(*args)
         args.clear()
         prog.wire += list(bucketing.wire_log)
+        prog.schedule += list(bucketing.overlap_log)
         for f in sorted(set(flags) | set(reduced_precision_allowed())):
             lint.note("reduced_precision", f)
         if survivors is not None:
@@ -973,9 +1020,7 @@ def run_rules(programs, launches=(), *, rules=None, check_dispatch: bool = True)
     rep = AuditReport([], [])
     for prog in programs:
         if "R1" in sel and "collectives" in prog.expect:
-            f, nc = rule_collective_placement(prog)
-            rep.findings += f
-            rep.not_checked += nc
+            rep.findings += rule_collective_placement(prog)
             rep.checked.append(("R1", prog.name))
         if "R2" in sel and (prog.retained is not None or prog.memory is not None):
             rep.findings += rule_buffer_reuse(prog)

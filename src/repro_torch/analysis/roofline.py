@@ -22,9 +22,9 @@ KINDS = ("all_reduce", "all_gather", "p2p", "readout")
 
 def collective_bytes(wire_log) -> dict:
     """Per-kind {bytes, count, by_dtype} and the totals, from
-    ``bucketing.wire_log`` entries (kind, dtype tag, bytes)."""
+    ``bucketing.wire_log`` entries (kind, dtype tag, bytes[, chain])."""
     out = {k: {"bytes": 0, "count": 0, "by_dtype": {}} for k in KINDS}
-    for kind, tag, n in wire_log:
+    for kind, tag, n, *_ in wire_log:
         rec = out.setdefault(kind, {"bytes": 0, "count": 0, "by_dtype": {}})
         rec["bytes"] += n
         rec["count"] += 1

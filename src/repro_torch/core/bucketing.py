@@ -16,7 +16,16 @@ reference's hop order, so the ring's sums are added in the reference's
 order.  ``bucket_layout``'s byte totals are
 ``coda.window_payload_by_dtype``.  Every collective is counted by kind in
 ``collectives`` (calls and bytes), and each call in ``wire_log`` (its kind,
-dtype tag and bytes, in order), both zeroed by ``zero_collectives``.
+dtype tag, bytes and ring chain, in order), both zeroed by
+``zero_collectives``.
+
+An averaging is a ``Plan``: the rows it reduces and, per averaged leaf, a
+finish that makes the leaf from the reduced rows it needs.  ``Plan.run``
+reduces and finishes at once; ``PendingAverage`` runs a ring plan's
+independent units (a chunk's chain of hops; at R = 1 a row's local mean)
+beside the next window's local steps, each leaf finished after its last
+unit, and the next window waits per leaf where it first reads one (the
+overlapped pair of ``core/coda_sharded.py``).
 
 Two payloads, as in the reference:
 
@@ -41,10 +50,18 @@ one ulp off the reference's quotient.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
+import time
+from collections.abc import Callable
 
 import torch
 import torch.distributed as dist
+import torch.utils._pytree as pytree
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
@@ -88,13 +105,24 @@ def mean0(x: torch.Tensor) -> torch.Tensor:
 # that are no part of a window (readout: the losses fit reports, a
 # checkpoint's state)
 collectives: dict[str, dict[str, int]] = {}
-# every counted call, in order: (kind, dtype tag, bytes of this rank's operand)
-wire_log: list[tuple[str, str, int]] = []
+# every counted call, in order: (kind, dtype tag, bytes of this rank's
+# operand, the ring chain a hop belongs to or None)
+wire_log: list[tuple[str, str, int, str | None]] = []
+# an overlapped pair's schedule on the host (``PendingAverage``), in order:
+# ("issue", unit) as the first averaging hands a unit to its stream or
+# thread, ("step", i) as the second window starts local step i with leaves
+# pending, ("compute", op) for each matmul-bearing op it then dispatches,
+# ("wait", unit) where it first waits on a unit, ("done", unit) as the gloo
+# thread completes one; each with the host's ``time.perf_counter()``
+overlap_log: list[tuple[str, str, float]] = []
+_ring_serial = [0]          # ring reductions since the last zeroing: chain tags
 
 
 def zero_collectives() -> None:
     collectives.clear()
     wire_log.clear()
+    overlap_log.clear()
+    _ring_serial[0] = 0
     collectives.update({k: {"calls": 0, "bytes": 0}
                         for k in ("all_reduce", "all_gather", "p2p", "readout")})
 
@@ -102,11 +130,11 @@ def zero_collectives() -> None:
 zero_collectives()
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def _count(kind: str, t: torch.Tensor, chain: str | None = None) -> None:
     n = t.numel() * t.element_size()
     collectives[kind]["calls"] += 1
     collectives[kind]["bytes"] += n
-    wire_log.append((kind, DTYPE_TAG.get(t.dtype, str(t.dtype)), n))
+    wire_log.append((kind, DTYPE_TAG.get(t.dtype, str(t.dtype)), n, chain))
 
 
 # ``all_gather_into_tensor`` is ``all_gather_single`` in newer torch
@@ -139,11 +167,12 @@ class Wire:
         _all_gather_single(out, buf, group=self.group)
         return out
 
-    def hop(self, send: torch.Tensor) -> torch.Tensor:
-        """One ring hop (the reference's ``ppermute`` i → i+1): send to the
-        next rank, receive the previous rank's tensor."""
+    def hop(self, send: torch.Tensor, chain: str | None = None) -> torch.Tensor:
+        """One ring hop (the reference's ``ppermute`` i → i+1) of ring chain
+        ``chain``: send to the next rank, receive the previous rank's
+        tensor."""
         send = send.contiguous()
-        _count("p2p", send)
+        _count("p2p", send, chain)
         recv = torch.empty_like(send)
         for req in dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, send, self._next, self.group),
@@ -220,11 +249,12 @@ def ring_hop_count(sizes: dict, ring: RingSpec) -> int:
     return ring_chain_count(sizes, ring) * 2 * (ring.size - 1)
 
 
-def _ring_chunk_sum(chunk: torch.Tensor, ring: RingSpec) -> torch.Tensor:
+def _ring_chunk_sum(chunk: torch.Tensor, ring: RingSpec, chain: str) -> torch.Tensor:
     """The sum of a [m] chunk over the ring, the reference's hop for hop:
     reduce-scatter (R−1 hops; at hop t rank i forwards its partial of
     shard i−t+1 and folds its own shard into the one it receives), then
-    all-gather (R−1 more hops around the same ring)."""
+    all-gather (R−1 more hops around the same ring).  Every hop is logged
+    under ``chain``."""
     R, idx = ring.size, ring.wire.index
     m = chunk.shape[0]
     s = -(-m // R)                       # ring shard length (padded)
@@ -233,32 +263,97 @@ def _ring_chunk_sum(chunk: torch.Tensor, ring: RingSpec) -> torch.Tensor:
     shards = shards.view(R, s)
     send = shards[(idx + 1) % R]
     for t in range(R - 1):
-        send = shards[(idx - t) % R] + ring.wire.hop(send)
+        send = shards[(idx - t) % R] + ring.wire.hop(send, chain)
     own = (idx - (R - 2)) % R
     out = chunk.new_zeros((R, s))
     out[own] = send
     cur = send
     for t in range(R - 1):
-        cur = ring.wire.hop(cur)
+        cur = ring.wire.hop(cur, chain)
         out[(own - 1 - t) % R] = cur
     return out.view(-1)[:m]
 
 
-def _ring_buckets(mats, ring: RingSpec, *, mean: bool):
-    """Per-dtype bucket reduction as chunked rings: the local reduction over
-    the rank's rows, then C independent reduce-scatter/all-gather chains a
-    bucket (sizes differ by at most one, never 0).  ``mean`` divides each
-    chunk's sum by the ring size; else the raw sum (the masked path divides
-    by the on-wire weight sum instead)."""
-    red = [mean0(m) if mean else sum0(m) for m in mats]
-    if ring.size == 1:
-        return red                       # degenerate: no wire
+@dataclasses.dataclass(frozen=True)
+class _Unit:
+    """One independent piece of a ring reduction: at R > 1 the chain of
+    hops of one chunk, ``[lo, hi)`` of dtype bucket ``bucket``'s flat
+    buffer; at R = 1 the local reduction of one row block.  ``rows``: the
+    row blocks it covers, whole or in part."""
+    tag: str
+    rows: tuple
+    bucket: int = -1
+    lo: int = 0
+    hi: int = 0
 
-    def reduce(flat):
-        offs = _chunk_offsets(flat.numel(), _n_chunks(flat.numel(), ring))
-        sums = [_ring_chunk_sum(flat[lo:hi], ring) for lo, hi in zip(offs[:-1], offs[1:])]
-        return torch.cat([div(x, ring.size) for x in sums] if mean else sums)
-    return _wire_buckets(red, reduce)
+
+class _RingReduction:
+    """A per-dtype bucket reduction of [K_loc, n_i] row blocks as chunked
+    rings, run unit by unit (``run``) so that a caller can finish what each
+    unit completes.  At R > 1: the local reduction over the rank's rows and
+    the flat buffer of a bucket (before its first unit), then C independent
+    reduce-scatter/all-gather chains a bucket (sizes differ by at most one,
+    never 0).  At R = 1 there is no wire: a unit is one row block's local
+    reduction.  ``mean`` divides each chunk's sum by the ring size; else
+    the raw sum (the masked path divides by the on-wire weight sum).
+    ``reduced(i)``: row block i's [n_i] result once its units have run."""
+
+    def __init__(self, rows, ring: RingSpec, *, mean: bool):
+        self.rows, self.ring, self.mean = list(rows), ring, mean
+        serial = _ring_serial[0] = _ring_serial[0] + 1
+        self.units: list[_Unit] = []
+        if ring.size == 1:
+            self.units = [_Unit(f"a{serial}/row{i}", (i,)) for i in range(len(self.rows))]
+            self._out = [None] * len(self.rows)
+            return
+        self._buckets, self._at = [], {}
+        for b, idxs in enumerate(_by_dtype(self.rows).values()):
+            sizes = [self.rows[i].shape[1] for i in idxs]
+            starts = [sum(sizes[:k]) for k in range(len(idxs))]
+            self._buckets.append(idxs)
+            for i, st, n in zip(idxs, starts, sizes):
+                self._at[i] = (b, st, n)
+            n = sum(sizes)
+            offs = _chunk_offsets(n, _n_chunks(n, ring))
+            tag = DTYPE_TAG[self.rows[idxs[0]].dtype]
+            for c, (lo, hi) in enumerate(zip(offs[:-1], offs[1:])):
+                cover = tuple(i for i, st, m in zip(idxs, starts, sizes) if st < hi and st + m > lo)
+                self.units.append(_Unit(f"a{serial}/{tag}/c{c}", cover, b, lo, hi))
+        self._flat = [None] * len(self._buckets)
+        self._out = [None] * len(self._buckets)
+        self._left = [sum(1 for u in self.units if u.bucket == b)
+                      for b in range(len(self._buckets))]
+
+    def _local(self, i):
+        return mean0(self.rows[i]) if self.mean else sum0(self.rows[i])
+
+    def run(self, u: _Unit) -> None:
+        if self.ring.size == 1:
+            self._out[u.rows[0]] = self._local(u.rows[0])
+            return
+        b = u.bucket
+        if self._out[b] is None:
+            self._flat[b] = torch.cat([self._local(i) for i in self._buckets[b]])
+            self._out[b] = torch.empty_like(self._flat[b])
+        s = _ring_chunk_sum(self._flat[b][u.lo:u.hi], self.ring, u.tag)
+        self._out[b][u.lo:u.hi] = div(s, self.ring.size) if self.mean else s
+        self._left[b] -= 1
+        if not self._left[b]:
+            self._flat[b] = None         # the bucket's last chain has run
+
+    def reduced(self, i: int) -> torch.Tensor:
+        if self.ring.size == 1:
+            return self._out[i]
+        b, st, n = self._at[i]
+        return self._out[b][st:st + n]
+
+
+def _ring_buckets(mats, ring: RingSpec, *, mean: bool):
+    """Every unit of a ring reduction in order, then each row's result."""
+    rr = _RingReduction(mats, ring, mean=mean)
+    for u in rr.units:
+        rr.run(u)
+    return [rr.reduced(i) for i in range(len(mats))]
 
 
 def ring_mean_buckets(mats, ring: RingSpec):
@@ -283,16 +378,6 @@ def _state_mats(state):
     flat = tree_leaves(like)
     kloc = flat[0].shape[0]
     return [l.reshape(kloc, -1) for l in flat], (flat, like), kloc
-
-
-def _unmats(meta, kloc, means):
-    """Per-leaf reduced rows [n_i] back into a {"params", "duals"} pair,
-    each cast to its leaf's dtype and broadcast to every worker."""
-    flat, like = meta
-    outs = [m.reshape(l.shape[1:]).to(l.dtype).expand(l.shape).contiguous()
-            for l, m in zip(flat, means)]
-    tree = tree_unflatten(like, outs)
-    return tree["params"], tree["duals"]
 
 
 def bucket_layout(state, *, masked: bool = False) -> dict[str, dict]:
@@ -392,107 +477,23 @@ def int8_average(mats, wa: Wire | None = None):
 def _sketch_mats(state, n_workers):
     """The sketch deltas (``sk_new``) as fp32 rows pre-scaled by the worker
     count K, so the bucket's MEAN is the exact count SUM (integer-valued
-    fp32 numerators, integer quotients).  ([], None) when the sketch is
-    off."""
+    fp32 numerators, integer quotients).  [] when the sketch is off."""
     if "sk_new" not in state:
-        return [], None
+        return []
     if not n_workers:
         raise ValueError("averaging a state with a streaming-eval sketch "
                          "needs n_workers (the pre-scale that turns the "
                          "wire mean into the exact count sum)")
     flat = tree_leaves(state["sk_new"])
     kloc = flat[0].shape[0]
-    mats = [(l.to(F32) * float(n_workers)).reshape(kloc, -1) for l in flat]
-    return mats, (flat, state["sk_new"])
+    return [(l.to(F32) * float(n_workers)).reshape(kloc, -1) for l in flat]
 
-
-def _apply_sketch_sums(new, smeta, sums):
-    """Fold the exact delta sums into the replicated accumulator, each
-    worker's own delta into its local history, and reset the deltas."""
-    flat, like = smeta
-    delta = tree_unflatten(like, [s.reshape(l.shape[1:]) for s, l in zip(sums, flat)])
-    new["sk_acc"] = {k: new["sk_acc"][k] + delta[k] for k in new["sk_acc"]}
-    if "sk_loc" in new:
-        new["sk_loc"] = {k: new["sk_loc"][k] + new["sk_new"][k] for k in new["sk_loc"]}
-    new["sk_new"] = {k: torch.zeros_like(v) for k, v in new["sk_new"].items()}
-    return new
 
 
 def _no_ring_int8(ring, compress):
     if ring is not None and compress:
         raise ValueError("ring averaging does not support compressed buckets")
 
-
-def _mean_buckets(mats, wa, ring):
-    """The window's one collective per dtype bucket of the means: by
-    all_reduce, or by rings."""
-    return ring_mean_buckets(mats, ring) if ring is not None else pmean_buckets(mats, wa)
-
-
-def _sum_buckets(mats, wa, ring):
-    """The masked window's one collective per dtype bucket of the sums of
-    the pre-scaled rows and the weight lanes: by all_reduce, or by rings."""
-    return ring_sum_buckets(mats, ring) if ring is not None else psum_buckets(mats, wa)
-
-
-def average_state(state, compress: str | None, *, wa: Wire | None = None,
-                  ring: RingSpec | None = None, n_workers: int | None = None):
-    """Periodic model averaging (``coda.average``, CoDA's window end): the
-    mean over the workers of every params and dual leaf, broadcast back,
-    each leaf in its own dtype (a bf16 leaf summed in fp32 and rounded
-    once, as ``jnp.mean`` rounds); ``compress="int8"`` averages each
-    worker's int8-quantized rows.  The sketch deltas (which need
-    ``n_workers``) ride the f32 bucket as exact count sums.  ``wa`` /
-    ``ring``: across ranks, by all_reduce or by rings."""
-    _no_ring_int8(ring, compress)
-    mats, meta, kloc = _state_mats(state)
-    smats, smeta = _sketch_mats(state, n_workers)
-    if compress == "int8":
-        if smats:
-            raise ValueError("the streaming-eval sketch cannot ride int8 "
-                             "compressed buckets")
-        means = int8_average(mats, wa)
-    else:
-        means = _mean_buckets(mats + smats, wa, ring)
-    new = dict(state)
-    new["params"], new["duals"] = _unmats(meta, kloc, means[:len(mats)])
-    if smeta is not None:
-        new = _apply_sketch_sums(new, smeta, means[len(mats):])
-    return new
-
-
-def average_and_refresh(state, cv_new, compress: str | None, *, wa: Wire | None = None,
-                        ring: RingSpec | None = None, n_workers: int | None = None):
-    """CODASCA's window end: average the state AND the fresh per-worker
-    control variates ``cv_new`` ({"params", "duals"} in the wire dtypes) in
-    the same buckets.  The state mean is broadcast back, the variate mean
-    becomes ``cg_*``, and each worker keeps its own ``cv_new`` as ``cv_*``.
-
-    Under int8 each worker stores its variates re-quantized by the wire's
-    quantizer (locally), so ``cg == mean_k cv_k`` survives quantization and
-    the K = 1 and homogeneous CODASCA ≡ CoDA equivalences hold."""
-    _no_ring_int8(ring, compress)
-    mats, meta, kloc = _state_mats(state)
-    cmats, cmeta, _ = _state_mats(cv_new)
-    smats, smeta = _sketch_mats(state, n_workers)
-    if compress == "int8":
-        if smats:
-            raise ValueError("the streaming-eval sketch cannot ride int8 "
-                             "compressed buckets")
-        means = int8_average(mats + cmats, wa)
-        cmats = [_int8_rows(m).to(m.dtype) for m in cmats]
-    else:
-        means = _mean_buckets(mats + cmats + smats, wa, ring)
-    n, nc = len(mats), len(cmats)
-    new = dict(state)
-    new["params"], new["duals"] = _unmats(meta, kloc, means[:n])
-    if smeta is not None:
-        new = _apply_sketch_sums(new, smeta, means[n + nc:])
-    new["cg_params"], new["cg_duals"] = _unmats(cmeta, kloc, means[n:n + nc])
-    flat, like = cmeta
-    stored = tree_unflatten(like, [m.reshape(l.shape) for m, l in zip(cmats, flat)])
-    new["cv_params"], new["cv_duals"] = stored["params"], stored["duals"]
-    return new
 
 
 # --------------------------------------------------------------------------
@@ -515,36 +516,10 @@ def _masked_sketch_mats(state, m):
     participation mask only, so participants' exact counts fold in and
     absent workers' deltas stay local until they next participate."""
     if "sk_new" not in state:
-        return [], None
+        return []
     flat = tree_leaves(state["sk_new"])
     kloc = flat[0].shape[0]
-    return ([l.to(F32).reshape(kloc, -1) * m[:, None] for l in flat],
-            (flat, state["sk_new"]))
-
-
-def _apply_masked_sketch_sums(new, smeta, sums, m):
-    """Fold the participants' delta sums into the accumulator and their own
-    histories; reset only the participants' deltas (binary mask: exact)."""
-    flat, like = smeta
-    delta = tree_unflatten(like, [s.reshape(l.shape[1:]) for s, l in zip(sums, flat)])
-    new["sk_acc"] = {k: new["sk_acc"][k] + delta[k] for k in new["sk_acc"]}
-    if "sk_loc" in new:
-        new["sk_loc"] = {k: new["sk_loc"][k] + new["sk_new"][k] * _col(m, new["sk_new"][k])
-                         for k in new["sk_loc"]}
-    keep = 1.0 - m
-    new["sk_new"] = {k: v * _col(keep, v) for k, v in new["sk_new"].items()}
-    return new
-
-
-def _select_rows(meta, kloc, merged, take):
-    """Rows with ``take > 0`` (participants and re-syncing workers) adopt
-    the merged value cast to their dtype; rows with ``take == 0``
-    (mid-straggle workers) keep their own iterate."""
-    flat, like = meta
-    outs = [torch.where(_col(take, l) > 0, v.to(l.dtype).reshape(l.shape[1:]), l)
-            for l, v in zip(flat, merged)]
-    tree = tree_unflatten(like, outs)
-    return tree["params"], tree["duals"]
+    return [l.to(F32).reshape(kloc, -1) * m[:, None] for l in flat]
 
 
 def masked_int8_average(mats, lane_idx, lanes, wa: Wire | None = None):
@@ -558,6 +533,252 @@ def masked_int8_average(mats, lane_idx, lanes, wa: Wire | None = None):
             for d, m, j in zip(deq, mats, lane_idx)]
 
 
+
+# --------------------------------------------------------------------------
+# an averaging as a plan: the rows it reduces, and the finishes that make
+# each averaged leaf from the reduced rows it needs
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class _Finish:
+    """Leaves of the averaged state, each ``(state key, leaf index)``, and
+    ``fn(get)`` making them from the reduced rows ``needs`` (``get(i)``:
+    row i's reduced vector)."""
+    outs: list
+    needs: tuple
+    fn: Callable
+
+
+@dataclasses.dataclass
+class Plan:
+    """One window averaging.  ``rows``: the [K_loc, n_i] row blocks that
+    cross the wire, in ``bucket_layout``'s order; ``reduce(rows)``: their
+    reduction over every worker (blocking); ``ring`` and ``mean``: the same
+    reduction as ring units, which ``PendingAverage`` runs beside the next
+    window (None when the averaging has no ring form: all_reduce, int8);
+    ``finishes``: every averaged leaf; ``local``: the top-level entries of
+    the new state that need no reduced row."""
+    state: dict
+    rows: list
+    reduce: Callable
+    finishes: list
+    local: dict
+    ring: RingSpec | None = None
+    mean: bool = True
+
+    def slots(self) -> dict:
+        """An empty leaf list for every state key a finish writes."""
+        keys = {k for f in self.finishes for k, _ in f.outs}
+        return {k: [None] * len(tree_leaves(self.state[k])) for k in keys}
+
+    def assemble(self, slots: dict) -> dict:
+        new = dict(self.state)
+        new.update(self.local)
+        for k, leaves in slots.items():
+            new[k] = tree_unflatten(self.state[k], leaves)
+        return new
+
+    def run(self) -> dict:
+        """The averaging, blocking: reduce, then every finish."""
+        red = self.reduce(self.rows)
+        slots = self.slots()
+        for f in self.finishes:
+            for (k, i), t in zip(f.outs, f.fn(red.__getitem__)):
+                slots[k][i] = t.contiguous()
+        return self.assemble(slots)
+
+
+def _outs(like, prefix: str = "") -> list:
+    """(state key, leaf index) of each leaf of a {"params", "duals"} tree,
+    in ``tree_leaves`` order."""
+    return [(prefix + k, i) for k in sorted(like) for i in range(len(tree_leaves(like[k])))]
+
+
+def _bcast(v, shape, dtype):
+    """A reduced [n_i] row cast to the leaf's dtype, on every worker."""
+    return v.reshape(shape[1:]).to(dtype).expand(shape)
+
+
+def _fin_mean(get, *, row, lane, col, shape, dtype):
+    """A leaf every worker adopts: the row's mean (the masked path: the
+    weighted sum over the lane's total, in fp32)."""
+    v = get(row)
+    if lane is not None:
+        v = div(v.to(F32), torch.clamp_min(get(lane)[col], 1.0))
+    return [_bcast(v, shape, dtype)]
+
+
+def _fin_select(get, *, row, lane, old, take):
+    """A masked state leaf: the weighted mean over the participants (the
+    int8 pair: already divided), adopted by the rows with ``take > 0``;
+    the others keep their own iterate."""
+    v = get(row)
+    if lane is not None:
+        v = div(v.to(F32), torch.clamp_min(get(lane)[0], 1.0))
+    return [torch.where(_col(take, old) > 0, v.to(old.dtype).reshape(old.shape[1:]), old)]
+
+
+def _fin_sketch(get, *, row, acc):
+    """The replicated count accumulator plus the exact delta sums."""
+    return [acc + get(row).reshape(acc.shape[1:])]
+
+
+def _fin_momentum(get, *, inner, xs, m, beta):
+    """Server momentum on the averaged iterate (CODASCA's server update)
+
+        m ← β·m + (x̄ − x_start),    x ← x_start + m
+
+    in fp32, where x_start is the synced iterate the window started from:
+    the leaf's averaged value, then its momentum buffer (``srv_m``, a
+    function of synced iterates, so replicated and never shipped)."""
+    xb = inner(get)[0]
+    m = beta * m + (xb.to(F32) - xs.to(F32))
+    return [(xs.to(F32) + m).to(xb.dtype), m]
+
+
+def _with_momentum(plan: Plan, start_params, beta: float) -> Plan:
+    """``plan`` with server momentum folded into each params leaf's finish."""
+    xs, ms = tree_leaves(start_params), tree_leaves(plan.state["srv_m"])
+    fins = []
+    for f in plan.finishes:
+        (k, i), = f.outs
+        if k == "params":
+            f = _Finish([(k, i), ("srv_m", i)], f.needs, functools.partial(
+                _fin_momentum, inner=f.fn, xs=xs[i], m=ms[i], beta=beta))
+        fins.append(f)
+    return dataclasses.replace(plan, finishes=fins)
+
+
+def _sketch_finishes(state, first_row: int) -> list:
+    """``sk_acc`` leaf i from reduced row ``first_row + i`` (the sketch rows
+    follow ``sk_new``'s leaves, as ``sk_acc``'s do)."""
+    return [_Finish([("sk_acc", i)], (first_row + i,),
+                    functools.partial(_fin_sketch, row=first_row + i, acc=a))
+            for i, a in enumerate(tree_leaves(state["sk_acc"]))]
+
+
+def _reducer(compress, wa, ring, *, mean: bool):
+    if compress == "int8":
+        return functools.partial(int8_average, wa=wa)
+    if ring is not None:
+        return functools.partial(_ring_buckets, ring=ring, mean=mean)
+    return functools.partial(_reduce_buckets, wa=wa, mean=mean)
+
+
+def average_plan(state, cv_new, compress: str | None, *, wa: Wire | None = None,
+                 ring: RingSpec | None = None, n_workers: int | None = None,
+                 momentum=None) -> Plan:
+    """The plan of ``average_state`` (``cv_new`` None) or of
+    ``average_and_refresh``; ``momentum``: (the window's start params, β)
+    for server momentum."""
+    _no_ring_int8(ring, compress)
+    mats, (flat, like), _ = _state_mats(state)
+    fins = [_Finish([o], (j,), functools.partial(_fin_mean, row=j, lane=None, col=0,
+                                                  shape=l.shape, dtype=l.dtype))
+            for j, (o, l) in enumerate(zip(_outs(like), flat))]
+    rows, local = list(mats), {}
+    if cv_new is not None:
+        cmats, (cflat, clike), _ = _state_mats(cv_new)
+        n = len(rows)
+        fins += [_Finish([o], (n + j,), functools.partial(_fin_mean, row=n + j, lane=None,
+                                                           col=0, shape=l.shape, dtype=l.dtype))
+                 for j, (o, l) in enumerate(zip(_outs(clike, "cg_"), cflat))]
+        rows += cmats
+        if compress == "int8":           # each worker stores what the wire carried
+            cmats = [_int8_rows(m).to(m.dtype) for m in cmats]
+        stored = tree_unflatten(clike, [m.reshape(l.shape) for m, l in zip(cmats, cflat)])
+        local["cv_params"], local["cv_duals"] = stored["params"], stored["duals"]
+    smats = _sketch_mats(state, n_workers)
+    if smats:
+        if compress == "int8":
+            raise ValueError("the streaming-eval sketch cannot ride int8 "
+                             "compressed buckets")
+        fins += _sketch_finishes(state, len(rows))
+        rows += smats
+        if "sk_loc" in state:
+            local["sk_loc"] = {k: state["sk_loc"][k] + state["sk_new"][k]
+                               for k in state["sk_loc"]}
+        local["sk_new"] = {k: torch.zeros_like(v) for k, v in state["sk_new"].items()}
+    plan = Plan(state, rows, _reducer(compress, wa, ring, mean=True), fins, local, ring,
+                mean=True)
+    return plan if momentum is None else _with_momentum(plan, *momentum)
+
+
+def masked_plan(state, cv_new, faults, compress: str | None, *, wa: Wire | None = None,
+                ring: RingSpec | None = None) -> Plan:
+    """The plan of ``masked_average_state`` (``cv_new`` None) or of
+    ``masked_average_and_refresh``."""
+    _no_ring_int8(ring, compress)
+    u, r, m = _masks(faults)
+    take = torch.maximum(m, r)
+    mats, (flat, like), _ = _state_mats(state)
+    n, int8 = len(mats), compress == "int8"
+    cv = cv_new is not None
+    cmats, (cflat, clike), _ = _state_mats(cv_new) if cv else ([], (None, None), None)
+    nc = len(cmats)
+    lane = None if int8 else n + nc      # the weight lanes' row (int8: divided already)
+    fins = [_Finish([o], (j,) if int8 else (j, lane), functools.partial(
+        _fin_select, row=j, lane=lane, old=l, take=take))
+        for j, (o, l) in enumerate(zip(_outs(like), flat))]
+    local = {}
+    if cv:
+        fins += [_Finish([o], (n + j,) if int8 else (n + j, lane), functools.partial(
+            _fin_mean, row=n + j, lane=lane, col=1, shape=l.shape, dtype=l.dtype))
+            for j, (o, l) in enumerate(zip(_outs(clike, "cg_"), cflat))]
+        fresh = [_int8_rows(mt).to(mt.dtype) for mt in cmats] if int8 else cmats
+        # c_k ← the fresh variate for participants, unchanged for absent workers
+        old = tree_leaves({"params": state["cv_params"], "duals": state["cv_duals"]})
+        stored = tree_unflatten(clike, [
+            torch.where(_col(m, o) > 0, f.reshape(o.shape).to(o.dtype), o)
+            for f, o in zip(fresh, old)])
+        local["cv_params"], local["cv_duals"] = stored["params"], stored["duals"]
+    lanes = torch.stack([u, m], dim=1) if cv else u[:, None]     # [K_loc, 1 or 2] f32
+    if int8:
+        if "sk_new" in state:
+            raise ValueError("the streaming-eval sketch cannot ride int8 "
+                             "compressed buckets")
+        reduce = functools.partial(masked_int8_average, lane_idx=[0] * n + [1] * nc,
+                                   lanes=lanes, wa=wa)
+        return Plan(state, mats + cmats, reduce, fins, local)
+    rows = _scaled(mats, u) + _scaled(cmats, m) + [lanes]
+    smats = _masked_sketch_mats(state, m)
+    if smats:
+        fins += _sketch_finishes(state, len(rows))
+        rows += smats
+        if "sk_loc" in state:
+            new = state["sk_new"]
+            local["sk_loc"] = {k: state["sk_loc"][k] + new[k] * _col(m, new[k])
+                               for k in state["sk_loc"]}
+        keep = 1.0 - m
+        local["sk_new"] = {k: v * _col(keep, v) for k, v in state["sk_new"].items()}
+    return Plan(state, rows, _reducer(None, wa, ring, mean=False), fins, local, ring,
+                mean=False)
+
+
+def average_state(state, compress: str | None, *, wa: Wire | None = None,
+                  ring: RingSpec | None = None, n_workers: int | None = None):
+    """Periodic model averaging (``coda.average``, CoDA's window end): the
+    mean over the workers of every params and dual leaf, broadcast back,
+    each leaf in its own dtype (a bf16 leaf summed in fp32 and rounded
+    once, as ``jnp.mean`` rounds); ``compress="int8"`` averages each
+    worker's int8-quantized rows.  The sketch deltas (which need
+    ``n_workers``) ride the f32 bucket as exact count sums.  ``wa`` /
+    ``ring``: across ranks, by all_reduce or by rings."""
+    return average_plan(state, None, compress, wa=wa, ring=ring, n_workers=n_workers).run()
+
+
+def average_and_refresh(state, cv_new, compress: str | None, *, wa: Wire | None = None,
+                        ring: RingSpec | None = None, n_workers: int | None = None):
+    """CODASCA's window end: average the state AND the fresh per-worker
+    control variates ``cv_new`` ({"params", "duals"} in the wire dtypes) in
+    the same buckets.  The state mean is broadcast back, the variate mean
+    becomes ``cg_*``, and each worker keeps its own ``cv_new`` as ``cv_*``.
+
+    Under int8 each worker stores its variates re-quantized by the wire's
+    quantizer (locally), so ``cg == mean_k cv_k`` survives quantization and
+    the K = 1 and homogeneous CODASCA ≡ CoDA equivalences hold."""
+    return average_plan(state, cv_new, compress, wa=wa, ring=ring, n_workers=n_workers).run()
+
+
 def masked_average_state(state, faults, compress: str | None, *, wa: Wire | None = None,
                          ring: RingSpec | None = None):
     """``average_state`` under partial participation: the exact u-weighted
@@ -566,27 +787,7 @@ def masked_average_state(state, faults, compress: str | None, *, wa: Wire | None
     [K_loc] f32} from ``core.faults.FaultPlan.window`` on the state's
     device, cut to the rank's workers.  The weight lane Σu rides the f32
     bucket (or the int8 pair's scales)."""
-    _no_ring_int8(ring, compress)
-    u, r, m = _masks(faults)
-    mats, meta, kloc = _state_mats(state)
-    smats, smeta = _masked_sketch_mats(state, m)
-    n = len(mats)
-    if compress == "int8":
-        if smats:
-            raise ValueError("the streaming-eval sketch cannot ride int8 "
-                             "compressed buckets")
-        means = masked_int8_average(mats, [0] * n, u[:, None], wa)
-        ssums = []
-    else:
-        sums = _sum_buckets(_scaled(mats, u) + [u[:, None]] + smats, wa, ring)
-        W = torch.clamp_min(sums[n][0], 1.0)
-        means = [div(s.to(F32), W) for s in sums[:n]]
-        ssums = sums[n + 1:]
-    new = dict(state)
-    new["params"], new["duals"] = _select_rows(meta, kloc, means, torch.maximum(m, r))
-    if smeta is not None:
-        new = _apply_masked_sketch_sums(new, smeta, ssums, m)
-    return new
+    return masked_plan(state, None, faults, compress, wa=wa, ring=ring).run()
 
 
 def masked_average_and_refresh(state, cv_new, faults, compress: str | None, *,
@@ -597,37 +798,255 @@ def masked_average_and_refresh(state, cv_new, faults, compress: str | None, *,
     divided by P = Σm, a second lane), so ``cg`` is the exact participant
     mean; each participant stores its fresh variate (re-quantized under
     int8) and an absent worker keeps its old ``c_k``."""
-    _no_ring_int8(ring, compress)
-    u, r, m = _masks(faults)
-    mats, meta, kloc = _state_mats(state)
-    cmats, cmeta, _ = _state_mats(cv_new)
-    smats, smeta = _masked_sketch_mats(state, m)
-    n, nc = len(mats), len(cmats)
-    lanes = torch.stack([u, m], dim=1)           # [K_loc, 2] f32
-    if compress == "int8":
-        if smats:
-            raise ValueError("the streaming-eval sketch cannot ride int8 "
-                             "compressed buckets")
-        all_means = masked_int8_average(mats + cmats, [0] * n + [1] * nc, lanes, wa)
-        means, cmeans = all_means[:n], all_means[n:]
-        cmats = [_int8_rows(mt).to(mt.dtype) for mt in cmats]
-        ssums = []
-    else:
-        sums = _sum_buckets(_scaled(mats, u) + _scaled(cmats, m) + [lanes] + smats, wa, ring)
-        W = torch.clamp_min(sums[n + nc][0], 1.0)
-        P = torch.clamp_min(sums[n + nc][1], 1.0)
-        means = [div(s.to(F32), W) for s in sums[:n]]
-        cmeans = [div(s.to(F32), P) for s in sums[n:n + nc]]
-        ssums = sums[n + nc + 1:]
-    new = dict(state)
-    new["params"], new["duals"] = _select_rows(meta, kloc, means, torch.maximum(m, r))
-    if smeta is not None:
-        new = _apply_masked_sketch_sums(new, smeta, ssums, m)
-    new["cg_params"], new["cg_duals"] = _unmats(cmeta, kloc, cmeans)
-    # c_k ← the fresh variate for participants, unchanged for absent workers
-    flat, like = cmeta
-    old = tree_leaves({"params": state["cv_params"], "duals": state["cv_duals"]})
-    cv = tree_unflatten(like, [torch.where(_col(m, o) > 0, f.reshape(o.shape).to(o.dtype), o)
-                               for f, o in zip(cmats, old)])
-    new["cv_params"], new["cv_duals"] = cv["params"], cv["duals"]
-    return new
+    return masked_plan(state, cv_new, faults, compress, wa=wa, ring=ring).run()
+
+
+# --------------------------------------------------------------------------
+# the overlapped pair: the first averaging in flight under the second
+# window's local steps
+# --------------------------------------------------------------------------
+# the ops whose dispatch counts as compute in ``overlap_log``
+MATMUL_OPS = frozenset({"mm", "addmm", "bmm", "baddbmm", "addbmm", "mv", "addmv", "dot",
+                        "matmul", "linear", "convolution", "_convolution",
+                        "cudnn_convolution", "convolution_backward"})
+
+
+def _storage(t: torch.Tensor):
+    return t.untyped_storage().data_ptr() if t.numel() else None
+
+
+def _note(event: str, what: str) -> None:
+    overlap_log.append((event, what, time.perf_counter()))
+
+
+class _Reads(TorchDispatchMode):
+    """Before an aten op reads a pending leaf (a view is no read), wait for
+    the units that leaf waits on; log each matmul-bearing op."""
+
+    def __init__(self, pending):
+        super().__init__()
+        self.pending = pending
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self.pending.pending and not func.is_view:
+            for t in pytree.tree_leaves((args, kwargs)):
+                if isinstance(t, torch.Tensor):
+                    self.pending.wait_for(t)
+        if func.overloadpacket.__name__ in MATMUL_OPS:
+            _note("compute", func.overloadpacket.__name__)
+        return func(*args, **kwargs)
+
+
+class _PointerReads(TorchFunctionMode):
+    """A hand-written kernel's wrapper hands the kernel ``data_ptr()``s,
+    which no aten op sees: wait before the pointer of a pending leaf is
+    taken."""
+
+    def __init__(self, pending):
+        super().__init__()
+        self.pending = pending
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.data_ptr:
+            self.pending.wait_for(args[0])
+        return func(*args, **(kwargs or {}))
+
+
+# the profiler range around the side stream's work (its kernels carry it)
+SIDE_STREAM_RANGE = "PendingAverage.side_stream"
+
+
+def warm_reads() -> None:
+    """Enter and leave the read guards once: torch's first dispatch mode of
+    a process imports its compiler stack (seconds), which an executor that
+    will overlap pays at set-up rather than inside its first pair."""
+    with _Reads(PendingAverage()):
+        torch.zeros(1).add_(1)
+
+
+class PendingAverage:
+    """A window averaging that runs beside the next window's local steps
+    (the reference's fused window pair, ``window_pair_fn``).
+
+    ``start(plan)`` returns the averaged state at once, every averaged leaf
+    preallocated and pending, and hands the plan's ring units to a
+    dedicated CUDA stream (NCCL: the local reduction waits on an event the
+    compute stream records at the end of the first window; the hops, the
+    chains' adds and the leaves' finishing work follow, and each unit
+    records a completion event) or to a worker thread (gloo: the second
+    window's local steps issue no collective, so nothing else uses the
+    group meanwhile; each unit sets its completion).  The units are
+    independent: C chunk chains a dtype bucket at R > 1, one row block's
+    local reduction at R = 1.  A leaf's finish runs right after the last
+    unit it needs, so each unit's completion covers the leaves it
+    finished.  ``order`` (a previous pair's ``read_order``: the units in
+    the order its second window first waited on them) sets the order the
+    units run in, so the leaves the next window reads first are finished
+    first; any order gives the same bits, the chains being independent, and
+    every rank runs the same program, so the ranks agree on it.
+
+    The next window runs its local steps inside ``reads(step)``: before an
+    op first reads a pending leaf the second window waits (the CUDA stream
+    waits on the events; gloo blocks on the completions) on the units that
+    cover the leaf's rows and on any unit its finish needs besides (the
+    masked path's weight lanes); nothing else waits.  ``settle()``, before
+    the next window's own averaging, waits for the rest and joins the
+    thread.  Every step of ``overlap_log`` is noted as it happens."""
+
+    def __init__(self, order=None):
+        self.order = list(order or [])
+        self.pending: dict = {}         # storage pointer → the units its leaf waits on
+        self._lock = threading.Lock()
+        self.read_order: list = []      # the units, as first waited on
+        self._keep: list = []
+        self.summary: dict = {}
+        self.units: list = []
+        self.events = self.done = self.thread = self.error = None
+
+    # -- start -------------------------------------------------------------
+    def start(self, plan: Plan) -> dict:
+        if plan.ring is None:
+            raise ValueError("only a ring averaging can run beside the next window")
+        rr = _RingReduction(plan.rows, plan.ring, mean=plan.mean)
+        self.units = rr.units
+        seq = self.order if sorted(self.order) == list(range(len(rr.units))) \
+            else list(range(len(rr.units)))
+        pos = {k: i for i, k in enumerate(seq)}
+        covers: dict = {}
+        for k, u in enumerate(rr.units):
+            for i in u.rows:
+                covers.setdefault(i, []).append(k)
+        slots, ready, extra = plan.slots(), [[] for _ in rr.units], 0
+        for f in plan.finishes:
+            need = sorted({k for i in f.needs for k in covers[i]}, key=pos.get)
+            own = {k for i in f.needs[:1] for k in covers[i]}
+            extra += len(f.outs) if set(need) - own else 0
+            dsts = [torch.empty_like(tree_leaves(plan.state[k])[i]) for k, i in f.outs]
+            for (k, i), d in zip(f.outs, dsts):
+                slots[k][i] = d
+                self.pending[_storage(d)] = need
+            self._keep += dsts
+            ready[need[-1]].append((f.fn, [_writer(d) for d in dsts]))
+        new = plan.assemble(slots)
+        self.summary = {"units": len(rr.units), "chains": len(rr.units) if plan.ring.size > 1
+                        else 0, "leaves": len(self._keep), "also_other_units": extra}
+        dev = self._keep[0].device
+        if dev.type == "cuda":
+            self._start_cuda(rr, ready, seq, plan, dev)
+        else:
+            self.done = [threading.Event() for _ in rr.units]
+            for k in seq:
+                _note("issue", rr.units[k].tag)
+            self.thread = threading.Thread(target=self._work_guarded, args=(rr, ready, seq),
+                                           daemon=True)
+            self.thread.start()
+        return new
+
+    def _start_cuda(self, rr, ready, seq, plan, dev):
+        with torch.profiler.record_function(SIDE_STREAM_RANGE):
+            self._enqueue(rr, ready, seq, plan, dev)
+
+    def _enqueue(self, rr, ready, seq, plan, dev):
+        side = torch.cuda.Stream(dev)
+        end_of_window = torch.cuda.Event()
+        end_of_window.record()
+        side.wait_event(end_of_window)
+        # every tensor the stream reads or writes that the compute stream
+        # allocated: the first window's rows, what the finishes read, the
+        # preallocated leaves
+        for t in _cuda_tensors([plan.rows, [f.fn for f in plan.finishes], self._keep]):
+            t.record_stream(side)
+        self.events = [torch.cuda.Event() for _ in rr.units]
+        with torch.cuda.stream(side):
+            self._work(rr, ready, seq)
+
+    def _work(self, rr, ready, seq):
+        for k in seq:
+            u = rr.units[k]
+            if self.events is not None:
+                _note("issue", u.tag)
+            rr.run(u)
+            for fn, dsts in ready[k]:
+                for d, t in zip(dsts, fn(rr.reduced)):
+                    d.copy_(t)
+            if self.events is not None:
+                self.events[k].record()
+            else:
+                _note("done", u.tag)
+                self.done[k].set()
+
+    def _work_guarded(self, rr, ready, seq):
+        try:
+            self._work(rr, ready, seq)
+        except BaseException as e:       # re-raised where the main thread waits
+            self.error = e
+        finally:
+            for d in self.done:
+                d.set()
+
+    # -- the second window ---------------------------------------------------
+    def wait_for(self, t: torch.Tensor) -> None:
+        """Wait for the units of the pending leaf whose storage ``t`` views
+        (nothing when it views none)."""
+        with self._lock:
+            need = self.pending.pop(_storage(t), None) if self.pending else None
+        if need:
+            self._wait_units(need)
+
+    def _wait_units(self, need) -> None:
+        for k in need:
+            if k in self.read_order:
+                continue
+            self.read_order.append(k)
+            _note("wait", self.units[k].tag)
+            if self.events is not None:
+                torch.cuda.current_stream().wait_event(self.events[k])
+            else:
+                self.done[k].wait()
+                if self.error is not None:
+                    raise RuntimeError("the overlapped averaging failed") from self.error
+
+    def reads(self, step: int):
+        """The context of the second window's local step ``step``: the read
+        guards while any leaf is pending, else nothing."""
+        if not self.pending:
+            return contextlib.nullcontext()
+        _note("step", str(step))
+        stack = contextlib.ExitStack()
+        stack.enter_context(_PointerReads(self))
+        stack.enter_context(_Reads(self))
+        return stack
+
+    def settle(self) -> None:
+        """Wait for every unit not waited on yet, join the thread, and let go
+        of the first window's tensors."""
+        self.pending.clear()
+        self._wait_units(range(len(self.units)))
+        if self.thread is not None:
+            self.thread.join()
+            if self.error is not None:
+                raise RuntimeError("the overlapped averaging failed") from self.error
+        self._keep, self.thread, self.events, self.done = [], None, None, None
+
+
+def _writer(t: torch.Tensor) -> torch.Tensor:
+    """A second tensor over ``t``'s memory with a version counter of its
+    own: the finish writes through it, so the write, which the second
+    window's first read waits for, does not look to autograd like an
+    in-place change of a tensor the step has already saved."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage(), t.storage_offset(), t.size(), t.stride())
+
+
+def _cuda_tensors(obj) -> list:
+    """The CUDA tensors in nested lists, tuples, dicts and partials."""
+    if isinstance(obj, torch.Tensor):
+        return [obj] if obj.is_cuda else []
+    if isinstance(obj, functools.partial):
+        return _cuda_tensors([obj.func, list(obj.args), obj.keywords])
+    if isinstance(obj, dict):
+        return _cuda_tensors(list(obj.values()))
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in _cuda_tensors(x)]
+    return []

@@ -44,6 +44,7 @@ with the overlapped ring averaging of ``overlap_chunks``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections.abc import Callable
@@ -286,23 +287,6 @@ def sketch_update(ccfg: CoDAConfig, sk, hs, labels):
     return {"pos": pos, "neg": neg}
 
 
-def server_momentum_step(state: CoDAState, start_params, beta: float) -> CoDAState:
-    """Server momentum on the averaged iterate (CODASCA's server update):
-
-        m ← β·m + (x̄ − x_start),    x ← x_start + m
-
-    in fp32, where ``start_params`` is the synced iterate the window started
-    from and ``state["params"]`` the fresh average.  The buffer ``srv_m`` is
-    a function of synced iterates, so it is replicated and never shipped."""
-    m = tree_map(lambda m_, xb, xs: beta * m_ + (xb.to(torch.float32) - xs.to(torch.float32)),
-                 state["srv_m"], state["params"], start_params)
-    new = dict(state)
-    new["srv_m"] = m
-    new["params"] = tree_map(lambda xs, m_, xb: (xs.to(torch.float32) + m_).to(xb.dtype),
-                             start_params, m, state["params"])
-    return new
-
-
 def average(state: CoDAState, compress: str | None = None) -> CoDAState:
     """Periodic model averaging over the worker axis (params and duals, and
     the sketch deltas when the sketch is on): ``bucketing.average_state``
@@ -312,33 +296,50 @@ def average(state: CoDAState, compress: str | None = None) -> CoDAState:
 
 
 def run_window(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, window_batch, eta,
-               *, wa=None, ring=None, communicate: bool = True, faults=None):
-    """``I`` local steps + (optionally) one averaging, then server momentum
+               *, wa=None, ring=None, communicate: bool = True, faults=None,
+               defer_to=None, pending=None):
+    """``I`` local steps + (optionally) one averaging, with server momentum
     when β > 0.  ``window_batch`` leaves: [I, K, per_worker_batch, ...].
     ``faults`` ({"weights": [K], "resync": [K]} f32, ``core/faults.py``)
     switches the averaging to the exact masked participant mean
-    (``bucketing.masked_average_state``).  ``wa`` / ``ring``: the
-    averaging's wire when the K rows are one rank's share of the workers
+    (``bucketing.masked_plan``).  ``wa`` / ``ring``: the averaging's wire
+    when the K rows are one rank's share of the workers
     (``core/coda_sharded.py``); the local steps issue no collective.
+    An overlapped pair (``bucketing.PendingAverage``): ``defer_to`` starts
+    this window's averaging on it and returns at once, ``pending`` is the
+    previous window's, waited on leaf by leaf where the local steps read it
+    and settled before this window's own averaging.
     Returns (state, losses [I, K])."""
     I = window_batch["labels"].shape[0]
     start_params = state["params"] if communicate and ccfg.server_momentum else None
     losses = []
     for i in range(I):
-        state, loss = local_step(mcfg, ccfg, state,
-                                 {k: v[i] for k, v in window_batch.items()},
-                                 eta)
+        with pending.reads(i) if pending is not None else contextlib.nullcontext():
+            state, loss = local_step(mcfg, ccfg, state,
+                                     {k: v[i] for k, v in window_batch.items()}, eta)
         losses.append(loss)
+    if pending is not None:
+        pending.settle()
     if communicate:
-        compress = ccfg.avg_compress or None
-        if faults is not None:
-            state = bucketing.masked_average_state(state, faults, compress, wa=wa, ring=ring)
-        else:
-            state = bucketing.average_state(state, compress, wa=wa, ring=ring,
-                                            n_workers=ccfg.n_workers)
-        if ccfg.server_momentum:          # rejected with faults at config time
-            state = server_momentum_step(state, start_params, ccfg.server_momentum)
+        state = average_window(ccfg, state, None, faults, wa=wa, ring=ring,
+                               start_params=start_params, defer_to=defer_to)
     return state, torch.stack(losses)
+
+
+def average_window(ccfg: CoDAConfig, state: CoDAState, cv_new, faults, *, wa, ring,
+                   start_params, defer_to=None) -> CoDAState:
+    """A window's averaging (CODASCA: with the variate refresh ``cv_new``),
+    masked under ``faults``, with server momentum from ``start_params``
+    (rejected with faults at config time); run now, or started on
+    ``defer_to``."""
+    compress = ccfg.avg_compress or None
+    if faults is not None:
+        plan = bucketing.masked_plan(state, cv_new, faults, compress, wa=wa, ring=ring)
+    else:
+        momentum = (start_params, ccfg.server_momentum) if ccfg.server_momentum else None
+        plan = bucketing.average_plan(state, cv_new, compress, wa=wa, ring=ring,
+                                      n_workers=ccfg.n_workers, momentum=momentum)
+    return plan.run() if defer_to is None else defer_to.start(plan)
 
 
 def window_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
@@ -637,6 +638,7 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
         step = ckpt.latest_step(ckpt_dir)
         if step is not None:
             restored = ckpt.restore(ckpt_dir, step, {"state": template}, device=device)
+            optimizer.read_host_count(restored["state"].get("opt"))
             state = exe.place(restored["state"])
             del restored
             meta = ckpt.load_metadata(ckpt_dir, step)

@@ -19,10 +19,14 @@ the paper's Algorithm 2 literally:
   * ``avg_compress="int8"``: an s8 ``all_gather`` and an f32 ``all_gather``
     of the scales instead;
   * ``overlap_chunks=C``: ``fit`` feeds window pairs, and each averaging
-    runs as C chunked rings per dtype bucket of ``batch_isend_irecv``
-    hops in the reference's hop order (``bucketing.ring_hop_count`` hops
-    on each rank).  The second window's local steps start after the first
-    window's rings have finished: the ring is not hidden under compute;
+    runs as C independent chunked rings per dtype bucket of
+    ``batch_isend_irecv`` hops in the reference's hop order
+    (``bucketing.ring_hop_count`` hops on each rank).  As in the
+    reference's fused pair, the first window's chains run under the second
+    window's local steps (``bucketing.PendingAverage``: a side CUDA stream
+    under NCCL, a worker thread under gloo), which wait on an averaged leaf
+    only where they first read it, on the chunks that cover it; the second
+    window's own rings, with nothing after them, stay exposed;
   * ``stage_end``: one ``all_reduce`` of the stage-dual scalars.
 
 Every collective is counted in ``bucketing.collectives``; the losses that
@@ -76,6 +80,10 @@ class ShardedExecutor:
                 f"spans {len(self.worker_axes)} axes — use the fsdp policy or a "
                 "single-pod mesh")
         self.rank = dist.get_rank()
+        # the last pair's summary, and its units in the order its second
+        # window first read them: the next pair runs them in that order
+        self.overlap_summary: dict = {}
+        self._unit_order: list = []
         self.rows = rules.worker_rows(mesh, policy, ccfg.n_workers)
         self.wire = bucketing.Wire(_worker_group(mesh, self.worker_axes)) \
             if self.worker_axes else None
@@ -84,6 +92,8 @@ class ShardedExecutor:
             self._run = codasca.run_window
         else:
             self._run = coda.run_window
+        if self.overlap_pairs:
+            bucketing.warm_reads()
 
     def _ring_spec(self):
         """The RingSpec of the overlapped averaging, or None when overlap
@@ -165,16 +175,23 @@ class ShardedExecutor:
 
     def window_pair_step(self, state, wb2, eta, *, communicate: bool = True, faults=None):
         """Two windows, each averaging run as chunked rings
-        (``CoDAConfig.overlap_chunks``).  ``wb2`` leaves [2, I, K, B, ...];
-        fault vectors [2, K].  Returns (state, losses [2I, K_loc])."""
+        (``CoDAConfig.overlap_chunks``), the first under the second's local
+        steps.  ``wb2`` leaves [2, I, K, B, ...]; fault vectors [2, K].
+        Returns (state, losses [2I, K_loc]); ``overlap_summary`` describes
+        the first averaging's units and leaves."""
         self._check_faults(faults, "window_pair_step")
         ring, bt2, fl2 = self._ring_spec(), self._batch(wb2, 2), self._faults(faults, True)
+        pending = bucketing.PendingAverage(self._unit_order)
         out = []
         for i in range(2):
-            state, losses = self._one_window(
-                state, {k: v[i] for k, v in bt2.items()}, eta, communicate=communicate,
-                ring=ring, fl=None if fl2 is None else {k: v[i] for k, v in fl2.items()})
+            state, losses = self._run(
+                self.mcfg, self.ccfg, state, {k: v[i] for k, v in bt2.items()}, eta,
+                wa=self.wire, ring=ring, communicate=communicate,
+                faults=None if fl2 is None else {k: v[i] for k, v in fl2.items()},
+                defer_to=pending if i == 0 and communicate else None,
+                pending=pending if i == 1 else None)
             out.append(losses)
+        self.overlap_summary, self._unit_order = pending.summary, pending.read_order
         return state, torch.cat(out)
 
     # -- stage boundary ---------------------------------------------------

@@ -18,6 +18,8 @@ the payload.  The raw-gradient accumulator is fp32 whatever
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -52,10 +54,11 @@ def local_step(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, batch, eta):
 
 
 def run_window(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, eta, *,
-               wa=None, ring=None, communicate: bool = True, faults=None):
+               wa=None, ring=None, communicate: bool = True, faults=None, defer_to=None,
+               pending=None):
     """I corrected local steps + the combined average-and-refresh (masked
-    when ``faults`` are given), then server momentum when β > 0.  ``wa`` /
-    ``ring``: the wire of the sharded executor (``coda.run_window``); the
+    when ``faults`` are given), with server momentum when β > 0.  ``wa`` /
+    ``ring`` / ``defer_to`` / ``pending``: as ``coda.run_window``; the
     refresh rides the model average's buckets, so a window is still one
     collective per dtype bucket, of twice the payload.  Returns
     (new_state, losses [I, K])."""
@@ -66,12 +69,16 @@ def run_window(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, et
     start_params = state["params"] if communicate and ccfg.server_momentum else None
     losses = []
     for i in range(I):
-        state, loss, (gp, gd) = local_step(mcfg, ccfg, state,
-                                           {k: v[i] for k, v in window_batch.items()}, eta)
-        for a, g in zip(acc, tree_leaves({"params": gp, "duals": gd})):
-            a.add_(g)                     # fp32 += the raw gradient, widened
+        with pending.reads(i) if pending is not None else contextlib.nullcontext():
+            state, loss, (gp, gd) = local_step(mcfg, ccfg, state,
+                                               {k: v[i] for k, v in window_batch.items()},
+                                               eta)
+            for a, g in zip(acc, tree_leaves({"params": gp, "duals": gd})):
+                a.add_(g)                 # fp32 += the raw gradient, widened
         del gp, gd
         losses.append(loss)
+    if pending is not None:
+        pending.settle()
     if communicate:
         wire = {"params": state["params"], "duals": state["duals"]}
         cv = []
@@ -79,15 +86,8 @@ def run_window(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, et
             cv.append(bucketing.div(acc.pop(0), I).to(w.dtype))
         cv_new = tree_unflatten(wire, cv)
         del cv, wire
-        compress = ccfg.avg_compress or None
-        if faults is not None:
-            state = bucketing.masked_average_and_refresh(state, cv_new, faults, compress,
-                                                         wa=wa, ring=ring)
-        else:
-            state = bucketing.average_and_refresh(state, cv_new, compress, wa=wa, ring=ring,
-                                                  n_workers=ccfg.n_workers)
-        if ccfg.server_momentum:          # rejected with faults at config time
-            state = coda.server_momentum_step(state, start_params, ccfg.server_momentum)
+        state = coda.average_window(ccfg, state, cv_new, faults, wa=wa, ring=ring,
+                                    start_params=start_params, defer_to=defer_to)
     return state, torch.stack(losses)
 
 

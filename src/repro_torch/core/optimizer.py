@@ -84,9 +84,43 @@ class _Sgd:
         return new_params, None
 
 
+# the attribute that carries a step counter's value on the host
+_HOST_COUNT = "_host_count"
+
+
+def _stamped(t: torch.Tensor, n: int) -> torch.Tensor:
+    setattr(t, _HOST_COUNT, n)
+    return t
+
+
+def host_count(t: torch.Tensor) -> int:
+    """The step counter ``t`` ([K] int32, one value on every worker) as the
+    host knows it.  ``init`` and every ``shampoo_blocked`` step stamp the
+    counter they make with its value, so no step reads the device; a
+    counter made anywhere else (restored from a checkpoint, converted from
+    the reference's state) is read once, here, and stamped."""
+    n = getattr(t, _HOST_COUNT, None)
+    if n is None:
+        n = int(t[0])
+        _stamped(t, n)
+    return n
+
+
+def carry_host_count(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``dst``, a copy of some of ``src``'s workers, with ``src``'s stamp."""
+    n = getattr(src, _HOST_COUNT, None)
+    return dst if n is None else _stamped(dst, n)
+
+
+def read_host_count(opt) -> None:
+    """Stamp a restored optimizer state's counter: the one read of it."""
+    if opt is not None:
+        host_count(opt["t"])
+
+
 def _counter(leaves):
     K = leaves[0].shape[0]
-    return torch.zeros((K,), dtype=torch.int32, device=leaves[0].device)
+    return _stamped(torch.zeros((K,), dtype=torch.int32, device=leaves[0].device), 0)
 
 
 class _Momentum:
@@ -227,10 +261,10 @@ class _ShampooBlocked:
     def step(self, ccfg, opt, params, gp, ref_params, eta):
         vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
         t = opt["t"]
-        # the reference's lax.cond(t[0] % precond_every == 0): decided once
-        # per local step — statically true for precond_every = 1 (no read),
-        # otherwise one host read of the step counter for all leaves
-        refresh = ccfg.precond_every == 1 or int(t[0]) % ccfg.precond_every == 0
+        # the reference's lax.cond(t[0] % precond_every == 0), decided on the
+        # host's copy of the step counter: no read of the device
+        n = host_count(t)
+        refresh = n % ccfg.precond_every == 0
         seeds = leaf_seeds(t, len(vs))
         dt = ccfg.opt_dtype
         new_v, new_s = [], []
@@ -257,7 +291,8 @@ class _ShampooBlocked:
                                                impl=ccfg.impl))
             new_s.append({"s": kref.stochastic_round(stats, seeds[i], dt),
                           "p": kref.stochastic_round(pre, _plus(seeds[i], 1), dt)})
-        return (tree_unflatten(params, new_v), {"t": t + 1, "leaves": new_s})
+        return (tree_unflatten(params, new_v),
+                {"t": _stamped(t + 1, n + 1), "leaves": new_s})
 
 
 REGISTRY = {o.name: o for o in (_Sgd(), _Momentum(), _SM3(), _ShampooBlocked())}

@@ -467,9 +467,7 @@ def _train(args) -> dict:
     per_round = coda.window_payload_bytes(res.state, compress)
     print(f"bytes/round/worker={per_round:,} (schedule total {total:,})")
     if args.overlap:
-        print(f"overlap: {res.overlapped_bytes:,} bytes in the first window of each "
-              f"pair (its rings run before the second window's steps, not under "
-              f"them), {res.exposed_bytes:,} exposed (chunks={args.overlap_chunks})")
+        print(overlap_line(res, exe, args.overlap_chunks))
     if args.ckpt_dir and not args.ckpt_every:
         # the final state only; --ckpt-every owns the directory for the
         # window checkpoints --resume restarts from
@@ -494,6 +492,23 @@ def _train(args) -> dict:
             "mesh": None if mesh is None else mesh_mod.axis_sizes(mesh),
             "n_test": int(test["labels"].shape[0]), "stages": len(stage_list),
             "opt_state_bytes": coda.opt_state_bytes(res.state)}
+
+
+def overlap_line(res, exe, chunks: int) -> str:
+    """What the overlapped pairs ran: the first window's averaging under the
+    second window's local steps, and which averaged leaves waited on what."""
+    sm = getattr(exe, "overlap_summary", {})
+    if not sm:
+        return (f"overlap: no window pair ran, {res.exposed_bytes:,} bytes exposed "
+                f"(chunks={chunks})")
+    units = (f"{sm['chains']} independent ring chains" if sm["chains"]
+             else f"{sm['units']} per-row reductions (one rank: no hops)")
+    extra = (f", {sm['also_other_units']} of them also on the weight-lane unit their finish "
+             "needs" if sm["also_other_units"] else "")
+    return (f"overlap: {res.overlapped_bytes:,} bytes in the first window of each pair, "
+            f"averaged as {units} under the second window's local steps; its "
+            f"{sm['leaves']} averaged leaves each wait whole, where first read, on the units "
+            f"that cover their rows{extra}; {res.exposed_bytes:,} exposed (chunks={chunks})")
 
 
 if __name__ == "__main__":

@@ -81,12 +81,14 @@ def worker_rows(mesh, policy: str, K: int) -> slice:
 
 def shard_state(state, mesh, policy: str):
     """``shardmap_state_specs``' meaning: every leaf's leading worker axis
-    cut to this rank's rows (a copy, so the whole state can be freed)."""
+    cut to this rank's rows (a copy, so the whole state can be freed; an
+    optimizer step counter keeps its host value)."""
+    from repro_torch.core.optimizer import carry_host_count
     K = tree_leaves(state)[0].shape[0]
     rows = worker_rows(mesh, policy, K)
     if rows == slice(0, K):
         return state
-    return tree_map(lambda l: l[rows].clone(), state)
+    return tree_map(lambda l: carry_host_count(l, l[rows].clone()), state)
 
 
 def shard_batch(batch, mesh, policy: str, K: int, *, worker_dim: int = 1):

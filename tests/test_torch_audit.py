@@ -93,20 +93,51 @@ def test_r1_int8_leg_ships_the_s8_f32_pair():
     assert not A.run_rules([_prog("w", [("all_reduce", "f32", 200)], spec)], rules={"R1"}).ok
 
 
+# an overlapped pair's host schedule: both units issued, the second window's
+# first matmul waits on c0, the second runs before the wait on c1
+OVERLAPPED = [("issue", "a1/f32/c0", 0.0), ("issue", "a1/f32/c1", 0.1), ("step", "0", 0.2),
+              ("wait", "a1/f32/c0", 0.3), ("compute", "bmm", 0.4), ("wait", "a1/f32/c1", 0.5),
+              ("compute", "bmm", 0.6)]
+
+
+def _pair(wire, spec, schedule=OVERLAPPED):
+    p = _prog("pair", wire, spec)
+    p.schedule = list(schedule)
+    return p
+
+
 def test_r1_ring_hops_and_the_unchecked_compute_half():
+    """The ring's wire (chains grouped by their tags, interleaved or not)
+    and, now checked, the compute between the first averaging's issue and
+    the second window's waits."""
     spec = {"kind": "ring", "n_hops": 4, "n_chains": 2, "hop_len": 2}
-    hops = [("p2p", "f32", 8), ("p2p", "f32", 8), ("p2p", "f32", 4), ("p2p", "f32", 4)]
-    rep = A.run_rules([_prog("pair", hops, spec)], rules={"R1"})
+    hops = [("p2p", "f32", 8, "a1/f32/c0"), ("p2p", "f32", 8, "a1/f32/c0"),
+            ("p2p", "f32", 4, "a1/f32/c1"), ("p2p", "f32", 4, "a1/f32/c1")]
+    rep = A.run_rules([_pair(hops, spec)], rules={"R1"})
     assert rep.ok and rep.checked == [("R1", "pair")]
-    assert len(rep.not_checked) == 1 and "compute between" in rep.not_checked[0][2]
-    wrong = A.run_rules([_prog("pair", hops + hops[:2], spec)], rules={"R1"})
+    interleaved = [hops[0], hops[2], hops[1], hops[3]]
+    assert A.run_rules([_pair(interleaved, spec)], rules={"R1"}).ok
+    wrong = A.run_rules([_pair(hops + hops[:2], spec)], rules={"R1"})
     assert "expected 4 ring hops, found 6" in _r("R1", wrong)[0].message
-    ragged = A.run_rules([_prog("pair", [hops[0], hops[2], hops[1], hops[3]], spec)],
-                         rules={"R1"})
+    ragged = A.run_rules([_pair([hops[0], hops[2], hops[1], hops[1]], spec)], rules={"R1"})
     assert "equal hops" in _r("R1", ragged)[0].message
-    blocking = A.run_rules([_prog("pair", hops + [("all_reduce", "f32", 4)],
+    one_chain = [h[:3] + ("a1/f32/c0",) for h in hops[:2]] * 2
+    merged = A.run_rules([_pair(one_chain, spec)], rules={"R1"})
+    assert "expected 2 independent chains" in _r("R1", merged)[0].message
+    untagged = A.run_rules([_pair([h[:3] for h in hops], spec)], rules={"R1"})
+    assert any("no chain tag" in f.message for f in untagged.findings)
+    blocking = A.run_rules([_pair(hops + [("all_reduce", "f32", 4, None)],
                                   dict(spec, n_hops=4))], rules={"R1"})
     assert any("blocking" in f.message for f in blocking.findings)
+    # the sequential pair: every unit waited on before the second window's compute
+    sequential = [e for e in OVERLAPPED if e[0] != "compute"] + [("compute", "bmm", 0.7)]
+    seq = A.run_rules([_pair(hops, spec, sequential)], rules={"R1"})
+    assert any("one after the other" in f.message for f in seq.findings)
+    late = [OVERLAPPED[0], OVERLAPPED[2], OVERLAPPED[1]] + OVERLAPPED[3:]
+    assert any("issued after the second window began" in f.message
+               for f in A.run_rules([_pair(hops, spec, late)], rules={"R1"}).findings)
+    assert any("issued no unit" in f.message
+               for f in A.run_rules([_pair(hops, spec, [])], rules={"R1"}).findings)
 
 
 # ---------------------------------------------------------------------------
@@ -297,13 +328,13 @@ def test_report_aggregation_and_json():
     import json
     progs = [_prog("a", [], {"kind": "none"}),
              _prog("b", [("all_reduce", "f32", 4)], {"kind": "none"}),
-             _prog("pair", [], {"kind": "ring", "n_hops": 0, "n_chains": 0, "hop_len": 0})]
+             _pair([], {"kind": "ring", "n_hops": 0, "n_chains": 0, "hop_len": 0})]
     rep = A.run_rules(progs, rules={"R1"})
     d = json.loads(rep.to_json())
     assert d["ok"] is False and d["n_findings"] == 1 and d["n_checked"] == 3
     assert d["rules"]["R1"]["checked"] == ["a", "b", "pair"]
     assert d["rules"]["R1"]["findings"][0]["program"] == "b"
-    assert d["n_not_checked"] == 1 and d["rules"]["R1"]["not_checked"][0]["program"] == "pair"
+    assert set(d["rules"]["R1"]) == {"checked", "findings", "waived"}
     with pytest.raises(AssertionError, match="audit failed"):
         rep.raise_if_failed()
     A.run_rules([progs[0]], rules={"R1"}).raise_if_failed()
@@ -331,7 +362,8 @@ def test_cli_matrix_passes_on_one_rank():
         want = {"R1", "R2", "R3", "R4", "R5"}
         assert want <= set(r["rules"]), (r["leg"], sorted(r["rules"]))
         if r["leg"].endswith("/overlap") or "/overlap/" in r["leg"]:
-            assert r["n_not_checked"] == 1
+            # R1's compute half is checked: the pair program's findings are R1's too
+            assert any(p.endswith("/pair") for p in r["rules"]["R1"]["checked"])
 
 
 @pytest.mark.parametrize("n_ranks", [2, 4])

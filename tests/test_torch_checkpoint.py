@@ -51,6 +51,9 @@ CONFIGS = {
     "momentum-bf16": dict(optimizer="momentum", opt_dtype=torch.bfloat16,
                           param_dtype=torch.bfloat16),
     "codasca-server-momentum": dict(algorithm="codasca", server_momentum=0.9),
+    # the resume at local step 8 falls between two refreshes (t % 3 == 0)
+    "shampoo-precond-every-3": dict(optimizer="shampoo_blocked", shampoo_block=8,
+                                    precond_every=3),
 }
 
 

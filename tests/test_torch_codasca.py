@@ -611,7 +611,7 @@ SMOKE_PATHS = {label: args for label, args, _ in SMOKE.MLP_PATHS}
 SMOKE_PATHS.update({label: SMOKE.RN_ARGS + args for label, args, _ in SMOKE.RN_PATHS})
 SMOKE_PATHS.update(SMOKE.SHARD_VMAP_PATHS)
 SMOKE_PATHS.update({label: args for label, args, *_ in SMOKE.SHARDED_PATHS})
-SMOKE_PATHS.update([SMOKE.RN_SHARD_DET])
+SMOKE_PATHS.update([SMOKE.RN_SHARD_DET, SMOKE.RN_OVERLAP])
 
 
 @pytest.mark.parametrize("label", sorted(SMOKE.BYTES_PER_ROUND))

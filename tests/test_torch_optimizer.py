@@ -460,3 +460,66 @@ def test_fit_matches_reference_per_optimizer(name, dt, kw):
     _close(got["params"], want["params"], 1e-4, "params")
     _close(got["duals"], want["duals"], 1e-4, "duals")
     assert int(got["opt"]["t"][0]) == int(want["opt"]["t"][0]) == 32
+
+
+# --------------------------------------------------------------------------
+# shampoo's refresh, decided on the host's copy of the step counter
+# --------------------------------------------------------------------------
+def test_shampoo_refresh_steps_match_reference_across_a_resume(tmp_path, monkeypatch):
+    """``precond_every = 3`` from a state whose counter is at 5: the
+    preconditioners refresh where the reference's ``lax.cond`` takes its
+    refresh branch (t = 6, 9, 12: steps 1, 4, 7), also after the state is
+    saved and restored mid-way (the restore reads the counter once, as
+    ``fit``'s resume does); no step reads the counter from the device.
+    Tolerances: ``test_apply_grads_matches_reference``'s."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.tree import tree_map
+    mcfg, K, n_steps, cut = ARCHS["mlp"][0], 2, 8, 4
+    kw = {"shampoo_block": 8, "precond_every": 3}
+    jccfg = JC.CoDAConfig(n_workers=K, p_pos=0.7, optimizer="shampoo_blocked", **kw)
+    ccfg = C.CoDAConfig(n_workers=K, p_pos=0.7, optimizer="shampoo_blocked", **kw)
+    rng = np.random.default_rng(9)
+    jst = _random_state("mlp", K, rng, jccfg)
+    grads = [(jax.tree_util.tree_map(lambda l: (0.1 * rng.standard_normal(l.shape))
+                                     .astype(np.float32), jst["params"]),
+              {k: (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+               for k, v in jst["duals"].items()}) for _ in range(n_steps)]
+    reads = []
+    host_count = Opt.host_count
+    monkeypatch.setattr(Opt, "host_count", lambda t: reads.append(
+        not hasattr(t, "_host_count")) or host_count(t))
+
+    def refreshed(before, after):
+        return any(not np.array_equal(a["p"], b["p"])
+                   for a, b in zip(before["opt"]["leaves"], after["opt"]["leaves"]))
+
+    want, ref_steps = jst, []
+    for i, (gp, gd) in enumerate(grads):
+        nxt = _np(JC.apply_grads(jccfg, _jnp(want), (_jnp(gp), _jnp(gd)), jnp.float32(0.05)))
+        if refreshed(want, nxt):
+            ref_steps.append(i)
+        want = nxt
+    state, port_steps = P.state_from_jax(mcfg, ccfg, jst), []
+    for i, (gp, gd) in enumerate(grads):
+        if i == cut:                      # save, restore, and resume from the files
+            ckpt.save(str(tmp_path), i, {"state": state})
+            template = tree_map(lambda l: torch.empty(l.shape, dtype=l.dtype, device="meta"),
+                                state)
+            state = ckpt.restore(str(tmp_path), i, {"state": template}, device="cpu")["state"]
+            Opt.read_host_count(state["opt"])
+        before = P.state_to_jax(mcfg, state, ccfg)
+        state = C.apply_grads(ccfg, state, (P.from_jax_params(mcfg, gp),
+                                            {k: torch.from_numpy(v) for k, v in gd.items()}),
+                              0.05)
+        if refreshed(before, P.state_to_jax(mcfg, state, ccfg)):
+            port_steps.append(i)
+    assert ref_steps == port_steps == [1, 4, 7]
+    # two reads: the counter converted from the reference's state, at the first
+    # step, and the restored one, by read_host_count before step 4; every step's
+    # own decision finds the host's copy
+    assert reads == [True] + [False] * (cut - 1) + [True] + [False] * (n_steps - cut)
+    got = P.state_to_jax(mcfg, state, ccfg)
+    assert int(got["opt"]["t"][0]) == int(want["opt"]["t"][0]) == 5 + n_steps
+    _close([l["p"] for l in got["opt"]["leaves"]],
+           [l["p"] for l in want["opt"]["leaves"]], 1e-4, "shampoo preconditioners")
+    _close(got["params"], want["params"], 1e-5, "shampoo params")
