@@ -16,6 +16,9 @@ last line):
      bitwise (opt_update's bf16
      stochastic-rounding bits included, and equal to prox_update at
      coef = 0), each with a ResNet50 local step's sweep of 153 launches;
+     then K2's and K3's in-place forms (what a donating executor's step
+     runs) at ResNet50's largest leaf × K=4, fp32 and bf16: bitwise their
+     out-of-place forms and their plain versions, timed beside them;
   4. one mlp local step per optimizer (sgd, momentum with a bf16 buffer,
      sm3, shampoo_blocked) with the kernels and with the plain versions from
      the same state: the parameters must agree;
@@ -44,7 +47,9 @@ last line):
      Dirichlet(0.1) shards with the masked average (``--participation 0.75
      --fault-seed 1``: 2 × the CoDA path's payload + 8 B of weight
      lanes), and blocked Shampoo (``--optimizer shampoo_blocked``,
-     ``--precond-every 1``: its peak memory, ms per local step, one step
+     ``--precond-every 1``, at the launcher's K=4: the executor donates its
+     state, so a step holds one 6.0 GB/worker optimizer state plus one
+     leaf's temporaries; its peak memory, ms per local step, one step
      from its final state with the kernels against the plain versions, and
      the ms of one refresh, a refresh step against a step that keeps its
      preconditioners).  Counters: auc_loss =
@@ -590,6 +595,96 @@ def check_opt_update(dev, rates, gen):
     return rows
 
 
+def check_inplace_updates(dev, rates, gen):
+    """K2's and K3's in-place forms (``inplace=True``: the result written
+    into v, and K3's new buffer into the buffer; what a donating executor's
+    local step launches) at ResNet50's largest leaf × K=4, fp32 and bf16:
+    bitwise their out-of-place forms and their plain versions, and in the
+    memory they were given; each timed beside the out-of-place form (CUDA
+    events and the profiler), with the same bound (the same bytes move).
+    Returns rows for the kernels line's ``shapes`` (``"form": "inplace"``)."""
+    from repro_torch.kernels import opt_update as K3
+    from repro_torch.kernels import prox_update as K2
+    from repro_torch.kernels import ref
+    n = 4 * max(resnet_leaf_sizes())
+    f32, bf16 = torch.float32, torch.bfloat16
+    name = lambda d: str(d).replace("torch.", "")
+    rows = []
+    for dt, gdt in ((f32, f32), (bf16, bf16), (bf16, f32)):
+        v, g, v0 = (torch.randn((n,), generator=gen).to(dev, t) for t in (dt, gdt, dt))
+        want = K2.prox_update(v, g, v0, 0.05, 0.5)
+        plain = ref.prox_update_ref(v, g, v0, 0.05, 0.5)
+        vi = v.clone()
+        got = K2.prox_update(vi, g, v0, 0.05, 0.5, inplace=True)
+        torch.cuda.synchronize()
+        if not (got is vi and torch.equal(got, want) and torch.equal(got, plain)):
+            raise SystemExit(f"prox_update in place n={n} {dt} (g {gdt}) is not bitwise its "
+                             "out-of-place form and its plain version")
+        ms = cuda_ms(lambda: K2.prox_update(vi, g, v0, 0.05, 0.5, inplace=True))
+        out_ms = cuda_ms(lambda: K2.prox_update(v, g, v0, 0.05, 0.5))
+        dev_ms, dev_src = kernel_device_ms(
+            lambda: K2.prox_update(vi, g, v0, 0.05, 0.5, inplace=True),
+            "prox_update_inplace_kernel", K2)
+        out_dev, out_src = kernel_device_ms(lambda: K2.prox_update(v, g, v0, 0.05, 0.5),
+                                            "prox_update_kernel", K2)
+        bnd, by = bound_ms(n * (3 * v.element_size() + g.element_size()),
+                           PROX_OPS_PER_ELEMENT * n, rates)
+        dname = name(dt) + ("" if gdt == dt else " (g float32)")
+        rows.append({"kernel": "prox_update", "form": "inplace", "what": "in place",
+                     "shape": [n], "dtype": dname, "max_abs_err": 0.0, "ms": ms,
+                     "out_of_place_ms": out_ms, "device_ms": dev_ms,
+                     "device_ms_source": dev_src, "out_of_place_device_ms": out_dev,
+                     "out_of_place_device_ms_source": out_src, "bound_ms": bnd,
+                     "bound_by": by})
+        print(f"prox_update in place n={n} {dname}: bitwise the out-of-place form and the "
+              f"plain version; kernel {ms * 1e3:.2f} us ({dev_txt(dev_ms, dev_src, 'us')}), "
+              f"out of place {out_ms * 1e3:.2f} us ({dev_txt(out_dev, out_src, 'us')}), "
+              f"bound {bnd * 1e3:.3f} us ({by})")
+        del v, g, v0, vi, want, plain
+    seed = torch.tensor([0x9E3779B9 ^ 0x85EBCA6B], dtype=torch.int64, device=dev)
+    for mode, vdt, bdt in (("momentum", f32, f32), ("momentum", f32, bf16),
+                           ("momentum", bf16, bf16), ("precond", f32, f32),
+                           ("precond", bf16, f32)):
+        v, g, v0, b = (torch.randn((n,), generator=gen) for _ in range(4))
+        v, g, v0 = (t.to(dev, vdt) for t in (v, g, v0))
+        b = (b.abs() if mode == "precond" else b).to(dev, bdt)
+        coef = 0.9 if mode == "momentum" else 1e-6
+        want = K3.opt_update(v, g, v0, b, 0.05, 0.5, coef, seed, mode=mode)
+        plain = ref.opt_update_ref(v, g, v0, b, 0.05, 0.5, coef, seed, mode=mode)
+        vi, bi = v.clone(), b.clone()
+        got = K3.opt_update(vi, g, v0, bi, 0.05, 0.5, coef, seed, mode=mode, inplace=True)
+        torch.cuda.synchronize()
+        if not (got[0] is vi and got[1] is bi and all(
+                torch.equal(_bits(x), _bits(y)) and torch.equal(_bits(x), _bits(z))
+                for x, y, z in zip(got, want, plain))):
+            raise SystemExit(f"opt_update in place n={n} {mode} v {vdt} buf {bdt} is not "
+                             "bitwise its out-of-place form and its plain version")
+        ms = cuda_ms(lambda: K3.opt_update(vi, g, v0, bi, 0.05, 0.5, coef, seed, mode=mode,
+                                           inplace=True))
+        out_ms = cuda_ms(lambda: K3.opt_update(v, g, v0, b, 0.05, 0.5, coef, seed, mode=mode))
+        dev_ms, dev_src = kernel_device_ms(
+            lambda: K3.opt_update(vi, g, v0, bi, 0.05, 0.5, coef, seed, mode=mode,
+                                  inplace=True), "opt_update_inplace_kernel", K3)
+        out_dev, out_src = kernel_device_ms(
+            lambda: K3.opt_update(v, g, v0, b, 0.05, 0.5, coef, seed, mode=mode),
+            "opt_update_kernel", K3)
+        bnd, by = bound_ms(n * (4 * v.element_size() + 2 * b.element_size()),
+                           OPT_OPS_PER_ELEMENT[mode] * n, rates)
+        rows.append({"kernel": "opt_update", "form": "inplace", "what": "in place",
+                     "shape": [n], "mode": mode, "dtype": name(vdt), "buf_dtype": name(bdt),
+                     "max_abs_err": 0.0, "ms": ms, "out_of_place_ms": out_ms,
+                     "device_ms": dev_ms, "device_ms_source": dev_src,
+                     "out_of_place_device_ms": out_dev, "out_of_place_device_ms_source": out_src,
+                     "bound_ms": bnd, "bound_by": by})
+        print(f"opt_update in place n={n} {mode} v {name(vdt)} buf {name(bdt)}: bitwise the "
+              f"out-of-place form and the plain version; kernel {ms * 1e3:.2f} us "
+              f"({dev_txt(dev_ms, dev_src, 'us')}), out of place {out_ms * 1e3:.2f} us "
+              f"({dev_txt(out_dev, out_src, 'us')}), bound {bnd * 1e3:.3f} us ({by})")
+        del v, g, v0, b, vi, bi, want, plain
+    print(json.dumps({"inplace": rows}))
+    return rows
+
+
 F32, BF16 = torch.float32, torch.bfloat16
 # (label, B, S, H, KV, Skv, hd, causal, window, dtype): stablelm-1.6b's
 # training shape (K·B = 128 sequences of 64 tokens) and prefill shape,
@@ -859,9 +954,18 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     batches and the held-out chunks) and never in a local step."""
     from repro_torch.launch import train
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()
+    held = torch.cuda.memory_allocated()       # the script's other tensors
     zero_counts()
     out = train.main(argv)
     counts = read_counts()
+    after = torch.cuda.memory_stats()
+    # the caching allocator around the path: cudaMalloc retries (each one
+    # frees the cache and synchronises) and the reserved bytes
+    out["allocator"] = {"alloc_retries": after["num_alloc_retries"] - before["num_alloc_retries"],
+                        "reserved_before": before["reserved_bytes.all.current"],
+                        "reserved_after": after["reserved_bytes.all.current"],
+                        "reserved_peak": after["reserved_bytes.all.peak"]}
     out["variant_launches"] = read_variants()
     steps = out["iterations"]
     # fit's history holds each window's loss, then, on eval windows, the
@@ -869,9 +973,10 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     hist = out["history"]
     losses = [h[2] for i, h in enumerate(hist) if i == 0 or hist[i - 1][:2] != h[:2]]
     peak = torch.cuda.max_memory_allocated()
-    out["peak_bytes"] = peak
+    out["peak_bytes"], out["peak_above_held"] = peak, peak - held
     print(f"{label}: {steps} local steps, {out['ms_per_local_step']:.3f} ms per "
-          f"local step (steady median), peak memory {peak / 2**30:.3f} GiB, "
+          f"local step (steady median), peak memory {peak / 2**30:.3f} GiB "
+          f"({(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} held before it), "
           f"optimizer state {out['opt_state_bytes']:,} B/worker, bytes/round/worker "
           f"{out['bytes_per_round']:,}, launches {counts}, "
           f"first/last window loss {losses[0]:.5f}/{losses[-1]:.5f}, test AUC "
@@ -952,12 +1057,10 @@ RN_PATHS = [
                                  "--participation", "0.75", "--fault-seed", "1"],
      "prox_update"),
     # blocked Shampoo with --precond-every 1: ~730,000 32×32 blocks a worker,
-    # statistics and inverse roots 6.0 GB a worker in fp32.  K cut to 2 of
-    # RN_ARGS' 4: a local step holds three copies of that state (fit's, the
-    # window's current and the new one): 72 GB at K = 4 ran out of memory,
-    # and K = 3 peaked at 72.8 GiB alone, out of memory beside this
-    # script's other paths
-    ("resnet50_shampoo", ["--optimizer", "shampoo_blocked", "--workers", "2"], "prox_update"),
+    # statistics and inverse roots 6.0 GB a worker in fp32, 24.1 GB at
+    # RN_ARGS' K = 4; the donating executor writes each step into that state
+    # leaf by leaf, so a step holds one copy of it plus one leaf's temporaries
+    ("resnet50_shampoo", ["--optimizer", "shampoo_blocked"], "prox_update"),
 ]
 # bytes/round/worker as the reference's launcher prints them for the same
 # flags (tests/test_torch_codasca.py holds these numbers against
@@ -967,6 +1070,10 @@ RN_PATHS = [
 # parameters and 3 duals, doubled by CODASCA.  The masked window's weight
 # lanes (+4 B, +8 B for CODASCA) are not in the printed number.
 MLP_BYTES = (24961 + 3) * 4
+# the mlp paths whose final state a later phase reads (the sketch count, the
+# profiled windows, the --executor shard_map twins held bitwise)
+MLP_STATES_READ_LATER = ("mlp", "mlp_sketch", "mlp_codasca_faults",
+                         "mlp_codasca_server_momentum")
 BYTES_PER_ROUND = {
     "mlp": MLP_BYTES, "mlp_momentum": MLP_BYTES, "mlp_sm3": MLP_BYTES,
     "mlp_shampoo": MLP_BYTES, "mlp_sketch": MLP_BYTES + 2 * 2048 * 4,
@@ -1163,10 +1270,20 @@ def window_batch(mcfg, dev) -> dict:
     return {k: v.to(dev) for k, v in wb.items()} | {"labels": y.to(dev)}
 
 
-def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
+def copied(state):
+    """A copy of a state for a donating executor, which consumes what it is
+    given, where the caller keeps using the original."""
+    from repro_torch.tree import tree_map
+    return tree_map(torch.clone, state)
+
+
+def profile_window(label: str, mcfg, state, dev, *, consume: bool = False,
+                   **ccfg_kw) -> dict:
     """Where one window (I=8 local steps + the average) of a main path spends
     its time: host wall time, device busy time, the hand-written kernels'
-    share, and the kernels that take the most device time."""
+    share, and the kernels that take the most device time.  The donating
+    executor runs a warm-up window, then the profiled one from its result,
+    on a copy of ``state`` (``consume``: on ``state`` itself)."""
     from repro_torch.core import coda
     from repro_torch.core.faults import FaultPlan
     ccfg = coda.CoDAConfig(n_workers=4, p_pos=0.71, **ccfg_kw)
@@ -1175,8 +1292,14 @@ def profile_window(label: str, mcfg, state, dev, **ccfg_kw) -> dict:
         fl = {k: torch.from_numpy(v).to(dev)
               for k, v in zip(("weights", "resync"), FaultPlan.from_config(ccfg).window(0))}
     wb = window_batch(mcfg, dev)
-    exe.window_step(state, wb, 0.5, faults=fl)          # warm-up
-    wall, busy, per = device_profile(lambda: exe.window_step(state, wb, 0.5, faults=fl))
+    held = [exe.window_step(state if consume else copied(state), wb, 0.5, faults=fl)[0]]
+    del state                                           # after the warm-up window
+
+    def window():
+        held.append(exe.window_step(held.pop(), wb, 0.5, faults=fl)[0])
+
+    wall, busy, per = device_profile(window)
+    del held
     ours = {name: sum(v for k, v in per.items() if tag in k)
             for name, tag in KERNEL_TAGS.items()}
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
@@ -2115,6 +2238,8 @@ def run_bf16_coda(dev) -> tuple[dict, dict]:
     sched = schedules.ScheduleConfig(n_workers=c["K"], eta0=0.5, T0=c["T0"], I0=c["I"],
                                      p_pos=ds.p_pos)
     torch.cuda.synchronize()
+    check_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()      # the fit's own peak from here
     zero_counts()
     res = coda.fit(state, cfg, ccfg, sched, 1,
                    sample_window=lambda i: ds.sample_window(i, c["B"]),
@@ -2140,13 +2265,15 @@ def run_bf16_coda(dev) -> tuple[dict, dict]:
     auc = objective.roc_auc(h, test["labels"])
     peak = torch.cuda.max_memory_allocated()
     print(f"main path {label}: {ms:.3f} ms per local step (steady median), peak memory "
-          f"{peak / 2**30:.3f} GiB, window losses {[round(x, 5) for x in losses]}, test AUC "
-          f"{auc:.4f}")
+          f"{peak / 2**30:.3f} GiB (the local-step check before the fit: "
+          f"{check_peak / 2**30:.3f} GiB), window losses {[round(x, 5) for x in losses]}, "
+          f"test AUC {auc:.4f}")
     if not (all(math.isfinite(x) for x in losses) and bool(torch.isfinite(h).all())):
         raise SystemExit(f"{label}: a non-finite loss or test score")
-    prof = profile_window(label, cfg, res.state, dev, param_dtype=BF16)
-    return ({"auc": auc, "ms_per_local_step": ms, "peak_bytes": peak, "losses": losses,
-             "bf16_rule": rule, "variant_launches": variants, "profile": prof}, counts)
+    prof = profile_window(label, cfg, res.state, dev, consume=True, param_dtype=BF16)
+    return ({"auc": auc, "ms_per_local_step": ms, "peak_bytes": peak,
+             "check_peak_bytes": check_peak, "losses": losses, "bf16_rule": rule,
+             "variant_launches": variants, "profile": prof}, counts)
 
 
 # the crash-resume on the card: path (b)'s configuration (mlp_codasca_faults:
@@ -2317,9 +2444,12 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
     fl = window_faults(w0)
     merged_keys = ("params", "duals", "cv_params", "cv_duals", "cg_params", "cg_duals")
 
-    def window(st, run_cfg, keep):
+    def window(st, run_cfg, keep, donate=False):
         lo, _, _ = coda.grad_step_scores(cfg, run_cfg, st, batch)
-        new, _ = coda.make_executor(cfg, run_cfg).window_step(st, wb, 0.5, faults=fl)
+        # the kernels' and ref's windows run out of place (no donation) from
+        # one state; the fp32 one consumes its widened copy
+        new, _ = coda.make_executor(cfg, run_cfg, donate=donate).window_step(st, wb, 0.5,
+                                                                             faults=fl)
         # cg is replicated: one row of it
         out = {k: {f"{k}{i}": (x[:1] if k.startswith("cg_") else x).to(keep)
                    for i, x in enumerate(tree_leaves(new[k]))} for k in merged_keys}
@@ -2341,8 +2471,9 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
 
     st32 = {k: tree_map(lambda x, k=k: widen(k, x), v) for k, v in state.items()}
     del state
+    torch.cuda.empty_cache()
     losses["fp32"], merged["fp32"] = window(
-        st32, dataclasses.replace(ccfg, impl="ref", param_dtype=F32), dev)
+        st32, dataclasses.replace(ccfg, impl="ref", param_dtype=F32), dev, donate=True)
     del st32
     cmp_peak = torch.cuda.max_memory_allocated()
     rule = {"losses": bf16_noise_check(f"main path {label} local step",
@@ -2393,7 +2524,8 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
           f"bytes a worker {res.exposed_bytes:,}, test AUC {auc:.4f}")
     if not (all(math.isfinite(x) for x in losses) and bool(torch.isfinite(h).all())):
         raise SystemExit(f"{label}: a non-finite loss or test score")
-    prof = profile_window(label, cfg, res.state, dev, param_dtype=BF16, **BF16_CODASCA_FAULTS)
+    prof = profile_window(label, cfg, res.state, dev, consume=True, param_dtype=BF16,
+                          **BF16_CODASCA_FAULTS)
     return ({"auc": auc, "ms_per_local_step": ms, "peak_bytes": peak,
              "check_peak_bytes": cmp_peak, "losses": losses, "bf16_rule": rule,
              "variant_launches": variants, "profile": prof,
@@ -2536,7 +2668,14 @@ def run_resnet50_overlap(runs: dict, counts: dict) -> dict:
           f"{ov['auc']:.4f} beside its {det['auc']:.4f} (not held: other draws)")
     if got != want:
         raise SystemExit(f"main path {label}: collectives {got}, the contract gives {want}")
+    for name, r in ((RN_SHARD_DET[0], det), (label, ov)):
+        a = r["allocator"]
+        print(f"main path {name}: allocator: {a['alloc_retries']} cudaMalloc retries, reserved "
+              f"{a['reserved_before'] / 2**30:.3f} GiB before, {a['reserved_after'] / 2**30:.3f} "
+              f"after, peak {a['reserved_peak'] / 2**30:.3f}; allocated peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB")
     return {"mesh": ov["mesh"], "collectives": got,
+            "allocator": {RN_SHARD_DET[0]: det["allocator"], label: ov["allocator"]},
             "ms_per_local_step": ov["ms_per_local_step"],
             "sharded_ms_per_local_step": det["ms_per_local_step"], "auc": ov["auc"],
             "pair": profile_overlap_pair(label, det["state"], det["ms_per_local_step"])}
@@ -2618,11 +2757,11 @@ def profile_overlap_pair(label: str, state, det_ms: float) -> dict:
         st = exe.place(state)
         ring = exe._ring_spec()
 
-        def pair():
-            return exe.window_pair_step(st, wb2, 0.5)
+        # each run consumes a copy of st, made before it starts
+        def pair(s):
+            return exe.window_pair_step(s, wb2, 0.5)
 
-        def sequential():
-            s = st
+        def sequential(s):
             for i in range(2):
                 s, _ = exe._one_window(s, {k: v[i] for k, v in wb2.items()}, 0.5,
                                        communicate=True, ring=ring, fl=None)
@@ -2630,12 +2769,14 @@ def profile_overlap_pair(label: str, state, det_ms: float) -> dict:
 
         cudnn = torch.backends.cudnn.deterministic
 
-        a, la = pair()
-        b = sequential()
+        a, la = pair(copied(st))
+        b = sequential(copied(st))
         diff = compare_states(a, b)
         del a, b
         bucketing.zero_collectives()
-        wall, spans, side_ids = stream_spans(pair, bucketing.SIDE_STREAM_RANGE)
+        s = copied(st)
+        wall, spans, side_ids = stream_spans(lambda: pair(s), bucketing.SIDE_STREAM_RANGE)
+        del s
         log = list(bucketing.overlap_log)
         # the side stream: where the kernels enqueued inside PendingAverage's
         # profiler range ran; every other stream (cuDNN's among them) computes
@@ -2646,9 +2787,10 @@ def profile_overlap_pair(label: str, state, det_ms: float) -> dict:
         walls = {}
         for name, fn in (("pair", pair), ("sequential", sequential),
                          ("sequential", sequential), ("pair", pair)):
+            s = copied(st)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fn()
+            fn(s)
             torch.cuda.synchronize()
             walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
         return {"bitwise_sequential": not diff, "differs": {k: v for k, v in
@@ -2779,13 +2921,13 @@ def sharded_window(label: str, mcfg, state, wb, dev, *, profile: bool = False, *
         exe = coda.make_executor(mcfg, ccfg, "shard_map", mesh=mesh_mod.make_worker_mesh())
         batched = coda.make_executor(mcfg, ccfg)
         bucketing.zero_collectives()
-        a, _ = exe.window_step(exe.place(state), wb, 0.5)
+        a, _ = exe.window_step(exe.place(copied(state)), wb, 0.5)
         torch.cuda.synchronize()
         comms = {k: dict(v) for k, v in bucketing.collectives.items()}
-        b, _ = batched.window_step(state, wb, 0.5)
+        b, _ = batched.window_step(copied(state), wb, 0.5)
         diff = compare_states(a, b)
         del a
-        b2, _ = batched.window_step(state, wb, 0.5)
+        b2, _ = batched.window_step(copied(state), wb, 0.5)
         repeat = not compare_states(b2, b)
         del b, b2
         res = {"bitwise": not diff, "differs": diff, "collectives": comms,
@@ -2794,8 +2936,10 @@ def sharded_window(label: str, mcfg, state, wb, dev, *, profile: bool = False, *
         if profile:
             prof = {}
             for name, ex in (("sharded", exe), ("batched", batched)):
-                ex.window_step(state, wb, 0.5)                  # warm-up
-                wall, busy, per = device_profile(lambda ex=ex: ex.window_step(state, wb, 0.5))
+                ex.window_step(copied(state), wb, 0.5)          # warm-up
+                st = copied(state)
+                wall, busy, per = device_profile(lambda ex=ex: ex.window_step(st, wb, 0.5))
+                del st
                 prof[name] = {"wall_ms": wall, "device_busy_ms": busy,
                               "idle_share": 1.0 - busy / wall, "kernels": per}
             sh, bt = prof["sharded"], prof["batched"]
@@ -2860,12 +3004,18 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
 
     ds = dataset()
     ccfg = coda.CoDAConfig(n_workers=c["K"], p_pos=ds.p_pos, param_dtype=BF16)
-    state = coda.init_state(cfg, ccfg, generator=torch.Generator().manual_seed(0), device=dev)
+
+    def fresh():
+        return coda.init_state(cfg, ccfg, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+
+    state = fresh()
     by_dtype = coda.window_payload_by_dtype(state)
     check = sharded_window(label, cfg, state, ds.sample_window(c["I"], c["B"]), dev,
                            param_dtype=BF16)
-    torch.cuda.empty_cache()
     n_leaves = len(tree_leaves(state["params"]))
+    del state                      # each fit below consumes a fresh one
+    torch.cuda.empty_cache()
     sched = schedules.ScheduleConfig(n_workers=c["K"], eta0=0.5, T0=c["T0"], I0=c["I"],
                                      p_pos=ds.p_pos)
 
@@ -2874,7 +3024,7 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        res = coda.fit(state, cfg, ccfg, sched, 1,
+        res = coda.fit(fresh(), cfg, ccfg, sched, 1,
                        sample_window=lambda i: ds.sample_window(i, c["B"]),
                        sample_alpha_batch=ds.sample_alpha_batch, executor=exe)
         torch.cuda.synchronize()
@@ -2889,14 +3039,14 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
     # the same fit on the batched executor, for its peak and ms beside these
     torch.cuda.reset_peak_memory_stats()
     ds = dataset()
-    twin = coda.fit(state, cfg, ccfg, sched, 1,
+    twin = coda.fit(fresh(), cfg, ccfg, sched, 1,
                     sample_window=lambda i: ds.sample_window(i, c["B"]),
                     sample_alpha_batch=ds.sample_alpha_batch)
     torch.cuda.synchronize()
     twin_peak = torch.cuda.max_memory_allocated()
     twin_ms = 1e3 * statistics.median(twin.step_seconds[1:])
     twin_losses = [h[2] for h in twin.history]
-    del state, twin
+    del twin
     steps, windows = res.iterations, res.comm_rounds - 1
     want = dict.fromkeys(counts, 0) | {
         "auc_loss": steps, "prox_update": steps * n_leaves,
@@ -3566,6 +3716,9 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     auc_rows = check_auc_loss(dev, rates, gen)
     prox_rows = check_prox_update(dev, rates, gen)
     opt_rows = check_opt_update(dev, rates, gen)
+    inplace_rows = check_inplace_updates(dev, rates, gen)
+    prox_rows += [r for r in inplace_rows if r["kernel"] == "prox_update"]
+    opt_rows += [r for r in inplace_rows if r["kernel"] == "opt_update"]
     attn_rows, attn_bwd = check_flash_attention(dev, rates, bf16_rate, gen)
     gmm_rows = check_grouped_matmul(dev, rates, bf16_rate)
     stamp("kernel checks done")
@@ -3578,6 +3731,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     for label, args, per_leaf in MLP_PATHS:
         runs[label], counts[label] = run_main_path(f"main path {label}", args,
                                                    MLP_LEAVES, per_leaf)
+        if label not in MLP_STATES_READ_LATER:
+            runs[label].pop("state")           # free the card for the later paths
     if not runs["mlp"]["auc"] > 0.9:
         raise SystemExit(f"main path mlp: test AUC {runs['mlp']['auc']:.4f} <= 0.9")
     sk = runs["mlp_sketch"]["state"]["sk_acc"]
@@ -3592,20 +3747,23 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     profile_window("mlp_codasca_faults", mlp_config(), runs["mlp_codasca_faults"]["state"], dev,
                    algorithm="codasca", participation=0.75, straggler_prob=0.2,
                    straggler_windows=2, max_staleness=2, fault_seed=3, stream_bins=2048)
+    for label in ("mlp_sketch", "mlp_codasca_faults"):
+        runs[label].pop("state")
     runs["mlp_crash_resume"], counts["mlp_crash_resume"] = run_crash_resume(dev)
     runs["quickstart"], counts["quickstart"] = run_quickstart()
-    print("main path resnet50_shampoo: reduced: K=2 of the other ResNet50 paths' 4 (a "
-          "local step holds three copies of the 6.0 GB/worker optimizer state: 72 GB at K=4 "
-          "ran out of the card's memory, and K=3 peaked at 72.8 GiB alone, out of memory "
-          "beside this script's other paths); --precond-every 1, full width, one stage of "
-          "16 local steps")
+    runs["quickstart"].pop("state")
     for label, args, per_leaf in RN_PATHS:
         runs[label], counts[label] = run_main_path(f"main path {label}", RN_ARGS + args,
                                                    RN_LEAVES, per_leaf)
     shampoo = check_shampoo_step("resnet50_shampoo", runs["resnet50_shampoo"].pop("state"), dev)
     shampoo.update(peak_bytes=runs["resnet50_shampoo"]["peak_bytes"],
                    ms_per_local_step=runs["resnet50_shampoo"]["ms_per_local_step"],
-                   opt_state_bytes=runs["resnet50_shampoo"]["opt_state_bytes"])
+                   opt_state_bytes=runs["resnet50_shampoo"]["opt_state_bytes"],
+                   workers=4)
+    print(f"main path resnet50_shampoo: K=4 (the launcher's default), peak memory "
+          f"{shampoo['peak_bytes'] / 2**30:.3f} GiB, optimizer state "
+          f"{shampoo['opt_state_bytes']:,} B/worker, {shampoo['ms_per_local_step']:.3f} ms per "
+          f"local step, {shampoo['ms_per_refresh']:.2f} ms a refresh")
     print(json.dumps({"resnet50_shampoo": shampoo}))
     torch.cuda.empty_cache()
     profile_window("resnet50", get_config("resnet50"), runs["resnet50"]["state"], dev)
@@ -3622,6 +3780,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     profile_window(label, get_config("resnet50"), st, dev, algorithm="codasca",
                    participation=0.75, fault_seed=1)
     del st
+    for label in ("resnet50_momentum", "resnet50_sm3", "resnet50_codasca_masked"):
+        runs[label].pop("state")                # no later phase reads them
     n_step = 4 * sum(resnet_leaf_sizes())
     k3_bound, _ = bound_ms(20 * n_step, OPT_OPS_PER_ELEMENT["momentum"] * n_step, rates)
     print(f"profile resnet50_momentum: opt_update {prof['hand_written_ms']['opt_update'] / 8:.4f} "
@@ -3638,8 +3798,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "resnet50_shard_map", rn_cfg, runs["resnet50"]["state"], window_batch(rn_cfg, dev), dev,
         profile=True)
 
-    for label in [label for label, _, _ in RN_PATHS] + ["resnet50_shard_map"]:
-        runs[label].pop("state", None)           # free the card for stablelm
+    for run in runs.values():                   # no later phase reads a finished
+        run.pop("state", None)                  # path's state: free the card
     stamp("distributed executor paths done")
 
     # full-depth fp32 prefills: stablelm-1.6b (head_dim 64) and chatglm3-6b
@@ -3667,7 +3827,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                                DENSE_LEAVES, attn_layers=TRAIN_LAYERS)
     require_k4_variant(label, runs[label], "flash_fwd_tf32x3", "fp32, head_dim 64")
     lm_cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
-    profile_window(label, lm_cfg, runs[label].pop("state"), dev)
+    profile_window(label, lm_cfg, runs[label].pop("state"), dev, consume=True)
     torch.cuda.empty_cache()
     runs["bf16_stablelm_coda"], counts["bf16_stablelm_coda"] = run_bf16_coda(dev)
     torch.cuda.empty_cache()
@@ -3680,6 +3840,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     label, args, per_leaf = LM_SMOKE
     runs[label], counts[label] = run_main_path(f"main path {label}", args, DENSE_LEAVES,
                                                per_leaf, attn_layers=2)
+    runs[label].pop("state")
     torch.cuda.empty_cache()
 
     stamp("stablelm CoDA paths done")
@@ -3710,6 +3871,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     label, args, per_leaf = MOE_SMOKE
     runs[label], counts[label] = run_main_path(f"main path {label}", args, MOE_LEAVES,
                                                per_leaf, attn_layers=2, moe_layers=2)
+    runs[label].pop("state")
     require_k4_variant(label, runs[label], "flash_fwd_tf32x3", "fp32, head_dim 128")
     serve_out, counts["dbrx_serve_smoke"], serve_text = run_serve_smoke()
 
@@ -3767,11 +3929,16 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         if not abs(evals[0] - cpu) <= 0.01:
             raise SystemExit(f"main path {label}: card and CPU differ after one local step")
 
-    def row(name, replaces, rows, head, tol):
+    def row(name, replaces, rows, head, tol, inplace=None):
         h = rows[head]
         by_path = {label: c[name] for label, c in counts.items()}
         err = max(r.get("max_abs_err", 0.0) for r in rows)
-        return {"name": name, "route": "cuda",
+        # the in-place form at the headline's shape and dtypes (the donating
+        # executors' steps launch it)
+        hi = {} if inplace is None else {
+            "inplace_ms": rows[inplace]["ms"], "inplace_device_ms": rows[inplace]["device_ms"],
+            "inplace_device_ms_source": rows[inplace]["device_ms_source"]}
+        return {"name": name, "route": "cuda", **hi,
                 "source": "src/repro_torch/kernels/csrc/coda_kernels.cu",
                 "wrapper": f"src/repro_torch/kernels/{name}.py",
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -3794,14 +3961,21 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     opt_head = next(i for i, r in enumerate(opt_rows)
                     if r["shape"] == [big] and "what" not in r and r["mode"] == "momentum"
                     and r["dtype"] == "float32" and r["buf_dtype"] == "bfloat16")
+    prox_in = next(i for i, r in enumerate(prox_rows)
+                   if r.get("form") == "inplace" and r["dtype"] == "float32")
+    opt_in = next(i for i, r in enumerate(opt_rows)
+                  if r.get("form") == "inplace" and r["mode"] == "momentum"
+                  and r["dtype"] == "float32" and r["buf_dtype"] == "bfloat16")
     kernels = [
         row("auc_loss", "src/repro/kernels/auc_loss.py:61", auc_rows, auc_head,
             "atol 1e-5 + rtol 1e-4"),
         row("prox_update", "src/repro/kernels/prox_update.py:39", prox_rows, prox_head,
-            "bitwise (0) in f32 and bf16"),
+            "bitwise (0) in f32 and bf16; the in-place form bitwise the out-of-place one",
+            prox_in),
         row("opt_update", "src/repro/kernels/opt_update.py:72", opt_rows, opt_head,
             "bitwise (0): v and buffer in every mode and dtype, bf16 rounding bits "
-            "included; coef=0 equals prox_update bitwise"),
+            "included; coef=0 equals prox_update bitwise; the in-place form bitwise the "
+            "out-of-place one", opt_in),
     ]
     # launches of each K4/K5 variant on each path (counters set to 0 just
     # before each path, read just after), and each variant's headline case

@@ -27,16 +27,22 @@ rules read what the recorders saw.
     window dispatches a matmul-bearing op after the unit's issue and before
     its wait on it — for every unit but those the first such op itself
     waits for, and for one unit at least.
-  * **R2 buffer reuse** — the counterpart of the donation audit for a
-    functional eager executor: once the caller holds only the program's
-    outputs, no tensor of its consumed input (the old state, the old serving
-    cache, a kernel's operands) may still be alive.  Weak references to the
-    old leaves are read with the cyclic collector held off: a leaf alive
-    then is either retained (a finding) or freed only when the collector
-    runs (a finding too: a reference cycle kept it, as ``tree_unflatten``'s
-    closure once kept whole parameter trees).  On the card the allocated
-    bytes after the call must also be within ``R2_SLACK_BYTES`` of the new
-    state's, and the peak above the state is recorded.
+  * **R2 buffer reuse** — the counterpart of the reference's donation
+    audit (donated buffers aliased in the compiled output): once the caller
+    holds only the program's outputs, no tensor of its consumed input (the
+    old state, the old serving cache, a kernel's operands) may still be
+    alive.  Weak references to the old leaves are read with the cyclic
+    collector held off: a leaf alive then is either retained (a finding) or
+    freed only when the collector runs (a finding too: a reference cycle
+    kept it, as ``tree_unflatten``'s closure once kept whole parameter
+    trees).  A donated program (``expect["donated"]``: a donating
+    executor's window, pair and stage end) must also hand every state leaf
+    back in the consumed input's storage, leaf for leaf by path, as XLA
+    aliases a donated buffer in the output.  On the card the allocated
+    bytes after the call must be within ``R2_SLACK_BYTES`` of the new
+    state's, and for a donated program the transient peak (the peak above
+    what the program leaves allocated) within ``R2_PEAK_STATE_RATIO`` times
+    the new state's bytes plus that slack.
   * **R3 host-sync and dtype lint** — a ``TorchDispatchMode`` over the
     program's aten ops and a ``TorchFunctionMode`` over its tensor methods
     flag any float64 tensor, any host read (``_local_scalar_dense``:
@@ -110,6 +116,16 @@ TMA_STRIDE_ALIGN = 16
 # other tensors plus the outputs by at most this (the allocator's rounding,
 # cuBLAS workspaces, the K1 tickets)
 R2_SLACK_BYTES = 64 * 2 ** 20
+# R2 on the card, for a donated program: the transient peak may be at most
+# this many times the new state's bytes, plus R2_SLACK_BYTES.  A donated
+# window holds one state plus one local step's temporaries: the gradients
+# (one parameter stack, at most half the state, which also holds
+# ``ref_params``), the activations of one batch and one leaf's optimizer
+# temporaries (blocked Shampoo on ResNet50's largest leaf at K=4: about
+# 10 GB of Newton-Schulz products beside a 24.1 GB state), so it stays
+# below one state.  A window that keeps its input until it returns holds a
+# whole second state on top of the gradients, above one state.
+R2_PEAK_STATE_RATIO = 1.0
 
 _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 _SELF = os.path.abspath(__file__)
@@ -165,8 +181,13 @@ class Program:
         "gather_pair", "payload_bytes", "n_rows"}``;
       * ``"chunk_shapes"`` (R4) — the exact set of engine chunk shapes;
       * ``"allow"`` (R3) — ``{file:line: name}`` of waived findings.
+      * ``"donated"`` (R2) — the program consumes its first argument, a
+        state, and must return it (the first output, or the output) in the
+        same storage leaf for leaf.
     ``wire``: the wire log of the run; ``lint``: R3 observations;
     ``retained``: R2 messages (None when the program consumes nothing);
+    ``moved``: R2's paths of the donated state's leaves that came back in
+    other storage (None when nothing is donated);
     ``memory``: R2's allocated bytes on the card; ``launches``: R5
     records of the kernel calls; ``chunk_shapes``: the engine's C values;
     ``library_loads``: loads of the kernel library in this process;
@@ -177,6 +198,7 @@ class Program:
     schedule: list = dataclasses.field(default_factory=list)
     lint: list = dataclasses.field(default_factory=list)
     retained: list | None = None
+    moved: list | None = None
     memory: dict | None = None
     launches: list = dataclasses.field(default_factory=list)
     chunk_shapes: set | None = None
@@ -457,15 +479,45 @@ class _Survivors:
         return msgs
 
 
+def storage_map(tree) -> dict:
+    """Each tensor leaf's path → its storage (device, base pointer)."""
+    return {p: _storage(t) for p, t in zip(tree_paths(tree), tree_leaves(tree))
+            if isinstance(t, torch.Tensor)}
+
+
+def moved_leaves(before: dict, out) -> list:
+    """Paths of a donated state (``before``: its ``storage_map``) whose leaf
+    the output state holds in other storage, or lacks."""
+    st = out[0] if isinstance(out, tuple) else out
+    after = storage_map(st)
+    return [p for p, k in before.items() if after.get(p) != k]
+
+
+def transient_peak_bound(new_bytes: int) -> float:
+    """The most a donated program's transient peak may reach on the card."""
+    return R2_PEAK_STATE_RATIO * new_bytes + R2_SLACK_BYTES
+
+
 def rule_buffer_reuse(prog: Program) -> list:
-    """R2: findings from the survivors and the card's allocated bytes."""
+    """R2: findings from the survivors, the donated state's storage and the
+    card's allocated bytes."""
     out = [Finding("R2", prog.name, m) for m in (prog.retained or [])]
+    if prog.moved:
+        out.append(Finding("R2", prog.name,
+                           f"{len(prog.moved)} leaves of the donated state came back in new "
+                           f"storage (not written in place), e.g. {prog.moved[:3]}"))
     mem = prog.memory
     if mem is not None and mem["excess"] > R2_SLACK_BYTES:
         out.append(Finding("R2", prog.name,
                            f"{mem['excess']} B allocated beyond the caller's other tensors and "
                            f"the outputs ({mem['new_bytes']} B) after the program (slack "
                            f"{R2_SLACK_BYTES} B)"))
+    if mem is not None and prog.expect.get("donated") \
+            and mem["transient_peak"] > transient_peak_bound(mem["new_bytes"]):
+        out.append(Finding("R2", prog.name,
+                           f"the donated program peaked {mem['transient_peak']} B above what it "
+                           f"left allocated, over {R2_PEAK_STATE_RATIO} x the new state's "
+                           f"{mem['new_bytes']} B + {R2_SLACK_BYTES} B"))
     return out
 
 
@@ -976,6 +1028,7 @@ def run_program(prog: Program, fn, args: list, *, consumed=(0,), query: bool = F
     their indices) for R2 to hold."""
     _warm_recorders()
     survivors = _Survivors([args[i] for i in consumed]) if consumed else None
+    donated = storage_map(args[0]) if prog.expect.get("donated") else None
     on_card = next((t.device for t in _inputs(args) if t.device.type == "cuda"), None)
     if on_card is not None:
         _warm_device(on_card)
@@ -999,6 +1052,8 @@ def run_program(prog: Program, fn, args: list, *, consumed=(0,), query: bool = F
             lint.note("reduced_precision", f)
         if survivors is not None:
             prog.retained = (prog.retained or []) + survivors.problems(out)
+        if donated is not None:
+            prog.moved = (prog.moved or []) + moved_leaves(donated, out)
     finally:
         if gc_on:
             gc.enable()
@@ -1008,7 +1063,8 @@ def run_program(prog: Program, fn, args: list, *, consumed=(0,), query: bool = F
         after = torch.cuda.memory_allocated()
         peak = torch.cuda.max_memory_allocated()
         prog.memory = {"held_by_caller": held, "new_bytes": new, "allocated_after": after,
-                       "excess": after - held - new, "peak_above_state": peak - held - new}
+                       "excess": after - held - new, "peak_above_state": peak - held - new,
+                       "transient_peak": peak - after}
     prog.launches += launches_from_calls(sink, query=query)
     prog.library_loads = library_loads()
     return out
@@ -1022,7 +1078,8 @@ def run_rules(programs, launches=(), *, rules=None, check_dispatch: bool = True)
         if "R1" in sel and "collectives" in prog.expect:
             rep.findings += rule_collective_placement(prog)
             rep.checked.append(("R1", prog.name))
-        if "R2" in sel and (prog.retained is not None or prog.memory is not None):
+        if "R2" in sel and (prog.retained is not None or prog.moved is not None
+                            or prog.memory is not None):
             rep.findings += rule_buffer_reuse(prog)
             rep.checked.append(("R2", prog.name))
             if prog.memory is not None:
@@ -1139,7 +1196,8 @@ def capture_vmap_programs(mcfg, ccfg, *, I: int = 2, B: int = 8, S: int = 0, see
     if state is None:
         state = coda.init_state(mcfg, ccfg, generator=torch.Generator().manual_seed(seed),
                                 device=device)
-    expect = {"collectives": {"kind": "none"}, "allow": dict(allow or {})}
+    expect = {"collectives": {"kind": "none"}, "allow": dict(allow or {}),
+              "donated": exe.donate}
     win = Program(f"{tag}/window", expect=dict(expect))
     fl = _faults(ccfg, K, device)
     args = [state, window_batch(mcfg, K, I, B, seed=seed, device=device, S=S), 0.1]
@@ -1176,7 +1234,8 @@ def capture_sharded_programs(mcfg, ccfg, mesh, *, policy: str = "replica", I: in
     progs = []
 
     def program(name, fn, args):
-        p = Program(f"{tag}/{name}", expect={"collectives": exp[name], "allow": allow})
+        p = Program(f"{tag}/{name}", expect={"collectives": exp[name], "allow": allow,
+                                             "donated": exe.donate})
         progs.append(p)
         return run_program(p, fn, args, query=query)
 

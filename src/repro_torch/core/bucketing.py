@@ -25,7 +25,12 @@ reduces and finishes at once; ``PendingAverage`` runs a ring plan's
 independent units (a chunk's chain of hops; at R = 1 a row's local mean)
 beside the next window's local steps, each leaf finished after its last
 unit, and the next window waits per leaf where it first reads one (the
-overlapped pair of ``core/coda_sharded.py``).
+overlapped pair of ``core/coda_sharded.py``).  A plan made with
+``inplace=True`` (a donating executor's window) writes each averaged leaf,
+and each entry it makes without a reduction, into the state's own leaf
+instead of a new tensor: every finish computes its outputs before it
+writes them, and reads no leaf another finish writes, so the bits are
+those of the out-of-place plan.
 
 Two payloads, as in the reference:
 
@@ -63,7 +68,7 @@ import torch.utils._pytree as pytree
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.tree import copy_into, tree_leaves, tree_paths, tree_unflatten
 
 F32 = torch.float32
 
@@ -556,7 +561,8 @@ class Plan:
     reduction as ring units, which ``PendingAverage`` runs beside the next
     window (None when the averaging has no ring form: all_reduce, int8);
     ``finishes``: every averaged leaf; ``local``: the top-level entries of
-    the new state that need no reduced row."""
+    the new state that need no reduced row; ``inplace``: both written into
+    the state's leaves."""
     state: dict
     rows: list
     reduce: Callable
@@ -564,15 +570,24 @@ class Plan:
     local: dict
     ring: RingSpec | None = None
     mean: bool = True
+    inplace: bool = False
+    _leaves: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def slots(self) -> dict:
         """An empty leaf list for every state key a finish writes."""
         keys = {k for f in self.finishes for k, _ in f.outs}
         return {k: [None] * len(tree_leaves(self.state[k])) for k in keys}
 
+    def leaf(self, k: str, i: int) -> torch.Tensor:
+        """Leaf i of the state's entry ``k`` (the in-place destination)."""
+        if k not in self._leaves:
+            self._leaves[k] = tree_leaves(self.state[k])
+        return self._leaves[k][i]
+
     def assemble(self, slots: dict) -> dict:
         new = dict(self.state)
-        new.update(self.local)
+        for k, tree in self.local.items():
+            new[k] = copy_into(self.state[k], tree) if self.inplace else tree
         for k, leaves in slots.items():
             new[k] = tree_unflatten(self.state[k], leaves)
         return new
@@ -583,7 +598,7 @@ class Plan:
         slots = self.slots()
         for f in self.finishes:
             for (k, i), t in zip(f.outs, f.fn(red.__getitem__)):
-                slots[k][i] = t.contiguous()
+                slots[k][i] = self.leaf(k, i).copy_(t) if self.inplace else t.contiguous()
         return self.assemble(slots)
 
 
@@ -666,7 +681,7 @@ def _reducer(compress, wa, ring, *, mean: bool):
 
 def average_plan(state, cv_new, compress: str | None, *, wa: Wire | None = None,
                  ring: RingSpec | None = None, n_workers: int | None = None,
-                 momentum=None) -> Plan:
+                 momentum=None, inplace: bool = False) -> Plan:
     """The plan of ``average_state`` (``cv_new`` None) or of
     ``average_and_refresh``; ``momentum``: (the window's start params, β)
     for server momentum."""
@@ -699,12 +714,12 @@ def average_plan(state, cv_new, compress: str | None, *, wa: Wire | None = None,
                                for k in state["sk_loc"]}
         local["sk_new"] = {k: torch.zeros_like(v) for k, v in state["sk_new"].items()}
     plan = Plan(state, rows, _reducer(compress, wa, ring, mean=True), fins, local, ring,
-                mean=True)
+                mean=True, inplace=inplace)
     return plan if momentum is None else _with_momentum(plan, *momentum)
 
 
 def masked_plan(state, cv_new, faults, compress: str | None, *, wa: Wire | None = None,
-                ring: RingSpec | None = None) -> Plan:
+                ring: RingSpec | None = None, inplace: bool = False) -> Plan:
     """The plan of ``masked_average_state`` (``cv_new`` None) or of
     ``masked_average_and_refresh``."""
     _no_ring_int8(ring, compress)
@@ -738,7 +753,7 @@ def masked_plan(state, cv_new, faults, compress: str | None, *, wa: Wire | None 
                              "compressed buckets")
         reduce = functools.partial(masked_int8_average, lane_idx=[0] * n + [1] * nc,
                                    lanes=lanes, wa=wa)
-        return Plan(state, mats + cmats, reduce, fins, local)
+        return Plan(state, mats + cmats, reduce, fins, local, inplace=inplace)
     rows = _scaled(mats, u) + _scaled(cmats, m) + [lanes]
     smats = _masked_sketch_mats(state, m)
     if smats:
@@ -751,7 +766,7 @@ def masked_plan(state, cv_new, faults, compress: str | None, *, wa: Wire | None 
         keep = 1.0 - m
         local["sk_new"] = {k: v * _col(keep, v) for k, v in state["sk_new"].items()}
     return Plan(state, rows, _reducer(None, wa, ring, mean=False), fins, local, ring,
-                mean=False)
+                mean=False, inplace=inplace)
 
 
 def average_state(state, compress: str | None, *, wa: Wire | None = None,
@@ -870,7 +885,9 @@ class PendingAverage:
     (the reference's fused window pair, ``window_pair_fn``).
 
     ``start(plan)`` returns the averaged state at once, every averaged leaf
-    preallocated and pending, and hands the plan's ring units to a
+    pending (preallocated, or under an in-place plan the leaf it averages:
+    the units read a leaf's rows before the finish that writes it, on the
+    same stream or thread), and hands the plan's ring units to a
     dedicated CUDA stream (NCCL: the local reduction waits on an event the
     compute stream records at the end of the first window; the hops, the
     chains' adds and the leaves' finishing work follow, and each unit
@@ -922,7 +939,8 @@ class PendingAverage:
             need = sorted({k for i in f.needs for k in covers[i]}, key=pos.get)
             own = {k for i in f.needs[:1] for k in covers[i]}
             extra += len(f.outs) if set(need) - own else 0
-            dsts = [torch.empty_like(tree_leaves(plan.state[k])[i]) for k, i in f.outs]
+            dsts = [plan.leaf(k, i) if plan.inplace else torch.empty_like(plan.leaf(k, i))
+                    for k, i in f.outs]
             for (k, i), d in zip(f.outs, dsts):
                 slots[k][i] = d
                 self.pending[_storage(d)] = need

@@ -21,10 +21,31 @@ launch per leaf (momentum, sm3).  The periodic averaging is a mean over
 axis 0, broadcast back; with the sketch on it also folds the per-worker
 deltas into the accumulator.
 
-Updates are out of place: every step returns new tensors and never writes
-into the old ones, so ``ref_params`` may share buffers with ``params``
-after ``stage_end`` (``init_state`` still gives it its own copy, as the
-reference does).
+Buffer donation, as the reference's executors donate their state
+(``make_executor(..., donate=True)``, the default).  A donating executor's
+``window_step``, ``window_pair_step`` and ``stage_end`` consume the state
+they are given: ``take_state`` moves its tensors into new containers and
+empties the dicts and lists handed over, so a later read of them raises
+(``KeyError``) where the reference raises on a deleted buffer.  The window
+then runs with ``inplace=True``: each local step writes the new parameters
+(K2/K3's in-place forms), optimizer state, duals and sketch into the
+buffers of the state it replaces, and the averaging writes each averaged
+leaf into the leaf it averages, as XLA aliases a donated carry; a window
+holds one state plus one step's temporaries.  The arithmetic is the same,
+so a donated window is bitwise the same window with ``donate=False``.
+Two copies stay: ``stage_end`` copies the parameters into ``ref_params``'s
+own buffers (the next window's K2 overwrites the parameters, and the
+proximal step reads the reference), and server momentum copies the
+window's start parameters (one parameter stack, a separate value in the
+reference too).  ``take_state`` also gives every leaf memory of its own,
+so a state built elsewhere with shared buffers cannot alias a write.
+
+Without donation (``donate=False``, and the functional entry points
+``local_step``, ``apply_grads``, ``run_window``, ``window_step`` and
+``stage_end`` unless told ``inplace=True``) updates are out of place:
+every step returns new tensors and never writes into the old ones, so
+``ref_params`` may share buffers with ``params`` after ``stage_end``
+(``init_state`` still gives it its own copy, as the reference does).
 
 Ported: ``algorithm="coda"`` and ``"codasca"`` (``core/codasca.py``)
 with every objective (``auc``, ``pauc_dro``, ``bce``) over every family
@@ -58,7 +79,8 @@ from repro_torch.core import bucketing, objective, optimizer, schedules
 from repro_torch.core.faults import FaultPlan
 from repro_torch.metrics import streaming
 from repro_torch.models import model as M
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.kernels.prox_update import byte_span
+from repro_torch.tree import copy_into, tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +198,36 @@ class CoDAConfig:
 CoDAState = dict[str, Any]
 
 
+def _empty(tree) -> None:
+    """Empty every dict and list of ``tree``, innermost first."""
+    kids = tree.values() if isinstance(tree, dict) else tree
+    for c in kids:
+        if isinstance(c, (dict, list)):
+            _empty(c)
+    tree.clear()
+
+
+def take_state(state: CoDAState) -> CoDAState:
+    """Take a donated state: a new tree of containers over the same
+    tensors, each leaf contiguous and in memory no other leaf overlaps (a
+    leaf that is not, such as a ``ref_params`` sharing the parameters'
+    buffers after a non-donating ``stage_end``, is copied once); the dicts
+    and lists handed over are emptied."""
+    carry = optimizer.carry_host_count
+    out = [t if not torch.is_tensor(t) or t.is_contiguous() else carry(t, t.contiguous())
+           for t in tree_leaves(state)]
+    reach = 0
+    for (lo, hi), i in sorted((byte_span(t), i) for i, t in enumerate(out)
+                              if torch.is_tensor(t) and t.numel()):
+        if lo < reach:                    # overlaps a leaf kept before it
+            out[i] = carry(out[i], out[i].clone())
+        else:
+            reach = max(reach, hi)
+    taken = tree_unflatten(state, out)
+    _empty(state)
+    return taken
+
+
 def _stack(params, K: int):
     return tree_map(lambda x: x[None].expand((K,) + x.shape).clone(), params)
 
@@ -249,42 +301,49 @@ def grad_step_scores(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
     return losses.detach(), (gp, gd), hs.detach()
 
 
-def apply_grads(ccfg: CoDAConfig, state: CoDAState, grads, eta) -> CoDAState:
+def apply_grads(ccfg: CoDAConfig, state: CoDAState, grads, eta, *,
+                inplace: bool = False) -> CoDAState:
     """Proximal primal descent (through the optimizer seam) + the
-    objective's dual step."""
+    objective's dual step.  ``inplace``: the caller owns ``state`` and the
+    results are written into its buffers (a donating executor's window)."""
     gp, gd = grads
     obj = objective.for_config(ccfg)
     opt = optimizer.for_config(ccfg)
     new_params, new_opt = opt.step(ccfg, state.get("opt"), state["params"],
-                                   gp, state["ref_params"], eta)
+                                   gp, state["ref_params"], eta, inplace=inplace)
     new_state = dict(state)
     new_state["params"] = new_params
     if new_opt is not None:
         new_state["opt"] = new_opt
-    new_state["duals"] = obj.dual_step(state["duals"], gd,
-                                       state["ref_duals"], eta, ccfg.gamma)
+    duals = obj.dual_step(state["duals"], gd, state["ref_duals"], eta, ccfg.gamma)
+    new_state["duals"] = copy_into(state["duals"], duals) if inplace else duals
     return new_state
 
 
 def local_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, batch,
-               eta) -> tuple:
+               eta, *, inplace: bool = False) -> tuple:
     """One local primal-dual update on every worker (no communication).
     ``batch``: leading [K, per_worker_batch, ...] axes.  Returns
     (new_state, per-worker losses [K]).  With the sketch on, the scores the
-    loss already computed go into the per-worker deltas."""
+    loss already computed go into the per-worker deltas.  ``inplace``: as
+    ``apply_grads``."""
     losses, grads, hs = grad_step_scores(mcfg, ccfg, state, batch)
-    new = apply_grads(ccfg, state, grads, eta)
+    new = apply_grads(ccfg, state, grads, eta, inplace=inplace)
+    del grads
     if "sk_new" in state:
-        new["sk_new"] = sketch_update(ccfg, state["sk_new"], hs, batch["labels"])
+        new["sk_new"] = sketch_update(ccfg, state["sk_new"], hs, batch["labels"],
+                                      inplace=inplace)
     return new, losses
 
 
-def sketch_update(ccfg: CoDAConfig, sk, hs, labels):
+def sketch_update(ccfg: CoDAConfig, sk, hs, labels, *, inplace: bool = False):
     """Scatter one local step's scores [K, B] into the per-worker sketch
-    deltas ({"pos": [K, bins], "neg": [K, bins]})."""
+    deltas ({"pos": [K, bins], "neg": [K, bins]}); ``inplace`` writes them
+    into ``sk``'s buffers."""
     lo, hi = ccfg.stream_range
     pos, neg = streaming.update_counts(sk["pos"], sk["neg"], hs, labels, lo, hi)
-    return {"pos": pos, "neg": neg}
+    new = {"pos": pos, "neg": neg}
+    return copy_into(sk, new) if inplace else new
 
 
 def average(state: CoDAState, compress: str | None = None) -> CoDAState:
@@ -295,9 +354,24 @@ def average(state: CoDAState, compress: str | None = None) -> CoDAState:
                                    n_workers=tree_leaves(state["params"])[0].shape[0])
 
 
+def start_copy(ccfg: CoDAConfig, state: CoDAState, *, communicate: bool, inplace: bool,
+               pending=None):
+    """Server momentum's start parameters: the window's input parameters,
+    copied when the window overwrites them in place (after the leaves an
+    overlapped pair still averages are ready); None without momentum."""
+    if not (communicate and ccfg.server_momentum):
+        return None
+    if not inplace:
+        return state["params"]
+    if pending is not None:
+        for t in tree_leaves(state["params"]):
+            pending.wait_for(t)
+    return tree_map(torch.clone, state["params"])
+
+
 def run_window(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, window_batch, eta,
                *, wa=None, ring=None, communicate: bool = True, faults=None,
-               defer_to=None, pending=None):
+               defer_to=None, pending=None, inplace: bool = False):
     """``I`` local steps + (optionally) one averaging, with server momentum
     when β > 0.  ``window_batch`` leaves: [I, K, per_worker_batch, ...].
     ``faults`` ({"weights": [K], "resync": [K]} f32, ``core/faults.py``)
@@ -309,45 +383,53 @@ def run_window(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, window_bat
     this window's averaging on it and returns at once, ``pending`` is the
     previous window's, waited on leaf by leaf where the local steps read it
     and settled before this window's own averaging.
-    Returns (state, losses [I, K])."""
+    ``inplace``: the caller owns ``state`` (a donating executor, after
+    ``take_state``) and every step and the averaging write into its
+    buffers.  Returns (state, losses [I, K])."""
     I = window_batch["labels"].shape[0]
-    start_params = state["params"] if communicate and ccfg.server_momentum else None
+    start_params = start_copy(ccfg, state, communicate=communicate, inplace=inplace,
+                              pending=pending)
     losses = []
     for i in range(I):
         with pending.reads(i) if pending is not None else contextlib.nullcontext():
             state, loss = local_step(mcfg, ccfg, state,
-                                     {k: v[i] for k, v in window_batch.items()}, eta)
+                                     {k: v[i] for k, v in window_batch.items()}, eta,
+                                     inplace=inplace)
         losses.append(loss)
     if pending is not None:
         pending.settle()
     if communicate:
         state = average_window(ccfg, state, None, faults, wa=wa, ring=ring,
-                               start_params=start_params, defer_to=defer_to)
+                               start_params=start_params, defer_to=defer_to,
+                               inplace=inplace)
     return state, torch.stack(losses)
 
 
 def average_window(ccfg: CoDAConfig, state: CoDAState, cv_new, faults, *, wa, ring,
-                   start_params, defer_to=None) -> CoDAState:
+                   start_params, defer_to=None, inplace: bool = False) -> CoDAState:
     """A window's averaging (CODASCA: with the variate refresh ``cv_new``),
     masked under ``faults``, with server momentum from ``start_params``
     (rejected with faults at config time); run now, or started on
-    ``defer_to``."""
+    ``defer_to``; ``inplace``: into the leaves it averages."""
     compress = ccfg.avg_compress or None
     if faults is not None:
-        plan = bucketing.masked_plan(state, cv_new, faults, compress, wa=wa, ring=ring)
+        plan = bucketing.masked_plan(state, cv_new, faults, compress, wa=wa, ring=ring,
+                                     inplace=inplace)
     else:
         momentum = (start_params, ccfg.server_momentum) if ccfg.server_momentum else None
         plan = bucketing.average_plan(state, cv_new, compress, wa=wa, ring=ring,
-                                      n_workers=ccfg.n_workers, momentum=momentum)
+                                      n_workers=ccfg.n_workers, momentum=momentum,
+                                      inplace=inplace)
     return plan.run() if defer_to is None else defer_to.start(plan)
 
 
 def window_step(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState,
-                window_batch, eta, *, communicate: bool = True, faults=None):
+                window_batch, eta, *, communicate: bool = True, faults=None,
+                inplace: bool = False):
     """``run_window`` on one device: (state, losses [I], each the mean over
     workers)."""
     state, losses = run_window(mcfg, ccfg, state, window_batch, eta,
-                               communicate=communicate, faults=faults)
+                               communicate=communicate, faults=faults, inplace=inplace)
     return state, losses.mean(dim=1)
 
 
@@ -369,13 +451,16 @@ def estimate_stage_duals(mcfg: ModelConfig, ccfg: CoDAConfig, params, duals,
 
 
 def stage_end(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, batch,
-              *, resync: bool = True, wa=None):
+              *, resync: bool = True, wa=None, inplace: bool = False):
     """Re-estimate the stage duals on every worker, worker-mean them, and
     move the proximal references to the (averaged) iterate.  ``resync=False``
     (what the executors pass) skips the redundant re-average: every window
     already ends in one.  ``wa``: the worker group (``bucketing.Wire``) of a
     sharded state, whose rows are this rank's: the means over them meet in
-    one ``all_reduce`` of the stage-dual scalars."""
+    one ``all_reduce`` of the stage-dual scalars.  ``inplace`` (a donating
+    executor): the references are copied into their own buffers, since the
+    next window writes the parameters in place, and the duals are updated
+    in theirs."""
     obj = objective.for_config(ccfg)
     if resync:
         state = average(state)
@@ -387,12 +472,18 @@ def stage_end(mcfg: ModelConfig, ccfg: CoDAConfig, state: CoDAState, batch,
         upd = {f: v.reshape(1) for f, v in zip(upd, vals)}
     else:
         upd = {f: torch.mean(v, dim=0, keepdim=True) for f, v in upd.items()}
+    if inplace:
+        copy_into(state["ref_params"], state["params"])
+        copy_into(state["ref_duals"], {f: state["duals"][f] for f in obj.prox_refs})
+        for f, v in upd.items():
+            state["duals"][f].copy_(v.expand(state["duals"][f].shape))
+        return state
     new_duals = dict(state["duals"])
     for f, v in upd.items():
         new_duals[f] = v.expand(state["duals"][f].shape).contiguous()
     new = dict(state)
     new["duals"] = new_duals
-    new["ref_params"] = state["params"]   # safe: updates are out of place
+    new["ref_params"] = state["params"]   # safe: these updates are out of place
     new["ref_duals"] = {f: state["duals"][f] for f in obj.prox_refs}
     return new
 
@@ -494,12 +585,14 @@ class BatchedExecutor:
     faults=None)``, ``stage_end(state, ab)``.  With fault injection on, a
     window needs its fault vectors, and without it refuses them.  It holds
     every worker, so ``place`` and ``gather`` return the state as it is,
-    and it is its own rank 0."""
+    and it is its own rank 0.  ``donate`` (the reference's default): each
+    call consumes the state it is given and runs in place, so the executor
+    never holds two copies of the model (module docstring)."""
 
     rank = 0
 
-    def __init__(self, mcfg: ModelConfig, ccfg: CoDAConfig):
-        self.mcfg, self.ccfg = mcfg, ccfg
+    def __init__(self, mcfg: ModelConfig, ccfg: CoDAConfig, *, donate: bool = True):
+        self.mcfg, self.ccfg, self.donate = mcfg, ccfg, donate
         if ccfg.algorithm == "codasca":
             from repro_torch.core import codasca
             self._wstep = codasca.window_step
@@ -529,25 +622,32 @@ class BatchedExecutor:
             raise ValueError(
                 "fault vectors passed but CoDAConfig has fault injection "
                 "disabled (set participation / straggler / crash knobs)")
-        return self._wstep(self.mcfg, self.ccfg, state, wb, eta, faults=faults)
+        if self.donate:
+            state = take_state(state)
+        return self._wstep(self.mcfg, self.ccfg, state, wb, eta, faults=faults,
+                           inplace=self.donate)
 
     def stage_end(self, state: CoDAState, ab) -> CoDAState:
-        return stage_end(self.mcfg, self.ccfg, state, ab, resync=False)
+        if self.donate:
+            state = take_state(state)
+        return stage_end(self.mcfg, self.ccfg, state, ab, resync=False, inplace=self.donate)
 
 
 def make_executor(mcfg: ModelConfig, ccfg: CoDAConfig, executor: str = "vmap", *,
-                  mesh=None, policy: str = "replica"):
+                  mesh=None, policy: str = "replica", donate: bool = True):
     """``"vmap"`` — the single-device worker-batched executor.
     ``"shard_map"`` — the workers over the ranks of ``mesh``
-    (``launch/mesh.make_worker_mesh``; core/coda_sharded.py)."""
+    (``launch/mesh.make_worker_mesh``; core/coda_sharded.py).  ``donate``:
+    every window and stage end consumes its state and writes in place (the
+    reference's default); ``False`` keeps every update out of place."""
     if executor == "vmap":
-        return BatchedExecutor(mcfg, ccfg)
+        return BatchedExecutor(mcfg, ccfg, donate=donate)
     if executor == "shard_map":
         if mesh is None:
             raise ValueError("executor='shard_map' needs a mesh "
                              "(see launch/mesh.py)")
         from repro_torch.core import coda_sharded
-        return coda_sharded.ShardedExecutor(mcfg, ccfg, mesh, policy=policy)
+        return coda_sharded.ShardedExecutor(mcfg, ccfg, mesh, policy=policy, donate=donate)
     raise ValueError(f"unknown executor {executor!r}")
 
 
@@ -569,7 +669,11 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
     sharded one, ``make_executor(..., "shard_map", mesh=, policy=)``); the
     executor ``place``s the state, so
     under the sharded executor each rank trains, and ``FitResult.state``
-    holds, its own workers' rows.
+    holds, its own workers' rows.  Under a donating executor (the default)
+    ``fit`` consumes ``state``: its dicts are emptied and its tensors are
+    overwritten, so a caller that needs the initial state again passes a
+    copy (or an executor built with ``donate=False``); ``fit`` keeps no
+    reference to a window's input while the window runs.
 
     ``sample_window(I)`` returns a batch dict with leading [I, K, B, ...];
     ``sample_alpha_batch(m)`` one with [K, m, ...].  They are called in the
@@ -633,10 +737,16 @@ def fit(state: CoDAState, mcfg: ModelConfig, ccfg: CoDAConfig,
         # the whole [K, ...] state's shapes and dtypes, to restore into
         template = tree_map(lambda l: torch.empty((ccfg.n_workers,) + l.shape[1:],
                                                   dtype=l.dtype, device="meta"), state)
-    state = exe.place(state)
+    placed = exe.place(state)
+    if getattr(exe, "donate", False) and placed is not state:
+        _empty(state)                     # the rows are copies: the whole state goes
+    state = placed
+    del placed
     if ckpt_dir and resume:
         step = ckpt.latest_step(ckpt_dir)
         if step is not None:
+            if getattr(exe, "donate", False):
+                _empty(state)             # the checkpoint's state replaces it
             restored = ckpt.restore(ckpt_dir, step, {"state": template}, device=device)
             optimizer.read_host_count(restored["state"].get("opt"))
             state = exe.place(restored["state"])

@@ -67,11 +67,13 @@ class ShardedExecutor:
     ``window_step`` returns this rank's per-worker losses [I, K_loc] (not
     the batched executor's worker mean [I]): reducing them would cost a
     collective inside the window; ``mean_loss`` gathers them for ``fit``'s
-    history."""
+    history.  ``donate``: as ``coda.BatchedExecutor``'s (each window, pair
+    and stage end consumes its state and writes in place)."""
 
     def __init__(self, mcfg: ModelConfig, ccfg: coda.CoDAConfig, mesh, *,
-                 policy: str = "replica"):
+                 policy: str = "replica", donate: bool = True):
         self.mcfg, self.ccfg, self.mesh, self.policy = mcfg, ccfg, mesh, policy
+        self.donate = donate
         self.worker_axes = rules.worker_partition(mesh, policy, ccfg.n_workers)
         if ccfg.overlap_chunks and len(self.worker_axes) > 1:
             raise ValueError(
@@ -161,9 +163,14 @@ class ShardedExecutor:
                 "disabled (set participation / straggler / crash knobs)")
 
     # -- window -----------------------------------------------------------
+    def _take(self, state):
+        return coda.take_state(state) if self.donate else state
+
     def _one_window(self, st, bt, eta, *, communicate, ring, fl):
-        return self._run(self.mcfg, self.ccfg, st, bt, eta, wa=self.wire, ring=ring,
-                         communicate=communicate, faults=fl)
+        """One window on this rank's rows of ``bt`` (consuming ``st`` when
+        donating)."""
+        return self._run(self.mcfg, self.ccfg, self._take(st), bt, eta, wa=self.wire,
+                         ring=ring, communicate=communicate, faults=fl, inplace=self.donate)
 
     def window_step(self, state, wb, eta, *, communicate: bool = True, faults=None):
         """I local steps on this rank's rows, then one blocking averaging.
@@ -182,6 +189,7 @@ class ShardedExecutor:
         self._check_faults(faults, "window_pair_step")
         ring, bt2, fl2 = self._ring_spec(), self._batch(wb2, 2), self._faults(faults, True)
         pending = bucketing.PendingAverage(self._unit_order)
+        state = self._take(state)
         out = []
         for i in range(2):
             state, losses = self._run(
@@ -189,7 +197,7 @@ class ShardedExecutor:
                 wa=self.wire, ring=ring, communicate=communicate,
                 faults=None if fl2 is None else {k: v[i] for k, v in fl2.items()},
                 defer_to=pending if i == 0 and communicate else None,
-                pending=pending if i == 1 else None)
+                pending=pending if i == 1 else None, inplace=self.donate)
             out.append(losses)
         self.overlap_summary, self._unit_order = pending.summary, pending.read_order
         return state, torch.cat(out)
@@ -199,5 +207,5 @@ class ShardedExecutor:
         """Every worker's stage-dual re-estimates, their mean over all K
         workers (one all_reduce of the stage-dual scalars), and the proximal
         references moved to the iterate."""
-        return coda.stage_end(self.mcfg, self.ccfg, state, self._batch(ab, 0),
-                              resync=False, wa=self.wire)
+        return coda.stage_end(self.mcfg, self.ccfg, self._take(state), self._batch(ab, 0),
+                              resync=False, wa=self.wire, inplace=self.donate)

@@ -40,39 +40,46 @@ def _corr(g, c, ck):
     return g + (c - ck)
 
 
-def local_step(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, batch, eta):
+def local_step(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, batch, eta, *,
+               inplace: bool = False):
     """One control-variate-corrected primal-dual update on every worker.
     Returns (new_state, per-worker losses [K], raw gradients (gp, gd)): the
-    raw gradients feed the window's variate refresh."""
+    raw gradients feed the window's variate refresh.  ``inplace``: as
+    ``coda.apply_grads``."""
     losses, (gp, gd), hs = coda.grad_step_scores(mcfg, ccfg, state, batch)
     gp_c = tree_map(_corr, gp, state["cg_params"], state["cv_params"])
     gd_c = {k: _corr(g, state["cg_duals"][k], state["cv_duals"][k]) for k, g in gd.items()}
-    new = coda.apply_grads(ccfg, state, (gp_c, gd_c), eta)
+    new = coda.apply_grads(ccfg, state, (gp_c, gd_c), eta, inplace=inplace)
+    del gp_c, gd_c
     if "sk_new" in state:
-        new["sk_new"] = coda.sketch_update(ccfg, state["sk_new"], hs, batch["labels"])
+        new["sk_new"] = coda.sketch_update(ccfg, state["sk_new"], hs, batch["labels"],
+                                           inplace=inplace)
     return new, losses, (gp, gd)
 
 
 def run_window(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, eta, *,
                wa=None, ring=None, communicate: bool = True, faults=None, defer_to=None,
-               pending=None):
+               pending=None, inplace: bool = False):
     """I corrected local steps + the combined average-and-refresh (masked
     when ``faults`` are given), with server momentum when β > 0.  ``wa`` /
-    ``ring`` / ``defer_to`` / ``pending``: as ``coda.run_window``; the
-    refresh rides the model average's buckets, so a window is still one
-    collective per dtype bucket, of twice the payload.  Returns
-    (new_state, losses [I, K])."""
+    ``ring`` / ``defer_to`` / ``pending`` / ``inplace``: as
+    ``coda.run_window`` (in place, the refresh writes ``cv``/``cg`` into
+    their own buffers); the refresh rides the model average's buckets, so a
+    window is still one collective per dtype bucket, of twice the payload.
+    Returns (new_state, losses [I, K])."""
     I = window_batch["labels"].shape[0]
     wire = {"params": state["params"], "duals": state["duals"]}
     acc = [torch.zeros(l.shape, dtype=torch.float32, device=l.device)
            for l in tree_leaves(wire)]
-    start_params = state["params"] if communicate and ccfg.server_momentum else None
+    del wire
+    start_params = coda.start_copy(ccfg, state, communicate=communicate, inplace=inplace,
+                                   pending=pending)
     losses = []
     for i in range(I):
         with pending.reads(i) if pending is not None else contextlib.nullcontext():
             state, loss, (gp, gd) = local_step(mcfg, ccfg, state,
                                                {k: v[i] for k, v in window_batch.items()},
-                                               eta)
+                                               eta, inplace=inplace)
             for a, g in zip(acc, tree_leaves({"params": gp, "duals": gd})):
                 a.add_(g)                 # fp32 += the raw gradient, widened
         del gp, gd
@@ -87,14 +94,15 @@ def run_window(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, et
         cv_new = tree_unflatten(wire, cv)
         del cv, wire
         state = coda.average_window(ccfg, state, cv_new, faults, wa=wa, ring=ring,
-                                    start_params=start_params, defer_to=defer_to)
+                                    start_params=start_params, defer_to=defer_to,
+                                    inplace=inplace)
     return state, torch.stack(losses)
 
 
 def window_step(mcfg: ModelConfig, ccfg: coda.CoDAConfig, state, window_batch, eta, *,
-                communicate: bool = True, faults=None):
+                communicate: bool = True, faults=None, inplace: bool = False):
     """The same surface as ``coda.window_step``: (state, losses [I], each
     the mean over workers)."""
     state, losses = run_window(mcfg, ccfg, state, window_batch, eta,
-                               communicate=communicate, faults=faults)
+                               communicate=communicate, faults=faults, inplace=inplace)
     return state, losses.mean(dim=1)

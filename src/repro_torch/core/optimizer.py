@@ -28,6 +28,13 @@ State layout, as the reference's::
 with ``leaves`` in ``tree_leaves(params)`` order.  The state is local: it is
 never averaged and never in the window payload (``core/coda``).
 
+``step(..., inplace=True)`` is a donating executor's step: the new
+parameters and the new optimizer state are written into the buffers of the
+ones given (the K2/K3 kernels' in-place forms; blocked Shampoo's ``s`` and
+``p`` leaf by leaf, so only one leaf's temporaries are alive at a time), and
+the trees returned hold those same tensors.  The arithmetic is the same
+either way, so the two are bitwise equal.
+
 Layout.  The port keeps convolution weights OIHW where the reference keeps
 them HWIO (``params.py``).  Momentum is elementwise and does not care.  SM3
 keeps its accumulators, and the index j of their stochastic-rounding seeds,
@@ -47,7 +54,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.params import ref_orders
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import copy_into, tree_leaves, tree_unflatten
 
 _GOLD = 0x9E3779B9   # 2^32/φ — the classic Weyl increment
 _SALT = 0x85EBCA6B
@@ -78,9 +85,9 @@ class _Sgd:
     def init(self, ccfg, params):
         return None
 
-    def step(self, ccfg, opt, params, gp, ref_params, eta):
+    def step(self, ccfg, opt, params, gp, ref_params, eta, *, inplace=False):
         new_params = kops.prox_update_tree(params, gp, ref_params, eta,
-                                           ccfg.gamma, impl=ccfg.impl)
+                                           ccfg.gamma, impl=ccfg.impl, inplace=inplace)
         return new_params, None
 
 
@@ -118,6 +125,14 @@ def read_host_count(opt) -> None:
         host_count(opt["t"])
 
 
+def _tick(t: torch.Tensor, inplace: bool) -> torch.Tensor:
+    """The step counter after one step: t + 1 (into t itself in place),
+    stamped with its host value when t carried one."""
+    n = getattr(t, _HOST_COUNT, None)
+    t = t.add_(1) if inplace else t + 1
+    return t if n is None else _stamped(t, n + 1)
+
+
 def _counter(leaves):
     K = leaves[0].shape[0]
     return _stamped(torch.zeros((K,), dtype=torch.int32, device=leaves[0].device), 0)
@@ -134,17 +149,18 @@ class _Momentum:
                 "leaves": [torch.zeros(l.shape, dtype=ccfg.opt_dtype,
                                        device=l.device) for l in leaves]}
 
-    def step(self, ccfg, opt, params, gp, ref_params, eta):
+    def step(self, ccfg, opt, params, gp, ref_params, eta, *, inplace=False):
         vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
         seeds = leaf_seeds(opt["t"], len(vs))
         new_v, new_m = [], []
         for i, (v, g, v0, m) in enumerate(zip(vs, gs, rs, opt["leaves"])):
             nv, nm = kops.opt_update(v, g, v0, m, eta, ccfg.gamma, ccfg.opt_beta,
-                                     seeds[i], mode="momentum", impl=ccfg.impl)
+                                     seeds[i], mode="momentum", impl=ccfg.impl,
+                                     inplace=inplace)
             new_v.append(nv)
             new_m.append(nm)
         return (tree_unflatten(params, new_v),
-                {"t": opt["t"] + 1, "leaves": new_m})
+                {"t": _tick(opt["t"], inplace), "leaves": new_m})
 
 
 def _ref_shape(v, order) -> list[int]:
@@ -168,7 +184,7 @@ class _SM3:
                            [z(d, device=l.device) for d in _ref_shape(l, o)[1:]]
                            for l, o in zip(leaves, ref_orders(params))]}
 
-    def step(self, ccfg, opt, params, gp, ref_params, eta):
+    def step(self, ccfg, opt, params, gp, ref_params, eta, *, inplace=False):
         vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
         seeds = leaf_seeds(opt["t"], len(vs))
         dt = ccfg.opt_dtype
@@ -186,9 +202,13 @@ class _SM3:
                     c = a.to(torch.float32).reshape(shape)
                     cover = c if cover is None else torch.minimum(cover, c)
                 cover = cover.expand(v.shape)
+            if inplace:
+                # ν goes into a materialized cover of our own, never into an
+                # accumulator: those are per-axis reductions of ν, made below
+                cover = cover.clone(memory_format=torch.contiguous_format)
             nv, nu = kops.opt_update(v, g, v0, cover, eta, ccfg.gamma,
                                      ccfg.opt_eps, seeds[i], mode="precond",
-                                     impl=ccfg.impl)
+                                     impl=ccfg.impl, inplace=inplace)
             if v.dim() == 1:
                 upd = [kref.stochastic_round(nu, seeds[i], dt)]
             else:
@@ -196,15 +216,20 @@ class _SM3:
                 for j in range(v.dim() - 1):
                     p = order[1 + j]
                     red = [a for a in range(1, v.dim()) if a != p]
+                    if inplace and red and dt == torch.float32:
+                        # fp32 keeps the max as it is: straight into the
+                        # accumulator
+                        upd.append(torch.amax(nu, dim=red, out=accs[j]))
+                        continue
                     # jnp.max(axis=()) reduces nothing; torch.amax(dim=[])
                     # would reduce every axis
                     mx = torch.amax(nu, dim=red) if red else nu
                     upd.append(kref.stochastic_round(
                         mx, _plus(seeds[i], j + 1) if dt != torch.float32 else 0, dt))
             new_v.append(nv)
-            new_s.append(upd)
+            new_s.append(copy_into(accs, upd) if inplace else upd)
         return (tree_unflatten(params, new_v),
-                {"t": opt["t"] + 1, "leaves": new_s})
+                {"t": _tick(opt["t"], inplace), "leaves": new_s})
 
 
 # relative ridge for the blocked-Shampoo inverse root, as a fraction of tr(G)
@@ -213,12 +238,13 @@ class _SM3:
 _SHAMPOO_RIDGE = 0.1
 
 
-def _inv_sqrt_psd(a, eps: float, iters: int = 15):
+def _inv_sqrt_psd(a, eps: float, iters: int = 15, *, out=None):
     """A^{-1/2} for (nearly) PSD batched [..., b, b] by the coupled
     Newton–Schulz iteration with the trace-relative ridge
     δ = ε + 0.1·tr(A) (``repro.core.optimizer._inv_sqrt_psd``, :201-225).
     The products are batched fp32 ``torch.matmul``, as the reference leaves
-    them to XLA; TF32 is off in the entry points."""
+    them to XLA; TF32 is off in the entry points.  ``out``: an fp32 tensor
+    the result is written into."""
     b = a.shape[-1]
     eye = torch.eye(b, dtype=torch.float32, device=a.device)
     tr = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1)[..., None, None]
@@ -230,7 +256,7 @@ def _inv_sqrt_psd(a, eps: float, iters: int = 15):
         t = 0.5 * (3.0 * eye - z @ y)
         y = y @ t
         z = t @ z
-    return z * kref.rsqrt(c)
+    return torch.mul(z, kref.rsqrt(c), out=out)
 
 
 class _ShampooBlocked:
@@ -258,7 +284,7 @@ class _ShampooBlocked:
                         "p": eye.expand(K, nb, b, b).to(ccfg.opt_dtype).clone()})
         return {"t": _counter(leaves), "leaves": out}
 
-    def step(self, ccfg, opt, params, gp, ref_params, eta):
+    def step(self, ccfg, opt, params, gp, ref_params, eta, *, inplace=False):
         vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
         t = opt["t"]
         # the reference's lax.cond(t[0] % precond_every == 0), decided on the
@@ -274,9 +300,14 @@ class _ShampooBlocked:
             N, b, nb = self._geom(ccfg, v)
             gf = g.permute(order).to(torch.float32).reshape(K, N)
             gb = F.pad(gf, (0, nb * b - N)).reshape(K, nb, b)
-            stats = st["s"].to(torch.float32) + gb[..., :, None] * gb[..., None, :]
-            pre = (_inv_sqrt_psd(stats, ccfg.opt_eps) if refresh
-                   else st["p"].to(torch.float32))
+            outer = gb[..., :, None] * gb[..., None, :]
+            # fp32 state in place: the statistics and a refreshed root are
+            # made in their own buffers (the same operations, no copy after)
+            own = inplace and dt == torch.float32
+            stats = st["s"].add_(outer) if own else st["s"].to(torch.float32) + outer
+            del outer
+            pre = (_inv_sqrt_psd(stats, ccfg.opt_eps, out=st["p"] if own else None)
+                   if refresh else st["p"].to(torch.float32))
             db = torch.einsum("knbc,knc->knb", pre, gb)
             df = db.reshape(K, nb * b)[:, :N]
             # graft the preconditioned direction onto the diagonal-AdaGrad
@@ -288,11 +319,14 @@ class _ShampooBlocked:
             d = (df * gn / (dn + 1e-30)).reshape(_ref_shape(v, order))
             d = d.permute([order.index(a) for a in range(v.dim())]).contiguous()
             new_v.append(kops.prox_update_tree(v, d, v0, eta, ccfg.gamma,
-                                               impl=ccfg.impl))
-            new_s.append({"s": kref.stochastic_round(stats, seeds[i], dt),
-                          "p": kref.stochastic_round(pre, _plus(seeds[i], 1), dt)})
+                                               impl=ccfg.impl, inplace=inplace))
+            del gf, gb, db, df, diag, ga, d     # this leaf's temporaries go before the next's
+            new = {"s": kref.stochastic_round(stats, seeds[i], dt),
+                   "p": kref.stochastic_round(pre, _plus(seeds[i], 1), dt)}
+            del stats, pre
+            new_s.append(copy_into(st, new) if inplace else new)
         return (tree_unflatten(params, new_v),
-                {"t": _stamped(t + 1, n + 1), "leaves": new_s})
+                {"t": _tick(t, inplace), "leaves": new_s})
 
 
 REGISTRY = {o.name: o for o in (_Sgd(), _Momentum(), _SM3(), _ShampooBlocked())}

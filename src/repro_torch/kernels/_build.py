@@ -41,6 +41,9 @@ _SIGNATURES = {
                                              ctypes.c_float, ctypes.c_float, _P]),
     "coda_prox_update_bf16_gf32": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
                                                   ctypes.c_float, ctypes.c_float, _P]),
+    **{f"coda_prox_update_inplace_{t}": (ctypes.c_int, [_P, _P, _P, ctypes.c_longlong,
+                                                        ctypes.c_float, ctypes.c_float, _P])
+       for t in ("f32", "bf16", "bf16_gf32")},
     "coda_opt_update": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                        ctypes.c_float, ctypes.c_float,

@@ -3,7 +3,9 @@
 //
 //   coda_auc_loss        replaces repro/kernels/auc_loss.py::auc_loss (Pallas)
 //   coda_prox_update_*   replaces repro/kernels/prox_update.py::prox_update
+//                        (the _inplace_ forms write the result into v)
 //   coda_opt_update      replaces repro/kernels/opt_update.py::opt_update
+//                        (null outputs: in place, into v and the buffer)
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() so the wrapper can
@@ -178,6 +180,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
+// The prox step of one element, in fp32: every operation explicitly rounded.
+__device__ __forceinline__ float prox_value(float vf, float df, float v0f, float eta,
+                                            float gamma, float denom) {
+  const float num = __fadd_rn(__fmul_rn(gamma, __fsub_rn(vf, __fmul_rn(eta, df))),
+                              __fmul_rn(eta, v0f));
+  return __fdiv_rn(num, denom);
+}
+
 // The direction g may be fp32 under bf16 parameters (blocked Shampoo's
 // step, computed in fp32): TG is g's type, T that of v, v0 and the result.
 template <typename T, typename TG = T>
@@ -189,24 +199,99 @@ prox_update_kernel(const T* __restrict__ v, const TG* __restrict__ g,
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    const float vf = to_f32(v[i]);
-    const float gf = to_f32(g[i]);
-    const float v0f = to_f32(v0[i]);
-    const float num = __fadd_rn(__fmul_rn(gamma, __fsub_rn(vf, __fmul_rn(eta, gf))),
-                                __fmul_rn(eta, v0f));
-    store(out + i, __fdiv_rn(num, denom));
+    store(out + i, prox_value(to_f32(v[i]), to_f32(g[i]), to_f32(v0[i]), eta, gamma, denom));
   }
 }
 
+// The in-place forms read and write v (and K3's buffer) through pointers
+// with no __restrict__: each thread reads its elements before it writes
+// them, and no other thread touches them.  Without __restrict__ the
+// compiler may not move a later iteration's loads above an earlier one's
+// stores, so each thread works on pairs of adjacent elements through 2-wide
+// vector loads and stores (a bf16 pair is one 32-bit access, as an fp32
+// element is), kInplacePairs pairs (j, j + stride, ...) loaded before any is
+// stored, on the out-of-place launch's grid.  Where a pointer is not aligned
+// to a pair, or for the last element of an odd count, the same arithmetic
+// runs one element at a time.
+constexpr int kInplacePairs = 2;
+
+template <typename T>
+__device__ __forceinline__ bool pair_aligned(const T* p) {
+  return reinterpret_cast<unsigned long long>(p) % (2 * sizeof(T)) == 0;
+}
+__device__ __forceinline__ void load2(const float* p, long long j, float& a, float& b) {
+  const float2 x = reinterpret_cast<const float2*>(p)[j];
+  a = x.x;
+  b = x.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, long long j, float& a, float& b) {
+  const __nv_bfloat162 x = reinterpret_cast<const __nv_bfloat162*>(p)[j];
+  a = __low2float(x);
+  b = __high2float(x);
+}
+__device__ __forceinline__ void store2(float* p, long long j, float a, float b) {
+  reinterpret_cast<float2*>(p)[j] = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, long long j, float a, float b) {
+  reinterpret_cast<__nv_bfloat162*>(p)[j] =
+      __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+}
+
+// The in-place form of prox_update: the result goes back into v; g and v0
+// keep __restrict__, so they must not overlap v.
+template <typename T, typename TG = T>
+__global__ void __launch_bounds__(kProxThreads)
+prox_update_inplace_kernel(T* v, const TG* __restrict__ g, const T* __restrict__ v0,
+                           long long n, float eta, float gamma) {
+  const float denom = __fadd_rn(eta, gamma);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long done = 0;                 // elements [0, done) go as pairs
+  if (pair_aligned(v) && pair_aligned(g) && pair_aligned(v0)) {
+    const long long pairs = n / 2;
+    for (long long j0 = t; j0 < pairs; j0 += kInplacePairs * stride) {
+      float vf[2 * kInplacePairs], gf[2 * kInplacePairs], v0f[2 * kInplacePairs];
+#pragma unroll
+      for (int u = 0; u < kInplacePairs; ++u) {
+        const long long j = j0 + u * stride;
+        if (j < pairs) {
+          load2(v, j, vf[2 * u], vf[2 * u + 1]);
+          load2(g, j, gf[2 * u], gf[2 * u + 1]);
+          load2(v0, j, v0f[2 * u], v0f[2 * u + 1]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInplacePairs; ++u) {
+        const long long j = j0 + u * stride;
+        if (j < pairs)
+          store2(v, j, prox_value(vf[2 * u], gf[2 * u], v0f[2 * u], eta, gamma, denom),
+                 prox_value(vf[2 * u + 1], gf[2 * u + 1], v0f[2 * u + 1], eta, gamma, denom));
+      }
+    }
+    done = 2 * pairs;
+  }
+  for (long long i = done + t; i < n; i += stride) {
+    const float vf = to_f32(v[i]);
+    store(v + i, prox_value(vf, to_f32(g[i]), to_f32(v0[i]), eta, gamma, denom));
+  }
+}
+
+// out == nullptr: in place, into v
 template <typename T, typename TG = T>
 int launch_prox(const void* v, const void* g, const void* v0, void* out,
                 long long n, float eta, float gamma, void* stream) {
   if (n > 0) {
     const long long blocks = stride_blocks(n, kProxThreads);
-    prox_update_kernel<T, TG><<<static_cast<unsigned>(blocks), kProxThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(v), static_cast<const TG*>(g),
-        static_cast<const T*>(v0), static_cast<T*>(out), n, eta, gamma);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (out == nullptr) {
+      prox_update_inplace_kernel<T, TG><<<static_cast<unsigned>(blocks), kProxThreads, 0, s>>>(
+          static_cast<T*>(const_cast<void*>(v)), static_cast<const TG*>(g),
+          static_cast<const T*>(v0), n, eta, gamma);
+    } else {
+      prox_update_kernel<T, TG><<<static_cast<unsigned>(blocks), kProxThreads, 0, s>>>(
+          static_cast<const T*>(v), static_cast<const TG*>(g),
+          static_cast<const T*>(v0), static_cast<T*>(out), n, eta, gamma);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -255,14 +340,37 @@ __device__ __forceinline__ unsigned mix_bits(unsigned x) {
 // The new momentum buffer: fp32 as is; bf16 by adding 16 hashed low bits and
 // truncating.  A NaN left after the truncation becomes the quiet NaN with
 // its sign (0x7FC0 / 0xFFC0), as the reference's fp32→bf16 conversion gives.
-__device__ __forceinline__ void store_buf(float* p, float acc, unsigned) { *p = acc; }
-__device__ __forceinline__ void store_buf(__nv_bfloat16* p, float acc, unsigned seed) {
+__device__ __forceinline__ unsigned short rounded_bits(float acc, unsigned seed) {
   const unsigned xi = __float_as_uint(acc);
   const unsigned r = mix_bits(xi ^ seed) & 0xFFFFu;
   const unsigned yi = (xi + r) & 0xFFFF0000u;
   unsigned short hi = static_cast<unsigned short>(yi >> 16);
   if ((yi & 0x7FFFFFFFu) > 0x7F800000u) hi = (yi >> 31) ? 0xFFC0 : 0x7FC0;
-  *reinterpret_cast<unsigned short*>(p) = hi;
+  return hi;
+}
+__device__ __forceinline__ void store_buf(float* p, float acc, unsigned) { *p = acc; }
+__device__ __forceinline__ void store_buf(__nv_bfloat16* p, float acc, unsigned seed) {
+  *reinterpret_cast<unsigned short*>(p) = rounded_bits(acc, seed);
+}
+// a pair j (elements 2j, 2j + 1) of the new buffer in one store
+__device__ __forceinline__ void store_buf2(float* p, long long j, float a, float b, unsigned) {
+  store2(p, j, a, b);
+}
+__device__ __forceinline__ void store_buf2(__nv_bfloat16* p, long long j, float a, float b,
+                                           unsigned seed) {
+  reinterpret_cast<unsigned*>(p)[j] =
+      rounded_bits(a, seed) | (static_cast<unsigned>(rounded_bits(b, seed)) << 16);
+}
+
+// One element's accumulator (stored through store_buf) and direction d.
+template <int kMode>
+__device__ __forceinline__ float opt_direction(float gf, float bf, float coef, float* acc) {
+  if (kMode == kModeMomentum) {
+    *acc = __fadd_rn(__fmul_rn(coef, bf), gf);
+    return *acc;
+  }
+  *acc = __fadd_rn(bf, __fmul_rn(gf, gf));
+  return __fmul_rn(gf, __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(*acc, coef))));
 }
 
 template <int kMode, typename T, typename B>
@@ -277,38 +385,89 @@ opt_update_kernel(const T* __restrict__ v, const T* __restrict__ g,
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    const float vf = to_f32(v[i]);
-    const float gf = to_f32(g[i]);
-    const float v0f = to_f32(v0[i]);
-    const float bf = to_f32(buf[i]);
-    float d;
-    if (kMode == kModeMomentum) {
-      const float acc = __fadd_rn(__fmul_rn(coef, bf), gf);
-      d = acc;
-      store_buf(out_buf + i, acc, seed);
-    } else {
-      const float acc = __fadd_rn(bf, __fmul_rn(gf, gf));
-      d = __fmul_rn(gf, __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(acc, coef))));
-      store_buf(out_buf + i, acc, seed);
-    }
-    const float num = __fadd_rn(__fmul_rn(gamma, __fsub_rn(vf, __fmul_rn(eta, d))),
-                                __fmul_rn(eta, v0f));
-    store(out_v + i, __fdiv_rn(num, denom));
+    float acc;
+    const float d = opt_direction<kMode>(to_f32(g[i]), to_f32(buf[i]), coef, &acc);
+    store_buf(out_buf + i, acc, seed);
+    store(out_v + i, prox_value(to_f32(v[i]), d, to_f32(v0[i]), eta, gamma, denom));
   }
 }
 
+// The in-place form of opt_update: v' goes back into v and the new buffer
+// into buf (the two read-write pointers, in pairs as prox_update's in-place
+// form); g, v0 and the seed keep __restrict__, so they must not overlap v or
+// buf.
+template <int kMode, typename T, typename B>
+__global__ void __launch_bounds__(kOptThreads)
+opt_update_inplace_kernel(T* v, const T* __restrict__ g, const T* __restrict__ v0, B* buf,
+                          long long n, float eta, float gamma, float coef,
+                          const long long* __restrict__ seed_p) {
+  const unsigned seed = static_cast<unsigned>(*seed_p);
+  const float denom = __fadd_rn(eta, gamma);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long done = 0;                 // elements [0, done) go as pairs
+  if (pair_aligned(v) && pair_aligned(g) && pair_aligned(v0) && pair_aligned(buf)) {
+    const long long pairs = n / 2;
+    constexpr int kE = 2 * kInplacePairs;
+    for (long long j0 = t; j0 < pairs; j0 += kInplacePairs * stride) {
+      float vf[kE], gf[kE], v0f[kE], bf[kE];
+#pragma unroll
+      for (int u = 0; u < kInplacePairs; ++u) {
+        const long long j = j0 + u * stride;
+        if (j < pairs) {
+          load2(v, j, vf[2 * u], vf[2 * u + 1]);
+          load2(g, j, gf[2 * u], gf[2 * u + 1]);
+          load2(v0, j, v0f[2 * u], v0f[2 * u + 1]);
+          load2(buf, j, bf[2 * u], bf[2 * u + 1]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInplacePairs; ++u) {
+        const long long j = j0 + u * stride;
+        if (j < pairs) {
+          float acc[2], nv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 2 * u + e;
+            const float d = opt_direction<kMode>(gf[k], bf[k], coef, &acc[e]);
+            nv[e] = prox_value(vf[k], d, v0f[k], eta, gamma, denom);
+          }
+          store_buf2(buf, j, acc[0], acc[1], seed);
+          store2(v, j, nv[0], nv[1]);
+        }
+      }
+    }
+    done = 2 * pairs;
+  }
+  for (long long i = done + t; i < n; i += stride) {
+    const float vf = to_f32(v[i]);
+    float acc;
+    const float d = opt_direction<kMode>(to_f32(g[i]), to_f32(buf[i]), coef, &acc);
+    store_buf(buf + i, acc, seed);
+    store(v + i, prox_value(vf, d, to_f32(v0[i]), eta, gamma, denom));
+  }
+}
+
+// out_v == nullptr: in place, into v and buf
 template <int kMode, typename T, typename B>
 int launch_opt(const void* v, const void* g, const void* v0, const void* buf,
                void* out_v, void* out_buf, long long n, float eta, float gamma,
                float coef, const void* seed, void* stream) {
   if (n > 0) {
     const long long blocks = stride_blocks(n, kOptThreads);
-    opt_update_kernel<kMode, T, B><<<static_cast<unsigned>(blocks), kOptThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(v), static_cast<const T*>(g),
-        static_cast<const T*>(v0), static_cast<const B*>(buf),
-        static_cast<T*>(out_v), static_cast<B*>(out_buf), n, eta, gamma, coef,
-        static_cast<const long long*>(seed));
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (out_v == nullptr) {
+      opt_update_inplace_kernel<kMode, T, B><<<static_cast<unsigned>(blocks), kOptThreads, 0, s>>>(
+          static_cast<T*>(const_cast<void*>(v)), static_cast<const T*>(g),
+          static_cast<const T*>(v0), static_cast<B*>(const_cast<void*>(buf)), n, eta, gamma,
+          coef, static_cast<const long long*>(seed));
+    } else {
+      opt_update_kernel<kMode, T, B><<<static_cast<unsigned>(blocks), kOptThreads, 0, s>>>(
+          static_cast<const T*>(v), static_cast<const T*>(g),
+          static_cast<const T*>(v0), static_cast<const B*>(buf),
+          static_cast<T*>(out_v), static_cast<B*>(out_buf), n, eta, gamma, coef,
+          static_cast<const long long*>(seed));
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -381,14 +540,35 @@ int coda_prox_update_bf16_gf32(const void* v, const void* g, const void* v0, voi
   return launch_prox<__nv_bfloat16, float>(v, g, v0, out, n, eta, gamma, stream);
 }
 
+// The in-place forms of the three above: the result is written into v, whose
+// memory must not overlap g's or v0's.  Same geometry as the out-of-place
+// launch (coda_kernels_geometry kernel 1).
+int coda_prox_update_inplace_f32(void* v, const void* g, const void* v0, long long n,
+                                 float eta, float gamma, void* stream) {
+  return launch_prox<float>(v, g, v0, nullptr, n, eta, gamma, stream);
+}
+
+int coda_prox_update_inplace_bf16(void* v, const void* g, const void* v0, long long n,
+                                  float eta, float gamma, void* stream) {
+  return launch_prox<__nv_bfloat16>(v, g, v0, nullptr, n, eta, gamma, stream);
+}
+
+int coda_prox_update_inplace_bf16_gf32(void* v, const void* g, const void* v0, long long n,
+                                       float eta, float gamma, void* stream) {
+  return launch_prox<__nv_bfloat16, float>(v, g, v0, nullptr, n, eta, gamma, stream);
+}
+
 // mode: 0 momentum, 1 precond; v_bf16 / buf_bf16: 0 fp32, 1 bf16 (v, g, v0
 // share one dtype; precond takes an fp32 buffer only).  seed: one int64 on
-// the device holding a uint32.  Out of place: out_v, out_buf are the
-// caller's fresh tensors of v's and buf's shape and dtype.
+// the device holding a uint32.  out_v, out_buf: the caller's fresh tensors
+// of v's and buf's shape and dtype; both null: in place, v' into v and the
+// new buffer into buf (neither may overlap g, v0, the seed or the other),
+// with the out-of-place launch's geometry (coda_kernels_geometry kernel 2).
 int coda_opt_update(int mode, int v_bf16, int buf_bf16, const void* v,
                     const void* g, const void* v0, const void* buf, void* out_v,
                     void* out_buf, long long n, float eta, float gamma,
                     float coef, const void* seed, void* stream) {
+  if ((out_v == nullptr) != (out_buf == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
 #define CODA_OPT(M, T, B) \
   launch_opt<M, T, B>(v, g, v0, buf, out_v, out_buf, n, eta, gamma, coef, seed, stream)
   if (mode == kModeMomentum) {

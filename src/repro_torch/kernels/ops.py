@@ -79,7 +79,7 @@ def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
 
 
 def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,
-               mode: str, impl: str = "auto"):
+               mode: str, impl: str = "auto", inplace: bool = False):
     """Fused optimizer update of one parameter leaf (the
     ``core/optimizer.py`` seam): accumulator update + preconditioned step +
     prox projection in one pass, returning ``(new_v, new_buf)``.
@@ -87,20 +87,29 @@ def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,
     ``mode="momentum"``: buf is the momentum buffer (m ← coef·m + g, d = m;
     a bf16 buffer is re-stored with stochastic rounding under ``seed``).
     ``mode="precond"``: buf is the fp32 accumulator cover (ν = cover + g²,
-    d = g/√(ν+coef), ν returned fp32 for the caller's axis reductions)."""
+    d = g/√(ν+coef), ν returned fp32 for the caller's axis reductions).
+    ``inplace``: the results are written into v and buf, which are returned
+    (a donating executor's step; see ``kernels/opt_update.py``)."""
     if dispatch(impl, v.device):
         return _opt_mod.opt_update(v, g, v0, buf, eta, gamma, coef, seed,
-                                   mode=mode)
-    return ref.opt_update_ref(v, g, v0, buf, eta, gamma, coef, seed, mode=mode)
+                                   mode=mode, inplace=inplace)
+    if inplace:
+        _opt_mod.check_inplace_pair(v, g, v0, buf, seed)
+    nv, nb = ref.opt_update_ref(v, g, v0, buf, eta, gamma, coef, seed, mode=mode)
+    return (v.copy_(nv), buf.copy_(nb)) if inplace else (nv, nb)
 
 
 def prox_update_tree(v_tree, g_tree, v0_tree, eta: float, gamma: float, *,
-                     impl: str = "auto"):
+                     impl: str = "auto", inplace: bool = False):
     """Apply the fused proximal update leaf-wise over parameter trees (one
-    launch per leaf, each covering all K workers)."""
+    launch per leaf, each covering all K workers); ``inplace`` writes each
+    result into its v leaf."""
     def upd(v, g, v0):
         if dispatch(impl, v.device):
-            return _prox_mod.prox_update(v, g, v0, eta, gamma)
-        return ref.prox_update_ref(v, g, v0, eta, gamma)
+            return _prox_mod.prox_update(v, g, v0, eta, gamma, inplace=inplace)
+        if inplace:
+            _prox_mod.check_inplace(v, (g, v0), "prox_update")
+        out = ref.prox_update_ref(v, g, v0, eta, gamma)
+        return v.copy_(out) if inplace else out
 
     return tree_map(upd, v_tree, g_tree, v0_tree)

@@ -18,7 +18,11 @@ balance.  The kernel is one coalesced grid-stride pass (see
 ``csrc/coda_kernels.cu``).  v, g and v₀ share one dtype (fp32 or bf16); the
 buffer has its own (fp32 or bf16 for momentum, fp32 for precond), so fp32
 parameters with a bf16 momentum buffer is one launch.  Both results go to
-fresh tensors.
+fresh tensors, or (``inplace=True``) back into v and the buffer through
+the kernel's in-place form (no ``__restrict__`` on those two; neither may
+overlap g, v₀ or the other).  The buffer is elementwise: SM3's
+accumulators are reductions, so its caller hands in the materialized
+cover, never an accumulator or an expanded view of one.
 
 The stochastic-rounding seed is a one-element int64 tensor on the card
 holding a uint32 (``core.optimizer.leaf_seeds`` derives it from the device
@@ -32,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.prox_update import check_inplace
 
 # Kernel launches through this wrapper (one per call that reaches the card).
 launches = 0
@@ -73,14 +78,27 @@ def _check(v, g, v0, buf, mode):
         raise ValueError("opt_update inputs lie on several devices")
 
 
+def check_inplace_pair(v, g, v0, buf, seed) -> None:
+    """The in-place update writes v and buf: each contiguous, apart from
+    each other and from everything else it reads."""
+    seeds = (seed,) if isinstance(seed, torch.Tensor) else ()
+    check_inplace(v, (g, v0, buf) + seeds, "opt_update")
+    check_inplace(buf, (g, v0) + seeds, "opt_update")
+
+
 def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,
-               mode: str):
+               mode: str, inplace: bool = False):
     """Elementwise fused update of one leaf; returns (new_v in v's dtype,
-    new_buf in buf's dtype).  ``seed``: on the card a one-element int64
-    tensor on v's device; on the CPU also a Python int."""
+    new_buf in buf's dtype), or with ``inplace`` (v, buf) themselves,
+    overwritten (the plain version computes out of place and copies back).
+    ``seed``: on the card a one-element int64 tensor on v's device; on the
+    CPU also a Python int."""
     _check(v, g, v0, buf, mode)
+    if inplace:
+        check_inplace_pair(v, g, v0, buf, seed)
     if v.device.type == "cpu":
-        return ref.opt_update_ref(v, g, v0, buf, eta, gamma, coef, seed, mode=mode)
+        nv, nb = ref.opt_update_ref(v, g, v0, buf, eta, gamma, coef, seed, mode=mode)
+        return (v.copy_(nv), buf.copy_(nb)) if inplace else (nv, nb)
     if v.device.type != "cuda":
         raise ValueError(f"opt_update runs on cpu or cuda, got {v.device}")
     if not (isinstance(seed, torch.Tensor) and seed.numel() == 1
@@ -89,15 +107,19 @@ def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,
                          "one-element int64 tensor on the same device")
     global launches
     lib = _build.load()
-    v, g, v0, buf, seed = (t.contiguous() for t in (v, g, v0, buf, seed))
-    out_v = torch.empty_like(v)
-    out_buf = torch.empty_like(buf)
+    g, v0, seed = (t.contiguous() for t in (g, v0, seed))
+    if inplace:
+        out_v, out_buf = v, buf
+        outs = (None, None)
+    else:
+        v, buf = v.contiguous(), buf.contiguous()
+        out_v, out_buf = torch.empty_like(v), torch.empty_like(buf)
+        outs = (out_v.data_ptr(), out_buf.data_ptr())
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = lib.coda_opt_update(
         MODES[mode], int(v.dtype == torch.bfloat16), int(buf.dtype == torch.bfloat16),
-        v.data_ptr(), g.data_ptr(), v0.data_ptr(), buf.data_ptr(),
-        out_v.data_ptr(), out_buf.data_ptr(), v.numel(), float(eta),
-        float(gamma), float(coef), seed.data_ptr(), stream)
+        v.data_ptr(), g.data_ptr(), v0.data_ptr(), buf.data_ptr(), *outs, v.numel(),
+        float(eta), float(gamma), float(coef), seed.data_ptr(), stream)
     _build.check(err, "opt_update launch")
     launches += 1
     return out_v, out_buf

@@ -429,11 +429,14 @@ def _train(args) -> dict:
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    state = exe.place(state)              # each rank keeps its own workers' rows
+    # each rank keeps its own workers' rows, and fit takes the only reference:
+    # its executor donates the state, writing every step into it
+    held = [exe.place(state)]
+    del state
     before = {k: m.launches for k, m in KERNELS.items()}
     comm_before = copy.deepcopy(bucketing.collectives)
     t0 = time.perf_counter()
-    res = coda.fit(state, mcfg, ccfg, sched, args.stages,
+    res = coda.fit(held.pop(), mcfg, ccfg, sched, args.stages,
                    sample_window=lambda i: adapt(ds.sample_window(i, args.batch)),
                    sample_alpha_batch=lambda m: adapt(ds.sample_alpha_batch(m)),
                    eval_every=args.metric_interval,

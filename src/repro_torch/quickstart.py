@@ -44,9 +44,9 @@ def test_auc(state, test) -> float:
 
 
 def run(state, p_pos: float, test, sample_window, sample_alpha_batch) -> dict:
-    """Fit from ``state`` and print the reference's summary lines; the
-    samplers are ``coda.fit``'s.  Returns the history, the counters and the
-    final test AUC."""
+    """Fit from ``state`` (consumed: ``coda.fit``'s executor donates it) and
+    print the reference's summary lines; the samplers are ``coda.fit``'s.
+    Returns the history, the counters and the final test AUC."""
     ccfg = coda.CoDAConfig(n_workers=K, p_pos=p_pos)
     sched = schedules.ScheduleConfig(n_workers=K, eta0=ETA0, T0=T0, I0=I)
     res = coda.fit(state, MCFG, ccfg, sched, N_STAGES,
@@ -75,10 +75,9 @@ def main(argv=None) -> dict:
                         device=device)
     print(f"dataset: n={ds.n}, positive ratio={ds.p_pos:.3f}, {K} workers")
     ccfg = coda.CoDAConfig(n_workers=K, p_pos=ds.p_pos)
-    state = coda.init_state(MCFG, ccfg,
-                            generator=torch.Generator().manual_seed(args.seed),
-                            device=device)
-    out = run(state, ds.p_pos, ds.full(N_TEST),
+    # run hands the state to fit, which consumes it: no name here keeps it
+    out = run(coda.init_state(MCFG, ccfg, generator=torch.Generator().manual_seed(args.seed),
+                              device=device), ds.p_pos, ds.full(N_TEST),
               sample_window=lambda i: ds.sample_window(i, BATCH),
               sample_alpha_batch=ds.sample_alpha_batch)
     assert out["auc"] > 0.85

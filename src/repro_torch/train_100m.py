@@ -74,10 +74,11 @@ def main(argv=None) -> dict:
             h, _ = M.score(mcfg, params0, {"tokens": test["tokens"][None]})
         return objective.roc_auc(h[0], test["labels"])
 
-    state = coda.init_state(mcfg, ccfg, generator=torch.Generator().manual_seed(args.seed),
-                            device=device)
+    # fit takes the only reference to the state: its executor donates it
+    held = [coda.init_state(mcfg, ccfg, generator=torch.Generator().manual_seed(args.seed),
+                            device=device)]
     t0 = time.time()
-    res = coda.fit(state, mcfg, ccfg, sched, stages,
+    res = coda.fit(held.pop(), mcfg, ccfg, sched, stages,
                    sample_window=lambda i: ds.sample_window(i, args.batch),
                    sample_alpha_batch=lambda m: ds.sample_alpha_batch(min(m, 64)))
     dt = time.time() - t0

@@ -47,6 +47,16 @@ def tree_map(f: Callable, t, *rest) -> Any:
     return tree_unflatten(t, [f(*xs) for xs in zip(tree_leaves(t), *cols)])
 
 
+def copy_into(dst, src):
+    """Write each leaf of ``src`` into the leaf of ``dst`` at its place (a
+    leaf that already is ``dst``'s is left alone); returns ``dst``.  A
+    single tensor is a tree of one leaf."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src), strict=True):
+        if s is not d:
+            d.copy_(s)
+    return dst
+
+
 def tree_paths(t, prefix: str = "") -> list[str]:
     """Each leaf's key path in ``tree_leaves`` order, written as
     ``jax.tree_util.keystr`` writes it (``['params']['layers'][0]``)."""

@@ -12,7 +12,7 @@ from repro_torch.core import bucketing as B
 from repro_torch.core import coda
 from repro_torch.core.faults import FaultPlan
 from repro_torch.launch import mesh as M
-from repro_torch.tree import tree_leaves, tree_paths
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 MCFG, I, BATCH = mlp_config(n_features=16, d=32), 3, 8
 # the overlap_r4 and masked_codasca_ring_r4 cases of tests/test_torch_sharded.py
@@ -95,7 +95,7 @@ def _pair_and_sequential(exe, ccfg, seed: int, R: int) -> dict:
     fl = _faults(ccfg, exe)
     wb2 = {k: torch.stack([w[k] for w in wb]) for k in wb[0]}
 
-    st, pairs = exe.place(whole), []
+    st, pairs = exe.place(tree_map(torch.clone, whole)), []   # the pairs consume it
     for _ in range(2):
         B.zero_collectives()
         st, losses = exe.window_pair_step(st, wb2, 0.1, faults=fl)

@@ -189,6 +189,56 @@ def test_r2_shared_leaves_are_not_retained():
     assert p.retained == []
 
 
+def _donated_window(donate: bool):
+    """A batched executor's window, declared donated, on a fresh state."""
+    ccfg = PC.CoDAConfig(n_workers=4, p_pos=0.7, optimizer="momentum")
+    exe = PC.make_executor(MCFG, ccfg, donate=donate)
+    p = A.Program("vmap/window", expect={"donated": True})
+    A.run_program(p, lambda s, wb, eta: exe.window_step(s, wb, eta),
+                  [PC.init_state(MCFG, ccfg, generator=torch.Generator().manual_seed(0)),
+                   A.window_batch(MCFG, 4, 2, 8), 0.1])
+    return p
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_r2_a_donated_window_hands_every_leaf_back_in_its_storage(donate):
+    """A donating window writes the parameters, momentum, duals and step
+    counter into the consumed state's buffers; the same window without
+    donation allocates new ones, which the donation check finds."""
+    p = _donated_window(donate)
+    rep = A.run_rules([p], rules={"R2"})
+    assert ("R2", "vmap/window") in rep.checked
+    if donate:
+        assert rep.ok and p.moved == [] and p.retained == []
+    else:
+        assert len(_r("R2", rep)) == 1 and "new storage" in rep.findings[0].message
+        assert any("['params']" in m for m in p.moved) and any("['opt']" in m for m in p.moved)
+
+
+def test_r2_a_donated_program_is_held_to_the_transient_peak_bound():
+    """The card's record of a donated program: a transient peak over
+    ``R2_PEAK_STATE_RATIO`` × the new state + the slack is a finding (a
+    window that kept its input), one under it is not; a program nothing
+    was donated to is only recorded."""
+    state = 10 * 2 ** 30
+    mem = lambda peak: {"held_by_caller": 0, "new_bytes": state, "allocated_after": state,
+                        "excess": 0, "peak_above_state": peak, "transient_peak": peak}
+    over = int(A.transient_peak_bound(state)) + 1
+    bad = A.Program("w", expect={"donated": True}, memory=mem(over))
+    good = A.Program("w", expect={"donated": True}, memory=mem(state // 2))
+    plain = A.Program("w", memory=mem(over))
+    assert "transient" not in str(A.run_rules([good], rules={"R2"}).findings)
+    assert A.run_rules([good], rules={"R2"}).ok and A.run_rules([plain], rules={"R2"}).ok
+    assert "peaked" in _r("R2", A.run_rules([bad], rules={"R2"}))[0].message
+
+
+def test_r2_capture_declares_the_default_executors_donated():
+    ccfg = PC.CoDAConfig(n_workers=2, p_pos=0.7)
+    progs = A.capture_vmap_programs(MCFG, ccfg)
+    assert all(p.expect["donated"] and p.moved == [] for p in progs)
+    assert A.run_rules(progs, rules={"R2"}).ok
+
+
 # ---------------------------------------------------------------------------
 # R3 — host syncs and dtypes
 # ---------------------------------------------------------------------------

@@ -446,10 +446,15 @@ def _local(ccfg, st0, wb):
     return C.window_step(MCFG, ccfg, st0, wb, 0.3, communicate=False)[0]
 
 
+def _copy(st):
+    """A copy for a donating executor, which consumes the state it is given."""
+    return tree_map(torch.clone, st)
+
+
 def test_masked_merge_is_exact_weighted_participant_mean():
     u = np.array([1.0, 0.0, 0.5, 0.0], np.float32)
     ccfg, exe, st0, wb, fl = _masked_case("coda", u, np.ones(4))
-    merged, _ = exe.window_step(st0, wb, 0.3, faults=fl)
+    merged, _ = exe.window_step(_copy(st0), wb, 0.3, faults=fl)
     local = _local(ccfg, st0, wb)
     uw = torch.from_numpy(u)
     for name in ("params", "duals"):
@@ -462,7 +467,7 @@ def test_masked_merge_is_exact_weighted_participant_mean():
 def test_masked_straggler_keeps_own_iterate():
     u = r = np.array([1.0, 1.0, 0.0, 1.0], np.float32)
     ccfg, exe, st0, wb, fl = _masked_case("coda", u, r)
-    merged, _ = exe.window_step(st0, wb, 0.3, faults=fl)
+    merged, _ = exe.window_step(_copy(st0), wb, 0.3, faults=fl)
     local = _local(ccfg, st0, wb)
     for name in ("params", "duals"):
         for got, loc in zip(tree_leaves(merged[name]), tree_leaves(local[name])):
@@ -484,7 +489,7 @@ def test_codasca_participant_mean_invariant_at_half_participation():
 @pytest.mark.parametrize("algorithm", ["coda", "codasca"])
 def test_all_ones_fault_vectors_match_unmasked_path(algorithm):
     ccfg, exe, st0, wb, fl = _masked_case(algorithm, np.ones(4), np.ones(4))
-    masked, _ = exe.window_step(st0, wb, 0.3, faults=fl)
+    masked, _ = exe.window_step(_copy(st0), wb, 0.3, faults=fl)
     plain_cfg = dataclasses.replace(ccfg, participation=1.0)
     plain, _ = C.make_executor(MCFG, plain_cfg).window_step(st0, wb, 0.3)
     assert _max_err(masked, plain) < 1e-6
@@ -499,7 +504,7 @@ def test_masked_sketch_deltas_of_absent_workers_stay_local():
     u = np.array([1, 0, 1, 0, 1, 0, 1, 0], np.float32)
     _, fl = _faults(u, np.ones(K))
     local = _local(ccfg, st0, wb)
-    merged, _ = C.make_executor(MCFG, ccfg).window_step(st0, wb, 0.3, faults=fl)
+    merged, _ = C.make_executor(MCFG, ccfg).window_step(_copy(st0), wb, 0.3, faults=fl)
     for side in ("pos", "neg"):
         nl, nm = local["sk_new"][side], merged["sk_new"][side]
         for k in range(K):

@@ -50,7 +50,7 @@ from repro_torch.core import bucketing as PB
 from repro_torch.core import coda as PC
 from repro_torch.launch import mesh as PM
 from repro_torch.sharding import rules as PR
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 from _torch_ranks import REFERENCE_UNDER_JAX_09, ROOT, TIMEOUT, env, run_ranks
 from _torch_threads import one_torch_thread  # noqa: F401  (this module's autouse fixture)
@@ -216,7 +216,7 @@ import torch
 from repro_torch.configs import mlp_config
 from repro_torch.core import bucketing as B, coda, schedules
 from repro_torch.launch import mesh as M
-from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 rank, world, store, ref, out = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6]
 CASES, FIT_KW, RESUME_KW = (json.loads(a) for a in sys.argv[6:9])
@@ -267,7 +267,7 @@ def case(name, mesh, ex, kw):
     if name == "plain_r4":                  # the local steps alone
         B.zero_collectives()
         wb = {k: arr(f"{name}/wb0['{k}']") for k in ("features", "labels")}
-        exe.window_step(st, wb, 0.1, communicate=False)
+        exe.window_step(tree_map(torch.clone, st), wb, 0.1, communicate=False)
         COUNTS["local_steps"] = counts()
     B.zero_collectives()
     losses = []
@@ -356,10 +356,11 @@ def resume():
     ccfg = config(4, RESUME_KW)
     init = coda.init_state(MCFG, ccfg, generator=torch.Generator().manual_seed(5))
     kw = dict(ckpt_every=1)
-    whole, exe = run_fit(ccfg, init, 12, ckpt_dir=f"{out}/ckpt_whole", **kw)
+    copy = lambda: tree_map(torch.clone, init)     # fit consumes the state it is given
+    whole, exe = run_fit(ccfg, copy(), 12, ckpt_dir=f"{out}/ckpt_whole", **kw)
     put("resume/whole", exe.gather(whole.state))
     try:
-        run_fit(ccfg, init, 12, crash_after=4, ckpt_dir=f"{out}/ckpt", **kw)
+        run_fit(ccfg, copy(), 12, crash_after=4, ckpt_dir=f"{out}/ckpt", **kw)
         raise SystemExit("the sampler did not crash the run")
     except Crash:
         pass
@@ -651,13 +652,13 @@ def _one_rank_window(rank, kw, dev):
     batched = PC.make_executor(mcfg, ccfg)
     PB.zero_collectives()
     if exe.overlap_pairs:                      # a pair against two windows
-        a, _ = exe.window_pair_step(exe.place(st), {k: torch.stack([v, v]) for k, v in
-                                                    wb.items()}, 0.1)
+        a, _ = exe.window_pair_step(exe.place(tree_map(torch.clone, st)),
+                                    {k: torch.stack([v, v]) for k, v in wb.items()}, 0.1)
     else:
-        a, _ = exe.window_step(exe.place(st), wb, 0.1, faults=fl)
+        a, _ = exe.window_step(exe.place(tree_map(torch.clone, st)), wb, 0.1, faults=fl)
     a = exe.stage_end(a, {k: v[0] for k, v in wb.items()})
     comms = {k: dict(v) for k, v in PB.collectives.items()}
-    b, _ = batched.window_step(st, wb, 0.1, faults=fl)
+    b, _ = batched.window_step(tree_map(torch.clone, st), wb, 0.1, faults=fl)
     if exe.overlap_pairs:
         b, _ = batched.window_step(b, wb, 0.1)
     b = PC.stage_end(mcfg, ccfg, b, {k: v[0] for k, v in wb.items()}, resync=False)
