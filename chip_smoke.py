@@ -15,7 +15,11 @@ last line):
      prox_update (bf16 parameters with an fp32 step too) and opt_update
      bitwise (opt_update's bf16
      stochastic-rounding bits included, and equal to prox_update at
-     coef = 0), each with a ResNet50 local step's sweep of 153 launches;
+     coef = 0), each at one-leaf tables and over a local step's leaves as
+     one launch (ResNet50's 153; bf16 stablelm-1.6b's 17 at 2 layers, bf16
+     matrices beside fp32 norms; K3 in every mode and buffer dtype; out of
+     place and in place, each bitwise the plain version leaf by leaf), timed
+     beside the same leaves as one-leaf tables (a launch each);
      then K2's and K3's in-place forms (what a donating executor's step
      runs) at ResNet50's largest leaf × K=4, fp32 and bf16: bitwise their
      out-of-place forms and their plain versions, timed beside them;
@@ -54,7 +58,8 @@ last line):
      the ms of one refresh, a refresh step against a step that keeps its
      preconditioners).  Counters: auc_loss =
      local steps (objective auc); prox_update or opt_update = local steps ×
-     leaves (6 mlp, 153 ResNet50), the other 0; the sketch counts local
+     the launches of one step over every leaf (``launch_geometry``: one for
+     the mlp's 6 leaves and ResNet50's 153), the other 0; the sketch counts local
      steps × K × B scores.  Finite losses; ms per local step, peak memory
      and optimizer state bytes;
   6. one more window under torch.profiler of mlp, the faulted mlp CODASCA
@@ -481,25 +486,15 @@ def check_prox_update(dev, rates, gen):
         print(f"prox_update n={n} {dname}: max_abs_err={err:.3g} (bitwise) "
               f"kernel {ms * 1e3:.2f} us ({dev_txt(dev_ms, dev_src, 'us')}), plain "
               f"{plain * 1e3:.2f} us, bound {bnd * 1e3:.3f} us ({by})")
-    # one ResNet50 local step's sweep: every leaf × K, one launch per leaf
-    leaves = [tuple(torch.randn((K * s,), generator=gen).to(dev) for _ in range(3))
-              for s in leaf_sizes]
-    sweep = lambda fn: [fn(v, g, v0, 0.05, 0.5) for v, g, v0 in leaves]
-    ms = cuda_ms(lambda: sweep(prox_update), iters=10)
-    plain = cuda_ms(lambda: sweep(ref.prox_update_ref), iters=10)
-    dev_ms, dev_src = kernel_device_ms(lambda: sweep(prox_update), "prox_update", K2,
-                                       calls=5)
-    n = K * sum(leaf_sizes)
-    bnd, by = bound_ms(16 * n, PROX_OPS_PER_ELEMENT * n, rates)
-    rows.append({"shape": [n], "dtype": "float32",
-                 "what": f"resnet50 local step: {len(leaf_sizes)} leaves x K={K}",
-                 "launches": len(leaf_sizes), "ms": ms, "device_ms": dev_ms,
-                 "device_ms_source": dev_src, "plain_ms": plain, "bound_ms": bnd,
-                 "bound_by": by})
-    print(f"prox_update resnet50 step ({len(leaf_sizes)} launches, {n:,} "
-          f"elements): kernel {ms:.3f} ms ({dev_txt(dev_ms, dev_src)}), plain "
-          f"{plain:.3f} ms, bound {bnd:.3f} ms ({by})")
-    del leaves
+    # a local step's leaves as one launch: ResNet50's 153 (fp32), bf16
+    # stablelm-1.6b's 17 at 2 layers (bf16 matrices beside fp32 norms), and
+    # the same with an fp32 step (blocked Shampoo under bf16 parameters)
+    for what, tree, gf32 in (("resnet50 step", "resnet50", False),
+                             ("bf16 stablelm-1.6b 2-layer step", "stablelm-1.6b:2:bfloat16",
+                              False),
+                             ("bf16 stablelm-1.6b 2-layer step, fp32 step",
+                              "stablelm-1.6b:2:bfloat16", True)):
+        rows.append(leaf_set_case("prox_update", what, tree, None, rates, dev, gf32=gf32))
     return rows
 
 
@@ -565,34 +560,159 @@ def check_opt_update(dev, rates, gen):
               f"(max_abs_err={err:.3g}) kernel {ms * 1e3:.2f} us "
               f"({dev_txt(dev_ms, dev_src, 'us')}), plain {plain * 1e3:.2f} us, bound "
               f"{bnd * 1e3:.3f} us ({by})")
-    # one ResNet50 local step's sweep, one launch per leaf, as the momentum
-    # (bf16 buffer) and sm3 paths run it
-    for mode, bdt in (("momentum", bf16), ("precond", f32)):
-        leaves = [(torch.randn((K * s,), generator=gen).to(dev),
-                   torch.randn((K * s,), generator=gen).to(dev),
-                   torch.randn((K * s,), generator=gen).to(dev),
-                   torch.rand((K * s,), generator=gen).to(dev, bdt)) for s in leaf_sizes]
-        coef = 0.9 if mode == "momentum" else 1e-6
-        sweep = lambda fn: [fn(v, g, v0, b, 0.05, 0.5, coef, seed, mode=mode)
-                            for v, g, v0, b in leaves]
-        ms = cuda_ms(lambda: sweep(opt_update), iters=10)
-        plain = cuda_ms(lambda: sweep(ref.opt_update_ref), iters=3, warmup=1)
-        dev_ms, dev_src = kernel_device_ms(lambda: sweep(opt_update), "opt_update", K3,
-                                           calls=5)
-        n = K * sum(leaf_sizes)
-        bnd, by = bound_ms(n * (16 + 2 * torch.finfo(bdt).bits // 8),
-                           OPT_OPS_PER_ELEMENT[mode] * n, rates)
-        rows.append({"shape": [n], "mode": mode, "dtype": "float32",
-                     "buf_dtype": str(bdt).replace("torch.", ""),
-                     "what": f"resnet50 local step: {len(leaf_sizes)} leaves x K={K}",
-                     "launches": len(leaf_sizes), "ms": ms, "device_ms": dev_ms,
-                     "device_ms_source": dev_src, "plain_ms": plain, "bound_ms": bnd,
-                     "bound_by": by})
-        print(f"opt_update resnet50 step {mode} buf {bdt} ({len(leaf_sizes)} launches, "
-              f"{n:,} elements): kernel {ms:.3f} ms ({dev_txt(dev_ms, dev_src)}), plain "
-              f"{plain:.3f} ms, bound {bnd:.3f} ms ({by})")
-        del leaves
+    # a local step's leaves as one launch, in every mode and dtype: ResNet50's
+    # 153 with a bf16 and an fp32 momentum buffer and SM3's fp32 covers, and
+    # bf16 stablelm-1.6b's 17 at 2 layers (bf16 and fp32 leaves) with a bf16
+    # momentum buffer and with fp32 covers
+    for what, tree, mode in (("resnet50 step", "resnet50+bf16buf", "momentum"),
+                             ("resnet50 step", "resnet50", "momentum"),
+                             ("resnet50 step", "resnet50", "precond"),
+                             ("bf16 stablelm-1.6b 2-layer step", "stablelm-1.6b:2:bfloat16+bf16buf",
+                              "momentum"),
+                             ("bf16 stablelm-1.6b 2-layer step", "stablelm-1.6b:2:bfloat16",
+                              "precond")):
+        rows.append(leaf_set_case("opt_update", what, tree, mode, rates, dev))
     return rows
+
+
+# the plain version's elements at a time in the leaf-set checks
+PLAIN_CHUNK = 1 << 26
+
+
+def leaf_set_case(kernel: str, what: str, tree: str, mode, rates, dev, *,
+                  gf32: bool = False) -> dict:
+    """K2 (``prox_update``) or K3 (``opt_update`` in ``mode``) over one local
+    step's leaves at K=4 (``analysis.audit.step_leaves``; ``gf32``: K2's g in
+    fp32 under bf16 leaves), drawn on the card: one launch (the wrapper's
+    counter and ``launch_geometry`` both say so), out of place and in place,
+    each bitwise the plain version leaf by leaf (bf16 bits compared as
+    int16), the in-place results in the memory given.  Timed in place (what
+    a donating executor launches) and out of place with CUDA events and the
+    profiler, beside the same leaves as one-leaf tables (a launch each, in
+    place), the plain version (at most ``PLAIN_CHUNK`` elements a call) and
+    the bound."""
+    from repro_torch.analysis.audit import step_leaves
+    from repro_torch.core.optimizer import leaf_seeds
+    from repro_torch.kernels import opt_update as K3
+    from repro_torch.kernels import prox_update as K2
+    from repro_torch.kernels import ref
+    mod = K2 if kernel == "prox_update" else K3
+    spec = step_leaves(kernel, tree)
+    dtypes = {c: d for d, c in mod.CODES.items()}
+    codes = [2 if gf32 and c == 1 else c for c in spec["codes"]]
+    cg = torch.Generator(device=dev).manual_seed(len(codes))
+    draw = lambda n, dt: torch.randn((n,), generator=cg, device=dev).to(dt)
+    geo = mod.launch_geometry(spec["sizes"], codes)
+    leaves = []
+    for n, c in zip(spec["sizes"], codes):
+        vdt, xdt = dtypes[c]
+        if kernel == "prox_update":
+            leaves.append((draw(n, vdt), draw(n, xdt), draw(n, vdt)))
+        else:
+            buf = draw(n, F32).abs() if mode == "precond" else draw(n, F32)
+            leaves.append((draw(n, vdt), draw(n, vdt), draw(n, vdt), buf.to(xdt)))
+    cols = [list(c) for c in zip(*leaves)]
+    del leaves
+    coef = 0.9 if mode == "momentum" else 1e-6
+    seeds = leaf_seeds(torch.full((4,), 7, dtype=torch.int32, device=dev), len(codes))
+    if kernel == "prox_update":
+        args, kw = (0.05, 0.5), {}
+        multi = lambda c, **k: K2.prox_update_multi(*c, *args, **k)
+        one = lambda c, i, **k: K2.prox_update(*(x[i] for x in c), *args, **k)
+        plain = lambda xs, i: (ref.prox_update_ref(*xs, *args),)
+    else:
+        args, kw = (0.05, 0.5, coef), {"mode": mode}
+        multi = lambda c, **k: K3.opt_update_multi(*c, *args, seeds, **kw, **k)
+        one = lambda c, i, **k: K3.opt_update(*(x[i] for x in c), *args, seeds[i:i + 1],
+                                              **kw, **k)
+        plain = lambda xs, i: ref.opt_update_ref(*xs, *args, seeds[i], **kw)
+
+    def pieces(i):
+        """Leaf i's flat element ranges: the plain version is elementwise, so
+        it runs on at most PLAIN_CHUNK elements at a time (a bf16 embedding
+        leaf's int64 rounding temporaries would not fit whole)."""
+        n = spec["sizes"][i]
+        return [slice(a, min(n, a + PLAIN_CHUNK)) for a in range(0, n, PLAIN_CHUNK)]
+
+    def matches(results) -> bool:
+        """``results`` (a list a written column) bitwise the plain version,
+        leaf by leaf, piece by piece."""
+        for i in range(len(codes)):
+            for sl in pieces(i):
+                want = plain([x[i].reshape(-1)[sl] for x in cols], i)
+                if not all(same(r[i].reshape(-1)[sl], w) for r, w in zip(results, want)):
+                    return False
+        return True
+
+    same = lambda a, b: a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    before = mod.launches
+    got = multi(cols)
+    launched = mod.launches - before
+    ok = matches([got] if kernel == "prox_update" else list(got))
+    del got
+    # the written columns: v, and K3's buffer
+    writable = [[t.clone() for t in cols[j]] for j in ((0,) if kernel == "prox_update"
+                                                        else (0, 3))]
+    inplace_cols = ([writable[0], *cols[1:]] if kernel == "prox_update"
+                    else [writable[0], cols[1], cols[2], writable[1]])
+    res = multi(inplace_cols, inplace=True)
+    res = [res] if kernel == "prox_update" else list(res)
+    ok_in = all(r is w for col_r, col_w in zip(res, writable) for r, w in zip(col_r, col_w)) \
+        and matches(writable)
+    torch.cuda.synchronize()
+    del res
+    label = f"{kernel} {what}" + (f" {mode}" if mode else "") + (" (g float32)" if gf32 else "")
+    if not (ok and ok_in and launched == geo["launches"] == 1):
+        raise SystemExit(f"{label}: {launched} launches (geometry {geo['launches']}), bitwise "
+                         f"out of place {ok}, in place {ok_in}")
+    def out_of_place():      # the fresh outputs go before the next call
+        multi(cols)
+
+    ms = cuda_ms(lambda: multi(inplace_cols, inplace=True), iters=20)
+    out_ms = cuda_ms(out_of_place, iters=20)
+    dev_ms, dev_src = kernel_device_ms(lambda: multi(inplace_cols, inplace=True),
+                                       "update_multi_kernel", mod, calls=5)
+    out_dev, out_src = kernel_device_ms(out_of_place, "update_multi_kernel", mod, calls=5)
+    sweep = lambda: [one(inplace_cols, i, inplace=True) for i in range(len(codes))]
+    leaf_ms = cuda_ms(sweep, iters=10)
+    leaf_dev, leaf_src = kernel_device_ms(sweep, "update_multi_kernel", mod, calls=3)
+
+    def plain_step():
+        for i in range(len(codes)):
+            for sl in pieces(i):
+                plain([x[i].reshape(-1)[sl] for x in cols], i)
+    plain_ms = cuda_ms(plain_step, iters=3, warmup=1)
+    elements = sum(spec["sizes"])
+    size = lambda dt: torch.finfo(dt).bits // 8
+    if kernel == "prox_update":
+        nbytes = sum(n * (3 * size(dtypes[c][0]) + size(dtypes[c][1]))
+                     for n, c in zip(spec["sizes"], codes))
+        ops = PROX_OPS_PER_ELEMENT * elements
+    else:
+        nbytes = sum(n * (4 * size(dtypes[c][0]) + 2 * size(dtypes[c][1]))
+                     for n, c in zip(spec["sizes"], codes))
+        ops = OPT_OPS_PER_ELEMENT[mode] * elements
+    bnd, by = bound_ms(nbytes, ops, rates)
+    name = lambda d: str(d).replace("torch.", "")
+    row = {"kernel": kernel, "variant": geo["kernel"], "what": what, "mode": mode,
+           "leaves": len(codes), "codes": sorted(set(codes)),
+           "dtypes": sorted({"/".join(map(name, dtypes[c])) for c in codes}),
+           "shape": [elements], "launches": launched, "max_abs_err": 0.0,
+           "ms": ms, "device_ms": dev_ms, "device_ms_source": dev_src,
+           "out_of_place_ms": out_ms, "out_of_place_device_ms": out_dev,
+           "out_of_place_device_ms_source": out_src, "per_leaf_ms": leaf_ms,
+           "per_leaf_device_ms": leaf_dev, "per_leaf_device_ms_source": leaf_src,
+           "per_leaf_launches": len([n for n in spec["sizes"] if n]), "plain_ms": plain_ms,
+           "bound_ms": bnd, "bound_by": by, "grid": geo["grid"][0]}
+    print(f"{label} ({len(codes)} leaves, {elements:,} elements, codes {row['codes']}): one "
+          f"launch, bitwise the plain version out of place and in place; in place {ms:.3f} "
+          f"ms ({dev_txt(dev_ms, dev_src)}), out of place {out_ms:.3f} ms "
+          f"({dev_txt(out_dev, out_src)}); one-leaf tables ({row['per_leaf_launches']} "
+          f"launches) {leaf_ms:.3f} ms ({dev_txt(leaf_dev, leaf_src)}); plain {plain_ms:.3f} "
+          f"ms; bound {bnd:.4f} ms ({by})")
+    del cols, inplace_cols, writable
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_inplace_updates(dev, rates, gen):
@@ -624,9 +744,9 @@ def check_inplace_updates(dev, rates, gen):
         out_ms = cuda_ms(lambda: K2.prox_update(v, g, v0, 0.05, 0.5))
         dev_ms, dev_src = kernel_device_ms(
             lambda: K2.prox_update(vi, g, v0, 0.05, 0.5, inplace=True),
-            "prox_update_inplace_kernel", K2)
+            "prox_update_multi_kernel", K2)
         out_dev, out_src = kernel_device_ms(lambda: K2.prox_update(v, g, v0, 0.05, 0.5),
-                                            "prox_update_kernel", K2)
+                                            "prox_update_multi_kernel", K2)
         bnd, by = bound_ms(n * (3 * v.element_size() + g.element_size()),
                            PROX_OPS_PER_ELEMENT * n, rates)
         dname = name(dt) + ("" if gdt == dt else " (g float32)")
@@ -664,10 +784,10 @@ def check_inplace_updates(dev, rates, gen):
         out_ms = cuda_ms(lambda: K3.opt_update(v, g, v0, b, 0.05, 0.5, coef, seed, mode=mode))
         dev_ms, dev_src = kernel_device_ms(
             lambda: K3.opt_update(vi, g, v0, bi, 0.05, 0.5, coef, seed, mode=mode,
-                                  inplace=True), "opt_update_inplace_kernel", K3)
+                                  inplace=True), "opt_update_multi_kernel", K3)
         out_dev, out_src = kernel_device_ms(
             lambda: K3.opt_update(v, g, v0, b, 0.05, 0.5, coef, seed, mode=mode),
-            "opt_update_kernel", K3)
+            "opt_update_multi_kernel", K3)
         bnd, by = bound_ms(n * (4 * v.element_size() + 2 * b.element_size()),
                            OPT_OPS_PER_ELEMENT[mode] * n, rates)
         rows.append({"kernel": "opt_update", "form": "inplace", "what": "in place",
@@ -942,11 +1062,38 @@ def read_counts() -> dict:
     return {k: mod.launches for k, mod in train.KERNELS.items()}
 
 
+def step_launches(kernel: str, state: dict) -> int:
+    """K2's (``prox_update``) or K3's (``opt_update``) launches in one local
+    step over ``state``'s parameter leaves, from the wrapper's own
+    ``launch_geometry`` over their sizes and dtype codes (the kernel's
+    geometry query and R5 say the same): one launch while a step has at most
+    ``MAX_LEAVES`` leaves.  Every tree chip_smoke trains has fewer, so
+    anything but one launch a step fails here, whatever the geometry says."""
+    from repro_torch.kernels import opt_update as K3
+    from repro_torch.kernels import prox_update as K2
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(state["params"])
+    sizes = [l.numel() for l in leaves]
+    if kernel == "prox_update":
+        n = K2.launch_geometry(sizes, [K2.CODES[(l.dtype, l.dtype)] for l in leaves])["launches"]
+    else:
+        # a momentum buffer a leaf, or SM3's accumulators (the launch reads fp32 covers)
+        bufs = [b if isinstance(b, torch.Tensor) else None for b in state["opt"]["leaves"]]
+        codes = [K3.CODES[(l.dtype, F32 if b is None else b.dtype)]
+                 for l, b in zip(leaves, bufs)]
+        n = K3.launch_geometry(sizes, codes)["launches"]
+    if n != 1:
+        raise SystemExit(f"{kernel}: {n} launches a local step over {len(leaves)} leaves, "
+                         "not one")
+    return n
+
+
 def run_main_path(label: str, argv: list[str], leaves_per_step: int,
                   per_leaf: str = "prox_update", attn_layers: int = 0, moe_layers: int = 0):
     """Drive ``train.main(argv)`` with every launch counter set to 0 just
-    before and read just after; ``per_leaf`` is the kernel launched once per
-    parameter leaf per local step (the other per-leaf kernel must stay 0).
+    before and read just after; ``per_leaf`` is the kernel of the optimizer
+    step, launched ``step_launches`` times a local step over every one of
+    the ``leaves_per_step`` parameter leaves (the other must stay 0).
     ``flash_attention`` runs once per attention layer in every forward: each
     local step and each stage-end α batch inside ``fit``, then each chunk of
     the held-out split the launcher scores after it.  ``grouped_matmul``
@@ -998,7 +1145,8 @@ def run_main_path(label: str, argv: list[str], leaves_per_step: int,
     want = {"auc_loss": steps if objective == "auc" else 0, "prox_update": 0, "opt_update": 0,
             "flash_attention": attn_layers * (steps + out["stages"] + evals * chunks),
             "grouped_matmul": 3 * moe_layers * (out["stages"] + evals * chunks)}
-    want[per_leaf] = steps * leaves_per_step
+    out["step_launches"] = step_launches(per_leaf, out["state"])
+    want[per_leaf] = steps * out["step_launches"]
     want_all = dict(want, flash_attention=want["flash_attention"] + attn_layers * chunks,
                     grouped_matmul=want["grouped_matmul"] + 3 * moe_layers * chunks)
     if len(out["step_seconds"]) <= 8:     # the short paths: each window's ms per step
@@ -1026,7 +1174,8 @@ def require_k4_variant(label: str, run: dict, variant: str, why: str) -> None:
                          f"{variant} ({why})")
 
 
-# (label, launcher arguments, the kernel launched once per leaf per step)
+# (label, launcher arguments, the kernel of the optimizer step: one launch a
+# local step over every leaf, step_launches)
 MLP_PATHS = [
     ("mlp", [], "prox_update"),
     ("mlp_momentum", ["--optimizer", "momentum", "--opt-dtype", "bf16"], "opt_update"),
@@ -1099,7 +1248,7 @@ SHARD_FAULTS = ["--algorithm", "codasca", "--participation", "0.75", "--straggle
 SHARD_VMAP_PATHS = [("mlp_int8", ["--compress", "int8"]),
                     ("mlp_codasca_participation", SHARD_FAULTS)]
 # (label, launcher arguments, the vmap path beside it, the kernel launched once
-# per leaf per step, whether the final parameters are held bitwise the vmap
+# of the optimizer step, whether the final parameters are held bitwise the vmap
 # path's: at R = 1 the same arithmetic on the same draws, except the
 # overlapped path, whose vmap twin has no pairs, and ResNet50, whose two fits
 # are held bitwise under deterministic cuDNN in run_resnet50_determinism)
@@ -1154,7 +1303,7 @@ ZOO_SMOKE = [
 ]
 # the ssm family's smoke config with sm3 (K3), and dbrx's with shampoo_blocked
 # (the axis-order optimizers on the moe family): (label, arguments, the kernel
-# launched once a leaf a step)
+# of the optimizer step, one launch a step)
 # Both optimizers scale a gradient's fp32 rounding up where it is near zero,
 # so two runs that round differently part within a few steps (on the CPU
 # alone, ATEN_CPU_CAPABILITY=default against avx2 moves the test AUC of the
@@ -1855,8 +2004,14 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
             raise SystemExit(f"grouped_matmul {label}: routed to {kernel}, not {want_kernel}")
         before = md.variant_launches[kernel]
         got = md.grouped_matmul(x, w, sizes)
+        # the plain version's memory above what the case holds (it copies
+        # its group's [Kd, F] block for every row tile)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         want = ref.grouped_matmul_ref(x, w, sizes)
         torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated() - held
         if md.variant_launches[kernel] != before + 1:
             raise SystemExit(f"grouped_matmul {label}: {kernel} was not launched")
         diff = (got.float() - want.float()).abs()
@@ -1880,14 +2035,15 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
                      "groups": G, "hit_groups": hit, "dtype": dname, "kernel": kernel,
                      "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms,
                      "device_ms": dev_ms, "device_ms_source": dev_src, "plain_ms": plain,
-                     "library_ms": lib_ms,
+                     "plain_peak_bytes": plain_peak, "library_ms": lib_ms,
                      "library_note": why, "bound_ms": bnd, "bound_by": by,
                      "gbytes": n_bytes / 1e9, "gflop": n_ops / 1e9})
         lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"
         print(f"grouped_matmul {label} [N={x.shape[0]}, Kd={x.shape[1]}, F={w.shape[-1]}, "
               f"G={G}, {hit} hit] {dname} {kernel}: max_abs_err={err:.3g} (atol {atol:g}, "
               f"rtol {rtol:g}); kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain "
-              f"{plain:.4f} ms, torch._grouped_mm {lib_txt}, bound {bnd:.4f} ms ({by}: "
+              f"{plain:.4f} ms (peak {plain_peak / 2**30:.3f} GiB above the case's tensors), "
+              f"torch._grouped_mm {lib_txt}, bound {bnd:.4f} ms ({by}: "
               f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP)")
 
     def randn(shape, dt=F32, scale=1.0):
@@ -2190,7 +2346,7 @@ def run_bf16_coda(dev) -> tuple[dict, dict]:
     leaf with the kernels and with impl='ref' held to the same step in fp32
     (the bf16 rule); then ``coda.fit`` (one stage, 16 local steps) with
     every counter set to 0 just before and read just after: auc_loss once a
-    local step, prox_update once a leaf a local step, flash_attention once a
+    local step, prox_update once a local step (step_launches), flash_attention once a
     layer a forward, every K4 launch flash_fwd_wgmma; the test AUC of the
     held-out split; one profiled window."""
     from repro_torch.configs import get_config
@@ -2248,7 +2404,7 @@ def run_bf16_coda(dev) -> tuple[dict, dict]:
     counts, variants = read_counts(), read_variants()
     steps, stages = res.iterations, 1
     want = dict.fromkeys(counts, 0) | {
-        "auc_loss": steps, "prox_update": steps * len(leaves),
+        "auc_loss": steps, "prox_update": steps * step_launches("prox_update", res.state),
         "flash_attention": TRAIN_LAYERS * (steps + stages)}
     k4 = variants["flash_attention"]
     print(f"main path {label}: {steps} local steps, launches {counts}, K4 variants {k4}")
@@ -2288,7 +2444,7 @@ CRASH_AFTER, CKPT_EVERY = 5, 2
 def run_crash_resume(dev) -> tuple[dict, dict]:
     """``mlp_crash_resume``: the uninterrupted ``coda.fit`` (every counter
     set to 0 just before: auc_loss once a local step, prox_update once a
-    leaf a local step), then the same run whose window sampler raises after
+    local step: step_launches), then the same run whose window sampler raises after
     window 5 with a checkpoint every 2 windows, then ``resume=True``: the
     final state, history, rounds and bytes bitwise the uninterrupted run's."""
     import shutil
@@ -2329,7 +2485,8 @@ def run_crash_resume(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     counts, variants = read_counts(), read_variants()
     steps = want.iterations
-    expect = dict.fromkeys(counts, 0) | {"auc_loss": steps, "prox_update": steps * MLP_LEAVES}
+    expect = dict.fromkeys(counts, 0) | {
+        "auc_loss": steps, "prox_update": steps * step_launches("prox_update", want.state)}
     if counts != expect:
         raise SystemExit(f"{label}: launch counts {counts}, expected {expect}")
     try:
@@ -2376,7 +2533,7 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
     ``cg``) with the kernels and with impl='ref', held to the same in fp32
     under the bf16 rule; then ``coda.fit`` (one stage, 16
     local steps) with every counter set to 0 just before and read just
-    after: auc_loss once a local step, prox_update once a leaf a local step,
+    after: auc_loss once a local step, prox_update once a local step,
     flash_attention once a layer a forward, every K4 launch
     flash_fwd_wgmma; peak memory, ms per local step, the mixed bf16/f32
     buckets, the test AUC, one profiled window."""
@@ -2414,6 +2571,7 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
 
     state = fresh()
     n_leaves = len(tree_leaves(state["params"]))
+    k2_step = step_launches("prox_update", state)
     buckets = bucketing.bucket_layout(state, masked=True)
     print(f"main path {label}: window buckets (bytes a worker) "
           f"{ {t: b['bytes'] for t, b in buckets.items()} }, payload "
@@ -2503,7 +2661,7 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
     del state
     steps, stages = res.iterations, 1
     want = dict.fromkeys(counts, 0) | {
-        "auc_loss": steps, "prox_update": steps * n_leaves,
+        "auc_loss": steps, "prox_update": steps * k2_step,
         "flash_attention": TRAIN_LAYERS * (steps + stages)}
     k4 = variants["flash_attention"]
     print(f"main path {label}: {steps} local steps, launches {counts}, K4 variants {k4}")
@@ -2977,7 +3135,7 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
     one window against the batched executor from the same state (bitwise,
     or the stated tolerance), then the fit with every counter set to 0 just
     before and read just after: auc_loss once a local step, prox_update
-    once a leaf a local step, flash_attention once a layer a forward, every
+    once a local step, flash_attention once a layer a forward, every
     K4 launch flash_fwd_wgmma; two all_reduces a window (the bf16 and the
     f32 bucket) of ``window_payload_by_dtype`` bytes and one a stage end;
     then the same fit on the batched executor, for its ms per local step
@@ -2990,7 +3148,6 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
     from repro_torch.data import ShardedDataset
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import train
-    from repro_torch.tree import tree_leaves
     label, c = "bf16_stablelm_shard_map", dict(BF16_CODA, T0=BF16_SHARD_T0)
     cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
     print(f"main path {label}: reduced: {TRAIN_LAYERS} of 24 layers (full width), K={c['K']}, "
@@ -3013,7 +3170,7 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
     by_dtype = coda.window_payload_by_dtype(state)
     check = sharded_window(label, cfg, state, ds.sample_window(c["I"], c["B"]), dev,
                            param_dtype=BF16)
-    n_leaves = len(tree_leaves(state["params"]))
+    k2_step = step_launches("prox_update", state)
     del state                      # each fit below consumes a fresh one
     torch.cuda.empty_cache()
     sched = schedules.ScheduleConfig(n_workers=c["K"], eta0=0.5, T0=c["T0"], I0=c["I"],
@@ -3049,7 +3206,7 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
     del twin
     steps, windows = res.iterations, res.comm_rounds - 1
     want = dict.fromkeys(counts, 0) | {
-        "auc_loss": steps, "prox_update": steps * n_leaves,
+        "auc_loss": steps, "prox_update": steps * k2_step,
         "flash_attention": TRAIN_LAYERS * (steps + 1)}
     want_ar = {"calls": windows * len(by_dtype) + 1,
                "bytes": windows * sum(by_dtype.values()) + 4}
@@ -3081,15 +3238,15 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
 def run_quickstart() -> tuple[dict, dict]:
     """``python -m repro_torch.quickstart`` on the card (its own AUC > 0.85
     assert), every counter set to 0 just before: auc_loss once a local
-    step, prox_update once a leaf a local step, nothing else."""
+    step, prox_update once a local step, nothing else."""
     from repro_torch import quickstart
-    from repro_torch.tree import tree_leaves
     zero_counts()
     out = quickstart.main([])
     counts = read_counts()
     out["variant_launches"] = read_variants()
-    steps, leaves = out["iterations"], len(tree_leaves(out["state"]["params"]))
-    want = dict.fromkeys(counts, 0) | {"auc_loss": steps, "prox_update": steps * leaves}
+    steps = out["iterations"]
+    want = dict.fromkeys(counts, 0) | {
+        "auc_loss": steps, "prox_update": steps * step_launches("prox_update", out["state"])}
     print(f"main path quickstart: {steps} local steps, {out['comm_rounds']} comm rounds, "
           f"test AUC {out['auc']:.4f}, launches {counts}")
     if counts != want:
@@ -3271,7 +3428,7 @@ XLSTM_DECODE = (2, 256)            # the decode-vs-parallel prompt [B, S]
 XLSTM_DECODE_CUT = {"n_layers": 3, "slstm_every": 2}
 MLSTM_CHUNK_TOL = (2e-4, 2e-3)     # (atol, rtol), tests/test_decode_consistency.py:102-110
 # CoDA at full width through the launcher: (label, arguments, the kernel
-# launched once a leaf a step).  sgd at the launcher's eta0 = 0.5 drives
+# of the optimizer step, one launch a step).  sgd at the launcher's eta0 = 0.5 drives
 # full-width xLSTM to NaN within a few steps in both packages (the first
 # mLSTM's input-gate pre-activations grow until a row's exp(-m) overflows;
 # scripts/xlstm_stability.py shows it on the CPU); at 24 layers the random
@@ -3635,7 +3792,7 @@ def run_audit(dev, dbrx_cfg, dbrx_params, param_check: dict, prefill_ms: float) 
               f"state and outputs {m['new_bytes']:,} B (excess {m['excess']:,} B, slack "
               f"{A.R2_SLACK_BYTES:,}); peak {m['peak_above_state']:,} B above the state")
     print(f"audit full/bf16_stablelm_coda: variants (calls, launches, query equal) {var}")
-    need = {"auc_loss_kernel", "prox_update_kernel", "flash_fwd_wgmma"}
+    need = {"auc_loss_kernel", "prox_update_multi_kernel", "flash_fwd_wgmma"}
     if not rep.ok or not need <= set(var) or not all(v[2] and v[0] == v[1] for v in var.values()):
         raise SystemExit(f"audit full/bf16_stablelm_coda: {[str(f) for f in rep.findings]}, "
                          f"variants {var}")
@@ -3785,7 +3942,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     n_step = 4 * sum(resnet_leaf_sizes())
     k3_bound, _ = bound_ms(20 * n_step, OPT_OPS_PER_ELEMENT["momentum"] * n_step, rates)
     print(f"profile resnet50_momentum: opt_update {prof['hand_written_ms']['opt_update'] / 8:.4f} "
-          f"ms of device time per local step ({RN_LEAVES} launches) against a bound of "
+          f"ms of device time per local step ({runs['resnet50_momentum']['step_launches']} "
+          f"launch a step over {RN_LEAVES} leaves) against a bound of "
           f"{k3_bound:.4f} ms (20 B per element, bf16 buffer)")
 
     stamp("resnet50 paths done")
@@ -3938,7 +4096,13 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         hi = {} if inplace is None else {
             "inplace_ms": rows[inplace]["ms"], "inplace_device_ms": rows[inplace]["device_ms"],
             "inplace_device_ms_source": rows[inplace]["device_ms_source"]}
-        return {"name": name, "route": "cuda", **hi,
+        step = {} if "per_leaf_ms" not in h else {
+            "variant": h["variant"], "leaves": h["leaves"],
+            "out_of_place_ms": h["out_of_place_ms"],
+            "out_of_place_device_ms": h["out_of_place_device_ms"],
+            "one_leaf_tables_ms": h["per_leaf_ms"],
+            "one_leaf_tables_device_ms": h["per_leaf_device_ms"]}
+        return {"name": name, "route": "cuda", **hi, **step,
                 "source": "src/repro_torch/kernels/csrc/coda_kernels.cu",
                 "wrapper": f"src/repro_torch/kernels/{name}.py",
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -3952,15 +4116,14 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                 "shapes": rows}
 
     # headline shapes: auc_loss at the launcher's [K, B] = [4, 32]; prox_update
-    # at ResNet50's largest leaf × K in fp32; opt_update there too, momentum
-    # with the bf16 buffer the launcher paths use
+    # over a ResNet50 local step's 153 leaves × K in fp32, one launch in place
+    # (ms; the same leaves as one-leaf tables beside it); opt_update there
+    # too, momentum with the bf16 buffer the launcher paths use
     auc_head = next(i for i, r in enumerate(auc_rows) if r["shape"] == [4, 32])
-    big = max(r["shape"][0] for r in prox_rows if "what" not in r)
-    prox_head = next(i for i, r in enumerate(prox_rows)
-                     if r["shape"] == [big] and r["dtype"] == "float32")
+    prox_head = next(i for i, r in enumerate(prox_rows) if r.get("what") == "resnet50 step")
     opt_head = next(i for i, r in enumerate(opt_rows)
-                    if r["shape"] == [big] and "what" not in r and r["mode"] == "momentum"
-                    and r["dtype"] == "float32" and r["buf_dtype"] == "bfloat16")
+                    if r.get("what") == "resnet50 step" and r["mode"] == "momentum"
+                    and r["dtypes"] == ["float32/bfloat16"])
     prox_in = next(i for i, r in enumerate(prox_rows)
                    if r.get("form") == "inplace" and r["dtype"] == "float32")
     opt_in = next(i for i, r in enumerate(opt_rows)

@@ -144,7 +144,9 @@ class KernelLaunch:
     reads with.  ``calls`` and ``launched``: how many calls the path made
     at this shape through ``impl`` on ``device`` and how many launches the
     wrapper counted for them (None for a static record, made without a
-    call); ``query``: the kernel's own geometry on the card."""
+    call); ``query``: the kernel's own geometry on the card; ``per_call``:
+    the launches one call through the kernel makes (K2/K3: one a
+    ``MAX_LEAVES`` leaves of a step)."""
     kernel: str
     variant: str
     shape: dict
@@ -159,6 +161,7 @@ class KernelLaunch:
     calls: int = 0
     launched: int | None = None
     query: dict | None = None
+    per_call: int = 1
 
     @property
     def name(self) -> str:
@@ -713,11 +716,39 @@ def _k1():
     return auc_loss
 
 
+def step_leaves(kernel: str, tree: str, K: int = 4) -> dict:
+    """{sizes, codes} of one local step's K2 or K3 launch over a model's
+    parameter leaves at K workers: ``tree`` is "arch", "arch:layers" or
+    "arch:layers:bfloat16" (bf16 weights; fp32 norms and biases stay fp32;
+    "mlp" is the launcher's default mlp), its leaves made on the meta
+    device.  K3's buffers are fp32 (SM3's covers, an fp32 momentum) unless
+    the tree ends in "+bf16buf"."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config, mlp_config
+    from repro_torch.kernels import opt_update, prox_update
+    from repro_torch.models import model as M
+    name, _, buf = tree.partition("+")
+    arch, layers, dtype = (name.split(":") + ["", ""])[:3]
+    cfg = mlp_config() if arch == "mlp" else get_config(arch)
+    if layers:
+        cfg = dc.replace(cfg, n_layers=int(layers))
+    dt = getattr(torch, dtype or "float32")
+    leaves = tree_leaves(M.init_params(cfg, dtype=dt, device="meta"))
+    if kernel == "prox_update":
+        codes = [prox_update.CODES[(l.dtype, l.dtype)] for l in leaves]
+    else:
+        bdt = torch.bfloat16 if buf == "bf16buf" else torch.float32
+        codes = [opt_update.CODES[(l.dtype, bdt)] for l in leaves]
+    return {"sizes": tuple(K * l.numel() for l in leaves), "codes": tuple(codes)}
+
+
 def launch_record(kernel: str, shape: dict, *, impl: str = "auto", device: str = "cpu",
                   calls: int = 0, launched: int | None = None) -> KernelLaunch:
     """The launch record of one call shape, from the wrapper's own
     ``launch_geometry``.  ``shape``: auc_loss {K, T}; prox_update and
-    opt_update {n}; flash_attention {B, S, H, KV, Skv, hd, dtype, aligned};
+    opt_update {sizes, codes} of a step's leaves (or {tree}: a model's step,
+    ``step_leaves``); flash_attention {B, S, H, KV, Skv, hd, dtype, aligned};
     grouped_matmul {N, Kd, G, F, dtype, tma_ok, strides (w's s_k, s_inner,
     s_outer in elements)}."""
     from repro_torch.kernels import flash_attention as fa
@@ -732,9 +763,14 @@ def launch_record(kernel: str, shape: dict, *, impl: str = "auto", device: str =
                                    (g["rows_per_block"], g["threads"], None)}, **kw)
     if kernel in ("prox_update", "opt_update"):
         mod = prox_update if kernel == "prox_update" else opt_update
-        g = mod.launch_geometry(shape["n"])
+        if "tree" in shape:
+            shape = dict(shape, **step_leaves(kernel, shape["tree"]))
+        g = mod.launch_geometry(shape["sizes"], shape["codes"])
+        shape = dict(shape, _query_keys={"launches": g["launches"]})
+        tiles = {"leaves a launch (the table's capacity)":
+                 (max(map(len, g["chunks"]), default=0), 1, g["max_leaves"])}
         return KernelLaunch(kernel, g["kernel"], shape, (g["grid"][0], 1, 1), g["threads"],
-                            g["smem_bytes"], **kw)
+                            g["smem_bytes"], tiles=tiles, per_call=g["launches"], **kw)
     if kernel == "flash_attention":
         B, S, H, KV, Skv, hd = (shape[k] for k in ("B", "S", "H", "KV", "Skv", "hd"))
         dt = shape.get("dtype", torch.float32)
@@ -789,13 +825,20 @@ def kernel_query(rec: KernelLaunch) -> dict:
 
     from repro_torch.kernels import _build
     lib, s = _build.load(), rec.shape
-    if rec.kernel in ("auc_loss", "prox_update", "opt_update"):
-        out = (ctypes.c_longlong * 5)()
-        which = {"auc_loss": 0, "prox_update": 1, "opt_update": 2}[rec.kernel]
-        n, k = (s["T"], s["K"]) if rec.kernel == "auc_loss" else (s["n"], 0)
-        if lib.coda_kernels_geometry(which, n, k, ctypes.addressof(out)) != 0:
+    if rec.kernel == "auc_loss":
+        out = (ctypes.c_longlong * 9)()
+        if lib.coda_kernels_geometry(0, s["T"], s["K"], None, ctypes.addressof(out)) != 0:
             raise RuntimeError(f"coda_kernels_geometry refused {rec.name}")
         return {"grid": tuple(out[:3]), "threads": out[3], "smem_bytes": out[4]}
+    if rec.kernel in ("prox_update", "opt_update"):
+        out = (ctypes.c_longlong * 9)()
+        rows = np.array(list(zip(s["sizes"], s["codes"])), dtype=np.int64).reshape(-1, 2)
+        which = 1 if rec.kernel == "prox_update" else 2
+        if lib.coda_kernels_geometry(which, len(rows), 0, rows.ctypes.data,
+                                     ctypes.addressof(out)) != 0:
+            raise RuntimeError(f"coda_kernels_geometry refused {rec.name}")
+        return {"grid": tuple(out[:3]), "threads": out[3], "smem_bytes": out[4],
+                "launches": out[5]}
     if rec.kernel == "flash_attention":
         out = (ctypes.c_int * 12)()
         vid = {"flash_fwd": 0, "flash_fwd_wgmma": 1, "flash_fwd_tf32x3": 2}[rec.variant]
@@ -846,8 +889,8 @@ def launch_problems(rec: KernelLaunch) -> list:
         if s % TMA_STRIDE_ALIGN:
             p.append(f"TMA global stride {s} B is not a multiple of {TMA_STRIDE_ALIGN}")
     if rec.launched is not None:
-        per_call = 1 if rec.impl == "kernel" or (rec.impl == "auto" and rec.device == "cuda") \
-            else 0
+        per_call = rec.per_call if rec.impl == "kernel" or (
+            rec.impl == "auto" and rec.device == "cuda") else 0
         if rec.launched != per_call * rec.calls:
             p.append(f"impl={rec.impl!r} on {rec.device} tensors launched {rec.launched} "
                      f"kernels in {rec.calls} calls (the seam allows {per_call} a call)")
@@ -888,6 +931,11 @@ def dispatch_problems() -> list:
 # --------------------------------------------------------------------------
 # the recorders
 # --------------------------------------------------------------------------
+# K2's and K3's entry points besides their one-leaf wrappers: the
+# multi-tensor launch over a step's leaves, and the plain version leaf by
+# leaf that ``ops.prox_update_tree`` / ``ops.opt_update_tree`` take
+_ENTRIES = {k: ((k, "kernel"), (f"{k}_multi", "kernel"), ("plain_multi", "ref"))
+            for k in ("prox_update", "opt_update")}
 _REF_FUNCS = {"auc_loss_ref": "auc_loss", "prox_update_ref": "prox_update",
               "opt_update_ref": "opt_update", "attention_full": "flash_attention",
               "attention_chunked": "flash_attention", "grouped_matmul_ref": "grouped_matmul"}
@@ -897,7 +945,15 @@ def _call_shape(kernel: str, a, kw) -> dict:
     if kernel == "auc_loss":
         return {"K": a[0].shape[0], "T": a[0].shape[1]}
     if kernel in ("prox_update", "opt_update"):
-        return {"n": a[0].numel(), "dtype": a[0].dtype}
+        from repro_torch.kernels import opt_update, prox_update
+        # a step's lists of leaves (the multi-tensor wrappers, the plain
+        # versions leaf by leaf) or one leaf
+        cols = a[:4] if isinstance(a[0], (list, tuple)) else [[t] for t in a[:4]]
+        if kernel == "prox_update":
+            codes = [prox_update.CODES[(v.dtype, g.dtype)] for v, g in zip(cols[0], cols[1])]
+        else:
+            codes = [opt_update.CODES[(v.dtype, b.dtype)] for v, b in zip(cols[0], cols[3])]
+        return {"sizes": tuple(v.numel() for v in cols[0]), "codes": tuple(codes)}
     if kernel == "flash_attention":
         q, k, v = a[:3]
         B, S, H, hd = q.shape
@@ -963,7 +1019,8 @@ def kernel_calls(sink: dict):
     try:
         patch(ops, "dispatch", dispatch)
         for kernel, mod in mods.items():
-            patch(mod, kernel, wrap(kernel, "kernel", getattr(mod, kernel), mod))
+            for fname, route in _ENTRIES.get(kernel, ((kernel, "kernel"),)):
+                patch(mod, fname, wrap(kernel, route, getattr(mod, fname), mod))
         for fname, kernel in _REF_FUNCS.items():
             patch(ref, fname, wrap(kernel, "ref", getattr(ref, fname), mods[kernel]))
         yield sink
@@ -1354,8 +1411,17 @@ DEFAULT_SHAPES = {"moe": (64, 32, 4, 64), "auc": (300,), "prox": (1000,), "opt":
 PATH_SHAPES = [
     ("auc_loss", {"K": 4, "T": 32}), ("auc_loss", {"K": 8, "T": 4096}),
     ("auc_loss", {"K": 2, "T": 65536}),
-    ("prox_update", {"n": 9_437_184}), ("prox_update", {"n": 4 * 24_961}),
-    ("opt_update", {"n": 9_437_184}),
+    # K2/K3: a local step's leaves at K = 4 — the mlp's 6, ResNet50's 153,
+    # bf16 stablelm-1.6b's 17 at 2 layers (bf16 matrices, fp32 norms),
+    # ResNet50 with a bf16 momentum buffer — one leaf, and a table past
+    # the capacity (two launches)
+    ("prox_update", {"tree": "mlp"}), ("prox_update", {"tree": "resnet50"}),
+    ("prox_update", {"tree": "stablelm-1.6b:2:bfloat16"}),
+    ("prox_update", {"sizes": (9_437_184,), "codes": (0,)}),
+    ("prox_update", {"sizes": (1000,) * 500, "codes": (0, 1, 2, 1) * 125}),
+    ("opt_update", {"tree": "resnet50"}), ("opt_update", {"tree": "resnet50+bf16buf"}),
+    ("opt_update", {"tree": "stablelm-1.6b:2:bfloat16"}),
+    ("opt_update", {"sizes": (9_437_184,), "codes": (0,)}),
     ("flash_attention", {"B": 4, "S": 2048, "H": 32, "KV": 32, "Skv": 2048, "hd": 64}),
     ("flash_attention", {"B": 128, "S": 64, "H": 32, "KV": 32, "Skv": 64, "hd": 64}),
     ("flash_attention", {"B": 4, "S": 2048, "H": 32, "KV": 32, "Skv": 2048, "hd": 64,

@@ -16,8 +16,9 @@ forward over ``[K, B, ...]`` inputs, the objective's loss over the ``[K, B]``
 scores (one ``auc_loss`` launch for ``auc``), autograd of ``losses.sum()`` (the workers are
 independent, so the sum gives each worker its own gradient — a mean would
 scale them by 1/K), then the optimizer's update: one ``prox_update``
-launch per parameter leaf (sgd, shampoo_blocked) or one ``opt_update``
-launch per leaf (momentum, sm3).  The periodic averaging is a mean over
+launch over every parameter leaf (sgd, shampoo_blocked) or one
+``opt_update`` launch over every leaf (momentum, sm3), the multi-tensor
+kernels' (a tree past their table's 384 leaves takes more launches).  The periodic averaging is a mean over
 axis 0, broadcast back; with the sketch on it also folds the per-worker
 deltas into the accumulator.
 
@@ -28,7 +29,7 @@ they are given: ``take_state`` moves its tensors into new containers and
 empties the dicts and lists handed over, so a later read of them raises
 (``KeyError``) where the reference raises on a deleted buffer.  The window
 then runs with ``inplace=True``: each local step writes the new parameters
-(K2/K3's in-place forms), optimizer state, duals and sketch into the
+(K2/K3 launched in place), optimizer state, duals and sketch into the
 buffers of the state it replaces, and the averaging writes each averaged
 leaf into the leaf it averages, as XLA aliases a donated carry; a window
 holds one state plus one step's temporaries.  The arithmetic is the same,

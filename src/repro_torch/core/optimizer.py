@@ -6,19 +6,25 @@ v ← (γ(v − η d) + η v₀) / (η + γ); the registered optimizers choose d
 
   * ``sgd``             — d = g through ``kernels.ops.prox_update_tree``;
                           no ``state["opt"]`` entry.
-  * ``momentum``        — heavy-ball m ← β m + g, d = m, one ``opt_update``
-                          launch per leaf (mode "momentum"); a bf16 buffer
-                          is stored stochastically rounded.
+  * ``momentum``        — heavy-ball m ← β m + g, d = m, through
+                          ``kernels.ops.opt_update_tree`` (mode
+                          "momentum"); a bf16 buffer is stored
+                          stochastically rounded.
   * ``sm3``             — SM3-II: one accumulator vector per trailing axis;
                           ν = minⱼ accⱼ + g², d = g/√(ν + ε) through
-                          ``opt_update`` (mode "precond"), then per-axis
-                          maxes of ν become the new accumulators.
+                          ``opt_update_tree`` (mode "precond") over every
+                          leaf's materialized cover, then per-axis maxes of
+                          ν become the new accumulators.
   * ``shampoo_blocked`` — per ``shampoo_block``-wide chunk of the flattened
                           leaf, stats G ← G + g gᵀ and G^{-1/2} by a coupled
                           Newton–Schulz iteration every ``precond_every``
                           steps; the direction is grafted onto the
-                          diagonal-AdaGrad norm and applied with
-                          ``prox_update``.
+                          diagonal-AdaGrad norm; every leaf's direction then
+                          goes through one ``prox_update_tree``.
+
+On the card each of those tree calls is one launch over every leaf of the
+step (K2's or K3's multi-tensor kernel), where the reference makes one
+``pallas_call`` a leaf inside its compiled step.
 
 State layout, as the reference's::
 
@@ -30,8 +36,9 @@ never averaged and never in the window payload (``core/coda``).
 
 ``step(..., inplace=True)`` is a donating executor's step: the new
 parameters and the new optimizer state are written into the buffers of the
-ones given (the K2/K3 kernels' in-place forms; blocked Shampoo's ``s`` and
-``p`` leaf by leaf, so only one leaf's temporaries are alive at a time), and
+ones given (the K2/K3 launches in place; blocked Shampoo's ``s`` and ``p``
+leaf by leaf, so only one leaf's temporaries and every leaf's direction are
+alive at a time), and
 the trees returned hold those same tensors.  The arithmetic is the same
 either way, so the two are bitwise equal.
 
@@ -150,17 +157,12 @@ class _Momentum:
                                        device=l.device) for l in leaves]}
 
     def step(self, ccfg, opt, params, gp, ref_params, eta, *, inplace=False):
-        vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
-        seeds = leaf_seeds(opt["t"], len(vs))
-        new_v, new_m = [], []
-        for i, (v, g, v0, m) in enumerate(zip(vs, gs, rs, opt["leaves"])):
-            nv, nm = kops.opt_update(v, g, v0, m, eta, ccfg.gamma, ccfg.opt_beta,
-                                     seeds[i], mode="momentum", impl=ccfg.impl,
-                                     inplace=inplace)
-            new_v.append(nv)
-            new_m.append(nm)
-        return (tree_unflatten(params, new_v),
-                {"t": _tick(opt["t"], inplace), "leaves": new_m})
+        seeds = leaf_seeds(opt["t"], len(opt["leaves"]))
+        new_params, new_m = kops.opt_update_tree(params, gp, ref_params, opt["leaves"], eta,
+                                                 ccfg.gamma, ccfg.opt_beta, seeds,
+                                                 mode="momentum", impl=ccfg.impl,
+                                                 inplace=inplace)
+        return new_params, {"t": _tick(opt["t"], inplace), "leaves": new_m}
 
 
 def _ref_shape(v, order) -> list[int]:
@@ -185,12 +187,14 @@ class _SM3:
                            for l, o in zip(leaves, ref_orders(params))]}
 
     def step(self, ccfg, opt, params, gp, ref_params, eta, *, inplace=False):
-        vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
+        vs = tree_leaves(params)
+        orders = ref_orders(params)
         seeds = leaf_seeds(opt["t"], len(vs))
         dt = ccfg.opt_dtype
-        new_v, new_s = [], []
-        for i, (v, g, v0, accs, order) in enumerate(zip(vs, gs, rs, opt["leaves"],
-                                                        ref_orders(params))):
+        # the covers leaf by leaf, as the reference's jnp builds them, then one
+        # K3 "precond" launch over every leaf's (v, g, v0, cover)
+        covers = []
+        for v, accs, order in zip(vs, opt["leaves"], orders):
             K = v.shape[0]
             if v.dim() == 1:
                 cover = accs[0].to(torch.float32)
@@ -206,9 +210,13 @@ class _SM3:
                 # ν goes into a materialized cover of our own, never into an
                 # accumulator: those are per-axis reductions of ν, made below
                 cover = cover.clone(memory_format=torch.contiguous_format)
-            nv, nu = kops.opt_update(v, g, v0, cover, eta, ccfg.gamma,
-                                     ccfg.opt_eps, seeds[i], mode="precond",
-                                     impl=ccfg.impl, inplace=inplace)
+            covers.append(cover)
+        new_params, nus = kops.opt_update_tree(params, gp, ref_params, covers, eta, ccfg.gamma,
+                                               ccfg.opt_eps, seeds, mode="precond",
+                                               impl=ccfg.impl, inplace=inplace)
+        del covers
+        new_s = []
+        for i, (v, accs, order, nu) in enumerate(zip(vs, opt["leaves"], orders, nus)):
             if v.dim() == 1:
                 upd = [kref.stochastic_round(nu, seeds[i], dt)]
             else:
@@ -226,10 +234,8 @@ class _SM3:
                     mx = torch.amax(nu, dim=red) if red else nu
                     upd.append(kref.stochastic_round(
                         mx, _plus(seeds[i], j + 1) if dt != torch.float32 else 0, dt))
-            new_v.append(nv)
             new_s.append(copy_into(accs, upd) if inplace else upd)
-        return (tree_unflatten(params, new_v),
-                {"t": _tick(opt["t"], inplace), "leaves": new_s})
+        return new_params, {"t": _tick(opt["t"], inplace), "leaves": new_s}
 
 
 # relative ridge for the blocked-Shampoo inverse root, as a fraction of tr(G)
@@ -285,7 +291,7 @@ class _ShampooBlocked:
         return {"t": _counter(leaves), "leaves": out}
 
     def step(self, ccfg, opt, params, gp, ref_params, eta, *, inplace=False):
-        vs, gs, rs = (tree_leaves(x) for x in (params, gp, ref_params))
+        vs, gs = tree_leaves(params), tree_leaves(gp)
         t = opt["t"]
         # the reference's lax.cond(t[0] % precond_every == 0), decided on the
         # host's copy of the step counter: no read of the device
@@ -293,9 +299,8 @@ class _ShampooBlocked:
         refresh = n % ccfg.precond_every == 0
         seeds = leaf_seeds(t, len(vs))
         dt = ccfg.opt_dtype
-        new_v, new_s = [], []
-        for i, (v, g, v0, st, order) in enumerate(zip(vs, gs, rs, opt["leaves"],
-                                                      ref_orders(params))):
+        ds, new_s = [], []
+        for i, (v, g, st, order) in enumerate(zip(vs, gs, opt["leaves"], ref_orders(params))):
             K = v.shape[0]
             N, b, nb = self._geom(ccfg, v)
             gf = g.permute(order).to(torch.float32).reshape(K, N)
@@ -318,15 +323,16 @@ class _ShampooBlocked:
             dn = torch.sqrt(torch.sum(df * df, dim=1, keepdim=True))
             d = (df * gn / (dn + 1e-30)).reshape(_ref_shape(v, order))
             d = d.permute([order.index(a) for a in range(v.dim())]).contiguous()
-            new_v.append(kops.prox_update_tree(v, d, v0, eta, ccfg.gamma,
-                                               impl=ccfg.impl, inplace=inplace))
+            ds.append(d)
             del gf, gb, db, df, diag, ga, d     # this leaf's temporaries go before the next's
             new = {"s": kref.stochastic_round(stats, seeds[i], dt),
                    "p": kref.stochastic_round(pre, _plus(seeds[i], 1), dt)}
             del stats, pre
             new_s.append(copy_into(st, new) if inplace else new)
-        return (tree_unflatten(params, new_v),
-                {"t": _tick(t, inplace), "leaves": new_s})
+        # every leaf's direction, then one K2 launch over all of them
+        new_params = kops.prox_update_tree(params, tree_unflatten(params, ds), ref_params, eta,
+                                           ccfg.gamma, impl=ccfg.impl, inplace=inplace)
+        return new_params, {"t": _tick(t, inplace), "leaves": new_s}
 
 
 REGISTRY = {o.name: o for o in (_Sgd(), _Momentum(), _SM3(), _ShampooBlocked())}

@@ -35,22 +35,16 @@ _SIGNATURES = {
     "coda_auc_loss": (ctypes.c_int, [_P, _P, _P, _P, _P, ctypes.c_float,
                                      ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]),
     "coda_auc_rows_per_block": (ctypes.c_int, []),
-    "coda_prox_update_f32": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
-                                            ctypes.c_float, ctypes.c_float, _P]),
-    "coda_prox_update_bf16": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
-                                             ctypes.c_float, ctypes.c_float, _P]),
-    "coda_prox_update_bf16_gf32": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
-                                                  ctypes.c_float, ctypes.c_float, _P]),
-    **{f"coda_prox_update_inplace_{t}": (ctypes.c_int, [_P, _P, _P, ctypes.c_longlong,
-                                                        ctypes.c_float, ctypes.c_float, _P])
-       for t in ("f32", "bf16", "bf16_gf32")},
-    "coda_opt_update": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                       _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                                       ctypes.c_float, ctypes.c_float,
-                                       ctypes.c_float, _P, _P]),
+    "coda_prox_update_multi": (ctypes.c_int, [ctypes.c_int, _P, _P, ctypes.c_float,
+                                              ctypes.c_float, _P]),
+    "coda_opt_update_multi": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                                             ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                                             _P]),
+    "coda_multi_apart": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, _P, _P, _P,
+                                        ctypes.c_longlong]),
     "coda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     "coda_kernels_geometry": (ctypes.c_int, [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                             _P]),
+                                             _P, _P]),
     "flash_attention_forward": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,17 +1,20 @@
 // CoDA main-path kernels for Hopper (sm_90a), with a plain C interface that
 // Python loads through ctypes (see kernels/_build.py).
 //
-//   coda_auc_loss        replaces repro/kernels/auc_loss.py::auc_loss (Pallas)
-//   coda_prox_update_*   replaces repro/kernels/prox_update.py::prox_update
-//                        (the _inplace_ forms write the result into v)
-//   coda_opt_update      replaces repro/kernels/opt_update.py::opt_update
-//                        (null outputs: in place, into v and the buffer)
+//   coda_auc_loss          replaces repro/kernels/auc_loss.py::auc_loss (Pallas)
+//   coda_prox_update_multi replaces repro/kernels/prox_update.py::prox_update,
+//                          one launch over every leaf of a step
+//   coda_opt_update_multi  replaces repro/kernels/opt_update.py::opt_update,
+//                          one launch over every leaf of a step
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() so the wrapper can
 // raise on a refused launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <vector>
 
 namespace {
 
@@ -158,27 +161,224 @@ auc_loss_kernel(const float* __restrict__ h, const float* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// prox_update: v ← (γ(v − ηg) + ηv₀) / (η + γ), elementwise, fp32 math.
+// prox_update and opt_update: multi-tensor kernels, one launch over every
+// parameter leaf of a local step (each leaf with its leading K worker axis).
 //
-// A grid-stride pass over the flat leaf (all K workers at once).  Each
-// operation is an explicitly rounded fp32 intrinsic in the plain version's
-// order, so no FMA contraction changes the result; bf16 stores round to
-// nearest even like torch's and jax's casts.  η and γ are runtime
-// arguments: a new stage launches the same kernel.
+//   prox_update: v ← (γ(v − ηg) + ηv₀) / (η + γ)
+//   opt_update:  momentum  m = coef·m + g, d = m (a bf16 m stored through the
+//                          reference's hash-based stochastic rounding);
+//                precond   ν = cover + g², d = g · (1/√(ν + coef)) (ν in fp32);
+//                then the prox step with d in place of g.
+//
+// What bounds them on the card: bytes.  K2 reads 3 and writes 1 value an
+// element (16 B in fp32, 8 B in bf16), K3 reads 4 and writes 2 (24 B in
+// fp32, 20 B with a bf16 buffer), against about 6 and 10 fp32 operations.
+// A step's leaves range from a 256-element GroupNorm scale to a 9,437,184-
+// element convolution (ResNet50 at K = 4), so one launch a leaf paid a
+// launch and a wrapper call for each: the design is one launch for all.
+//
+//   * The leaf table is a kernel parameter passed by value (up to kMaxLeaves
+//     leaves, ~27 KB for K3: sm_90 takes 32,764 B of parameters), so a launch
+//     copies nothing to the device first.  Each leaf carries its pointers,
+//     its element count, a dtype code and its first tile; K3's also the index
+//     of its seed in the step's seeds tensor (read on the device).  A tree of
+//     more leaves is split into more launches of the same kernel.
+//   * A block owns one (leaf, tile) pair, found by a binary search over the
+//     leaves' first tiles, so the dtype branch is uniform within a block.  A
+//     thread takes kVecsPerThread 16-byte vectors of v (16 elements of an
+//     fp32 v, 32 of a bf16 one), so a block moves the same bytes of v
+//     whatever its dtype: a large leaf is many tiles, a small one a single
+//     partial tile.
+//   * A thread's elements are groups of W = 4 (fp32 only) or W = 8 (any bf16
+//     array) consecutive elements at (u·threads + t)·W, so each access is
+//     16 bytes: a float4 per 4 fp32 elements, 8 bf16 in a uint4.  The
+//     registers hold the loaded words (Raw), converted to fp32 where used.
+//     Where a pointer of the leaf is not 16-byte aligned, or for a group
+//     past the leaf's end, the same arithmetic runs one element at a time.
+//   * In place (out == v, K3's out_buf == buf; what a donating executor's
+//     step launches): no pointer carries __restrict__, and each thread loads
+//     its whole share of the tile before it stores any of it.  Its elements
+//     are its own, so no other thread reads what it writes.
+//
+// Bitwise agreement with the plain versions (kernels/ref.py) is the point:
+// every fp32 operation is an explicitly rounded intrinsic in the plain
+// version's order (no FMA contraction changes a bit); bf16 stores round to
+// nearest even like torch's casts; 1/√x is __fsqrt_rn then __fdiv_rn, two
+// correctly rounded steps that plain PyTorch repeats (__frsqrt_rn would be
+// one step, which no PyTorch operation reproduces); the hash runs in native
+// uint32 arithmetic, which wraps mod 2³²; and coef = 0 with an fp32 buffer
+// is prox_update bitwise.  η, γ and coef are runtime arguments: a new stage
+// launches the same kernel.
 // ---------------------------------------------------------------------------
-constexpr int kProxThreads = 256;
+constexpr int kMultiThreads = 256;
+constexpr int kVecsPerThread = 4;                        // 16-byte vectors of v a thread
+constexpr int kMaxLeaves = 384;                          // leaves a launch
 
-// blocks of a grid-stride launch over n elements: one thread an element, at
-// most 16 blocks per SM of the H100's 132, past that each thread strides
-inline long long stride_blocks(long long n, int threads) {
-  const long long blocks = (n + threads - 1) / threads;
-  return blocks > 132LL * 16 ? 132LL * 16 : blocks;
+// elements a tile (a block): kVecsPerThread 16-byte vectors of v a thread,
+// 16 elements of an fp32 v, 32 of a bf16 one
+__host__ __device__ __forceinline__ long long tile_elems(bool bf16) {
+  return static_cast<long long>(kMultiThreads) * kVecsPerThread * (bf16 ? 8 : 4);
+}
+
+// K2's dtype codes, by (v and v0, g): g may be fp32 under bf16 parameters
+// (blocked Shampoo's step)
+constexpr int kProxF32 = 0, kProxBf16 = 1, kProxBf16G32 = 2;
+// K3's dtype codes, by (v, g and v0 | the buffer)
+constexpr int kOptF32F32 = 0, kOptF32Bf16 = 1, kOptBf16F32 = 2, kOptBf16Bf16 = 3;
+constexpr int kModeMomentum = 0;
+constexpr int kModePrecond = 1;
+
+struct ProxLeaf {
+  void* v;
+  const void* g;
+  const void* v0;
+  void* out;       // == v: in place
+  long long n;     // elements
+  int tile0;       // the leaf's first tile (block) in the launch
+  int code;
+};
+
+struct OptLeaf {
+  void* v;
+  const void* g;
+  const void* v0;
+  void* buf;
+  void* out_v;     // == v: in place
+  void* out_buf;   // == buf: in place
+  long long n;
+  int tile0;
+  int code;
+  int seed;        // index into the launch's seeds
+  int pad;
+};
+
+template <typename Leaf>
+struct Table {
+  const long long* seeds;   // K3: one int64 a leaf holding a uint32; K2: null
+  int count;                // leaves, none empty, ordered by tile0
+  Leaf leaf[kMaxLeaves];
+};
+
+inline long long tiles_of(long long n, bool bf16) {
+  return (n + tile_elems(bf16) - 1) / tile_elems(bf16);
+}
+// whether a leaf's v is bf16, by kernel (1 prox_update, 2 opt_update) and code
+inline bool bf16_v(int kernel, long long code) { return kernel == 1 ? code != 0 : code >= 2; }
+
+// the last leaf whose first tile is at most `tile` (leaves are not empty, so
+// that leaf holds it)
+template <typename Leaf>
+__device__ __forceinline__ int find_leaf(const Leaf* leaf, int count, int tile) {
+  int lo = 0, hi = count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (leaf[mid].tile0 <= tile) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+// W consecutive elements of an array of T (a group) as the 16-byte words that
+// hold them: registers hold the loaded bytes, and an element becomes fp32
+// only where it is used, so a bf16 array takes half the registers of an
+// fp32 one
+template <typename T, int W>
+struct Raw {
+  static_assert(W * sizeof(T) % 16 == 0, "a group is whole 16-byte words");
+  uint4 w[W * sizeof(T) / 16];
+};
+
+__device__ __forceinline__ unsigned& lane(uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ unsigned lane(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// element j of a group, in fp32 (bf16 → fp32 is the bits shifted up)
+template <typename T, int W>
+__device__ __forceinline__ float elem(const Raw<T, W>& r, int j) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(lane(r.w[j / 4], j % 4));
+  } else {
+    const unsigned x = lane(r.w[j / 8], (j % 8) / 2);
+    return __uint_as_float(j % 2 ? x & 0xFFFF0000u : x << 16);
+  }
+}
+
+// the group of p at e: 16-byte loads when `fast`, else one element at a time
+// (0 past the leaf's end, never stored)
+template <typename T, int W>
+__device__ __forceinline__ void load_group(Raw<T, W>& r, const T* p, long long e, long long n,
+                                           bool fast) {
+  constexpr int kWords = W * sizeof(T) / 16;
+  if (fast) {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) r.w[k] = reinterpret_cast<const uint4*>(p + e)[k];
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) r.w[k] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if (e + j >= n) continue;
+    if constexpr (sizeof(T) == 4) {
+      lane(r.w[j / 4], j % 4) = __float_as_uint(to_f32(p[e + j]));
+    } else {
+      const unsigned b = reinterpret_cast<const unsigned short*>(p)[e + j];
+      lane(r.w[j / 8], (j % 8) / 2) |= b << (16 * (j % 2));
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// W values x to p + e through 16-byte stores, bf16 rounded to nearest even
+template <int W>
+__device__ __forceinline__ void store_vec(float* p, long long e, const float* x) {
+#pragma unroll
+  for (int k = 0; k < W; k += 4)
+    *reinterpret_cast<float4*>(p + e + k) = make_float4(x[k], x[k + 1], x[k + 2], x[k + 3]);
+}
+template <int W>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, long long e, const float* x) {
+  static_assert(W == 8, "a bf16 vector is 8 elements");
+  *reinterpret_cast<uint4*>(p + e) =
+      make_uint4(bf16_bits(x[0]) | (bf16_bits(x[1]) << 16), bf16_bits(x[2]) | (bf16_bits(x[3]) << 16),
+                 bf16_bits(x[4]) | (bf16_bits(x[5]) << 16), bf16_bits(x[6]) | (bf16_bits(x[7]) << 16));
+}
+
+// A thread's share of a tile: the groups e0 + (u·threads + t)·W, u < U.
+template <int W>
+__device__ __forceinline__ long long group_start(long long e0, int u) {
+  return e0 + (static_cast<long long>(u) * kMultiThreads + threadIdx.x) * W;
+}
+
+template <int W, typename T>
+__device__ __forceinline__ void store_group(T* p, long long e, long long n, bool fast,
+                                            const float* x) {
+  if (fast) {
+    store_vec<W>(p, e, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      if (e + j < n) store(p + e + j, x[j]);
+  }
+}
 
 // The prox step of one element, in fp32: every operation explicitly rounded.
 __device__ __forceinline__ float prox_value(float vf, float df, float v0f, float eta,
@@ -188,145 +388,54 @@ __device__ __forceinline__ float prox_value(float vf, float df, float v0f, float
   return __fdiv_rn(num, denom);
 }
 
-// The direction g may be fp32 under bf16 parameters (blocked Shampoo's
-// step, computed in fp32): TG is g's type, T that of v, v0 and the result.
-template <typename T, typename TG = T>
-__global__ void __launch_bounds__(kProxThreads)
-prox_update_kernel(const T* __restrict__ v, const TG* __restrict__ g,
-                   const T* __restrict__ v0, T* __restrict__ out, long long n,
-                   float eta, float gamma) {
-  const float denom = __fadd_rn(eta, gamma);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    store(out + i, prox_value(to_f32(v[i]), to_f32(g[i]), to_f32(v0[i]), eta, gamma, denom));
-  }
-}
-
-// The in-place forms read and write v (and K3's buffer) through pointers
-// with no __restrict__: each thread reads its elements before it writes
-// them, and no other thread touches them.  Without __restrict__ the
-// compiler may not move a later iteration's loads above an earlier one's
-// stores, so each thread works on pairs of adjacent elements through 2-wide
-// vector loads and stores (a bf16 pair is one 32-bit access, as an fp32
-// element is), kInplacePairs pairs (j, j + stride, ...) loaded before any is
-// stored, on the out-of-place launch's grid.  Where a pointer is not aligned
-// to a pair, or for the last element of an odd count, the same arithmetic
-// runs one element at a time.
-constexpr int kInplacePairs = 2;
-
-template <typename T>
-__device__ __forceinline__ bool pair_aligned(const T* p) {
-  return reinterpret_cast<unsigned long long>(p) % (2 * sizeof(T)) == 0;
-}
-__device__ __forceinline__ void load2(const float* p, long long j, float& a, float& b) {
-  const float2 x = reinterpret_cast<const float2*>(p)[j];
-  a = x.x;
-  b = x.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, long long j, float& a, float& b) {
-  const __nv_bfloat162 x = reinterpret_cast<const __nv_bfloat162*>(p)[j];
-  a = __low2float(x);
-  b = __high2float(x);
-}
-__device__ __forceinline__ void store2(float* p, long long j, float a, float b) {
-  reinterpret_cast<float2*>(p)[j] = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, long long j, float a, float b) {
-  reinterpret_cast<__nv_bfloat162*>(p)[j] =
-      __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
-}
-
-// The in-place form of prox_update: the result goes back into v; g and v0
-// keep __restrict__, so they must not overlap v.
-template <typename T, typename TG = T>
-__global__ void __launch_bounds__(kProxThreads)
-prox_update_inplace_kernel(T* v, const TG* __restrict__ g, const T* __restrict__ v0,
-                           long long n, float eta, float gamma) {
-  const float denom = __fadd_rn(eta, gamma);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long done = 0;                 // elements [0, done) go as pairs
-  if (pair_aligned(v) && pair_aligned(g) && pair_aligned(v0)) {
-    const long long pairs = n / 2;
-    for (long long j0 = t; j0 < pairs; j0 += kInplacePairs * stride) {
-      float vf[2 * kInplacePairs], gf[2 * kInplacePairs], v0f[2 * kInplacePairs];
+// K2 over one tile of leaf L: T is v's, v0's and the result's type, TG g's;
+// W elements a group, kVecsPerThread 16-byte vectors of v a thread
+template <typename T, typename TG, int W>
+__device__ __forceinline__ void prox_tile(const ProxLeaf& L, long long e0, float eta,
+                                          float gamma, float denom) {
+  constexpr int U = kVecsPerThread * 16 / sizeof(T) / W;
+  const T* v = static_cast<const T*>(L.v);
+  const TG* g = static_cast<const TG*>(L.g);
+  const T* v0 = static_cast<const T*>(L.v0);
+  T* out = static_cast<T*>(L.out);
+  const long long n = L.n;
+  const bool aligned = aligned16(L.v) && aligned16(L.g) && aligned16(L.v0) && aligned16(L.out);
+  Raw<T, W> vr[U], v0r[U];
+  Raw<TG, W> gr[U];
 #pragma unroll
-      for (int u = 0; u < kInplacePairs; ++u) {
-        const long long j = j0 + u * stride;
-        if (j < pairs) {
-          load2(v, j, vf[2 * u], vf[2 * u + 1]);
-          load2(g, j, gf[2 * u], gf[2 * u + 1]);
-          load2(v0, j, v0f[2 * u], v0f[2 * u + 1]);
-        }
-      }
+  for (int u = 0; u < U; ++u) {
+    const long long e = group_start<W>(e0, u);
+    const bool fast = aligned && e + W <= n;
+    load_group(vr[u], v, e, n, fast);
+    load_group(gr[u], g, e, n, fast);
+    load_group(v0r[u], v0, e, n, fast);
+  }
 #pragma unroll
-      for (int u = 0; u < kInplacePairs; ++u) {
-        const long long j = j0 + u * stride;
-        if (j < pairs)
-          store2(v, j, prox_value(vf[2 * u], gf[2 * u], v0f[2 * u], eta, gamma, denom),
-                 prox_value(vf[2 * u + 1], gf[2 * u + 1], v0f[2 * u + 1], eta, gamma, denom));
-      }
-    }
-    done = 2 * pairs;
-  }
-  for (long long i = done + t; i < n; i += stride) {
-    const float vf = to_f32(v[i]);
-    store(v + i, prox_value(vf, to_f32(g[i]), to_f32(v0[i]), eta, gamma, denom));
+  for (int u = 0; u < U; ++u) {
+    const long long e = group_start<W>(e0, u);
+    float r[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      r[j] = prox_value(elem(vr[u], j), elem(gr[u], j), elem(v0r[u], j), eta, gamma, denom);
+    store_group<W>(out, e, n, aligned && e + W <= n, r);
   }
 }
 
-// out == nullptr: in place, into v
-template <typename T, typename TG = T>
-int launch_prox(const void* v, const void* g, const void* v0, void* out,
-                long long n, float eta, float gamma, void* stream) {
-  if (n > 0) {
-    const long long blocks = stride_blocks(n, kProxThreads);
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (out == nullptr) {
-      prox_update_inplace_kernel<T, TG><<<static_cast<unsigned>(blocks), kProxThreads, 0, s>>>(
-          static_cast<T*>(const_cast<void*>(v)), static_cast<const TG*>(g),
-          static_cast<const T*>(v0), n, eta, gamma);
-    } else {
-      prox_update_kernel<T, TG><<<static_cast<unsigned>(blocks), kProxThreads, 0, s>>>(
-          static_cast<const T*>(v), static_cast<const TG*>(g),
-          static_cast<const T*>(v0), static_cast<T*>(out), n, eta, gamma);
-    }
+__global__ void __launch_bounds__(kMultiThreads)
+prox_update_multi_kernel(const __grid_constant__ Table<ProxLeaf> t, float eta,
+                         float gamma) {
+  const int tile = static_cast<int>(blockIdx.x);
+  const ProxLeaf& L = t.leaf[find_leaf(t.leaf, t.count, tile)];
+  const long long e0 = static_cast<long long>(tile - L.tile0) * tile_elems(L.code != kProxF32);
+  const float denom = __fadd_rn(eta, gamma);
+  if (L.code == kProxF32) {
+    prox_tile<float, float, 4>(L, e0, eta, gamma, denom);
+  } else if (L.code == kProxBf16) {
+    prox_tile<__nv_bfloat16, __nv_bfloat16, 8>(L, e0, eta, gamma, denom);
+  } else {
+    prox_tile<__nv_bfloat16, float, 8>(L, e0, eta, gamma, denom);
   }
-  return static_cast<int>(cudaGetLastError());
 }
-
-// ---------------------------------------------------------------------------
-// opt_update: the fused local-optimizer step, one pass over a flat leaf.
-//
-// Replaces repro/kernels/opt_update.py::opt_update (Pallas, pallas_call at
-// :86).  Per element it reads v, g, v0 and the buffer and writes v' and the
-// new buffer:
-//   momentum: m = coef·m + g, d = m; m is stored in the buffer's dtype,
-//             bf16 through the reference's hash-based stochastic rounding;
-//   precond:  ν = cover + g², d = g · (1/√(ν + coef)); ν is stored in fp32;
-// then the prox step of prox_update: v' = (γ(v − ηd) + ηv₀) / (η + γ).
-//
-// What bounds it on the card: bytes.  4 reads and 2 writes per element —
-// 24 B in fp32, 20 B with a bf16 momentum buffer — against about 10 fp32
-// operations and a 5-step integer hash.  The design is the plain grid-stride
-// pass of prox_update: one coalesced read of each input and one write of
-// each output, fp32 master math, η, γ, coef as runtime arguments.
-//
-// Bitwise agreement with the plain version (kernels/ref.py) is the point:
-//   * every fp32 operation is an explicitly rounded intrinsic in the plain
-//     version's order, so no FMA contraction changes a bit, and coef = 0
-//     with an fp32 buffer is prox_update bitwise;
-//   * 1/√x is __fsqrt_rn then __fdiv_rn — two correctly rounded steps that
-//     plain PyTorch repeats exactly on the CPU and on CUDA (__frsqrt_rn
-//     would be one step, which no PyTorch operation reproduces);
-//   * the hash runs in native uint32 arithmetic, which wraps mod 2³²;
-//   * the seed is read from device memory (one int64 holding a uint32), so
-//     the caller never has to bring the step counter to the host.
-// ---------------------------------------------------------------------------
-constexpr int kOptThreads = 256;
-constexpr int kModeMomentum = 0;
-constexpr int kModePrecond = 1;
 
 __device__ __forceinline__ unsigned mix_bits(unsigned x) {
   x ^= x >> 16;
@@ -337,32 +446,43 @@ __device__ __forceinline__ unsigned mix_bits(unsigned x) {
   return x;
 }
 
-// The new momentum buffer: fp32 as is; bf16 by adding 16 hashed low bits and
-// truncating.  A NaN left after the truncation becomes the quiet NaN with
-// its sign (0x7FC0 / 0xFFC0), as the reference's fp32→bf16 conversion gives.
-__device__ __forceinline__ unsigned short rounded_bits(float acc, unsigned seed) {
+// The new momentum buffer in bf16: add 16 hashed low bits and truncate.  A
+// NaN left after the truncation becomes the quiet NaN with its sign (0x7FC0
+// / 0xFFC0), as the reference's fp32→bf16 conversion gives.
+__device__ __forceinline__ unsigned rounded_bits(float acc, unsigned seed) {
   const unsigned xi = __float_as_uint(acc);
   const unsigned r = mix_bits(xi ^ seed) & 0xFFFFu;
   const unsigned yi = (xi + r) & 0xFFFF0000u;
-  unsigned short hi = static_cast<unsigned short>(yi >> 16);
-  if ((yi & 0x7FFFFFFFu) > 0x7F800000u) hi = (yi >> 31) ? 0xFFC0 : 0x7FC0;
-  return hi;
-}
-__device__ __forceinline__ void store_buf(float* p, float acc, unsigned) { *p = acc; }
-__device__ __forceinline__ void store_buf(__nv_bfloat16* p, float acc, unsigned seed) {
-  *reinterpret_cast<unsigned short*>(p) = rounded_bits(acc, seed);
-}
-// a pair j (elements 2j, 2j + 1) of the new buffer in one store
-__device__ __forceinline__ void store_buf2(float* p, long long j, float a, float b, unsigned) {
-  store2(p, j, a, b);
-}
-__device__ __forceinline__ void store_buf2(__nv_bfloat16* p, long long j, float a, float b,
-                                           unsigned seed) {
-  reinterpret_cast<unsigned*>(p)[j] =
-      rounded_bits(a, seed) | (static_cast<unsigned>(rounded_bits(b, seed)) << 16);
+  if ((yi & 0x7FFFFFFFu) > 0x7F800000u) return (yi >> 31) ? 0xFFC0u : 0x7FC0u;
+  return yi >> 16;
 }
 
-// One element's accumulator (stored through store_buf) and direction d.
+// W accumulators to the buffer at e: fp32 as they are, bf16 stochastically
+// rounded under `seed`
+template <int W>
+__device__ __forceinline__ void store_buf_group(float* p, long long e, long long n, bool fast,
+                                                const float* acc, unsigned) {
+  store_group<W>(p, e, n, fast, acc);
+}
+template <int W>
+__device__ __forceinline__ void store_buf_group(__nv_bfloat16* p, long long e, long long n,
+                                                bool fast, const float* acc, unsigned seed) {
+  static_assert(W == 8, "a bf16 vector is 8 elements");
+  unsigned short* q = reinterpret_cast<unsigned short*>(p);
+  if (fast) {
+    unsigned w[W / 2];
+#pragma unroll
+    for (int k = 0; k < W / 2; ++k)
+      w[k] = rounded_bits(acc[2 * k], seed) | (rounded_bits(acc[2 * k + 1], seed) << 16);
+    *reinterpret_cast<uint4*>(q + e) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      if (e + j < n) q[e + j] = static_cast<unsigned short>(rounded_bits(acc[j], seed));
+  }
+}
+
+// One element's accumulator (the new buffer value) and direction d.
 template <int kMode>
 __device__ __forceinline__ float opt_direction(float gf, float bf, float coef, float* acc) {
   if (kMode == kModeMomentum) {
@@ -373,104 +493,132 @@ __device__ __forceinline__ float opt_direction(float gf, float bf, float coef, f
   return __fmul_rn(gf, __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(*acc, coef))));
 }
 
-template <int kMode, typename T, typename B>
-__global__ void __launch_bounds__(kOptThreads)
-opt_update_kernel(const T* __restrict__ v, const T* __restrict__ g,
-                  const T* __restrict__ v0, const B* __restrict__ buf,
-                  T* __restrict__ out_v, B* __restrict__ out_buf, long long n,
-                  float eta, float gamma, float coef,
-                  const long long* __restrict__ seed_p) {
-  const unsigned seed = static_cast<unsigned>(*seed_p);
-  const float denom = __fadd_rn(eta, gamma);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    float acc;
-    const float d = opt_direction<kMode>(to_f32(g[i]), to_f32(buf[i]), coef, &acc);
-    store_buf(out_buf + i, acc, seed);
-    store(out_v + i, prox_value(to_f32(v[i]), d, to_f32(v0[i]), eta, gamma, denom));
+// K3 over one tile of leaf L: T is v's, g's and v0's type, B the buffer's
+template <int kMode, typename T, typename B, int W>
+__device__ __forceinline__ void opt_tile(const OptLeaf& L, long long e0, float eta, float gamma,
+                                         float coef, float denom, unsigned seed) {
+  constexpr int U = kVecsPerThread * 16 / sizeof(T) / W;
+  const T* v = static_cast<const T*>(L.v);
+  const T* g = static_cast<const T*>(L.g);
+  const T* v0 = static_cast<const T*>(L.v0);
+  const B* buf = static_cast<const B*>(L.buf);
+  T* out_v = static_cast<T*>(L.out_v);
+  B* out_buf = static_cast<B*>(L.out_buf);
+  const long long n = L.n;
+  const bool aligned = aligned16(L.v) && aligned16(L.g) && aligned16(L.v0) &&
+                       aligned16(L.buf) && aligned16(L.out_v) && aligned16(L.out_buf);
+  Raw<T, W> vr[U], gr[U], v0r[U];
+  Raw<B, W> br[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long e = group_start<W>(e0, u);
+    const bool fast = aligned && e + W <= n;
+    load_group(vr[u], v, e, n, fast);
+    load_group(gr[u], g, e, n, fast);
+    load_group(v0r[u], v0, e, n, fast);
+    load_group(br[u], buf, e, n, fast);
   }
-}
-
-// The in-place form of opt_update: v' goes back into v and the new buffer
-// into buf (the two read-write pointers, in pairs as prox_update's in-place
-// form); g, v0 and the seed keep __restrict__, so they must not overlap v or
-// buf.
-template <int kMode, typename T, typename B>
-__global__ void __launch_bounds__(kOptThreads)
-opt_update_inplace_kernel(T* v, const T* __restrict__ g, const T* __restrict__ v0, B* buf,
-                          long long n, float eta, float gamma, float coef,
-                          const long long* __restrict__ seed_p) {
-  const unsigned seed = static_cast<unsigned>(*seed_p);
-  const float denom = __fadd_rn(eta, gamma);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long done = 0;                 // elements [0, done) go as pairs
-  if (pair_aligned(v) && pair_aligned(g) && pair_aligned(v0) && pair_aligned(buf)) {
-    const long long pairs = n / 2;
-    constexpr int kE = 2 * kInplacePairs;
-    for (long long j0 = t; j0 < pairs; j0 += kInplacePairs * stride) {
-      float vf[kE], gf[kE], v0f[kE], bf[kE];
 #pragma unroll
-      for (int u = 0; u < kInplacePairs; ++u) {
-        const long long j = j0 + u * stride;
-        if (j < pairs) {
-          load2(v, j, vf[2 * u], vf[2 * u + 1]);
-          load2(g, j, gf[2 * u], gf[2 * u + 1]);
-          load2(v0, j, v0f[2 * u], v0f[2 * u + 1]);
-          load2(buf, j, bf[2 * u], bf[2 * u + 1]);
-        }
-      }
+  for (int u = 0; u < U; ++u) {
+    const long long e = group_start<W>(e0, u);
+    const bool fast = aligned && e + W <= n;
+    float acc[W], r[W];
 #pragma unroll
-      for (int u = 0; u < kInplacePairs; ++u) {
-        const long long j = j0 + u * stride;
-        if (j < pairs) {
-          float acc[2], nv[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int k = 2 * u + e;
-            const float d = opt_direction<kMode>(gf[k], bf[k], coef, &acc[e]);
-            nv[e] = prox_value(vf[k], d, v0f[k], eta, gamma, denom);
-          }
-          store_buf2(buf, j, acc[0], acc[1], seed);
-          store2(v, j, nv[0], nv[1]);
-        }
-      }
+    for (int j = 0; j < W; ++j) {
+      const float d = opt_direction<kMode>(elem(gr[u], j), elem(br[u], j), coef, &acc[j]);
+      r[j] = prox_value(elem(vr[u], j), d, elem(v0r[u], j), eta, gamma, denom);
     }
-    done = 2 * pairs;
-  }
-  for (long long i = done + t; i < n; i += stride) {
-    const float vf = to_f32(v[i]);
-    float acc;
-    const float d = opt_direction<kMode>(to_f32(g[i]), to_f32(buf[i]), coef, &acc);
-    store_buf(buf + i, acc, seed);
-    store(v + i, prox_value(vf, d, to_f32(v0[i]), eta, gamma, denom));
+    store_buf_group<W>(out_buf, e, n, fast, acc, seed);
+    store_group<W>(out_v, e, n, fast, r);
   }
 }
 
-// out_v == nullptr: in place, into v and buf
-template <int kMode, typename T, typename B>
-int launch_opt(const void* v, const void* g, const void* v0, const void* buf,
-               void* out_v, void* out_buf, long long n, float eta, float gamma,
-               float coef, const void* seed, void* stream) {
-  if (n > 0) {
-    const long long blocks = stride_blocks(n, kOptThreads);
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (out_v == nullptr) {
-      opt_update_inplace_kernel<kMode, T, B><<<static_cast<unsigned>(blocks), kOptThreads, 0, s>>>(
-          static_cast<T*>(const_cast<void*>(v)), static_cast<const T*>(g),
-          static_cast<const T*>(v0), static_cast<B*>(const_cast<void*>(buf)), n, eta, gamma,
-          coef, static_cast<const long long*>(seed));
+template <int kMode>
+__global__ void __launch_bounds__(kMultiThreads)
+opt_update_multi_kernel(const __grid_constant__ Table<OptLeaf> t, float eta, float gamma,
+                        float coef) {
+  const int tile = static_cast<int>(blockIdx.x);
+  const OptLeaf& L = t.leaf[find_leaf(t.leaf, t.count, tile)];
+  const long long e0 = static_cast<long long>(tile - L.tile0) * tile_elems(L.code >= kOptBf16F32);
+  const float denom = __fadd_rn(eta, gamma);
+  const unsigned seed = static_cast<unsigned>(t.seeds[L.seed]);
+  using bf16 = __nv_bfloat16;
+  if (L.code == kOptF32F32) {
+    opt_tile<kMode, float, float, 4>(L, e0, eta, gamma, coef, denom, seed);
+  } else if (L.code == kOptBf16F32) {
+    opt_tile<kMode, bf16, float, 8>(L, e0, eta, gamma, coef, denom, seed);
+  } else if constexpr (kMode == kModeMomentum) {   // the bf16 buffers: momentum only
+    if (L.code == kOptF32Bf16) {
+      opt_tile<kMode, float, bf16, 8>(L, e0, eta, gamma, coef, denom, seed);
     } else {
-      opt_update_kernel<kMode, T, B><<<static_cast<unsigned>(blocks), kOptThreads, 0, s>>>(
-          static_cast<const T*>(v), static_cast<const T*>(g),
-          static_cast<const T*>(v0), static_cast<const B*>(buf),
-          static_cast<T*>(out_v), static_cast<B*>(out_buf), n, eta, gamma, coef,
-          static_cast<const long long*>(seed));
+      opt_tile<kMode, bf16, bf16, 8>(L, e0, eta, gamma, coef, denom, seed);
     }
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+// The table of the caller's rows ptrs [count, P] and meta [count, M] (n, code
+// and, for K3, the seed index), empty leaves left out; returns the tiles of
+// the launch, or -1 for a row the kernel cannot take.
+long long fill(Table<ProxLeaf>& t, int count, const long long* ptrs,
+               const long long* meta) {
+  long long tiles = 0;
+  t.seeds = nullptr;
+  t.count = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long n = meta[2 * i], code = meta[2 * i + 1];
+    if (n < 0 || code < kProxF32 || code > kProxBf16G32) return -1;
+    if (n == 0) continue;
+    ProxLeaf& L = t.leaf[t.count++];
+    const long long* p = ptrs + 4 * i;
+    L.v = reinterpret_cast<void*>(p[0]);
+    L.g = reinterpret_cast<const void*>(p[1]);
+    L.v0 = reinterpret_cast<const void*>(p[2]);
+    L.out = reinterpret_cast<void*>(p[3]);
+    L.n = n;
+    L.tile0 = static_cast<int>(tiles);
+    L.code = static_cast<int>(code);
+    tiles += tiles_of(n, bf16_v(1, code));
+    if (tiles > 0x7FFFFFFFLL) return -1;
+  }
+  return tiles;
+}
+
+long long fill(Table<OptLeaf>& t, int count, const long long* ptrs,
+               const long long* meta, const void* seeds, int mode) {
+  long long tiles = 0;
+  t.seeds = static_cast<const long long*>(seeds);
+  t.count = 0;
+  for (int i = 0; i < count; ++i) {
+    const long long n = meta[3 * i], code = meta[3 * i + 1], seed = meta[3 * i + 2];
+    const bool bf16_buf = code == kOptF32Bf16 || code == kOptBf16Bf16;
+    if (n < 0 || code < kOptF32F32 || code > kOptBf16Bf16 || seed < 0 ||
+        (mode == kModePrecond && bf16_buf))
+      return -1;
+    if (n == 0) continue;
+    OptLeaf& L = t.leaf[t.count++];
+    const long long* p = ptrs + 6 * i;
+    L.v = reinterpret_cast<void*>(p[0]);
+    L.g = reinterpret_cast<const void*>(p[1]);
+    L.v0 = reinterpret_cast<const void*>(p[2]);
+    L.buf = reinterpret_cast<void*>(p[3]);
+    L.out_v = reinterpret_cast<void*>(p[4]);
+    L.out_buf = reinterpret_cast<void*>(p[5]);
+    L.n = n;
+    L.tile0 = static_cast<int>(tiles);
+    L.code = static_cast<int>(code);
+    L.seed = static_cast<int>(seed);
+    L.pad = 0;
+    tiles += tiles_of(n, bf16_v(2, code));
+    if (tiles > 0x7FFFFFFFLL) return -1;
+  }
+  return tiles;
+}
+
+// one tensor's bytes [lo, hi) in an aliasing check, and whether it is written
+struct Span {
+  unsigned long long lo, hi;
+  bool written;
+};
 
 }  // namespace
 
@@ -502,20 +650,43 @@ int coda_auc_loss(const void* h, const void* y, const void* a, const void* b,
 int coda_auc_rows_per_block(void) { return kAucRows; }
 
 // The launch geometry the entry points here use, for the wrappers'
-// launch_geometry to be held against: kernel 0 auc_loss over k workers of
-// n scores, 1 prox_update and 2 opt_update over n elements.  out: grid x,
-// y, z, threads a block, dynamic shared memory bytes.  Returns 0, or -1 for
-// an unknown kernel.
-int coda_kernels_geometry(int kernel, long long n, int k, long long* out) {
+// launch_geometry to be held against.  kernel 0: auc_loss over k workers of
+// n scores (sizes unused); out = grid x, y, z, threads a block, dynamic
+// shared memory bytes.  kernel 1 prox_update, 2 opt_update: a step over n
+// leaves, leaves[2i] elements and leaves[2i + 1] the dtype code of leaf i (k
+// unused), its non-empty leaves kMaxLeaves a launch in order; out = the
+// largest launch's grid x, y, z, threads, shared bytes, then launches, leaves
+// a launch at most, elements a tile of an fp32 v and of a bf16 v.  Returns
+// 0, or -1 for an unknown kernel or dtype code.
+int coda_kernels_geometry(int kernel, long long n, int k, const long long* leaves,
+                          long long* out) {
   if (kernel == 0) {
     out[0] = auc_blocks(static_cast<int>(n));
     out[1] = k;
     out[3] = kAucThreads;
   } else if (kernel == 1 || kernel == 2) {
-    const int threads = kernel == 1 ? kProxThreads : kOptThreads;
-    out[0] = n > 0 ? stride_blocks(n, threads) : 0;
+    long long launches = 0, grid = 0, tiles = 0;
+    int in_launch = 0;
+    for (long long i = 0; i < n; ++i) {
+      const long long size = leaves[2 * i], code = leaves[2 * i + 1];
+      if (code < 0 || code > (kernel == 1 ? kProxBf16G32 : kOptBf16Bf16)) return -1;
+      if (size <= 0) continue;
+      if (in_launch == kMaxLeaves || in_launch == 0) {
+        ++launches;
+        in_launch = 0;
+        tiles = 0;
+      }
+      ++in_launch;
+      tiles += tiles_of(size, bf16_v(kernel, code));
+      grid = tiles > grid ? tiles : grid;
+    }
+    out[0] = grid;
     out[1] = 1;
-    out[3] = threads;
+    out[3] = kMultiThreads;
+    out[5] = launches;
+    out[6] = kMaxLeaves;
+    out[7] = tile_elems(false);
+    out[8] = tile_elems(true);
   } else {
     return -1;
   }
@@ -524,65 +695,96 @@ int coda_kernels_geometry(int kernel, long long n, int k, long long* out) {
   return 0;
 }
 
-int coda_prox_update_f32(const void* v, const void* g, const void* v0, void* out,
-                         long long n, float eta, float gamma, void* stream) {
-  return launch_prox<float>(v, g, v0, out, n, eta, gamma, stream);
-}
-
-int coda_prox_update_bf16(const void* v, const void* g, const void* v0, void* out,
-                          long long n, float eta, float gamma, void* stream) {
-  return launch_prox<__nv_bfloat16>(v, g, v0, out, n, eta, gamma, stream);
-}
-
-// bf16 v, v0 and result with an fp32 direction g
-int coda_prox_update_bf16_gf32(const void* v, const void* g, const void* v0, void* out,
-                               long long n, float eta, float gamma, void* stream) {
-  return launch_prox<__nv_bfloat16, float>(v, g, v0, out, n, eta, gamma, stream);
-}
-
-// The in-place forms of the three above: the result is written into v, whose
-// memory must not overlap g's or v0's.  Same geometry as the out-of-place
-// launch (coda_kernels_geometry kernel 1).
-int coda_prox_update_inplace_f32(void* v, const void* g, const void* v0, long long n,
-                                 float eta, float gamma, void* stream) {
-  return launch_prox<float>(v, g, v0, nullptr, n, eta, gamma, stream);
-}
-
-int coda_prox_update_inplace_bf16(void* v, const void* g, const void* v0, long long n,
-                                  float eta, float gamma, void* stream) {
-  return launch_prox<__nv_bfloat16>(v, g, v0, nullptr, n, eta, gamma, stream);
-}
-
-int coda_prox_update_inplace_bf16_gf32(void* v, const void* g, const void* v0, long long n,
-                                       float eta, float gamma, void* stream) {
-  return launch_prox<__nv_bfloat16, float>(v, g, v0, nullptr, n, eta, gamma, stream);
-}
-
-// mode: 0 momentum, 1 precond; v_bf16 / buf_bf16: 0 fp32, 1 bf16 (v, g, v0
-// share one dtype; precond takes an fp32 buffer only).  seed: one int64 on
-// the device holding a uint32.  out_v, out_buf: the caller's fresh tensors
-// of v's and buf's shape and dtype; both null: in place, v' into v and the
-// new buffer into buf (neither may overlap g, v0, the seed or the other),
-// with the out-of-place launch's geometry (coda_kernels_geometry kernel 2).
-int coda_opt_update(int mode, int v_bf16, int buf_bf16, const void* v,
-                    const void* g, const void* v0, const void* buf, void* out_v,
-                    void* out_buf, long long n, float eta, float gamma,
-                    float coef, const void* seed, void* stream) {
-  if ((out_v == nullptr) != (out_buf == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-#define CODA_OPT(M, T, B) \
-  launch_opt<M, T, B>(v, g, v0, buf, out_v, out_buf, n, eta, gamma, coef, seed, stream)
-  if (mode == kModeMomentum) {
-    if (!v_bf16 && !buf_bf16) return CODA_OPT(kModeMomentum, float, float);
-    if (!v_bf16 && buf_bf16) return CODA_OPT(kModeMomentum, float, __nv_bfloat16);
-    if (v_bf16 && !buf_bf16) return CODA_OPT(kModeMomentum, __nv_bfloat16, float);
-    return CODA_OPT(kModeMomentum, __nv_bfloat16, __nv_bfloat16);
+// The wrappers' aliasing rule for an in-place step, over count leaves (any
+// number) in a launch's own layout: kernel 1 prox_update (ptrs [count, 4],
+// meta [count, 2]), kernel 2 opt_update (ptrs [count, 6], meta [count, 3]).
+// Each leaf's v (and K3's buf) is written, its g and v0 read, and the
+// seeds' seeds_bytes from seeds are read.  No written byte may be one that
+// any other span reads or writes.  The spans are sorted and swept once:
+// O(n log n).  Returns 0 when they lie apart, 1 when they overlap, -1 for
+// an unknown kernel or dtype code.
+int coda_multi_apart(int kernel, long long count, const long long* ptrs, const long long* meta,
+                     const void* seeds, long long seeds_bytes) {
+  if (kernel != 1 && kernel != 2) return -1;
+  const int cols = kernel == 1 ? 4 : 6, mcols = kernel == 1 ? 2 : 3;
+  std::vector<Span> s;
+  s.reserve(static_cast<size_t>(count) * 4 + 1);
+  auto add = [&s](long long p, long long bytes, bool written) {
+    const auto lo = static_cast<unsigned long long>(p);
+    s.push_back({lo, lo + static_cast<unsigned long long>(bytes), written});
+  };
+  for (long long i = 0; i < count; ++i) {
+    const long long* p = ptrs + cols * i;
+    const long long n = meta[mcols * i], code = meta[mcols * i + 1];
+    if (code < 0 || code > (kernel == 1 ? kProxBf16G32 : kOptBf16Bf16)) return -1;
+    if (n <= 0) continue;
+    const long long vb = bf16_v(kernel, code) ? 2 : 4;
+    add(p[0], n * vb, true);                                   // v
+    if (kernel == 1) {
+      add(p[1], n * (code == kProxBf16 ? 2 : 4), false);       // g
+      add(p[2], n * vb, false);                                // v0
+    } else {
+      add(p[1], n * vb, false);
+      add(p[2], n * vb, false);
+      add(p[3], n * (code == kOptF32Bf16 || code == kOptBf16Bf16 ? 2 : 4), true);  // buf
+    }
   }
-  if (mode == kModePrecond && !buf_bf16) {
-    if (!v_bf16) return CODA_OPT(kModePrecond, float, float);
-    return CODA_OPT(kModePrecond, __nv_bfloat16, float);
+  if (seeds != nullptr && seeds_bytes > 0)
+    add(reinterpret_cast<long long>(seeds), seeds_bytes, false);
+  std::sort(s.begin(), s.end(), [](const Span& a, const Span& b) {
+    return a.lo != b.lo ? a.lo < b.lo : a.hi < b.hi;
+  });
+  unsigned long long reach = 0, reach_w = 0;   // the furthest end so far: any span, written
+  for (size_t k = 0; k < s.size(); ++k) {
+    if (k > 0 && (s[k].lo < reach_w || (s[k].written && s[k].lo < reach))) return 1;
+    reach = std::max(reach, s[k].hi);
+    if (s[k].written) reach_w = std::max(reach_w, s[k].hi);
   }
-#undef CODA_OPT
-  return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// One launch of K2 over count ≤ kMaxLeaves leaves.  ptrs: [count, 4] int64
+// (v, g, v0, out; out == v writes in place, and then v must not overlap any
+// leaf's g or v0 or another leaf's v); meta: [count, 2] int64 (elements, dtype
+// code: 0 all fp32, 1 all bf16, 2 bf16 v and v0 with an fp32 g).  Both are
+// host arrays, read before the call returns.  Empty leaves are skipped.
+int coda_prox_update_multi(int count, const long long* ptrs, const long long* meta, float eta,
+                           float gamma, void* stream) {
+  if (count < 0 || count > kMaxLeaves) return static_cast<int>(cudaErrorInvalidValue);
+  Table<ProxLeaf> t;
+  const long long tiles = fill(t, count, ptrs, meta);
+  if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles > 0)
+    prox_update_multi_kernel<<<static_cast<unsigned>(tiles), kMultiThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(t, eta, gamma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of K3 over count ≤ kMaxLeaves leaves.  mode: 0 momentum, 1
+// precond.  ptrs: [count, 6] int64 (v, g, v0, buf, out_v, out_buf; out_v ==
+// v and out_buf == buf write in place, and then neither may overlap g, v0,
+// the seeds or another leaf's memory); meta: [count, 3] int64 (elements, dtype
+// code: 0 v fp32 buffer fp32, 1 v fp32 buffer bf16, 2 v bf16 buffer fp32, 3
+// both bf16 — precond takes an fp32 buffer only — and the index of the
+// leaf's seed in seeds, a device int64 tensor whose elements hold uint32s).
+int coda_opt_update_multi(int mode, int count, const long long* ptrs, const long long* meta,
+                          const void* seeds, float eta, float gamma, float coef, void* stream) {
+  if (count < 0 || count > kMaxLeaves || seeds == nullptr ||
+      (mode != kModeMomentum && mode != kModePrecond))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Table<OptLeaf> t;
+  const long long tiles = fill(t, count, ptrs, meta, seeds, mode);
+  if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles > 0) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    const unsigned grid = static_cast<unsigned>(tiles);
+    if (mode == kModeMomentum) {
+      opt_update_multi_kernel<kModeMomentum><<<grid, kMultiThreads, 0, s>>>(t, eta, gamma, coef);
+    } else {
+      opt_update_multi_kernel<kModePrecond><<<grid, kMultiThreads, 0, s>>>(t, eta, gamma, coef);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* coda_error_string(int err) {

@@ -20,7 +20,7 @@ from repro_torch.kernels import moe_dispatch as _moe_mod
 from repro_torch.kernels import opt_update as _opt_mod
 from repro_torch.kernels import prox_update as _prox_mod
 from repro_torch.kernels import ref
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 IMPLS = ("auto", "ref", "kernel")
 
@@ -80,9 +80,10 @@ def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
 
 def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,
                mode: str, impl: str = "auto", inplace: bool = False):
-    """Fused optimizer update of one parameter leaf (the
-    ``core/optimizer.py`` seam): accumulator update + preconditioned step +
-    prox projection in one pass, returning ``(new_v, new_buf)``.
+    """Fused optimizer update of one parameter leaf: accumulator update +
+    preconditioned step + prox projection in one pass, returning
+    ``(new_v, new_buf)``; the one-leaf case of ``opt_update_tree``
+    (``seed``: a one-element int64 tensor, or on the CPU a Python int).
 
     ``mode="momentum"``: buf is the momentum buffer (m ← coef·m + g, d = m;
     a bf16 buffer is re-stored with stochastic rounding under ``seed``).
@@ -90,26 +91,40 @@ def opt_update(v, g, v0, buf, eta: float, gamma: float, coef: float, seed, *,
     d = g/√(ν+coef), ν returned fp32 for the caller's axis reductions).
     ``inplace``: the results are written into v and buf, which are returned
     (a donating executor's step; see ``kernels/opt_update.py``)."""
-    if dispatch(impl, v.device):
-        return _opt_mod.opt_update(v, g, v0, buf, eta, gamma, coef, seed,
-                                   mode=mode, inplace=inplace)
-    if inplace:
-        _opt_mod.check_inplace_pair(v, g, v0, buf, seed)
-    nv, nb = ref.opt_update_ref(v, g, v0, buf, eta, gamma, coef, seed, mode=mode)
-    return (v.copy_(nv), buf.copy_(nb)) if inplace else (nv, nb)
+    seeds = seed.reshape(1) if isinstance(seed, torch.Tensor) else [seed]
+    nv, nb = opt_update_tree(v, g, v0, [buf], eta, gamma, coef, seeds, mode=mode, impl=impl,
+                             inplace=inplace)
+    return nv, nb[0]
+
+
+def opt_update_tree(v_tree, g_tree, v0_tree, bufs, eta: float, gamma: float, coef: float,
+                    seeds, *, mode: str, impl: str = "auto", inplace: bool = False):
+    """The fused optimizer update over parameter trees (the
+    ``core/optimizer.py`` seam): ``bufs`` and ``seeds`` hold one buffer and
+    one seed a leaf in ``tree_leaves`` order (``seeds``: an int64 tensor,
+    ``core.optimizer.leaf_seeds``).  On the card one launch covers every
+    leaf (``opt_update_multi``); else the plain version runs leaf by leaf.
+    Returns (the new parameter tree, the list of new buffers); ``inplace``
+    writes them into the leaves and buffers given."""
+    vs, gs, v0s = (tree_leaves(t) for t in (v_tree, g_tree, v0_tree))
+    if vs and dispatch(impl, vs[0].device):
+        nv, nb = _opt_mod.opt_update_multi(vs, gs, v0s, bufs, eta, gamma, coef, seeds,
+                                           mode=mode, inplace=inplace)
+    else:
+        nv, nb = _opt_mod.plain_multi(vs, gs, v0s, bufs, eta, gamma, coef, seeds, mode=mode,
+                                      inplace=inplace)
+    return tree_unflatten(v_tree, nv), nb
 
 
 def prox_update_tree(v_tree, g_tree, v0_tree, eta: float, gamma: float, *,
                      impl: str = "auto", inplace: bool = False):
-    """Apply the fused proximal update leaf-wise over parameter trees (one
-    launch per leaf, each covering all K workers); ``inplace`` writes each
-    result into its v leaf."""
-    def upd(v, g, v0):
-        if dispatch(impl, v.device):
-            return _prox_mod.prox_update(v, g, v0, eta, gamma, inplace=inplace)
-        if inplace:
-            _prox_mod.check_inplace(v, (g, v0), "prox_update")
-        out = ref.prox_update_ref(v, g, v0, eta, gamma)
-        return v.copy_(out) if inplace else out
-
-    return tree_map(upd, v_tree, g_tree, v0_tree)
+    """The fused proximal update over parameter trees (a single tensor is a
+    tree of one leaf): on the card one launch covers every leaf, each with
+    all K workers (``prox_update_multi``); else the plain version runs leaf
+    by leaf.  ``inplace`` writes each result into its v leaf."""
+    vs, gs, v0s = (tree_leaves(t) for t in (v_tree, g_tree, v0_tree))
+    if vs and dispatch(impl, vs[0].device):
+        out = _prox_mod.prox_update_multi(vs, gs, v0s, eta, gamma, inplace=inplace)
+    else:
+        out = _prox_mod.plain_multi(vs, gs, v0s, eta, gamma, inplace=inplace)
+    return tree_unflatten(v_tree, out)

@@ -282,31 +282,45 @@ def n_groups(w) -> int:
     return w.shape[0] if w.dim() == 3 else w.shape[0] * w.shape[1]
 
 
+GMM_BLOCK_ROWS = 128       # the reference's tile of rows (ref.py:147)
+
+
 def grouped_matmul_ref(x, w, group_sizes):
     """out[i] = x[i] @ w[g(i)] for rows of ``x`` sorted by group: x [N, Kd],
     w [G, Kd, F] (or [R, E, Kd, F], see ``expert_weight``), group_sizes [G]
     with ``sum == N``.  Returns [N, F] in x's dtype, summed in fp32.
 
-    One matmul per non-empty row segment (the reference scans tile-aligned
-    blocks, ``repro.kernels.ref.grouped_matmul_ref``, ref.py:147-173; the
-    products are the same, summed in another order).  Differentiable with
-    respect to x and w.  The segment sizes are read on the host: this is
-    the plain version, not the kernel's path."""
+    The reference's blocked form (``repro.kernels.ref.grouped_matmul_ref``,
+    ref.py:147-173): ``grouped_layout`` pads each group's row segment to
+    whole tiles of ``bm`` rows, so the tile count is fixed by the shapes
+    (⌈N/bm⌉ + G − 1 at most, plus slack) and each tile's group is found by
+    ``searchsorted`` over the cumulative sizes on the device; the padding
+    rows are zeros, so rows outside a segment add nothing, and only the
+    rows ``dst`` names are gathered back.  Each tile multiplies by a copy
+    of its group's ``[Kd, F]`` block (indexed by the device's group id),
+    so nothing is read on the host.  Differentiable with respect to x and
+    w.  Group sizes that do not tile N rows fail an asynchronous device
+    assert (at once on the CPU)."""
     N, Kd = x.shape
     G = n_groups(w)
     F = w.shape[-1]
     if w.shape[-2] != Kd or group_sizes.shape != (G,):
         raise ValueError(f"grouped_matmul: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"group_sizes {tuple(group_sizes.shape)} do not fit")
-    sizes = [int(n) for n in group_sizes.tolist()]
-    if min(sizes, default=0) < 0 or sum(sizes) != N:
-        raise ValueError(f"grouped_matmul: group sizes {sizes} do not tile {N} rows")
-    outs, start = [], 0
-    for g, n in enumerate(sizes):
-        if n:
-            outs.append(torch.matmul(x[start:start + n].to(torch.float32),
-                                     expert_weight(w, g).to(torch.float32)))
-            start += n
-    if not outs:
+    sizes = group_sizes.to(torch.int64)
+    torch._assert_async(torch.logical_and(sizes.sum() == N, (sizes >= 0).all()),
+                        "grouped_matmul: the group sizes do not tile the rows")
+    if N == 0:
         return x.new_zeros((0, F))
-    return torch.cat(outs).to(x.dtype)
+    bm = min(GMM_BLOCK_ROWS, _round_up(N, 8))
+    dst, tile_gid, n_padded = grouped_layout(sizes, N, bm)
+    dst, tile_gid = dst.to(torch.int64), tile_gid.to(torch.int64)
+    xb = x.new_zeros((n_padded, Kd), dtype=torch.float32).index_copy(
+        0, dst, x.to(torch.float32)).reshape(-1, bm, Kd)
+    if w.dim() == 3:
+        block = lambda t: w[tile_gid[t:t + 1]][0]
+    else:        # group g = r·E + e of a K-folded [R, E, Kd, F] weight
+        r, e = tile_gid // w.shape[1], tile_gid % w.shape[1]
+        block = lambda t: w[r[t:t + 1], e[t:t + 1]][0]
+    tiles = [xb[t] @ block(t).to(torch.float32) for t in range(xb.shape[0])]
+    return torch.cat(tiles).index_select(0, dst).to(x.dtype)

@@ -49,18 +49,6 @@ class Leg:
     impl: str = "auto"
 
 
-def _waivers() -> dict:
-    """The findings R3 makes in the port's code that are named, not fixed
-    (ROADMAP Queue 3), by the line that makes them."""
-    from repro_torch.analysis.audit import site_of
-    from repro_torch.kernels import ref
-    return {
-        "plain_gmm": {site_of(ref, "sizes = [int(n) for n in group_sizes.tolist()]"):
-                      "the plain grouped GEMM splits its rows by group sizes read on the "
-                      "host; the kernel reads them on the card (ROADMAP Queue 3)"},
-    }
-
-
 def build_legs(n_devices: int) -> list[Leg]:
     """The audit matrix, as the reference's ``build_legs``."""
     legs = []
@@ -121,9 +109,7 @@ def run_leg(leg: Leg, *, n_devices: int, smoke: bool, device, mesh=None,
     from repro_torch.analysis import audit as A
     query = torch.device(device).type == "cuda"
     if leg.kind == "kernels":
-        # the plain K5 runs where "ref" asks for it and, on the CPU, under "auto"
-        allow = _waivers()["plain_gmm"]
-        progs, static = A.capture_kernel_launches(impl=leg.impl, device=device, allow=allow,
+        progs, static = A.capture_kernel_launches(impl=leg.impl, device=device,
                                                   tag=leg.name, query=query)
         return A.run_rules(progs, static)
     if leg.kind == "serving":

@@ -11,9 +11,10 @@ all_gather pair; ``--overlap``: window pairs whose averagings run as
 ``--overlap-chunks`` point-to-point rings).  Rank 0 prints and returns the
 summary; ``--policy`` and ``--multi-pod`` choose the mesh and the worker
 axes, as in the reference.  Every local step launches the
-hand-written ``auc_loss`` kernel once, then per parameter leaf one
-``prox_update`` (``--optimizer sgd``, the default, and ``shampoo_blocked``)
-or one ``opt_update`` (``momentum``, ``sm3``); the dense transformers
+hand-written ``auc_loss`` kernel once, then one ``prox_update`` launch
+over every parameter leaf (``--optimizer sgd``, the default, and
+``shampoo_blocked``) or one ``opt_update`` launch (``momentum``, ``sm3``);
+the dense transformers
 (``--arch stablelm-1.6b | qwen2.5-14b | phi3-medium-14b | chatglm3-6b``,
 on the reference's ``tokens`` data at ``seq_len=64``) also launch
 ``flash_attention`` once per attention layer in every forward, and the MoE

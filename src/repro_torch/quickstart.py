@@ -5,7 +5,7 @@ Builds an imbalanced synthetic dataset (p = 0.71, the paper's setting),
 partitions it across K = 4 simulated workers (each worker only ever draws
 from its own shard, as in Algorithm 1), and runs 3 proximal-point stages
 of CoDA with communication every I = 8 local steps.  Every local step
-launches the ``auc_loss`` kernel once and ``prox_update`` once per
+launches the ``auc_loss`` kernel once and ``prox_update`` once over every
 parameter leaf on the card.
 
     PYTHONPATH=src python -m repro_torch.quickstart              # on the card

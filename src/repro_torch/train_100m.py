@@ -5,7 +5,8 @@ the reference's ``examples/train_100m.py``).
 The model is a qwen-family decoder (d=768, 12 layers, GQA 12:4, vocab
 8192): 88,115,713 parameters by ``count_params``, as the reference counts
 them.  Every local step launches ``auc_loss`` once, ``prox_update`` once
-per parameter leaf and ``flash_attention`` once per layer on the card.
+over every parameter leaf and ``flash_attention`` once per layer on the
+card.
 
     PYTHONPATH=src python -m repro_torch.train_100m --steps 200 --workers 2
     PYTHONPATH=src python -m repro_torch.train_100m --device cpu --steps 16

@@ -351,8 +351,9 @@ def test_r5_every_path_shape_fits_the_card():
     recs = [A.launch_record(k, s) for k, s in A.PATH_SHAPES]
     rep = A.run_rules([], recs)
     assert rep.ok, [str(f) for f in rep.findings]
-    assert {r.variant for r in recs} == {"auc_loss_kernel", "prox_update_kernel",
-                                         "opt_update_kernel", "flash_fwd", "flash_fwd_wgmma",
+    assert {r.variant for r in recs} == {"auc_loss_kernel", "prox_update_multi_kernel",
+                                         "opt_update_multi_kernel", "flash_fwd",
+                                         "flash_fwd_wgmma",
                                          "flash_fwd_tf32x3", "gmm_rows", "gmm_tiles",
                                          "gmm_wgmma"}
     tf = next(r for r in recs if r.variant == "flash_fwd_tf32x3" and r.shape["hd"] == 128)
@@ -364,11 +365,23 @@ def test_r5_dispatch_seam():
 
 
 def test_k2_k3_geometry_is_the_grid_stride_launch():
+    """K2/K3 are one multi-tensor launch over a step's leaves: a block a
+    tile (4096 elements of an fp32 v, 8192 of a bf16 one), empty leaves
+    skipped, 384 leaves a launch; the R5 records of a step's leaf set carry
+    the launches a call."""
     from repro_torch.kernels import opt_update, prox_update
     for mod in (prox_update, opt_update):
-        assert mod.launch_geometry(1000)["grid"] == (4,)
-        assert mod.launch_geometry(9_437_184)["grid"] == (132 * 16,)
-        assert mod.launch_geometry(0)["launches"] == 0
+        assert mod.launch_geometry([1000], [0])["grid"] == (1,)
+        assert mod.launch_geometry([9_437_184], [0])["grid"] == (2304,)
+        assert mod.launch_geometry([0], [0])["launches"] == 0
+        two = mod.launch_geometry([5000, 0, 9000], [0, 0, 0])
+        assert two["launches"] == 1 and two["grid"] == (2 + 3,) and two["chunks"] == [[0, 2]]
+    assert prox_update.launch_geometry([9000], [1])["grid"] == (2,)      # bf16 v
+    assert opt_update.launch_geometry([9000], [1])["grid"] == (3,)       # fp32 v, bf16 buffer
+    rn = A.launch_record("prox_update", {"tree": "resnet50"})
+    assert len(rn.shape["sizes"]) == 153 and rn.per_call == 1
+    past = A.launch_record("prox_update", {"sizes": (10,) * 385, "codes": (0,) * 385})
+    assert past.per_call == 2 and past.shape["_query_keys"] == {"launches": 2}
 
 
 # ---------------------------------------------------------------------------
