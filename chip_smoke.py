@@ -126,14 +126,15 @@ last line):
      ulp + atol 1e-4, at dbrx-132b's decode (N=16, gmm_rows) and prefill
      (N=8192, gmm_tiles) expert shapes in fp32 and its prefill and decode
      (N=16) shapes, gate and down, in bf16 (gmm_wgmma), arctic-480b's (128
-     experts, N=8 and 4096) in bf16 (gmm_wgmma),
+     experts, N=8 and 4096, gate and down) in bf16 (gmm_wgmma),
      K-folded strided weights in both dtypes, the reference's edge tables,
      N = 1 and aligned ragged groups in bf16; each case's kernel checked
      against the one ``launch_geometry`` names; group
      sizes from a seeded top-k routing; each timed beside its bound (the hit
      experts' bytes or the operations), the plain version and
-     torch._grouped_mm where the installed torch takes the inputs (run with
-     the kernel checks of phase 3);
+     torch._grouped_mm where the installed torch takes the inputs, and the
+     row tiles launched beside those holding rows (run with the kernel
+     checks of phase 3);
  12. dbrx-132b at full width with 2 of 40 layers (7,751,337,985 fp32
      parameters, one replica): ``prefill_step`` on [B=2, S=1024] with the
      kernels and with ``impl="ref"`` (2 K4 and 6 K5 launches per prefill,
@@ -159,6 +160,18 @@ last line):
      card with exact launch counts, against their ``--device cpu`` twins:
      test AUC within 0.01; the printed requests' tokens equal and the served
      AUC within 0.01;
+ 13b. arctic-480b in bf16 at full width with 2 of 35 layers (27,681,138,689
+     parameters, 55.36 GB, drawn a matrix at a time; 128 experts top-2
+     beside the dense residual MLP): the prefill on [B=2, S=1024] (2 K4
+     flash_fwd_wgmma at 56/8 heads, 6 K5 gmm_wgmma launches) as in phase
+     12's bf16 prefill, its fp32 baseline widening the experts one block at
+     a time; K5 held to its plain version at the inputs the path's own
+     router gives it, in the prefill (~32 rows an expert) and in a serve
+     tick (8 rows); the engine as phase 12's bf16 one (6 K5 launches a
+     serve step); then phi3-medium-14b in bf16 at full depth and width
+     (14,659,512,321 parameters): the prefill on [B=4, S=2048] (40 K4
+     flash_fwd_wgmma at 40/10 heads) and the engine (no kernel in decode:
+     tokens equal impl='ref''s); each phase's peak memory beside the card's;
  14. the distributed executor (``--executor shard_map``: NCCL over R =
      torch.cuda.device_count() ranks, one a card; R = 1 on one card, so one
      rank holds all K workers and each bucket's all_reduce is a real NCCL
@@ -262,6 +275,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -858,6 +872,10 @@ ATTN_CASES = [
     ("seamless_train_encoder", 128, 64, 16, 16, 64, 64, False, None, F32),
     ("seamless_train_decoder", 128, 16, 16, 16, 16, 64, True, None, F32),
     ("seamless_train_cross", 128, 16, 16, 16, 64, 64, False, None, F32),
+    # arctic-480b's prefill (56/8 heads: a GQA group of 7) and phi3-medium-14b's
+    # (40/10: a group of 4), both bf16 at head_dim 128
+    ("arctic_prefill_bf16", 2, 1024, 56, 8, 1024, 128, True, None, BF16),
+    ("phi3_prefill_bf16", 4, 2048, 40, 10, 2048, 128, True, None, BF16),
 ]
 # (atol, rtol): fp32 is the reference's own; bf16 through flash_fwd (head_dim
 # 16/32): kernel and plain version both compute in fp32 and round once, so
@@ -1562,14 +1580,30 @@ SEAMLESS_PREFILL = PrefillPath(
     "256,206; logits at the last position only)")
 ZOO_PREFILLS = (INTERNVL_PREFILL, BF16_INTERNVL_PREFILL, HYMBA_PREFILL, BF16_HYMBA_PREFILL,
                 SEAMLESS_PREFILL)
+# arctic-480b in bf16 at full width: 2 layers are 55.36 GB, 3 would be ~83 GB
+ARCTIC_LAYERS = 2
+BF16_ARCTIC_PREFILL = PrefillPath(
+    "bf16_arctic_prefill", "arctic-480b", 27_681_138_689, 2, 1024,
+    f"{ARCTIC_LAYERS} of 35 layers (full width: d=7168, 56/8 heads of 128, 128 experts "
+    "top-2 of d_ff 4864 beside a dense residual MLP of d_ff 4864, vocab 32,000; bf16 "
+    "weights, 55.36 GB, where 3 layers would be ~83 GB), one replica (K=1); " + PREFILL_32K,
+    n_layers=ARCTIC_LAYERS, dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma")
+BF16_PHI3_PREFILL = PrefillPath(
+    "bf16_phi3_prefill", "phi3-medium-14b", 14_659_512_321, 4, 2048,
+    PREFILL_32K + ", one replica (K=1); full width and depth (40 layers: d=5120, 40/10 heads "
+    "of 128, d_ff 17920, vocab 100,352); bf16 weights (29.32 GB; 58.6 GB in fp32)",
+    dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma")
 
 
 def hidden_fp32(cfg, params, batch):
     """The final normed hidden states [1, B, S, d] in fp32 of a transformer
     with bf16 weights, each layer's weights widened to fp32 only while it
     runs (the plain versions, ``impl="ref"``), so a model that fits only in
-    bf16 gets its fp32 result; and the stacked bf16 (K, V) caches.
-    ``batch``: tokens [1, B, S] (and a vlm's patches)."""
+    bf16 gets its fp32 result; and the stacked bf16 (K, V) caches.  A moe
+    layer's expert stacks stay bf16: the plain grouped GEMM widens one
+    expert's block at a time (``ops.grouped_matmul``), the values of the
+    whole layer widened (arctic-480b's experts are 53.55 GB a layer in
+    fp32).  ``batch``: tokens [1, B, S] (and a vlm's patches)."""
     from repro_torch.models import blocks
     from repro_torch.models import model as M
     from repro_torch.models.embeddings import apply_norm
@@ -1579,7 +1613,7 @@ def hidden_fp32(cfg, params, batch):
     windows = blocks.layer_windows_static(cfg, False)
     ks, vs = [], []
     for lp, w in zip(blocks.unstack(params["layers"], cfg.n_layers), windows, strict=True):
-        x, _, (k, v) = blocks.apply_layer(cfg, _f32(lp), x, positions, w, impl="ref",
+        x, _, (k, v) = blocks.apply_layer(cfg, _f32_layer(lp), x, positions, w, impl="ref",
                                           return_kv=True)
         ks.append(k)
         vs.append(v)
@@ -1590,6 +1624,20 @@ def hidden_fp32(cfg, params, batch):
 def _f32(tree):
     from repro_torch.tree import tree_map
     return tree_map(lambda x: x.to(torch.float32), tree)
+
+
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+
+
+def _f32_layer(lp):
+    """A layer's weights in fp32, but a moe layer's expert stacks, left in
+    their dtype for the grouped GEMM to widen expert by expert."""
+    out = _f32({k: v for k, v in lp.items() if k != "moe"})
+    if "moe" in lp:
+        moe = lp["moe"]
+        out["moe"] = (_f32({k: v for k, v in moe.items() if k not in EXPERT_STACKS})
+                      | {k: moe[k] for k in EXPERT_STACKS})
+    return out
 
 
 def _lm_head_f32(params):
@@ -1624,10 +1672,12 @@ def last_fp32(cfg, params, seqs):
     return logits, M.score_logit(_f32(params["score_head"]), last[None])[0]
 
 
-def recorded(fn, routes: bool = False):
+def recorded(fn, routes: bool = False, keep: list | None = None):
     """fn()'s result, the (N, Kd, F, dtype) of every K5 call it makes, and
     (``routes``) each token's sorted expert set in every moe layer it runs,
-    [L, T, k] in call order (one ``moe.route`` call a layer), or None."""
+    [L, T, k] in call order (one ``moe.route`` call a layer), or None.
+    ``keep``: a list that gets the inputs (x, w, sizes) of fn's first three
+    K5 calls, the first moe layer's gate, up and down (``check_path_k5``)."""
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.models import moe
     shapes, seen = set(), []
@@ -1640,6 +1690,8 @@ def recorded(fn, routes: bool = False):
 
     def rec_gmm(x, w, sizes):
         shapes.add((x.shape[0], x.shape[1], w.shape[-1], str(x.dtype).replace("torch.", "")))
+        if keep is not None and len(keep) < 3:
+            keep.append((x.clone(), w, sizes.clone()))
         return gmm(x, w, sizes)
 
     md.grouped_matmul = rec_gmm
@@ -1772,7 +1824,7 @@ def ssm_scan_share(cfg, params, B: int, S: int, busy_ms: float) -> dict:
     return out
 
 
-def run_prefill(dev, path: PrefillPath, k5_checked: set):
+def run_prefill(dev, path: PrefillPath, k5_checked: set, k5_inputs: list | None = None):
     """``prefill_step`` of ``path`` with the kernels (every counter set to 0
     just before one prefill and read just after: one K4 launch per layer,
     three K5 launches per moe layer, all of ``path.k4`` and ``path.k5``, at
@@ -1781,8 +1833,9 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
     in bf16, where a moe model's caches are held at the ``settled``
     positions only; ms per prefill,
     tokens/s, peak memory, and one profiled prefill with the K4, K5 and
-    cuBLAS GEMM shares.  Returns (the record, cfg, params): the serving
-    phases reuse dbrx's parameters."""
+    cuBLAS GEMM shares.  ``k5_inputs`` gets the first moe layer's K5 inputs
+    of the counted prefill (``recorded``).  Returns (the record, cfg,
+    params): the serving phases reuse dbrx's parameters."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.tree import tree_leaves, tree_map
@@ -1791,7 +1844,9 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
     if path.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=path.n_layers)
     print(f"{label}: reduced: {path.reduced.format(B=B, S=S)}")
+    gc.collect()              # an earlier phase's cyclic garbage may hold the card
     torch.cuda.empty_cache()
+    print(f"{label}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held before init")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
@@ -1818,7 +1873,8 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
         prefill()                                               # warm-up
         torch.cuda.synchronize()
         zero_counts()
-        (s, logits, (kc, vc)), k5_shapes, k_routes = recorded(prefill, routes=True)
+        (s, logits, (kc, vc)), k5_shapes, k_routes = recorded(prefill, routes=True,
+                                                              keep=k5_inputs)
         torch.cuda.synchronize()
         counts, variants = read_counts(), read_variants()
         want = dict.fromkeys(counts, 0) | {"flash_attention": n_attn,
@@ -1882,7 +1938,9 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
             (fs, flog, (fk, fv)), _, f_routes = recorded(
                 lambda: prefill_fp32(cfg, params, batch), routes=True)
             torch.cuda.synchronize()
-            print(f"{label}: the fp32 prefill took {time.perf_counter() - t:.2f} s")
+            fp32_peak = torch.cuda.max_memory_allocated()
+            print(f"{label}: the fp32 prefill took {time.perf_counter() - t:.2f} s; peak "
+                  f"memory with it {peak_txt(fp32_peak)}")
             cut, held = (lambda c: c), None
             if moe_layers:
                 # a routing flip moves a token's K and V by their own size, so
@@ -1898,6 +1956,7 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
             outs = lambda a, b, c, d: dict(zip(F32_NAMES, (a, b, cut(c), cut(d))))
             noise = bf16_noise_check(label, outs(s, logits, kc, vc),
                                      outs(rs, rlogits, rk, rv), outs(fs, flog, fk, fv))
+            noise["fp32_peak_bytes"] = fp32_peak
             if held is not None:
                 noise["settled_positions"] = n_held
             del fs, flog, fk, fv, held
@@ -1925,7 +1984,7 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set):
                        "top_kernels_ms": {k[:90]: v for k, v in top}}}
     print(f"{label}: {ms:.2f} ms per prefill (median of {[round(t, 2) for t in times]}), "
           f"{tokens / ms * 1e3:,.0f} tokens/s, impl='ref' {sorted(ref_ms)[0]:.2f} ms; "
-          f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+          f"peak memory {peak_txt(peak)}; launches {counts}")
     print(f"profile {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share "
           f"{1.0 - busy / wall:.3f}), kernel time {total:.2f} ms: "
           + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f} %)" for k, v in share.items()))
@@ -1983,68 +2042,91 @@ def gmm_bound(x, w, sizes, rates, bf16_rate):
     return bnd, by, n_bytes, n_ops
 
 
-def check_grouped_matmul(dev, rates, bf16_rate) -> list:
-    """K5 against its plain version on the card at dbrx-132b's and
-    arctic-480b's full-width expert shapes (decode and prefill), with
-    K-folded strided weights, and at the reference's edge tables: within
-    GMM_TOL; CUDA-event time, device time, the bound, the plain version's
-    time and torch._grouped_mm's."""
+def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
+             want_kernel=None) -> dict:
+    """K5 at one call's inputs against its plain version, within GMM_TOL;
+    CUDA-event time, device time, the bound, the plain version's time and
+    peak, torch._grouped_mm's time, and the row tiles the geometry
+    launches beside those holding rows.  ``sizes``: the group sizes (a
+    list, an array or a tensor on the card).  Appends the record to
+    ``rows`` and returns it."""
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ref
+    dev = x.device
+    sizes_np = (sizes.cpu().numpy() if torch.is_tensor(sizes)
+                else np.asarray(sizes, np.int64))
+    sizes = torch.from_numpy(sizes_np.astype(np.int64)).to(dev)
+    atol, rtol = GMM_TOL[x.dtype]
+    G = ref.n_groups(w)
+    geo = md.launch_geometry(x.shape[0], x.shape[1], G, w.shape[-1], x.dtype,
+                             md.tma_aligned(x, w))
+    kernel = geo["kernel"]
+    if want_kernel is not None and kernel != want_kernel:
+        raise SystemExit(f"grouped_matmul {label}: routed to {kernel}, not {want_kernel}")
+    before = md.variant_launches[kernel]
+    got = md.grouped_matmul(x, w, sizes)
+    # the plain version's memory above what the case holds (it copies
+    # its group's [Kd, F] block for every row tile)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = ref.grouped_matmul_ref(x, w, sizes)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() - held
+    if md.variant_launches[kernel] != before + 1:
+        raise SystemExit(f"grouped_matmul {label}: {kernel} was not launched")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+        raise SystemExit(f"grouped_matmul {label} disagrees with its plain version: "
+                         f"max_abs_err={err} (atol {atol}, rtol {rtol})")
+    del got, want, diff
+    fn = lambda: md.grouped_matmul(x, w, sizes)
+    ms = cuda_ms(fn, iters=iters, warmup=1)
+    dev_ms, dev_src = kernel_device_ms(fn, "gmm_", md, calls=max(2, iters // 4),
+                                       kernels_per_launch=2)   # offset scan + GEMM
+    plain = cuda_ms(lambda: ref.grouped_matmul_ref(x, w, sizes), iters=max(2, iters // 2),
+                    warmup=1)
+    lib, why = grouped_mm_fn(x, w, sizes)
+    lib_ms = cuda_ms(lib, iters=iters, warmup=1) if lib is not None else None
+    bnd, by, n_bytes, n_ops = gmm_bound(x, w, sizes, rates, bf16_rate)
+    hit = int((sizes_np > 0).sum())
+    # row tiles: the grid's bound against the tiles that hold a row
+    bm = geo["bm"]
+    busy = int(sum(-(-int(n) // bm) for n in sizes_np if n > 0))
+    dname = str(x.dtype).replace("torch.", "")
+    rec = {"case": label, "N": x.shape[0], "Kd": x.shape[1], "F": w.shape[-1],
+           "groups": G, "hit_groups": hit, "dtype": dname, "kernel": kernel,
+           "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms,
+           "device_ms": dev_ms, "device_ms_source": dev_src, "plain_ms": plain,
+           "plain_peak_bytes": plain_peak, "library_ms": lib_ms,
+           "library_note": why, "bound_ms": bnd, "bound_by": by,
+           "gbytes": n_bytes / 1e9, "gflop": n_ops / 1e9, "bm": bm,
+           "row_tiles": geo["grid"][0], "busy_row_tiles": busy,
+           "row_share": x.shape[0] / max(busy * bm, 1)}
+    rows.append(rec)
+    lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"
+    print(f"grouped_matmul {label} [N={x.shape[0]}, Kd={x.shape[1]}, F={w.shape[-1]}, "
+          f"G={G}, {hit} hit] {dname} {kernel}: max_abs_err={err:.3g} (atol {atol:g}, "
+          f"rtol {rtol:g}); kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain "
+          f"{plain:.4f} ms (peak {plain_peak / 2**30:.3f} GiB above the case's tensors), "
+          f"torch._grouped_mm {lib_txt}, bound {bnd:.4f} ms ({by}: "
+          f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP); {geo['grid'][0]} row tiles "
+          f"of {bm} launched, {busy} hold rows, {100 * rec['row_share']:.1f} % of their "
+          "rows real")
+    return rec
+
+
+def check_grouped_matmul(dev, rates, bf16_rate) -> list:
+    """K5 against its plain version on the card at dbrx-132b's and
+    arctic-480b's full-width expert shapes (decode and prefill; gate/up and
+    down), with K-folded strided weights, and at the reference's edge
+    tables (``gmm_case``)."""
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
 
     def case(label, x, w, sizes_np, iters, want_kernel=None):
-        sizes = torch.from_numpy(np.asarray(sizes_np, np.int64)).to(dev)
-        atol, rtol = GMM_TOL[x.dtype]
-        G = ref.n_groups(w)
-        kernel = md.launch_geometry(x.shape[0], x.shape[1], G, w.shape[-1], x.dtype,
-                                    md.tma_aligned(x, w))["kernel"]
-        if want_kernel is not None and kernel != want_kernel:
-            raise SystemExit(f"grouped_matmul {label}: routed to {kernel}, not {want_kernel}")
-        before = md.variant_launches[kernel]
-        got = md.grouped_matmul(x, w, sizes)
-        # the plain version's memory above what the case holds (it copies
-        # its group's [Kd, F] block for every row tile)
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        want = ref.grouped_matmul_ref(x, w, sizes)
-        torch.cuda.synchronize()
-        plain_peak = torch.cuda.max_memory_allocated() - held
-        if md.variant_launches[kernel] != before + 1:
-            raise SystemExit(f"grouped_matmul {label}: {kernel} was not launched")
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        if not bool((diff <= atol + rtol * want.float().abs()).all()):
-            raise SystemExit(f"grouped_matmul {label} disagrees with its plain version: "
-                             f"max_abs_err={err} (atol {atol}, rtol {rtol})")
-        del got, want, diff
-        fn = lambda: md.grouped_matmul(x, w, sizes)
-        ms = cuda_ms(fn, iters=iters, warmup=1)
-        dev_ms, dev_src = kernel_device_ms(fn, "gmm_", md, calls=max(2, iters // 4),
-                                           kernels_per_launch=2)   # offset scan + GEMM
-        plain = cuda_ms(lambda: ref.grouped_matmul_ref(x, w, sizes), iters=max(2, iters // 2),
-                        warmup=1)
-        lib, why = grouped_mm_fn(x, w, sizes)
-        lib_ms = cuda_ms(lib, iters=iters, warmup=1) if lib is not None else None
-        bnd, by, n_bytes, n_ops = gmm_bound(x, w, sizes, rates, bf16_rate)
-        hit = int((sizes > 0).sum())
-        dname = str(x.dtype).replace("torch.", "")
-        rows.append({"case": label, "N": x.shape[0], "Kd": x.shape[1], "F": w.shape[-1],
-                     "groups": G, "hit_groups": hit, "dtype": dname, "kernel": kernel,
-                     "max_abs_err": err, "atol": atol, "rtol": rtol, "ms": ms,
-                     "device_ms": dev_ms, "device_ms_source": dev_src, "plain_ms": plain,
-                     "plain_peak_bytes": plain_peak, "library_ms": lib_ms,
-                     "library_note": why, "bound_ms": bnd, "bound_by": by,
-                     "gbytes": n_bytes / 1e9, "gflop": n_ops / 1e9})
-        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"
-        print(f"grouped_matmul {label} [N={x.shape[0]}, Kd={x.shape[1]}, F={w.shape[-1]}, "
-              f"G={G}, {hit} hit] {dname} {kernel}: max_abs_err={err:.3g} (atol {atol:g}, "
-              f"rtol {rtol:g}); kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain "
-              f"{plain:.4f} ms (peak {plain_peak / 2**30:.3f} GiB above the case's tensors), "
-              f"torch._grouped_mm {lib_txt}, bound {bnd:.4f} ms ({by}: "
-              f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP)")
+        gmm_case(rows, label, x, w, sizes_np, iters, rates, bf16_rate, want_kernel)
 
     def randn(shape, dt=F32, scale=1.0):
         return torch.randn(shape, generator=g, device=dev).mul_(scale).to(dt)
@@ -2075,12 +2157,18 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
          "gmm_wgmma")
     del w_up, w_down
     torch.cuda.empty_cache()
-    # arctic-480b: 128 experts, top-2, d 7168, d_ff 4864, bf16 (8.9 GB of weights)
+    # arctic-480b: 128 experts, top-2, d 7168, d_ff 4864, bf16 (8.9 GB a stack):
+    # gate/up [T·2, 7168] → 4864 and down [T·2, 4864] → 7168, at the serving
+    # path's decode (4 slots: T = 4, 8 rows over 128 experts) and the
+    # prefill path's [2, 1024] (T = 2048: ~32 rows an expert)
     d, ff, E = 7168, 4864, 128
-    w = randn((E, d, ff), BF16, d ** -0.5)
-    for label, T, iters in (("arctic_decode_bf16", 4, 20), ("arctic_prefill_bf16", 2048, 5)):
-        case(label, randn((T * 2, d), BF16), w, routed_sizes(2, T, E, 2), iters, "gmm_wgmma")
-    del w
+    w, w_down = randn((E, d, ff), BF16, d ** -0.5), randn((E, ff, d), BF16, ff ** -0.5)
+    for label, T, iters in (("arctic_decode", 4, 20), ("arctic_prefill", 2048, 5)):
+        case(f"{label}_bf16", randn((T * 2, d), BF16), w, routed_sizes(2, T, E, 2), iters,
+             "gmm_wgmma")
+        case(f"{label}_down_bf16", randn((T * 2, ff), BF16), w_down, routed_sizes(2, T, E, 2),
+             iters, "gmm_wgmma")
+    del w, w_down
     torch.cuda.empty_cache()
     # K-folded groups: 4 replicas × 16 experts, a strided layer slice of a
     # [4, 2, 16, d, ff] stack at dbrx's smoke width, in both dtypes
@@ -2113,6 +2201,12 @@ SERVE_KW = dict(slots=4, max_len=64, prefill_chunk=8)
 SERVE_TRACE = dict(kind="batch", n_requests=8, prompt_len=(8, 33), max_new=(8, 9), seed=0)
 SERVE_SCORE_ATOL = 1e-4          # score-head logits after 2 fp32 layers
 SERVE_GAP_TOL = 1e-4             # top-2 logit gap below which a token may flip
+
+
+def peak_txt(peak: int) -> str:
+    """A peak of device memory beside the card's capacity."""
+    cap = torch.cuda.get_device_properties(0).total_memory
+    return f"{peak / 2**30:.2f} GiB of the card's {cap / 2**30:.2f} GiB"
 
 
 def tree_dtype(params):
@@ -2162,7 +2256,8 @@ def _serve(cfg, params, impl, tick_log=None):
     return eng, reqs, wall
 
 
-def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_serve") -> dict:
+def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_serve",
+                     k5_inputs: list | None = None) -> dict:
     """A model's parameters (full width, ``cfg.n_layers`` layers: dbrx-132b's,
     hymba-1.5b's) through the continuous-batching engine: a batch trace of 8 requests with
     impl='auto', then a second engine with impl='ref'; tokens equal, a flip
@@ -2171,11 +2266,13 @@ def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_ser
     logits against fp32), printed; scores within SERVE_SCORE_ATOL (bf16: the
     bf16 rule against each request's score logit in fp32); exactly 3 × layers K5
     launches per serve step of an moe model (the variant the counters show
-    printed), at shapes in ``k5_checked``, and no launch of any other kernel
+    printed; with bf16 weights every one gmm_wgmma), at shapes in
+    ``k5_checked``, and no launch of any other kernel
     (decode attention and the SSM step are plain tensor code); ms per
     prefill and per decode tick, tokens/s, TTFT and latency; one profiled
     decode tick (its idle share; an moe model's K5 time against its
-    bound)."""
+    bound).  ``k5_inputs`` gets the first moe layer's K5 inputs of the
+    counted run's first tick (``recorded``)."""
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving import loadgen as LG
@@ -2184,6 +2281,7 @@ def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_ser
     dname = str(tree_dtype(params)).replace("torch.", "")
     print(f"{label}: the {label.replace('serve', 'prefill')} parameters ({dname}, {layers} "
           f"layers); engine {SERVE_KW}; trace {SERVE_TRACE}")
+    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         warm = ServingEngine(cfg, params, **SERVE_KW)          # allocator warm-up
         warm.add_request(Request(uid=-1, prompt=list(range(1, 12)), max_new_tokens=2))
@@ -2191,7 +2289,8 @@ def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_ser
         torch.cuda.synchronize()
         zero_counts()
         ticks = []
-        (eng, reqs, wall), k5_shapes, _ = recorded(lambda: _serve(cfg, params, "auto", ticks))
+        (eng, reqs, wall), k5_shapes, _ = recorded(lambda: _serve(cfg, params, "auto", ticks),
+                                                   keep=k5_inputs)
         counts, variants = read_counts(), read_variants()
         want = dict.fromkeys(counts, 0) | {"grouped_matmul": 3 * moe_layers * eng.steps}
         if counts != want:
@@ -2199,6 +2298,9 @@ def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_ser
                              f"{moe_layers} moe layers × {eng.steps} serve steps)")
         print(f"{label}: K5 variants by the wrapper's counters: "
               f"{variants['grouped_matmul']}")
+        if (moe_layers and tree_dtype(params) == BF16
+                and variants["grouped_matmul"]["gmm_wgmma"] != want["grouped_matmul"]):
+            raise SystemExit(f"{label}: not every bf16 K5 launch was gmm_wgmma")
         require_k5_checked(label, k5_shapes, k5_checked)
         summary = LG.summarize(reqs, wall, eng)
         _, rreqs, _ = _serve(cfg, params, "ref")
@@ -2287,7 +2389,11 @@ def run_engine_serve(rates, cfg, params, k5_checked: set, label: str = "dbrx_ser
              f"{bound:.3f} ms (bytes of the hit experts), {100 * k5 / total:.1f} % of kernel "
              "time" if moe_layers else ""))
     print(json.dumps({"profile": prof | {"path": f"{label}_decode_tick"}}))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: peak memory {peak_txt(peak)} (both engines, the fp32 checks and the "
+          "profiled tick)")
     return {"path": label, "launches": counts, "variant_launches": variants,
+            "peak_bytes": peak,
             "steps": eng.steps, "ticks": eng.ticks,
             "ms_per_prefill_tick": statistics.median(pre),
             "ms_per_decode_tick": statistics.median(dec), "flips": flips,
@@ -2329,6 +2435,60 @@ def serve_lines(text: str):
     reqs = re.findall(r"^req \d+: .*$", text, re.M)
     auc = re.search(r"^\[serve\] final .*streaming auc=(\d\.\d+)", text, re.M)
     return reqs, float(auc.group(1)) if auc else None
+
+
+# --------------------------------------------------------------------------
+# arctic-480b (128 experts top-2 beside a dense residual MLP) and
+# phi3-medium-14b in bf16 at full width: prefill and the serving engine
+# --------------------------------------------------------------------------
+def check_path_k5(label: str, kept: list, rows: list, rates, bf16_rate, iters: int) -> list:
+    """K5 at the inputs a path gave it: the first moe layer's gate and down
+    calls ``recorded`` kept — its rows, its expert stacks and the group
+    sizes its own router chose — held against the plain version and timed
+    (``gmm_case``; records appended to ``rows``)."""
+    out = []
+    for name, (x, w, sizes) in zip(("gate", "up", "down"), kept, strict=True):
+        if name == "up":                     # the gate's shape and routing
+            continue
+        if w.dim() == 4 and w.shape[0] == 1:  # K = 1: the layer's [E, Kd, F] stack
+            w = w[0]
+        with torch.no_grad():
+            out.append(gmm_case(rows, f"{label}_{name}_routed", x, w, sizes, iters, rates,
+                                bf16_rate, "gmm_wgmma"))
+    return out
+
+
+def run_bf16_big(dev, rates, bf16_rate, k5_checked: set, gmm_rows: list, prefills: dict,
+                 counts: dict) -> dict:
+    """arctic-480b (2 of 35 layers) and phi3-medium-14b (all 40) in bf16 at
+    full width: each prefill (``run_prefill``: every K4 launch
+    flash_fwd_wgmma, every K5 launch gmm_wgmma, against impl="ref" and
+    under the bf16 rule against fp32, whose baseline widens arctic's
+    experts one block at a time) and the same weights through the engine
+    (``run_engine_serve``); arctic's K5 also at the inputs its own router
+    gives it in both (``check_path_k5``)."""
+    out = {}
+    for path in (BF16_ARCTIC_PREFILL, BF16_PHI3_PREFILL):
+        label, kept, serve_kept = path.label, [], []
+        prefills[label], cfg, params = run_prefill(dev, path, k5_checked, kept)
+        counts[label] = prefills[label]["launches"]
+        serve = label.replace("prefill", "serve")
+        rec = {"prefill": prefills[label]}
+        rec["serve"] = run_engine_serve(rates, cfg, params, k5_checked, serve, serve_kept)
+        counts[serve] = rec["serve"]["launches"]
+        if cfg.family == "moe":
+            rec["k5_routed"] = (
+                check_path_k5(label, kept, gmm_rows, rates, bf16_rate, 5)
+                + check_path_k5(serve, serve_kept, gmm_rows, rates, bf16_rate, 20))
+        del kept, serve_kept
+        out[serve] = rec["serve"]
+        out[label] = rec
+        del params
+        torch.cuda.empty_cache()
+        stamp(f"{label} and {serve} done")
+    print(json.dumps({"bf16_big": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                                   for k, v in out.items()}}, default=str))
+    return out
 
 
 # stablelm-1.6b CoDA with bf16 parameters: full width, 2 of 24 layers, as
@@ -4033,10 +4193,13 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     require_k4_variant(label, runs[label], "flash_fwd_tf32x3", "fp32, head_dim 128")
     serve_out, counts["dbrx_serve_smoke"], serve_text = run_serve_smoke()
 
+    stamp("dbrx paths done")
+    # arctic-480b (2 layers) and phi3-medium-14b (40 layers) in bf16 at full
+    # width: prefill and serving
+    big = run_bf16_big(dev, rates, bf16_rate, k5_checked, gmm_rows, prefills, counts)
     # the vlm, hybrid and audio families: full-width prefills, hymba's engine,
     # seamless's decode, the CoDA paths at full width and the smoke configs
     # (their CPU twins run in the background)
-    stamp("dbrx paths done")
     zoo = run_zoo(dev, rates, k5_checked, runs, counts, prefills)
     stamp("zoo paths done")
     for label, args, leaves, n_attn in ZOO_SMOKE:
@@ -4151,6 +4314,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                                                 "bf16_xlstm_prefill")},
                     dbrx_serve=dbrx_serve["variant_launches"],
                     bf16_dbrx_serve=bf16_serve["variant_launches"],
+                    **{k: big[k]["variant_launches"] for k in ("bf16_arctic_serve",
+                                                               "bf16_phi3_serve")},
                     dbrx_serve_smoke=serve_out["variant_launches"])
 
     def variant_rows(name, rows, heads):
@@ -4200,7 +4365,9 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                                       "qwen_prefill_bf16", "dbrx_prefill_bf16",
                                                       "stablelm_train_bf16",
                                                       "internvl_prefill_bf16",
-                                                      "hymba_prefill_bf16"],
+                                                      "hymba_prefill_bf16",
+                                                      "arctic_prefill_bf16",
+                                                      "phi3_prefill_bf16"],
                                   "flash_fwd_tf32x3": ["stablelm_prefill", "chatglm_prefill",
                                                        "qwen_gqa", "dbrx_prefill",
                                                        "internvl_prefill", "internvl_train",
@@ -4209,7 +4376,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "prefills": {label: {k: prefills[label][k] for k in (
             "ms_per_prefill", "ref_ms_per_prefill", "tokens_per_s", "peak_bytes", "errs")}
             for label in (STABLELM_PREFILL.label, CHATGLM_PREFILL.label,
-                          BF16_STABLELM_PREFILL.label, BF16_QWEN_PREFILL.label)
+                          BF16_STABLELM_PREFILL.label, BF16_QWEN_PREFILL.label,
+                          BF16_ARCTIC_PREFILL.label, BF16_PHI3_PREFILL.label)
             + tuple(p.label for p in ZOO_PREFILLS)}})
     # grouped_matmul: headline at dbrx-132b's decode gate/up shape in fp32,
     # the call every moe layer of every served token makes twice
@@ -4238,14 +4406,26 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                                 "dbrx_prefill_down_bf16",
                                                 "dbrx_decode_gate_bf16",
                                                 "dbrx_decode_down_bf16",
-                                                "arctic_prefill_bf16"]}),
+                                                "arctic_prefill_bf16",
+                                                "arctic_prefill_down_bf16",
+                                                "arctic_decode_bf16",
+                                                "arctic_decode_down_bf16",
+                                                "bf16_arctic_prefill_gate_routed",
+                                                "bf16_arctic_prefill_down_routed",
+                                                "bf16_arctic_serve_gate_routed",
+                                                "bf16_arctic_serve_down_routed"]}),
         "prefill": {k: dbrx_prefill[k] for k in ("ms_per_prefill", "ref_ms_per_prefill",
                                                  "tokens_per_s", "peak_bytes", "errs")},
         "prefill_bf16": {k: prefills[BF16_DBRX_PREFILL.label][k] for k in (
             "ms_per_prefill", "ref_ms_per_prefill", "tokens_per_s", "peak_bytes", "errs",
             "bf16_rule")},
         "serve": {k: v for k, v in dbrx_serve.items() if k != "profile"},
-        "serve_bf16": {k: v for k, v in bf16_serve.items() if k != "profile"}})
+        "serve_bf16": {k: v for k, v in bf16_serve.items() if k != "profile"},
+        "prefill_bf16_arctic": {k: prefills[BF16_ARCTIC_PREFILL.label][k] for k in (
+            "ms_per_prefill", "ref_ms_per_prefill", "tokens_per_s", "peak_bytes", "errs",
+            "bf16_rule")},
+        "serve_bf16_arctic": {k: v for k, v in big["bf16_arctic_serve"].items()
+                              if k != "profile"}})
     print(json.dumps({"sharded": sharded}, default=str))
     print(json.dumps({"zoo": zoo}, default=str))
     print(json.dumps({"ssm": ssm}, default=str))

@@ -1386,11 +1386,16 @@ def capture_serving_programs(cfg=None, *, params=None, slots: int = 2, max_len: 
         return out
 
     eng._chunk_program = tick
-    for uid in range(slots + 1):
-        prompt = prompts[uid] if prompts is not None else [2 + uid, 3, 4, 5, 6, 7]
-        eng.add_request(E.Request(uid=uid, prompt=list(prompt),
-                                  max_new_tokens=max_new_tokens))
-    eng.run()
+    try:
+        for uid in range(slots + 1):
+            prompt = prompts[uid] if prompts is not None else [2 + uid, 3, 4, 5, 6, 7]
+            eng.add_request(E.Request(uid=uid, prompt=list(prompt),
+                                      max_new_tokens=max_new_tokens))
+        eng.run()
+    finally:
+        # tick holds the engine's bound method: left in place, the engine
+        # and its parameters would live on in a cycle until a collection
+        del eng._chunk_program
     if last:
         p, surv = last.pop()
         p.retained = (p.retained or []) + surv.problems(eng.cache)

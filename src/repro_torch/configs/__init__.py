@@ -35,8 +35,8 @@ _MODULES = {
     "seamless-m4t-medium": seamless_m4t_medium,
     "hymba-1.5b": hymba_1_5b,
     "phi3-medium-14b": phi3_medium_14b,
-    "resnet50": resnet50,
     "xlstm-350m": xlstm_350m,
+    "resnet50": resnet50,
 }
 
 DENSE_ARCHS = ("stablelm-1.6b", "qwen2.5-14b", "phi3-medium-14b", "chatglm3-6b")
@@ -45,6 +45,8 @@ MOE_ARCHS = ("dbrx-132b", "arctic-480b")
 ZOO_ARCHS = ("internvl2-2b", "hymba-1.5b", "seamless-m4t-medium", "xlstm-350m")
 # the ten language models the dry run sweeps (``configs/__init__.py:33``)
 ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "resnet50")
+# every registered architecture, in the reference's order (``configs/__init__.py:34``)
+ALL_ARCHS = tuple(_MODULES)
 
 
 def _module(arch: str):
@@ -61,6 +63,6 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["ASSIGNED_ARCHS", "DENSE_ARCHS", "MOE_ARCHS", "SHAPES", "ZOO_ARCHS", "ModelConfig",
+__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "DENSE_ARCHS", "MOE_ARCHS", "SHAPES", "ZOO_ARCHS", "ModelConfig",
            "MoEConfig", "ShapeSpec", "get_config", "get_smoke_config", "input_specs",
            "mlp_config"]

@@ -77,6 +77,19 @@ class ModelConfig:
                                "cnn", "mlp"):
             raise ValueError(f"unknown family {self.family!r}")
 
+    def param_count(self) -> int:
+        """Total parameter count N of one worker replica (``base.py:108``)."""
+        from repro_torch.models import model as _model
+
+        return _model.count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token reaches: an MoE counts only its top-k experts
+        (``base.py:114``)."""
+        from repro_torch.models import model as _model
+
+        return _model.count_params(self, active_only=True)
+
 
 def mlp_config(n_features: int = 64, d: int = 128, n_layers: int = 2) -> ModelConfig:
     """Tiny MLP scorer (the launcher's default model)."""

@@ -195,6 +195,13 @@ def _by_dtype(vecs) -> dict:
     return out
 
 
+def bucket_sizes(mats) -> dict:
+    """Elements per dtype bucket of [K, n_i] row blocks, in the reference's
+    bucket order (``repro.core.bucketing.bucket_sizes``): the ring's and the
+    all_reduce's payload layout, {dtype: Σ n_i}."""
+    return {dt: sum(mats[i].shape[1] for i in idxs) for dt, idxs in _by_dtype(mats).items()}
+
+
 def _wire_buckets(vecs, reduce):
     """Concatenate the per-leaf partials into one flat buffer per dtype,
     ``reduce`` each buffer (one collective), and split it back."""
@@ -312,15 +319,16 @@ class _RingReduction:
             self._out = [None] * len(self.rows)
             return
         self._buckets, self._at = [], {}
-        for b, idxs in enumerate(_by_dtype(self.rows).values()):
+        totals = bucket_sizes(self.rows)
+        for b, (dt, idxs) in enumerate(_by_dtype(self.rows).items()):
             sizes = [self.rows[i].shape[1] for i in idxs]
             starts = [sum(sizes[:k]) for k in range(len(idxs))]
             self._buckets.append(idxs)
             for i, st, n in zip(idxs, starts, sizes):
                 self._at[i] = (b, st, n)
-            n = sum(sizes)
+            n = totals[dt]
             offs = _chunk_offsets(n, _n_chunks(n, ring))
-            tag = DTYPE_TAG[self.rows[idxs[0]].dtype]
+            tag = DTYPE_TAG[dt]
             for c, (lo, hi) in enumerate(zip(offs[:-1], offs[1:])):
                 cover = tuple(i for i, st, m in zip(idxs, starts, sizes) if st < hi and st + m > lo)
                 self.units.append(_Unit(f"a{serial}/{tag}/c{c}", cover, b, lo, hi))

@@ -163,6 +163,15 @@ class Objective:
 
         return streaming.make_metric(self.metric_name, backend, **kw)
 
+    @property
+    def eval_metric(self):
+        """Removed, as in the reference (``objective.py:227``): raises."""
+        raise AttributeError(
+            "Objective.eval_metric was removed by the Metric redesign: use "
+            "Objective.metric(backend) — a mergeable Metric with init/"
+            "update/merge/finalize (repro_torch.metrics.streaming); one-shot "
+            "evaluation is metric('exact').compute(scores, labels).")
+
 
 class AUCObjective(Objective):
     """Ying et al. min-max AUC (paper eq. 2): duals (a, b, α)."""

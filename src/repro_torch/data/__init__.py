@@ -1,1 +1,1 @@
-from repro_torch.data.synthetic import DataConfig, ShardedDataset  # noqa: F401
+from repro_torch.data.synthetic import DataConfig, ShardedDataset, sample_online  # noqa: F401

@@ -90,6 +90,22 @@ def hard_negative_features(x: np.ndarray, u: np.ndarray, labels: np.ndarray,
     return x
 
 
+def sample_online(rng: np.random.Generator, dcfg: DataConfig, shape, *,
+                  device: str | torch.device = "cpu") -> dict:
+    """The online setting (``repro/data/synthetic.py:99``): iid draws with
+    y ~ Bernoulli(``p_pos``), no fixed dataset.  ``shape`` is the batch's
+    leading shape, e.g. (I, K, B); the labels are drawn first, then the
+    inputs through ``_draw``.  Returns {input: tensor [*shape, ...],
+    "labels": float32 [*shape]} on ``device``."""
+    shape = tuple(shape)
+    labels = (rng.random(shape) < dcfg.p_pos).astype(np.float32)
+    batch = _draw(rng, dcfg, labels.reshape(-1))
+    out = {k: torch.from_numpy(v.reshape(shape + v.shape[1:])).to(device)
+           for k, v in batch.items()}
+    out["labels"] = torch.from_numpy(labels).to(device)
+    return out
+
+
 def dirichlet_partition(rng: np.random.Generator, labels: np.ndarray,
                         n_workers: int, alpha: float):
     """Dirichlet(α) label-skew partition: per class c, q_c ~ Dir(α·1_K)

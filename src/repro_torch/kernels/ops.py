@@ -72,9 +72,13 @@ def grouped_matmul(x, w, group_sizes, *, impl: str = "auto"):
     """Ragged grouped GEMM of the sorted MoE dispatch: ``out[i] = x[i] @
     w[g(i)]`` for rows of x [N, Kd] sorted by group, w [G, Kd, F] or
     [R, E, Kd, F] (R·E groups), group_sizes [G].  On the card "auto"
-    launches K5 (forward only); the plain version is differentiable."""
+    launches K5 (forward only); the plain version is differentiable.  w may
+    be narrower than x (bf16 experts under fp32 rows): K5 gets it widened to
+    x's dtype, and the plain version, which computes in fp32, widens one
+    group's [Kd, F] block at a time, so the experts never exist whole in
+    fp32; both give the values of widening w first."""
     if dispatch(impl, x.device):
-        return _moe_mod.grouped_matmul(x, w, group_sizes)
+        return _moe_mod.grouped_matmul(x, w.to(x.dtype), group_sizes)
     return ref.grouped_matmul_ref(x, w, group_sizes)
 
 

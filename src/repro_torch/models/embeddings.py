@@ -15,6 +15,8 @@ RoPE variants (``cfg.rope``):
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.nn.functional as F
 
@@ -24,22 +26,33 @@ from repro_torch.configs.base import ModelConfig
 class ParamInit:
     """The reference's initialisers, drawn from one ``torch.Generator`` on
     the generator's device, then moved to ``device`` in ``dtype``.  ``lead``
-    shapes (a stack of layers) are drawn in one call; on the ``meta`` device
-    only the shapes are made.  The numbers differ
-    from ``jax.random``'s; carry the reference's weights across with
+    shapes (a stack of layers) are drawn in one call, except that a stack
+    of a dtype narrower than fp32 is drawn one matrix (its last two axes)
+    at a time into its output: its fp32 draw never exists whole beside it
+    (arctic-480b's [L, 128, 7168, 4864] bf16 expert stacks).  On the
+    ``meta`` device only the shapes are made.  The numbers differ from
+    ``jax.random``'s; carry the reference's weights across with
     ``params.py`` to compare the two."""
 
     def __init__(self, generator: torch.Generator, dtype=torch.float32,
                  device="cpu"):
         self.gen, self.dtype, self.device = generator, dtype, torch.device(device)
 
-    def normal(self, shape, scale: float, dtype=None):
-        dtype = dtype or self.dtype
-        if self.device.type == "meta":   # shapes only: nothing is drawn
-            return torch.empty(tuple(shape), dtype=dtype, device=self.device)
+    def _draw(self, shape, scale: float):
         x = torch.randn(tuple(shape), generator=self.gen, dtype=torch.float32,
                         device=self.gen.device)
-        return x.mul_(scale).to(dtype=dtype, device=self.device)
+        return x.mul_(scale)
+
+    def normal(self, shape, scale: float, dtype=None):
+        dtype, shape = dtype or self.dtype, tuple(shape)
+        if self.device.type == "meta":   # shapes only: nothing is drawn
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        if len(shape) > 2 and dtype.itemsize < 4:
+            out = torch.empty(shape, dtype=dtype, device=self.device)
+            for idx in itertools.product(*map(range, shape[:-2])):
+                out[idx] = self._draw(shape[-2:], scale)
+            return out
+        return self._draw(shape, scale).to(dtype=dtype, device=self.device)
 
     def zeros(self, shape, dtype=None):
         return torch.zeros(tuple(shape), dtype=dtype or self.dtype, device=self.device)

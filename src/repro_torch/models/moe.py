@@ -175,7 +175,9 @@ def _dispatch_sorted(cfg: ModelConfig, p, xf, top_g, top_e, *, impl: str = "auto
     xs = xf.reshape(K * T, d)[src]                                  # [K·T·k, d]
     wdt = torch.promote_types(xs.dtype, p["w_gate"].dtype)
     xs = xs.to(wdt)
-    gm = lambda a, w: ops.grouped_matmul(a, w.to(wdt), counts, impl=impl)
+    # the weights are widened to wdt inside the grouped GEMM (the plain
+    # version one expert at a time), not here as whole [E, d, ff] stacks
+    gm = lambda a, w: ops.grouped_matmul(a, w, counts, impl=impl)
     h = gm(xs, p["w_gate"])
     u = gm(xs, p["w_up"])
     ys = gm(silu(h) * u, p["w_down"])

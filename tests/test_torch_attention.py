@@ -576,6 +576,8 @@ WGMMA_SHAPES = [
     (3, 64, 4, 2, 64, 64, True, None),         # one warpgroup's rows only (S < 65)
     (1, 200, 4, 4, 333, 64, False, None),      # Skv != S, both ragged
     (2, 130, 2, 2, 130, 64, False, 50),        # window without causal
+    pytest.param(2, 1024, 56, 8, 1024, 128, True, None, id="arctic_prefill_gqa7"),
+    pytest.param(4, 2048, 40, 10, 2048, 128, True, None, id="phi3_prefill_gqa4"),
 ]
 
 

@@ -56,6 +56,32 @@ def test_init_params_dtypes_are_the_references(arch):
     assert got == want and "bfloat16" in got
 
 
+def test_a_narrow_stack_is_drawn_a_matrix_at_a_time():
+    """``ParamInit.normal``: a bf16 stack [L, E, d, ff] is its matrices'
+    own fp32 draws, one after another from the generator, each scaled and
+    rounded once, so no fp32 copy of the whole stack is made; an fp32
+    stack and a bf16 matrix are one draw, as before; arctic-480b's smoke
+    tree has the meta device's shapes and dtypes."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.embeddings import ParamInit
+    shape, scale = (2, 3, 5, 7), 0.25
+    got = ParamInit(torch.Generator().manual_seed(4), torch.bfloat16).normal(shape, scale)
+    g = torch.Generator().manual_seed(4)
+    want = torch.stack([torch.randn(shape[-2:], generator=g).mul_(scale).to(torch.bfloat16)
+                        for _ in range(6)]).reshape(shape)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert not torch.equal(got[0, 0], got[0, 1])
+    for dt, sh in ((torch.float32, shape), (torch.bfloat16, shape[-2:])):
+        one = ParamInit(torch.Generator().manual_seed(4), dt).normal(sh, scale)
+        whole = torch.randn(sh, generator=torch.Generator().manual_seed(4)).mul_(scale).to(dt)
+        assert one.dtype == dt and torch.equal(one, whole)
+    cfg = get_smoke_config("arctic-480b")
+    real = tree_leaves(M.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                     dtype=torch.bfloat16))
+    meta = tree_leaves(M.init_params(cfg, dtype=torch.bfloat16, device="meta"))
+    assert [(t.shape, t.dtype) for t in real] == [(t.shape, t.dtype) for t in meta]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_reference_in_bf16(arch):
     jcfg, cfg = _cfgs(arch)

@@ -690,6 +690,33 @@ def test_wgmma_kernel_matches_plain_on_card(cuda_device, gs, Kd, F):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 2048])
+def test_wgmma_kernel_at_arctics_down_shape_on_card(cuda_device, T):
+    """arctic-480b's down projection, [T·2, 4864] → 7168 over 128 experts
+    (8.9 GB of bf16 weights, made on the card), at the serving path's 4
+    tokens (8 rows: at most 8 experts hit) and the prefill's 2048 (~32 rows
+    an expert), with empty groups in both."""
+    E, Kd, F, k = 128, 4864, 7168, 2
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    allowed = torch.arange(E, device=cuda_device)
+    allowed = allowed[allowed % 8 != 7]                    # experts 8j+7 stay empty
+    pick = torch.rand((T, len(allowed)), generator=g, device=cuda_device).argsort(dim=-1)
+    sizes = torch.bincount(allowed[pick[:, :k]].flatten(), minlength=E)
+    assert int(sizes.sum()) == T * k and int((sizes == 0).sum()) >= E // 8
+    x = torch.randn((T * k, Kd), generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((E, Kd, F), generator=g, device=cuda_device) * Kd ** -0.5).to(
+        torch.bfloat16)
+    assert md.launch_geometry(T * k, Kd, E, F, torch.bfloat16,
+                              md.tma_aligned(x, w))["kernel"] == "gmm_wgmma"
+    before = md.variant_launches["gmm_wgmma"]
+    got = md.grouped_matmul(x, w, sizes)
+    torch.cuda.synchronize()
+    assert md.variant_launches["gmm_wgmma"] == before + 1
+    want = ref.grouped_matmul_ref(x, w, sizes)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt,kernel", [(torch.bfloat16, "gmm_wgmma"), (torch.float32, "gmm_tiles")])
 def test_tile_kernels_read_a_strided_k_folded_stack_on_card(cuda_device, dt, kernel):
     """A [4, 2, 16, 128, 256] stack's layer slice, 4 × 16 groups, through

@@ -9,7 +9,11 @@ forward on the smoke configs, on the CPU:
   * ``last_fp32`` on right-padded sequences of two lengths against
     ``serve_step`` fed one token at a time (what the engine reports as
     ``Request.score``, and its logits): atol = rtol = 2e-3, decode against
-    the parallel forward as in tests/test_torch_serving.py.
+    the parallel forward as in tests/test_torch_serving.py;
+  * a moe layer's expert stacks stay bf16 in the twin and the plain
+    grouped GEMM widens them one expert block at a time: ``hidden_fp32``
+    and ``last_fp32`` bitwise the same with every layer widened whole
+    (arctic-480b's smoke config).
 """
 import importlib.util
 import os
@@ -31,7 +35,8 @@ _spec = importlib.util.spec_from_file_location("chip_smoke",
 CS = sys.modules["chip_smoke"] = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(CS)
 
-ARCHS = ["stablelm-1.6b", "chatglm3-6b", "qwen2.5-14b", "dbrx-132b", "hymba-1.5b"]
+ARCHS = ["stablelm-1.6b", "chatglm3-6b", "qwen2.5-14b", "phi3-medium-14b", "dbrx-132b",
+         "arctic-480b", "hymba-1.5b"]
 
 
 def _bf16_params(cfg, seed=0):
@@ -79,6 +84,40 @@ def test_last_fp32_equals_serve_steps(arch):
                                        rtol=2e-3)
 
 
+def test_fp32_twin_widens_the_experts_one_block_at_a_time(monkeypatch):
+    """arctic-480b's smoke config (4 experts, top-2, the dense residual):
+    ``hidden_fp32`` hands the plain grouped GEMM fp32 rows and the bf16
+    expert stacks, and its hidden states and caches, and ``last_fp32``'s
+    logits and scores, are bitwise those of every layer widened whole
+    first (``_f32_layer`` replaced by ``_f32``)."""
+    from repro_torch.kernels import ref
+    cfg = get_smoke_config("arctic-480b")
+    p = _bf16_params(cfg, seed=5)
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 3, 10)))}
+    seqs = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (4, 11)]
+    seen, real = [], ref.grouped_matmul_ref
+
+    def spy(x, w, sizes):
+        seen.append((x.dtype, w.dtype, tuple(w.shape)))
+        return real(x, w, sizes)
+
+    with torch.no_grad():
+        monkeypatch.setattr(ref, "grouped_matmul_ref", spy)
+        h, (k, v) = CS.hidden_fp32(cfg, p, batch)
+        logits, score = CS.last_fp32(cfg, p, seqs)
+        monkeypatch.setattr(ref, "grouped_matmul_ref", real)
+        assert len(seen) == 2 * 3 * cfg.n_layers
+        assert {(x, w) for x, w, _ in seen} == {(torch.float32, torch.bfloat16)}
+        assert {s[-2:] for *_, s in seen} == {(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)}
+        monkeypatch.setattr(CS, "_f32_layer", CS._f32)
+        wh, (wk, wv) = CS.hidden_fp32(cfg, p, batch)
+        wlogits, wscore = CS.last_fp32(cfg, p, seqs)
+    assert h.dtype == logits.dtype == torch.float32
+    for got, want in ((h, wh), (k, wk), (v, wv), (logits, wlogits), (score, wscore)):
+        assert torch.equal(got, want)
+
+
 def test_settled_positions_stop_at_the_first_flip_below():
     """A routing flip at (layer l, position q) unsettles every position from
     q on in the layers above l, and nothing in layers up to l."""
@@ -120,3 +159,25 @@ def test_recorded_sees_every_route_and_k5_call(monkeypatch):
     assert bool((routes[..., 1:] > routes[..., :-1]).all())
     assert shapes == {(12 * k, cfg.d_model, cfg.d_ff, "bfloat16"),
                       (12 * k, cfg.d_ff, cfg.d_model, "bfloat16")}
+
+
+def test_recorded_keeps_the_first_moe_layers_k5_inputs(monkeypatch):
+    """``recorded(..., keep=[])`` keeps the first moe layer's gate, up and
+    down inputs: the rows (a copy), the layer's expert stack, and group
+    sizes that count every routed row."""
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(ops, "dispatch", lambda impl, device: impl == "auto")
+    cfg = get_smoke_config("arctic-480b")
+    p = _bf16_params(cfg, seed=2)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 2, 6)))
+    kept = []
+    with torch.no_grad():
+        CS.recorded(lambda: M.prefill_step(cfg, p, {"tokens": tokens}), keep=kept)
+    k, E = cfg.moe.top_k, cfg.moe.n_experts
+    assert [tuple(x.shape) for x, _, _ in kept] == [(12 * k, cfg.d_model)] * 2 + [
+        (12 * k, cfg.d_ff)]
+    stacks = p["layers"]["moe"]
+    for (x, w, sizes), name in zip(kept, ("w_gate", "w_up", "w_down")):
+        assert x.dtype == torch.bfloat16 and x._base is None
+        assert tuple(sizes.shape) == (E,) and int(sizes.sum()) == 12 * k
+        assert torch.equal(w.reshape(stacks[name][:, 0].shape), stacks[name][:, 0])
