@@ -124,21 +124,25 @@ last line):
  11. K5 grouped_matmul against its plain version (``ref.grouped_matmul_ref``)
      on the card, fp32 within atol = rtol = 5e-5 and bf16 within one bf16
      ulp + atol 1e-4, at dbrx-132b's decode (N=16, gmm_rows) and prefill
-     (N=8192, gmm_tiles) expert shapes in fp32 and its prefill and decode
+     (N=8192, gmm_tf32x3) expert shapes in fp32 and its prefill and decode
      (N=16) shapes, gate and down, in bf16 (gmm_wgmma), arctic-480b's (128
      experts, N=8 and 4096, gate and down) in bf16 (gmm_wgmma),
      K-folded strided weights in both dtypes, the reference's edge tables,
-     N = 1 and aligned ragged groups in bf16; each case's kernel checked
-     against the one ``launch_geometry`` names; group
+     N = 1, ragged groups with empty ones and short tails (gmm_tf32x3,
+     gmm_wgmma), and fp32 and bf16 that TMA cannot read (gmm_tiles); each
+     case's kernel checked against the one ``launch_geometry`` names; group
      sizes from a seeded top-k routing; each timed beside its bound (the hit
-     experts' bytes or the operations), the plain version and
-     torch._grouped_mm where the installed torch takes the inputs, and the
-     row tiles launched beside those holding rows (run with the kernel
-     checks of phase 3);
+     experts' bytes or the operations: fp32 FFMA's and 3xTF32's), the plain
+     version and torch._grouped_mm where the installed torch takes the
+     inputs, and the row tiles launched beside those holding rows; each
+     fp32 case's error against a float64 product, and at dbrx's prefill
+     shapes gmm_tiles on the same inputs (x copied to a base off 16 bytes,
+     which TMA cannot read) timed and held to the same references beside
+     gmm_tf32x3 (run with the kernel checks of phase 3);
  12. dbrx-132b at full width with 2 of 40 layers (7,751,337,985 fp32
      parameters, one replica): ``prefill_step`` on [B=2, S=1024] with the
      kernels and with ``impl="ref"`` (2 K4 and 6 K5 launches per prefill,
-     every K4 launch flash_fwd_tf32x3 and every K5 launch gmm_tiles;
+     every K4 launch flash_fwd_tf32x3 and every K5 launch gmm_tf32x3;
      scores, logits and caches compared, a profile with the K5, K4 and
      cuBLAS shares); then the same parameters through ``ServingEngine``
      (4 slots, max_len 64, chunk 8, a batch trace of 8 requests) with
@@ -262,7 +266,9 @@ last line):
      kernels' own geometry queries, R2's allocated bytes against the new
      state's) and the bf16 dbrx-132b engine on the 4-layer weights of
      phase 12 (R3, R4's two chunk shapes, R5's gmm_wgmma records against
-     the query); a finding fails the run.  With it, the dry run's parameter
+     the query), and R5 at every shape of ``analysis.audit.PATH_SHAPES``
+     (every K4 and K5 variant, the four K5 ones included) against the
+     kernels' own queries; a finding fails the run.  With it, the dry run's parameter
      bytes of the bf16 stablelm-1.6b weights on a 1 × 1 mesh against the
      bytes the card holds for them (phase 9's weights), and the dry run's
      FLOPs of that prefill beside its measured time;
@@ -1521,7 +1527,7 @@ class PrefillPath:
     n_layers: int | None = None
     dtype: torch.dtype = torch.float32
     k4: str = "flash_fwd_tf32x3"     # fp32 at head_dim 64/128
-    k5: str = "gmm_tiles"            # fp32 at ~512 rows per expert
+    k5: str = "gmm_tf32x3"           # fp32 at ~512 rows per expert
 
 
 PREFILL_32K = "prefill_32k [B=32, S=32768] cut to [B={B}, S={S}]"
@@ -2028,28 +2034,59 @@ def grouped_mm_fn(x, w, sizes):
     return fn, ""
 
 
-def gmm_bound(x, w, sizes, rates, bf16_rate):
+def gmm_bound(x, w, sizes, rates, bf16_rate, kernel: str):
     """The least time for one call on this routing, the larger of: x read,
     the hit groups' weights read and out written (bytes); 2·N·Kd·F
-    operations."""
+    operations at the rate of the kernel's type — bf16, fp32 FFMA, or for
+    gmm_tf32x3 three TF32 products an fp32 product at the TF32 rate (half
+    the bf16 rate, as flash_fwd_tf32x3's).  Returns (bound, by, bytes, ops,
+    {fp32: both bounds})."""
     N, Kd = x.shape
     F = w.shape[-1]
     es = x.element_size()
     hit = int((sizes > 0).sum())
     n_bytes = es * (N * Kd + hit * Kd * F + N * F)
     n_ops = 2 * N * Kd * F
-    bnd, by = bound_ms(n_bytes, n_ops, (rates[0], rates[1] if x.dtype == F32 else bf16_rate))
-    return bnd, by, n_bytes, n_ops
+    if x.dtype != F32:
+        return (*bound_ms(n_bytes, n_ops, (rates[0], bf16_rate)), n_bytes, n_ops, {})
+    ffma, ffma_by = bound_ms(n_bytes, n_ops, rates)
+    tf, tf_by = bound_ms(n_bytes, 3 * n_ops, (rates[0], TF32_PER_BF16 * bf16_rate))
+    both = {"bound_ffma_ms": ffma, "bound_ffma_by": ffma_by, "bound_tf32x3_ms": tf,
+            "bound_tf32x3_by": tf_by}
+    bnd, by = (tf, tf_by) if kernel == "gmm_tf32x3" else (ffma, ffma_by)
+    return bnd, by, n_bytes, n_ops, both
+
+
+def gmm_f64(x, w, sizes_np):
+    """The float64 product on the card, one group's [Kd, F] block widened
+    at a time (the yardstick of the fp32 kernels' error)."""
+    out = torch.empty((x.shape[0], w.shape[-1]), dtype=torch.float64, device=x.device)
+    r0 = 0
+    for g, n in enumerate(int(v) for v in sizes_np):
+        blk = w[g] if w.dim() == 3 else w[g // w.shape[1], g % w.shape[1]]
+        if n:
+            out[r0:r0 + n] = x[r0:r0 + n].double() @ blk.double()
+        r0 += n
+    return out
+
+
+def unaligned_copy(x):
+    """x's values at a base 4 bytes past a 16-byte boundary: TMA cannot read
+    it, so the wrapper routes an fp32 prefill call to gmm_tiles."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
 
 
 def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
-             want_kernel=None) -> dict:
+             want_kernel=None, tiles_beside: bool = False) -> dict:
     """K5 at one call's inputs against its plain version, within GMM_TOL;
     CUDA-event time, device time, the bound, the plain version's time and
     peak, torch._grouped_mm's time, and the row tiles the geometry
-    launches beside those holding rows.  ``sizes``: the group sizes (a
-    list, an array or a tensor on the card).  Appends the record to
-    ``rows`` and returns it."""
+    launches beside those holding rows; in fp32 both bounds and the error
+    against a float64 product, and with ``tiles_beside`` gmm_tiles on the
+    same values (``unaligned_copy``) timed and held to the same references.
+    ``sizes``: the group sizes (a list, an array or a tensor on the card).
+    Appends the record to ``rows`` and returns it."""
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import ref
     dev = x.device
@@ -2089,7 +2126,43 @@ def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
                     warmup=1)
     lib, why = grouped_mm_fn(x, w, sizes)
     lib_ms = cuda_ms(lib, iters=iters, warmup=1) if lib is not None else None
-    bnd, by, n_bytes, n_ops = gmm_bound(x, w, sizes, rates, bf16_rate)
+    bnd, by, n_bytes, n_ops, both = gmm_bound(x, w, sizes, rates, bf16_rate, kernel)
+    f64 = {}
+    if x.dtype == F32:
+        # each fp32 kernel's error against the float64 product; at the
+        # gmm_tf32x3 cases named, gmm_tiles on the same values beside it
+        exact = gmm_f64(x, w, sizes_np)
+        f64 = {"err_vs_f64": float((fn().double() - exact).abs().max()),
+               "plain_err_vs_f64": float((ref.grouped_matmul_ref(x, w, sizes).double()
+                                          - exact).abs().max())}
+        if tiles_beside:
+            xu = unaligned_copy(x)
+            tgeo = md.launch_geometry(xu.shape[0], xu.shape[1], G, w.shape[-1], x.dtype,
+                                      md.tma_aligned(xu, w))
+            if tgeo["kernel"] != "gmm_tiles":
+                raise SystemExit(f"grouped_matmul {label}: the unaligned copy routed to "
+                                 f"{tgeo['kernel']}, not gmm_tiles")
+            tfn = lambda: md.grouped_matmul(xu, w, sizes)
+            before_t = md.variant_launches["gmm_tiles"]
+            tgot = tfn()
+            torch.cuda.synchronize()
+            if md.variant_launches["gmm_tiles"] != before_t + 1:
+                raise SystemExit(f"grouped_matmul {label}: gmm_tiles was not launched")
+            twant = ref.grouped_matmul_ref(x, w, sizes)
+            tdiff = (tgot - twant).abs()
+            if not bool((tdiff <= atol + rtol * twant.abs()).all()):
+                raise SystemExit(f"grouped_matmul {label}: gmm_tiles disagrees with its plain "
+                                 f"version: max_abs_err={float(tdiff.max())}")
+            t_ms = cuda_ms(tfn, iters=iters, warmup=1)
+            t_dev, t_src = kernel_device_ms(tfn, "gmm_", md, calls=max(2, iters // 4),
+                                            kernels_per_launch=2)
+            f64["tiles"] = {"kernel": "gmm_tiles", "max_abs_err": float(tdiff.max()),
+                            "err_vs_f64": float((tgot.double() - exact).abs().max()),
+                            "ms": t_ms, "device_ms": t_dev, "device_ms_source": t_src,
+                            "bound_ms": both["bound_ffma_ms"],
+                            "bound_by": both["bound_ffma_by"]}
+            del xu, tgot, twant, tdiff
+        del exact
     hit = int((sizes_np > 0).sum())
     # row tiles: the grid's bound against the tiles that hold a row
     bm = geo["bm"]
@@ -2103,9 +2176,23 @@ def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
            "library_note": why, "bound_ms": bnd, "bound_by": by,
            "gbytes": n_bytes / 1e9, "gflop": n_ops / 1e9, "bm": bm,
            "row_tiles": geo["grid"][0], "busy_row_tiles": busy,
-           "row_share": x.shape[0] / max(busy * bm, 1)}
+           "row_share": x.shape[0] / max(busy * bm, 1), **both, **f64}
     rows.append(rec)
     lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else f"none ({why})"
+    fp32_txt = ""
+    if both:
+        fp32_txt = (f"; bounds fp32 FFMA {both['bound_ffma_ms']:.4f} ms "
+                    f"({both['bound_ffma_by']}), 3xTF32 at "
+                    f"{TF32_PER_BF16 * bf16_rate / 1e12:.0f} TFLOP/s "
+                    f"{both['bound_tf32x3_ms']:.4f} ms ({both['bound_tf32x3_by']}); error "
+                    f"against float64 {f64['err_vs_f64']:.3g} (the plain version's "
+                    f"{f64['plain_err_vs_f64']:.3g})")
+        if "tiles" in f64:
+            t = f64["tiles"]
+            fp32_txt += (f"; gmm_tiles on the same values: {t['ms']:.4f} ms "
+                         f"({dev_txt(t['device_ms'], t['device_ms_source'])}), error "
+                         f"against float64 {t['err_vs_f64']:.3g}, against the plain version "
+                         f"{t['max_abs_err']:.3g}")
     print(f"grouped_matmul {label} [N={x.shape[0]}, Kd={x.shape[1]}, F={w.shape[-1]}, "
           f"G={G}, {hit} hit] {dname} {kernel}: max_abs_err={err:.3g} (atol {atol:g}, "
           f"rtol {rtol:g}); kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain "
@@ -2113,7 +2200,7 @@ def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
           f"torch._grouped_mm {lib_txt}, bound {bnd:.4f} ms ({by}: "
           f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.1f} GFLOP); {geo['grid'][0]} row tiles "
           f"of {bm} launched, {busy} hold rows, {100 * rec['row_share']:.1f} % of their "
-          "rows real")
+          f"rows real{fp32_txt}")
     return rec
 
 
@@ -2125,8 +2212,9 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     g = torch.Generator(device=dev).manual_seed(7)
     rows = []
 
-    def case(label, x, w, sizes_np, iters, want_kernel=None):
-        gmm_case(rows, label, x, w, sizes_np, iters, rates, bf16_rate, want_kernel)
+    def case(label, x, w, sizes_np, iters, want_kernel=None, tiles_beside=False):
+        gmm_case(rows, label, x, w, sizes_np, iters, rates, bf16_rate, want_kernel,
+                 tiles_beside)
 
     def randn(shape, dt=F32, scale=1.0):
         return torch.randn(shape, generator=g, device=dev).mul_(scale).to(dt)
@@ -2135,15 +2223,18 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     # outputs are O(1) as in the MoE layer and the tolerances are those of it
 
     # dbrx-132b: 16 experts, top-4, d 6144, d_ff 10752, fp32 (the model's
-    # dtype), then its prefill shape in bf16: ~512 rows per expert, where the
-    # tensor cores and not the weight bytes bound gmm_wgmma
+    # dtype: gmm_tf32x3 at the prefill's ~512 rows per expert, with
+    # gmm_tiles — the FFMA kernel it replaced there — on the same values
+    # beside it), then its prefill shape in bf16: ~512 rows per expert, where
+    # the tensor cores and not the weight bytes bound gmm_wgmma
     d, ff, E = 6144, 10752, 16
     w_up, w_down = randn((E, d, ff), scale=d ** -0.5), randn((E, ff, d), scale=ff ** -0.5)
     for label, T, iters, kern in (("dbrx_decode", 4, 20, "gmm_rows"),
-                                  ("dbrx_prefill", 2048, 3, "gmm_tiles")):
+                                  ("dbrx_prefill", 2048, 3, "gmm_tf32x3")):
         sizes = routed_sizes(1, T, E, 4)
-        case(f"{label}_gate", randn((T * 4, d)), w_up, sizes, iters, kern)
-        case(f"{label}_down", randn((T * 4, ff)), w_down, sizes, iters, kern)
+        beside = kern == "gmm_tf32x3"
+        case(f"{label}_gate", randn((T * 4, d)), w_up, sizes, iters, kern, beside)
+        case(f"{label}_down", randn((T * 4, ff)), w_down, sizes, iters, kern, beside)
     w_up, w_down = w_up.to(BF16), w_down.to(BF16)
     case("dbrx_prefill_gate_bf16", randn((8192, d), BF16), w_up, routed_sizes(1, 2048, E, 4),
          5, "gmm_wgmma")
@@ -2171,15 +2262,17 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     del w, w_down
     torch.cuda.empty_cache()
     # K-folded groups: 4 replicas × 16 experts, a strided layer slice of a
-    # [4, 2, 16, d, ff] stack at dbrx's smoke width, in both dtypes
+    # [4, 2, 16, d, ff] stack at dbrx's smoke width, in both dtypes (through
+    # the TMA maps), and in fp32 at d = 126, whose x rows TMA cannot read
     sizes = routed_sizes(3, 64, 16, 4, R=4)
-    for dt, kern in ((F32, "gmm_tiles"), (BF16, "gmm_wgmma")):
-        stack = randn((4, 2, 16, 128, 256), dt, 128 ** -0.5)
-        case(f"kfold_4x16_strided_{str(dt)[6:]}", randn((int(sizes.sum()), 128), dt),
+    for dt, kern, dd, tag in ((F32, "gmm_tf32x3", 128, ""), (BF16, "gmm_wgmma", 128, ""),
+                              (F32, "gmm_tiles", 126, "_d126")):
+        stack = randn((4, 2, 16, dd, 256), dt, dd ** -0.5)
+        case(f"kfold_4x16_strided_{str(dt)[6:]}{tag}", randn((int(sizes.sum()), dd), dt),
              stack[:, 1], sizes, 20, kern)
     # edges: the reference's group tables with Kd and F off the tiles, N = 1,
-    # the 128-row kernel on ragged segments in both dtypes; gmm_wgmma on
-    # aligned ragged groups with empty ones (Kd 136, F 520) and at N = 1
+    # the 128-row kernels on ragged segments; gmm_wgmma on aligned ragged
+    # groups with empty ones (Kd 136, F 520) and at N = 1
     for i, gs in enumerate(([3, 0, 6, 1], [0, 0, 10, 0], [10, 0, 0, 0], [1, 2, 3, 4])):
         case(f"table{i}_{'_'.join(map(str, gs))}", randn((sum(gs), 130)),
              randn((4, 130, 515), scale=130 ** -0.5), gs, 10, "gmm_rows")
@@ -2187,10 +2280,18 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
          "gmm_rows")
     case("n1_bf16", randn((1, 6144), BF16), randn((4, 6144, 1000), BF16, 6144 ** -0.5),
          [0, 1, 0, 0], 10, "gmm_wgmma")
-    for dt in (F32, BF16):
-        case(f"tiles_ragged_{str(dt)[6:]}", randn((273, 96), dt),
-             randn((4, 96, 300), dt, 96 ** -0.5), [70, 0, 200, 3], 10, "gmm_tiles")
+    # gmm_tiles on what TMA cannot read: bf16 F off 8, fp32 Kd off 4 (its
+    # 16-byte w copies) and F off 4 (its 4-byte copies); gmm_tf32x3 on
+    # ragged groups with empty ones, a 3-row tail, Kd and F off its tiles
+    case("tiles_ragged_bfloat16", randn((273, 96), BF16), randn((4, 96, 300), BF16, 96 ** -0.5),
+         [70, 0, 200, 3], 10, "gmm_tiles")
+    case("tiles_ragged_float32", randn((273, 98)), randn((4, 98, 300), scale=98 ** -0.5),
+         [70, 0, 200, 3], 10, "gmm_tiles")
+    case("tiles_f302_float32", randn((273, 96)), randn((4, 96, 302), scale=96 ** -0.5),
+         [70, 0, 200, 3], 10, "gmm_tiles")
     gs = [70, 0, 200, 3, 0]
+    case("tf32x3_ragged", randn((sum(gs), 100)), randn((5, 100, 300), scale=100 ** -0.5), gs, 10,
+         "gmm_tf32x3")
     case("aligned_ragged_bf16", randn((sum(gs), 136), BF16), randn((5, 136, 520), BF16,
                                                                     136 ** -0.5), gs, 10,
          "gmm_wgmma")
@@ -3936,6 +4037,21 @@ def run_audit(dev, dbrx_cfg, dbrx_params, param_check: dict, prefill_ms: float) 
     if not art["ok"]:
         raise SystemExit("audit: the matrix failed: " + ", ".join(
             r["leg"] for r in art["legs"] if not r["ok"]))
+    # R5 at the paths' shapes (analysis.audit.PATH_SHAPES): every kernel
+    # variant's record equal to its kernel's own geometry query
+    recs = [A.launch_record(k, shape) for k, shape in A.PATH_SHAPES]
+    for rec in recs:
+        rec.query = A.kernel_query(rec)
+    rep = A.run_rules([], recs, check_dispatch=False)
+    variants = sorted({r.variant for r in recs})
+    print(f"audit R5 at the paths' shapes: {len(recs)} records, each the kernel's own "
+          f"geometry query: {rep.ok}; variants {variants}")
+    need = {"gmm_rows", "gmm_tiles", "gmm_wgmma", "gmm_tf32x3", "flash_fwd",
+            "flash_fwd_wgmma", "flash_fwd_tf32x3"}
+    if not rep.ok or not need <= set(variants):
+        raise SystemExit(f"audit R5 at the paths' shapes: {[str(f) for f in rep.findings]}, "
+                         f"variants {variants}")
+    out["r5_path_shapes"] = {"ok": rep.ok, "records": len(recs), "variants": variants}
 
     t1 = time.perf_counter()
     cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=TRAIN_LAYERS)
@@ -4322,7 +4438,8 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         """Each variant's launches by path, its cases and largest error, and
         its headline cases' numbers (the first is ``head``)."""
         keys = ("ms", "device_ms", "device_ms_source", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "bound_ffma_ms", "shape")
+                "library_ms", "bound_ffma_ms", "bound_tf32x3_ms", "err_vs_f64", "tiles",
+                "shape")
         out = {}
         for variant, cases in heads.items():
             by_path = {label: v[name][variant] for label, v in variants.items()}
@@ -4401,7 +4518,12 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "plain_us": h["plain_ms"] * 1e3, "bound_us": h["bound_ms"] * 1e3, "shapes": gmm_rows,
         "variants": variant_rows("grouped_matmul", gmm_rows,
                                  {"gmm_rows": ["dbrx_decode_gate"],
-                                  "gmm_tiles": ["dbrx_prefill_gate"],
+                                  "gmm_tf32x3": ["dbrx_prefill_gate", "dbrx_prefill_down",
+                                                 "kfold_4x16_strided_float32",
+                                                 "tf32x3_ragged"],
+                                  "gmm_tiles": ["tiles_ragged_float32", "tiles_f302_float32",
+                                                "kfold_4x16_strided_float32_d126",
+                                                "tiles_ragged_bfloat16"],
                                   "gmm_wgmma": ["dbrx_prefill_gate_bf16",
                                                 "dbrx_prefill_down_bf16",
                                                 "dbrx_decode_gate_bf16",

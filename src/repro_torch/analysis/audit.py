@@ -803,12 +803,18 @@ def launch_record(kernel: str, shape: dict, *, impl: str = "auto", device: str =
         grid = (r, c, 1) if g["kernel"] == "gmm_rows" else (r * c, 1, 1)
         tiles, boxes, strides = {}, (), ()
         q = {"bm": g["bm"], "bn": g["bn"]}
-        if g["kernel"] == "gmm_wgmma":
-            tiles = {"wgmma M (rows a tile)": (g["bm"], 64, None),
-                     "wgmma N (columns a tile)": (g["bn"], 8, 256)}
+        if g["kernel"] in ("gmm_wgmma", "gmm_tf32x3"):
+            if g["kernel"] == "gmm_wgmma":
+                tiles = {"wgmma M (rows a tile)": (g["bm"], 64, None),
+                         "wgmma N (columns a tile)": (g["bn"], 8, 256)}
+            else:        # the transposed product: columns on M, x rows on N
+                tiles = {"wgmma M (columns a tile, 64 a consumer warpgroup)":
+                         (g["bn"], 64, None),
+                         "wgmma N (rows a tile)": (g["bm"], 8, 256)}
+            e = torch.empty((), dtype=dt).element_size()
             boxes = g["tma_boxes"]
             s_k, s_inner, s_outer = shape.get("strides", (F, Kd * F, G * Kd * F))
-            strides = (Kd * 2, s_k * 2, s_inner * 2, s_outer * 2)
+            strides = (Kd * e, s_k * e, s_inner * e, s_outer * e)
             q["tma_boxes"] = tuple(tuple(b) for b in boxes)
         else:
             tiles = {"rows a tile (8-row steps)": (g["bm"], 8, None)}
@@ -851,14 +857,14 @@ def kernel_query(rec: KernelLaunch) -> dict:
             g["tma_box"] = tuple(out[8:12])
         return g
     out = (ctypes.c_int * 13)()
-    kid = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2}[rec.variant]
+    kid = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2, "gmm_tf32x3": 3}[rec.variant]
     bn = s["_query_keys"]["bn"]
     if lib.grouped_matmul_launch_geometry(kid, bn, s["N"], s["G"], s["F"],
                                           ctypes.addressof(out)) != 0:
         raise RuntimeError(f"grouped_matmul_launch_geometry refused {rec.name}")
     g = {"grid": tuple(out[:3]), "threads": out[3], "smem_bytes": out[4], "bm": out[5],
          "bn": out[6]}
-    if rec.variant == "gmm_wgmma":
+    if rec.variant in ("gmm_wgmma", "gmm_tf32x3"):
         g["tma_boxes"] = (tuple(out[7:9]), tuple(out[9:13]))
     return g
 
@@ -1445,6 +1451,10 @@ PATH_SHAPES = [
     ("grouped_matmul", {"N": 16, "Kd": 6144, "G": 16, "F": 10752}),
     ("grouped_matmul", {"N": 16, "Kd": 10752, "G": 16, "F": 6144}),
     ("grouped_matmul", {"N": 8192, "Kd": 6144, "G": 16, "F": 10752}),
+    ("grouped_matmul", {"N": 8192, "Kd": 10752, "G": 16, "F": 6144}),
+    # what TMA cannot read keeps the FFMA tiles: chip_smoke's unaligned cases
+    ("grouped_matmul", {"N": 273, "Kd": 98, "G": 4, "F": 300, "tma_ok": False}),
+    ("grouped_matmul", {"N": 273, "Kd": 96, "G": 4, "F": 302}),
     ("grouped_matmul", {"N": 8192, "Kd": 6144, "G": 16, "F": 10752, "dtype": torch.bfloat16}),
     ("grouped_matmul", {"N": 16, "Kd": 6144, "G": 16, "F": 10752, "dtype": torch.bfloat16}),
     ("grouped_matmul", {"N": 8, "Kd": 7168, "G": 128, "F": 4864, "dtype": torch.bfloat16}),

@@ -8,10 +8,11 @@
 // What it computes: the ragged grouped GEMM of the sorted dropless MoE
 // dispatch, out[i] = x[i] @ w[g(i)], for rows of x [N, Kd] sorted by group,
 // w's groups [Kd, F] each, and group_sizes [G] (int32, on the device) giving
-// the row segments.  Sums are fp32 (fp32 inputs: FFMA, no TF32; bf16
-// inputs: exact bf16 products summed in fp32, on tensor cores where
-// gmm_wgmma runs); inputs are fp32 or bf16 (x and w of one dtype); out
-// [N, F] is in x's dtype.
+// the row segments.  Sums are fp32 (fp32 inputs: FFMA in gmm_rows and
+// gmm_tiles, split TF32 on tensor cores in gmm_tf32x3 — never one TF32
+// product; bf16 inputs: exact bf16 products summed in fp32, on tensor cores
+// where gmm_wgmma runs); inputs are fp32 or bf16 (x and w of one dtype);
+// out [N, F] is in x's dtype.
 //
 // Weights are read in place through their strides.  Group g is
 // (g / e_in, g % e_in) of a [R, E = e_in, Kd, F] view — the layer slice of
@@ -29,9 +30,12 @@
 //     (the reference's grouped_layout bound, ref.py:138), y = F tiles.  A
 //     block finds its group by a binary search over the tile starts; tiles
 //     past the last group exit; no tile mixes two groups.
-//  3. Three kernels, chosen on the host from static facts only — dtype,
+//  3. Four kernels, chosen on the host from static facts only — dtype,
 //     alignment and the average rows per group
-//     (kernels/moe_dispatch.py::launch_geometry):
+//     (kernels/moe_dispatch.py::launch_geometry): gmm_wgmma for aligned
+//     bf16; else gmm_rows under 16 rows per group; else gmm_tf32x3 for
+//     aligned fp32 (4, below) and gmm_tiles for what TMA cannot read (fp32
+//     or bf16 with Kd, F or a stride off 16 bytes, or a base off 16).
 //     - gmm_wgmma (bf16 x and w, Kd and F multiples of 8, every base and
 //       stride 16-byte aligned; any N): bf16 tensor cores.  A block owns one
 //       64-row tile inside one group and BN = 128 (decode) or 256 (prefill)
@@ -57,21 +61,64 @@
 //       128-column blocks, so that even 8 hit experts give a few blocks per
 //       SM.  Each hit expert's weights are read once per 8 rows: bound by
 //       the bytes of the hit experts' weights.
-//     - gmm_tiles (the other prefill calls; fp32 is the model's dtype):
-//       128×128 output tiles, 256 threads with 8×8 outputs each (two 4-row
-//       by two 4-column float4 slices, so shared-memory reads are float4 and
-//       conflict-free), 16-deep K tiles in a 3-stage cp.async ring: x
-//       transposed into shared memory by 4-byte copies, w by 16-byte copies
-//       where F and the strides allow, masked zero-filling copies at the
-//       ragged edge; bf16 inputs are loaded through registers and stored as
-//       fp32.  fp32 FFMA only (the dbrx paths are held to the fp32
-//       reference at 1e-5: no TF32).  Bound by fp32 arithmetic.
+//     - gmm_tiles (prefill calls that TMA cannot read): 128×128 output
+//       tiles, 256 threads with 8×8 outputs each (two 4-row by two 4-column
+//       float4 slices, so shared-memory reads are float4 and conflict-free),
+//       16-deep K tiles in a 3-stage cp.async ring: x transposed into shared
+//       memory by 4-byte copies, w by 16-byte copies where F and the strides
+//       allow, masked zero-filling copies at the ragged edge; bf16 inputs
+//       are loaded through registers and stored as fp32.  fp32 FFMA, so
+//       bound by the 67 TFLOP/s fp32 rate (16.15 ms at dbrx's prefill shape,
+//       1.08 TFLOP; it took ~25 ms there).
 //     The tile kernels walk their (row tile, column tile) grid in groups of
 //     8 column tiles, columns fastest inside a group, so the blocks in
 //     flight share x rows and each expert's weights in L2.
 //     The Pallas kernel holds the whole padded Kd of a 128-row tile in VMEM;
 //     at dbrx's d_ff that is 5.5 MB, far past 227 KB of shared memory, so
 //     every kernel loops over Kd in tiles.
+//  4. gmm_tf32x3 (fp32 x and w, Kd, F and every stride of w multiples of 4
+//     elements, both bases 16-byte aligned, ≥ 16 rows per group on average:
+//     the fp32 dbrx prefill) runs fp32 on the TF32 tensor cores as split
+//     TF32 ("3xTF32", as flash_fwd_tf32x3 in flash_attention.cu): each
+//     operand v = big + small, big = tf32(v), small = tf32(v − big), both
+//     rounded to nearest (ties away), and x·w ≈ x_small·w_big + x_big·w_small
+//     + x_big·w_big, each product of two tf32 values exact.  What is dropped
+//     — x_small·w_small and the rounding of the small parts — is at most
+//     3·2^-22 of |x·w| a product, under fp32 FFMA's own rounding over a sum
+//     of thousands; one TF32 product (2^-11) would not meet the fp32
+//     tolerances (GMM_TOL 5e-5, the prefill's 1e-5 / 1e-4).  The tensor
+//     cores truncate as they accumulate (flash_attention.cu, the accuracy
+//     bullet of flash_fwd_tf32x3's note: the error grows with the chain),
+//     so each 32-deep stage's products go into a fresh fragment that is
+//     added to the output's fp32 registers with round to nearest: the
+//     truncating chain is 12 products long whatever Kd.  Its bound is 3 × 2·M·Kd·F
+//     operations at 495 TFLOP/s (6.56 ms at dbrx's prefill shape), or the
+//     bytes of x, the hit experts' weights and out (~1.4 ms there).
+//     The layout trap: tf32 wgmma reads shared-memory operands K-major only
+//     (no transpose bit), and a group's w block [Kd, F] is F-major.  So the
+//     kernel computes the transposed product, outᵀ = wᵀ·xᵀ: wgmma's M is
+//     output columns, its N is x rows (x is K-major as stored), and A = wᵀ
+//     comes from registers — each consumer thread loads its fragment from
+//     the TMA-landed w tile with 8-byte reads and splits it there, so w is
+//     never rewritten in shared memory.  Accumulator row r of a warp is
+//     column 2r (r < 8) or 2(r − 8) + 1, and fragment column c is k = 2c or
+//     2(c − 4) + 1 of the 8-wide slice, so a thread's two columns are
+//     adjacent (one 8-byte load a k, one 8-byte store an x row) and a phase
+//     of loads hits 8 distinct chunks of the 128-byte swizzle (no bank
+//     conflict); x's slices are stored in the same k order.  Block: 128 x
+//     rows of one group (wgmma's N) × 128 columns, two consumer warpgroups of 64
+//     columns (setmaxnreg 232: the output, the fresh fragment and the split
+//     w fragment hold ~170 registers), and a producer warpgroup (setmaxnreg
+//     40): warp 8 streams x (a 2-D map that starts at the tile's first row)
+//     and w (the 4-D map over the strided [R, E, Kd, F] view, gmm_wgmma's)
+//     by TMA into a 4-stage ring of 48 KB stages (x, x_small, w; 197,728 B);
+//     warps 9-11 round each x tile in place to x_big, permuted as above,
+//     and write x_small beside it (16-byte accesses, a stage ahead of the
+//     consumers), fence to the async proxy and arrive on the stage's ready
+//     barrier.  Rows < m only are stored, with register stores (the rows
+//     past m belong to the next group).  What limits it on the card is in
+//     PERF.md (the split's CUDA-core work, shared-memory bandwidth or the
+//     wgmma issue rate: it cannot be read without ncu).
 //
 // Every entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
@@ -111,6 +158,26 @@ constexpr int kRasterGroup = 8;  // column tiles walked together
 // columns × 64 k-rows of one group
 constexpr uint32_t kWgXBox[2] = {kWgBK, kWgBM};
 constexpr uint32_t kWgWBox[4] = {64, kWgBK, 1, 1};
+// gmm_tf32x3: 128 x rows (wgmma's N) × 128 output columns (two consumer
+// warpgroups of 64: wgmma's M) a tile, K stages of 32 (one 128-byte swizzle
+// row of fp32), a 4-stage ring; warpgroup 2 loads (warp 8) and splits x (9-11)
+constexpr int kTfBM = 128;
+constexpr int kTfBN = 128;
+constexpr int kTfBK = 32;
+constexpr int kTfStages = 4;
+constexpr int kTfThreads = 384;
+constexpr int kTfConsumers = 256;
+constexpr int kTfSplitters = 96;
+constexpr int kTfTile = kTfBM * kTfBK * 4;     // 16 KB: the x, x_small and w tiles alike
+constexpr int kTfWRegion = kTfBK * 128;        // w: 32 columns × kTfBK k-rows
+constexpr int kTfStageBytes = 3 * kTfTile;
+// the ring, a full, a ready and an empty barrier per stage, 1 KB of alignment slack
+constexpr int kTfSmemBytes = kTfStages * (kTfStageBytes + 3 * 8) + 1024;
+// the tensor maps' boxes: x 32 k (one 128-byte row) × 128 rows; w 32
+// columns × 32 k-rows of one group
+constexpr uint32_t kTfXBox[2] = {kTfBK, kTfBM};
+constexpr uint32_t kTfWBox[4] = {32, kTfBK, 1, 1};
+static_assert(kTfBN * kTfBK * 4 == kTfTile, "the w tile is as large as the x tile");
 
 // row tiles of a call: every group may start a partial tile
 inline int gmm_row_tiles(int N, int G, int bm) { return (N + bm - 1) / bm + (G < N ? G : N); }
@@ -538,6 +605,200 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   }
 }
 
+// fp32 → tf32, round to nearest with ties away from zero (cvt.rna.tf32.f32's
+// result): half a tf32 ulp added to the magnitude's bits, the 13 low bits
+// cleared — two integer operations (hopper::tf32_rna's cvt measured 1–6 %
+// slower here: scripts/gmm_tf32x3_variants.py, PERF.md)
+__device__ __forceinline__ uint32_t tf32_rn(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+// v → big = tf32(v) and small = tf32(v − big): big + small is v to 2^-22 of |v|
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rn(v);
+  small = tf32_rn(v - __uint_as_float(big));
+}
+
+// This thread's w fragments of one stage, split: the tf32 A fragment of 4
+// m64nNk8 products (see the header, 4).  Accumulator row 16·wq + lane/4 is
+// output column fl and row + 8 is fl + 1; fragment column t4 is k = 2·t4 of
+// the 8-wide slice and t4 + 4 is k = 2·t4 + 1 — so each (k, fl..fl + 1) pair
+// is one 8-byte load, and the 8 k rows a phase reads fall in 8 distinct
+// 16-byte chunks of the swizzled tile (no bank conflict).
+__device__ __forceinline__ void tf_load_w(const uint8_t* ws, int fl, int t4, uint32_t (&ab)[4][4],
+                                          uint32_t (&as)[4][4]) {
+  const uint8_t* reg = ws + (fl / 32) * kTfWRegion + (fl % 4) * 4;
+  const int ch = (fl % 32) / 4;
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 8 * kk + 2 * t4 + h;
+      const float2 v = *reinterpret_cast<const float2*>(reg + k * 128 + ((ch ^ (k & 7)) << 4));
+      split_tf32(v.x, ab[kk][2 * h], as[kk][2 * h]);          // (fl, column t4 (+4))
+      split_tf32(v.y, ab[kk][2 * h + 1], as[kk][2 * h + 1]);  // (fl + 1, ...)
+    }
+}
+
+// issue one stage's products into a fresh fragment `part` (committed, not
+// waited): 3xTF32 over 4 slices of 8 k, the small products (w_small·x_big,
+// w_big·x_small) before w_big·x_big, so the tensor cores' truncating
+// accumulation meets the full-size terms in 4 steps rather than 12.  xb, xs:
+// the stage's x_big and x_small tiles (K-major, 128-byte rows of 32 k).
+__device__ __forceinline__ void tf_issue(float (&part)[64], const uint32_t (&ab)[4][4],
+                                         const uint32_t (&as)[4][4], const uint8_t* xb,
+                                         const uint8_t* xs) {
+  hopper::fence_regs(part);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk)
+    hopper::wgmma_tf32_rs_n128(part, as[kk], hopper::desc_sw128(xb + 32 * kk, 0, 1024), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk)
+    hopper::wgmma_tf32_rs_n128(part, ab[kk], hopper::desc_sw128(xs + 32 * kk, 0, 1024), 1);
+#pragma unroll
+  for (int kk = 0; kk < kTfBK / 8; ++kk)
+    hopper::wgmma_tf32_rs_n128(part, ab[kk], hopper::desc_sw128(xb + 32 * kk, 0, 1024), 1);
+  hopper::wgmma_commit();
+}
+
+// a consumer warpgroup's K loop and store.  acc is the output in fp32
+// registers; each stage's products go into a fresh fragment added to acc in
+// fp32 (round to nearest), so the truncating tensor-core accumulation spans
+// 32 k, not Kd.
+__device__ __forceinline__ void tf_consume(uint8_t* smem, uint64_t* full, uint64_t* ready,
+                                           uint64_t* empty, float* __restrict__ out, int nk,
+                                           int r0, int m, int F, int f0, int fl, int t4) {
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  uint32_t ab[4][4], as[4][4];
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kTfStages;
+    const uint32_t ph = (i / kTfStages) & 1;
+    const uint8_t* st = smem + s * kTfStageBytes;
+    hopper::mbar_wait(&full[s], ph);
+    tf_load_w(st + 2 * kTfTile, fl, t4, ab, as);
+    hopper::mbar_wait(&ready[s], ph);
+    tf_issue(part, ab, as, st, st + kTfTile);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+    hopper::fence_regs(ab);
+    hopper::fence_regs(as);
+    hopper::mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] += part[j];
+  }
+  // acc[4j + e]: x row 8j + 2·t4 + (e & 1), column fl + (e >> 1); F % 4 == 0
+  // and fl is even, so a column pair is in or out together; rows ≥ m belong
+  // to the next group
+  const int f = f0 + fl;
+  if (f >= F) return;
+  float* o = out + static_cast<long long>(r0) * F + f;
+#pragma unroll
+  for (int j = 0; j < kTfBM / 8; ++j) {
+    const int n = 8 * j + 2 * t4;
+    if (n < m)
+      *reinterpret_cast<float2*>(o + static_cast<long long>(n) * F) =
+          make_float2(acc[4 * j], acc[4 * j + 2]);
+    if (n + 1 < m)
+      *reinterpret_cast<float2*>(o + static_cast<long long>(n + 1) * F) =
+          make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+  }
+}
+
+// fp32 grouped GEMM as split TF32 on tensor cores (see the header, 4): block
+// = 128 rows of one group × 128 columns; warpgroups 0-1 consume (wgmma),
+// warp 8 loads (TMA), warps 9-11 split x.
+__global__ void __launch_bounds__(kTfThreads, 1)
+gmm_tf32x3(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+           float* __restrict__ out, const int* __restrict__ offs, int G, int Kd, int F,
+           int e_in, int row_tiles, int col_tiles) {
+  constexpr int S = kTfStages;
+  int t, c, g, r0, m;
+  raster(blockIdx.x, row_tiles, col_tiles, t, c);
+  if (!find_tile(offs, G, kTfBM, t, g, r0, m)) return;
+  extern __shared__ __align__(1024) uint8_t tsmem_raw[];
+  // stage s: x (rounded in place to x_big), x_small, w
+  uint8_t* smem = hopper::align_smem_1024(tsmem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * kTfStageBytes);  // x and w landed
+  uint64_t* ready = full + S;  // x_big and x_small written
+  uint64_t* empty = ready + S;  // both consumer warpgroups are done with the stage
+  const int f0 = c * kTfBN;
+  const int nk = (Kd + kTfBK - 1) / kTfBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&ready[s], kTfSplitters);
+      hopper::mbar_init(&empty[s], kTfConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: warp 8 loads, warps 9-11 split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      if (lane == 0) {
+        hopper::prefetch_tensormap(&xmap);
+        hopper::prefetch_tensormap(&wmap);
+        const int e = g % e_in, r = g / e_in;
+        for (int i = 0; i < nk; ++i) {
+          const int s = i % S;
+          if (i >= S) hopper::mbar_wait(&empty[s], ((i / S) - 1) & 1);
+          uint8_t* st = smem + s * kTfStageBytes;
+          hopper::mbar_expect_tx(&full[s], 2 * kTfTile);
+          hopper::tma_load_2d(st, &xmap, &full[s], i * kTfBK, r0);
+#pragma unroll
+          for (int j = 0; j < kTfBN / 32; ++j)
+            hopper::tma_load_4d(st + 2 * kTfTile + j * kTfWRegion, &wmap, &full[s], f0 + 32 * j,
+                                i * kTfBK, e, r);
+        }
+      }
+      return;
+    }
+    // splitters: each item is one x row's 8-wide k slice (two 16-byte
+    // chunks, swizzled by row % 8), rounded in place to x_big and written
+    // as x_small, with its k order (0, 2, 4, 6, 1, 3, 5, 7) as tf_load_w
+    // pairs the w fragment's columns; consecutive threads take consecutive
+    // rows, so a phase's 8 chunks are distinct banks
+    const int sid = threadIdx.x - 9 * 32;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S;
+      hopper::mbar_wait(&full[s], (i / S) & 1);
+      uint8_t* xb = smem + s * kTfStageBytes;
+      uint8_t* xs = xb + kTfTile;
+      for (int it = sid; it < kTfBM * (kTfBK / 8); it += kTfSplitters) {
+        const int n = it % kTfBM, kk = it / kTfBM;
+        const int o0 = n * 128 + (((2 * kk) ^ (n & 7)) << 4);
+        const int o1 = n * 128 + (((2 * kk + 1) ^ (n & 7)) << 4);
+        const float4 lo = *reinterpret_cast<const float4*>(xb + o0);
+        const float4 hi = *reinterpret_cast<const float4*>(xb + o1);
+        uint4 b, sm;
+        split_tf32(lo.x, b.x, sm.x);
+        split_tf32(lo.z, b.y, sm.y);
+        split_tf32(hi.x, b.z, sm.z);
+        split_tf32(hi.z, b.w, sm.w);
+        *reinterpret_cast<uint4*>(xb + o0) = b;
+        *reinterpret_cast<uint4*>(xs + o0) = sm;
+        split_tf32(lo.y, b.x, sm.x);
+        split_tf32(lo.w, b.y, sm.y);
+        split_tf32(hi.y, b.z, sm.z);
+        split_tf32(hi.w, b.w, sm.w);
+        *reinterpret_cast<uint4*>(xb + o1) = b;
+        *reinterpret_cast<uint4*>(xs + o1) = sm;
+      }
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&ready[s]);
+    }
+    return;
+  }
+  // consumers take the registers the producer gave back (40 → 232 a thread)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int fl = 64 * (warp / 4) + 16 * (warp % 4) + 2 * (lane / 4);  // column in the tile
+  tf_consume(smem, full, ready, empty, out, nk, r0, m, F, f0, fl, lane % 4);
+}
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   return static_cast<int>(
@@ -607,6 +868,38 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* sizes, int*
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_tf32x3(const void* x, const void* w, void* out, const int* sizes, int* offs, int N,
+                  int Kd, int F, int G, int e_in, long long s_outer, long long s_inner,
+                  long long s_k, cudaStream_t stream) {
+  const int R = G / e_in;
+  if (R == 1) s_outer = static_cast<long long>(e_in) * s_inner;  // a [G, Kd, F] weight
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(Kd), static_cast<uint64_t>(N)};
+  const uint64_t xstr[1] = {static_cast<uint64_t>(Kd) * 4};
+  int err = hopper::encode_f32_map(&xmap, x, 2, xdims, xstr, kTfXBox);
+  if (err != 0) return err;
+  const uint64_t wdims[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(Kd),
+                             static_cast<uint64_t>(e_in), static_cast<uint64_t>(R)};
+  const uint64_t wstr[3] = {static_cast<uint64_t>(s_k) * 4, static_cast<uint64_t>(s_inner) * 4,
+                            static_cast<uint64_t>(s_outer) * 4};
+  err = hopper::encode_f32_map(&wmap, w, 4, wdims, wstr, kTfWBox);
+  if (err != 0) return err;
+  gmm_offsets<<<1, kScanThreads, 0, stream>>>(sizes, G, N, kTfBM, offs);
+  cudaError_t cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  static bool attr_set = false;  // once per process
+  if (!attr_set) {
+    err = set_smem(gmm_tf32x3, kTfSmemBytes);
+    if (err != 0) return err;
+    attr_set = true;
+  }
+  const int row_tiles = gmm_row_tiles(N, G, kTfBM);
+  const int col_tiles = (F + kTfBN - 1) / kTfBN;
+  gmm_tf32x3<<<row_tiles * col_tiles, kTfThreads, kTfSmemBytes, stream>>>(
+      xmap, wmap, static_cast<float*>(out), offs, G, Kd, F, e_in, row_tiles, col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -619,15 +912,23 @@ extern "C" {
 // vec = 1 takes 16-byte copies of fp32 w: F, s_k, s_inner, s_outer
 // multiples of 4 and w 16-byte aligned), 2 gmm_wgmma (bf16 only, 64-row
 // tiles of bn = 128 or 256 columns; Kd, F and the strides multiples of 8,
-// x and w 16-byte aligned).
+// x and w 16-byte aligned), 3 gmm_tf32x3 (fp32 only, 128 × 128 tiles; Kd,
+// F and the strides multiples of 4, x and w 16-byte aligned).
 int grouped_matmul(int bf16, int kernel, int bn, const void* x, const void* w, void* out,
                    const int* sizes, int* offs, int N, int Kd, int F, int G, int e_in,
                    long long s_outer, long long s_inner, long long s_k, int vec, void* stream) {
   if (N <= 0 || Kd <= 0 || F <= 0 || G <= 0 || G > kMaxGroups || e_in <= 0 ||
-      G % e_in != 0 || kernel < 0 || kernel > 2 ||
+      G % e_in != 0 || kernel < 0 || kernel > 3 ||
       (kernel == 0 && (F + kRowsThreads * kRowsTN - 1) / (kRowsThreads * kRowsTN) > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == 3) {
+    if (bf16 || Kd % 4 || F % 4 || s_k % 4 || s_inner % 4 || s_outer % 4 ||
+        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+        reinterpret_cast<uintptr_t>(out) % 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tf32x3(x, w, out, sizes, offs, N, Kd, F, G, e_in, s_outer, s_inner, s_k, s);
+  }
   if (kernel == 2) {
     if (!bf16 || Kd % 8 || F % 8 || s_k % 8 || s_inner % 8 || s_outer % 8 ||
         (bn != 128 && bn != 256))
@@ -645,7 +946,8 @@ int grouped_matmul(int bf16, int kernel, int bn, const void* x, const void* w, v
 
 // the static tile geometry, for the wrapper's launch_geometry to check
 // against: [rows BM, rows BN, tiles BM, tiles BN, max groups, tiles smem
-// bytes, wgmma BM, wgmma smem bytes at BN 128, at BN 256]
+// bytes, wgmma BM, wgmma smem bytes at BN 128, at BN 256, tf32x3 BM,
+// tf32x3 BN, tf32x3 smem bytes]
 void grouped_matmul_geometry(int* out) {
   out[0] = kRowsBM;
   out[1] = kRowsThreads * kRowsTN;
@@ -656,15 +958,18 @@ void grouped_matmul_geometry(int* out) {
   out[6] = kWgBM;
   out[7] = wg_smem_bytes<128>();
   out[8] = wg_smem_bytes<256>();
+  out[9] = kTfBM;
+  out[10] = kTfBN;
+  out[11] = kTfSmemBytes;
 }
 
 // The launch geometry of one call as the launchers above make it, for the
 // wrapper's launch_geometry to be held against: kernel 0 gmm_rows, 1
-// gmm_tiles, 2 gmm_wgmma at bn 128 or 256 columns.  out: grid x, y, z,
-// threads a block, dynamic shared memory bytes, rows a tile, columns a
-// tile, then the x and w tensor maps' boxes (2 + 4 dims; zeros but for
-// gmm_wgmma).  The offsets scan before it is one block of kScanThreads.
-// Returns 0, or -1 for an unknown kernel or bn.
+// gmm_tiles, 2 gmm_wgmma at bn 128 or 256 columns, 3 gmm_tf32x3.  out:
+// grid x, y, z, threads a block, dynamic shared memory bytes, rows a tile,
+// columns a tile, then the x and w tensor maps' boxes (2 + 4 dims; zeros
+// for gmm_rows and gmm_tiles).  The offsets scan before it is one block of
+// kScanThreads.  Returns 0, or -1 for an unknown kernel or bn.
 int grouped_matmul_launch_geometry(int kernel, int bn, int N, int G, int F, int* out) {
   for (int i = 0; i < 13; ++i) out[i] = 0;
   out[2] = 1;
@@ -691,6 +996,15 @@ int grouped_matmul_launch_geometry(int kernel, int bn, int N, int G, int F, int*
     out[6] = bn;
     for (int i = 0; i < 2; ++i) out[7 + i] = static_cast<int>(kWgXBox[i]);
     for (int i = 0; i < 4; ++i) out[9 + i] = static_cast<int>(kWgWBox[i]);
+  } else if (kernel == 3) {
+    out[0] = gmm_row_tiles(N, G, kTfBM) * ((F + kTfBN - 1) / kTfBN);
+    out[1] = 1;
+    out[3] = kTfThreads;
+    out[4] = kTfSmemBytes;
+    out[5] = kTfBM;
+    out[6] = kTfBN;
+    for (int i = 0; i < 2; ++i) out[7 + i] = static_cast<int>(kTfXBox[i]);
+    for (int i = 0; i < 4; ++i) out[9 + i] = static_cast<int>(kTfWBox[i]);
   } else {
     return -1;
   }

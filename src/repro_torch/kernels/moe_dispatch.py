@@ -8,13 +8,16 @@ segments, fp32 sums, the output in x's dtype.
 
 What bounds it on the card, and the design: see ``csrc/moe_dispatch.cu``.
 Decode (a few rows per expert) is bound by the bytes of the experts the
-rows hit, fp32 prefill (hundreds of rows per expert) by fp32 arithmetic.
-``launch_geometry`` picks one of three kernels from static facts — dtype,
+rows hit, fp32 prefill (hundreds of rows per expert) by arithmetic.
+``launch_geometry`` picks one of four kernels from static facts — dtype,
 alignment and the average rows per group: ``gmm_wgmma`` (bf16 tensor
 cores fed by TMA, 64-row tiles, 128 columns below 16 rows per group, else
 256) for bf16 when Kd, F and every stride are multiples of 8 elements and
 x and w 16-byte aligned; otherwise ``gmm_rows`` (8-row tiles) below 16 rows
-per group and ``gmm_tiles`` (128×128 fp32 FFMA tiles, cp.async ring) above.
+per group; above it ``gmm_tf32x3`` (fp32 as split TF32 on the tensor
+cores, TMA-fed 128×128 tiles) for fp32 when Kd, F and every stride are
+multiples of 4 elements and x and w 16-byte aligned, and ``gmm_tiles``
+(128×128 FFMA tiles, cp.async ring) for what TMA cannot read.
 The segment offsets are computed on the card from ``group_sizes``: the
 wrapper never reads them on the host.
 
@@ -38,7 +41,7 @@ from repro_torch.kernels import _build, ref
 # Kernel launches through this wrapper (one per call that reaches the card),
 # in all and by kernel.
 launches = 0
-variant_launches = {"gmm_rows": 0, "gmm_tiles": 0, "gmm_wgmma": 0}
+variant_launches = {"gmm_rows": 0, "gmm_tiles": 0, "gmm_wgmma": 0, "gmm_tf32x3": 0}
 
 # tile geometry, as csrc/moe_dispatch.cu's constants
 ROWS_BM, ROWS_BN, ROWS_THREADS = 8, 128, 128       # gmm_rows (decode)
@@ -47,11 +50,15 @@ TILE_STAGES, TILE_BK = 3, 16
 TILE_SMEM = TILE_STAGES * (TILE_BK * (TILE_BM + 4) + TILE_BK * TILE_BN) * 4
 WG_BM, WG_BK, WG_THREADS = 64, 64, 160             # gmm_wgmma (bf16)
 WG_STAGES = {128: 4, 256: 5}                       # by BN
+TF_BM, TF_BN, TF_BK, TF_THREADS = 128, 128, 32, 384  # gmm_tf32x3 (fp32, TMA)
+TF_STAGES = 4
+# x, x_small and w tiles a stage, three barriers a stage, 1 KB of alignment slack
+TF_SMEM = TF_STAGES * (3 * TF_BM * TF_BK * 4 + 3 * 8) + 1024
 SCAN_THREADS = 1024
 MAX_GROUPS = 4 * SCAN_THREADS
 # below this many rows per group on average, the decode kernels run
 ROWS_PER_GROUP_SMALL = 16
-_KERNEL_IDS = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2}
+_KERNEL_IDS = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2, "gmm_tf32x3": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -68,12 +75,14 @@ def launch_geometry(N: int, Kd: int, G: int, F: int, dtype=torch.float32,
     and the grid — ``round_up(N, bm)/bm + min(G, N)`` row tiles (the
     reference's ``grouped_layout`` bound) by ``ceil(F/bn)`` column tiles
     (the tile kernels launch it flattened and walk it in groups of 8 column
-    tiles).  ``gmm_wgmma`` for bf16 when Kd and F are multiples of 8 and
-    ``tma_ok`` (the strides multiples of 8 elements, x and w 16-byte
-    aligned: ``tma_aligned``); else ``gmm_rows`` below 16 rows per group on
-    average and ``gmm_tiles`` above.  Unlike the Pallas kernel, Kd and F
+    tiles).  ``tma_ok``: TMA can read x and w (every stride of w a multiple
+    of 16 bytes, x and w 16-byte aligned: ``tma_aligned``).  ``gmm_wgmma``
+    for bf16 when Kd and F are multiples of 8 and ``tma_ok``; else
+    ``gmm_rows`` below 16 rows per group on average; above it
+    ``gmm_tf32x3`` for fp32 when Kd and F are multiples of 4 and
+    ``tma_ok``, else ``gmm_tiles``.  Unlike the Pallas kernel, Kd and F
     need not be padded: the edges are masked (or zero-filled by TMA), and
-    Kd is a loop inside the block.  ``tma_boxes``: gmm_wgmma's x and w
+    Kd is a loop inside the block.  ``tma_boxes``: the TMA kernels' x and w
     tensor-map boxes."""
     small = N < ROWS_PER_GROUP_SMALL * G
     n = max(N, 1)
@@ -85,6 +94,10 @@ def launch_geometry(N: int, Kd: int, G: int, F: int, dtype=torch.float32,
     elif small:
         geo = {"kernel": "gmm_rows", "bm": ROWS_BM, "bn": ROWS_BN,
                "threads": ROWS_THREADS, "smem_bytes": 0}
+    elif dtype == torch.float32 and tma_ok and Kd % 4 == 0 and F % 4 == 0:
+        geo = {"kernel": "gmm_tf32x3", "bm": TF_BM, "bn": TF_BN, "threads": TF_THREADS,
+               "stages": TF_STAGES, "smem_bytes": TF_SMEM,
+               "tma_boxes": ((TF_BK, TF_BM), (32, TF_BK, 1, 1))}
     else:
         geo = {"kernel": "gmm_tiles", "bm": TILE_BM, "bn": TILE_BN,
                "threads": TILE_THREADS, "stages": TILE_STAGES, "smem_bytes": TILE_SMEM}
@@ -93,11 +106,13 @@ def launch_geometry(N: int, Kd: int, G: int, F: int, dtype=torch.float32,
 
 
 def tma_aligned(x, w) -> bool:
-    """Whether TMA can read x and w as gmm_wgmma needs: every stride of w
-    (but the unit one) a multiple of 8 elements and both bases 16-byte
-    aligned (x is contiguous, so its row stride is Kd)."""
+    """Whether TMA can read x and w as gmm_wgmma and gmm_tf32x3 need: every
+    stride of w (but the unit one) a multiple of 16 bytes — 8 bf16 or 4 fp32
+    elements — and both bases 16-byte aligned (x is contiguous, so its row
+    stride is Kd: ``launch_geometry`` checks it)."""
     _, _, s_outer, s_inner, s_k = weight_layout(w)
-    return (all(s % 8 == 0 for s in (s_outer, s_inner, s_k))
+    per = 16 // w.element_size()
+    return (all(s % per == 0 for s in (s_outer, s_inner, s_k))
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 

@@ -378,7 +378,7 @@ def test_r5_every_path_shape_fits_the_card():
                                          "opt_update_multi_kernel", "flash_fwd",
                                          "flash_fwd_wgmma",
                                          "flash_fwd_tf32x3", "gmm_rows", "gmm_tiles",
-                                         "gmm_wgmma"}
+                                         "gmm_wgmma", "gmm_tf32x3"}
     tf = next(r for r in recs if r.variant == "flash_fwd_tf32x3" and r.shape["hd"] == 128)
     assert tf.smem_bytes == 230_512                     # 1,936 B under the opt-in limit
 

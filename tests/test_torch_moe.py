@@ -18,9 +18,11 @@ Tolerances (fp32; sums taken in another order than the reference's):
   * one local step: atol 1e-5; ``fit`` on replayed windows: losses rtol
     1e-4 (atol 1e-6), parameters atol 1e-4, as for the dense family;
   * on the card, K5 vs its plain version: fp32 atol = rtol = 5e-5 (up to
-    d_ff products summed in another order), bf16 one bf16 ulp (rtol 2⁻⁷) +
-    atol 1e-4 — every kernel, gmm_wgmma included: bf16 products are exact
-    in the fp32 accumulator and the result is rounded once.
+    d_ff products summed in another order; gmm_tf32x3's split TF32 drops at
+    most 3·2^-22 of each product, emulated here at dbrx's d_ff), bf16 one
+    bf16 ulp (rtol 2⁻⁷) + atol 1e-4 — every kernel, gmm_wgmma included:
+    bf16 products are exact in the fp32 accumulator and the result is
+    rounded once.
 
 The card cases need no jax: ``PYTHONPATH=src python -m pytest --noconftest
 -q -m cuda tests/test_torch_moe.py``.
@@ -219,9 +221,10 @@ def test_ops_grouped_matmul_dispatch():
 @pytest.mark.parametrize("N,Kd,G,F,kernel,grid", [
     (16, 6144, 16, 10752, "gmm_rows", (18, 84)),       # dbrx decode, gate/up
     (16, 10752, 16, 6144, "gmm_rows", (18, 48)),       # dbrx decode, down
-    (8192, 6144, 16, 10752, "gmm_tiles", (80, 84)),    # dbrx prefill (128-row tiles)
+    (8192, 6144, 16, 10752, "gmm_tf32x3", (80, 84)),   # dbrx prefill (128-row tiles)
+    (8192, 10752, 16, 6144, "gmm_tf32x3", (80, 48)),   # dbrx prefill, down
     (8, 7168, 128, 4864, "gmm_rows", (9, 38)),         # arctic decode shape, fp32
-    (4096, 7168, 128, 4864, "gmm_tiles", (160, 38)),   # arctic prefill shape, fp32
+    (4096, 7168, 128, 4864, "gmm_tf32x3", (160, 38)),  # arctic prefill shape, fp32
     (1, 7, 4, 5, "gmm_rows", (2, 1)),
 ])
 def test_launch_geometry(N, Kd, G, F, kernel, grid):
@@ -243,9 +246,17 @@ def test_launch_geometry(N, Kd, G, F, kernel, grid):
     (273, 96, 4, 300, torch.bfloat16, True, "gmm_tiles", 128),         # F off 8
     (4096, 7168, 128, 4864, torch.bfloat16, False, "gmm_tiles", 128),  # strides/bases
     (8, 7168, 128, 4864, torch.bfloat16, False, "gmm_rows", 128),
-    # fp32: FFMA by rows per group
+    # fp32: FFMA rows below 16 rows per group; above it split TF32 on the
+    # tensor cores where TMA can read x and w, else the FFMA tiles
     (16, 6144, 16, 10752, torch.float32, True, "gmm_rows", 128),
-    (8192, 6144, 16, 10752, torch.float32, True, "gmm_tiles", 128),
+    (8192, 6144, 16, 10752, torch.float32, True, "gmm_tf32x3", 128),   # dbrx prefill
+    (8192, 10752, 16, 6144, torch.float32, True, "gmm_tf32x3", 128),   # dbrx down
+    (4096, 7168, 128, 4864, torch.float32, True, "gmm_tf32x3", 128),   # arctic in fp32
+    (273, 100, 5, 300, torch.float32, True, "gmm_tf32x3", 128),        # aligned ragged
+    (273, 96, 4, 302, torch.float32, True, "gmm_tiles", 128),          # F off 4
+    (273, 98, 4, 300, torch.float32, True, "gmm_tiles", 128),          # Kd off 4
+    (8192, 6144, 16, 10752, torch.float32, False, "gmm_tiles", 128),   # strides/bases
+    (10, 100, 4, 300, torch.float32, True, "gmm_rows", 128),           # decode stays
 ])
 def test_launch_geometry_picks_the_variant(N, Kd, G, F, dtype, tma_ok, kernel, bn):
     geo = md.launch_geometry(N, Kd, G, F, dtype, tma_ok)
@@ -257,6 +268,12 @@ def test_launch_geometry_picks_the_variant(N, Kd, G, F, dtype, tma_ok, kernel, b
         assert geo["smem_bytes"] == md.wgmma_smem(bn) and geo["stages"] == md.WG_STAGES[bn]
     if kernel == "gmm_tiles":
         assert (geo["bm"], geo["bn"], geo["threads"]) == (128, 128, 256)
+    if kernel == "gmm_tf32x3":
+        # two consumer warpgroups of 64 columns and a producer warpgroup; a
+        # 4-stage ring of x, x_small and w tiles (16 KB each)
+        assert (geo["bm"], geo["bn"], geo["threads"], geo["stages"]) == (128, 128, 384, 4)
+        assert geo["smem_bytes"] == md.TF_SMEM == 197_728
+        assert geo["tma_boxes"] == ((32, 128), (32, 32, 1, 1))
 
 
 def test_tma_and_vec_alignment_are_read_from_the_tensors():
@@ -270,16 +287,93 @@ def test_tma_and_vec_alignment_are_read_from_the_tensors():
     f = torch.zeros((2, 16, 24))
     assert md.vec_aligned(f) and md.vec_aligned(f[:, :, :20])
     assert not md.vec_aligned(f[:, :, :22]) and not md.vec_aligned(f[:, :, 1:21])
+    # fp32: 16-byte strides are 4 elements
+    xf = torch.zeros((5, 16))
+    assert md.tma_aligned(xf, f) and md.tma_aligned(xf, f[:, :, :20])
+    assert md.tma_aligned(xf, torch.zeros((2, 3, 16, 20))[:, 1])   # strided K-fold slice
+    assert not md.tma_aligned(xf, torch.zeros((2, 16, 22))[:, :, :20])   # s_k off 4
+    assert not md.tma_aligned(xf, f[:, :, 2:22])                   # base 8 bytes in
+    assert not md.tma_aligned(torch.zeros(81)[1:].view(5, 16), f)  # x base off 16 bytes
 
 
 def test_variant_counters_start_at_zero_and_the_cpu_never_counts():
-    assert set(md.variant_launches) == {"gmm_rows", "gmm_tiles", "gmm_wgmma"}
+    assert set(md.variant_launches) == {"gmm_rows", "gmm_tiles", "gmm_wgmma", "gmm_tf32x3"}
+    assert set(md._KERNEL_IDS) == set(md.variant_launches)
     x, w, g = (torch.from_numpy(a) for a in _gmm_inputs(3, [2, 3], Kd=8, F=8))
-    md.launches, md.variant_launches["gmm_wgmma"] = 5, 2
+    md.launches = 5
+    md.variant_launches.update(gmm_rows=1, gmm_tiles=3, gmm_wgmma=2, gmm_tf32x3=4)
     md.grouped_matmul(x.bfloat16(), w.bfloat16(), g)
-    assert md.launches == 5 and md.variant_launches["gmm_wgmma"] == 2
+    # an fp32 call past 16 rows a group: gmm_tf32x3's shape, on the CPU
+    x32, w32 = torch.randn((40, 8)), torch.randn((2, 8, 8))
+    g32 = torch.tensor([20, 20], dtype=torch.int32)
+    assert md.launch_geometry(40, 8, 2, 8, torch.float32,
+                              md.tma_aligned(x32, w32))["kernel"] == "gmm_tf32x3"
+    md.grouped_matmul(x32, w32, g32)
+    assert md.launches == 5
+    assert md.variant_launches == {"gmm_rows": 1, "gmm_tiles": 3, "gmm_wgmma": 2,
+                                   "gmm_tf32x3": 4}
     md.zero_launches()
     assert md.launches == 0 and set(md.variant_launches.values()) == {0}
+
+
+# gmm_tf32x3's arithmetic, emulated on the CPU: the split, the three exact
+# products, the 32-deep fresh fragments, the fp32 output
+GMM_TOL_F32 = {"atol": 5e-5, "rtol": 5e-5}     # chip_smoke.py's GMM_TOL in fp32
+
+
+def _tf32_rn(a: np.ndarray) -> np.ndarray:
+    """fp32 → tf32, round to nearest with ties away from zero, on the bit
+    patterns (the kernel's ``tf32_rn``: ``cvt.rna.tf32.f32``'s result)."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _rz32(v: np.ndarray) -> np.ndarray:
+    """float64 → float32 rounded toward zero, as the tensor cores round an
+    accumulation."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _gmm_tf32x3_emulated(x: np.ndarray, w: np.ndarray, split: bool = True) -> np.ndarray:
+    """x [M, Kd] · w [Kd, F] summed as gmm_tf32x3 sums it: each 32-deep
+    stage into a fresh fragment, one 8-deep product at a time (its 8 exact
+    tf32 products and the fragment summed, then truncated to fp32), the
+    small products (w_small·x_big, w_big·x_small) before w_big·x_big; the
+    fragment added to the fp32 output, rounded to nearest.  ``split=False``:
+    one TF32 product (w_big·x_big alone)."""
+    xb, wb = _tf32_rn(x), _tf32_rn(w)
+    xs, ws = _tf32_rn(x - xb), _tf32_rn(w - wb)
+    terms = [(xb, ws), (xs, wb), (xb, wb)] if split else [(xb, wb)]
+    Kd = x.shape[1]
+    out = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for k0 in range(0, Kd, 32):
+        part = np.zeros_like(out)
+        for a, b in terms:
+            for k in range(k0, min(k0 + 32, Kd), 8):
+                prod = a[:, k:k + 8].astype(np.float64) @ b[k:k + 8].astype(np.float64)
+                part = _rz32(part.astype(np.float64) + prod)
+        out = out + part
+    return out
+
+
+def test_tf32x3_split_holds_the_fp32_tolerance_at_dbrx_depth():
+    """At dbrx's d_ff (Kd = 10,752, weights at the init scale Kd^-0.5), the
+    kernel's arithmetic lands within GMM_TOL's fp32 (5e-5, 5e-5) of the
+    float64 product; one TF32 product does not."""
+    rng = np.random.default_rng(28)
+    Kd = 10752
+    x = rng.standard_normal((4, Kd)).astype(np.float32)
+    w = (rng.standard_normal((Kd, 8)) * Kd ** -0.5).astype(np.float32)
+    want = x.astype(np.float64) @ w.astype(np.float64)
+    big, small = _tf32_rn(x), _tf32_rn(x - _tf32_rn(x))
+    assert not (big.view(np.uint32) & 0x1FFF).any() and not (small.view(np.uint32) & 0x1FFF).any()
+    assert np.abs(big.astype(np.float64) + small - x).max() <= 2.0 ** -22 * np.abs(x).max()
+    np.testing.assert_allclose(_gmm_tf32x3_emulated(x, w), want, **GMM_TOL_F32)
+    one = _gmm_tf32x3_emulated(x, w, split=False)
+    assert not np.allclose(one, want, **GMM_TOL_F32)
 
 
 def test_build_knows_the_moe_source(tmp_path, monkeypatch):
@@ -645,8 +739,9 @@ CARD_CASES = [
     ([10, 0, 0, 0], 64, 128, torch.bfloat16),
     ([1, 2, 3, 4], 33, 1000, torch.float32),
     ([1], 16, 16, torch.float32),                       # N = 1
-    ([70, 0, 200, 3], 96, 300, torch.float32),          # the 128-row tiles
+    ([70, 0, 200, 3], 96, 300, torch.float32),          # the 128-row tiles (gmm_tf32x3)
     ([70, 0, 200, 3], 96, 300, torch.bfloat16),
+    ([70, 0, 200, 3], 98, 302, torch.float32),          # Kd and F off 4: gmm_tiles
 ]
 
 # gmm_wgmma (bf16, Kd and F multiples of 8): group sizes, Kd, F
@@ -656,6 +751,31 @@ WGMMA_CASES = [
     ([130, 5, 0, 64], 64, 256),         # a group across three 64-row tiles
     ([3, 0, 0, 2] * 8, 256, 512),       # decode: under 16 rows per group
 ]
+
+
+# gmm_tf32x3 (fp32, ≥ 16 rows per group, Kd and F multiples of 4): group
+# sizes, Kd, F
+TF32X3_CASES = [
+    ([70, 0, 200, 3, 0], 100, 300),     # empty groups, a 3-row tail, Kd and F off the tiles
+    ([64, 65, 1, 130], 64, 256),        # tails of 64, 65, 1 and 2 rows
+    ([600, 424, 0, 300], 1024, 1032),   # 32 stages through the 4-stage ring
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs,Kd,F", TF32X3_CASES)
+def test_tf32x3_kernel_matches_plain_on_card(cuda_device, gs, Kd, F):
+    g = torch.Generator().manual_seed(sum(gs) + Kd + F)
+    x = torch.randn((sum(gs), Kd), generator=g).to(cuda_device)
+    w = (torch.randn((len(gs), Kd, F), generator=g) * Kd ** -0.5).to(cuda_device)
+    sizes = torch.tensor(gs, dtype=torch.int32, device=cuda_device)
+    assert md.launch_geometry(sum(gs), Kd, len(gs), F, torch.float32,
+                              md.tma_aligned(x, w))["kernel"] == "gmm_tf32x3"
+    before = md.variant_launches["gmm_tf32x3"]
+    got = md.grouped_matmul(x, w, sizes)
+    torch.cuda.synchronize()
+    assert md.variant_launches["gmm_tf32x3"] == before + 1
+    torch.testing.assert_close(got, ref.grouped_matmul_ref(x, w, sizes), atol=5e-5, rtol=5e-5)
 
 
 @pytest.mark.cuda
@@ -717,15 +837,20 @@ def test_wgmma_kernel_at_arctics_down_shape_on_card(cuda_device, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt,kernel", [(torch.bfloat16, "gmm_wgmma"), (torch.float32, "gmm_tiles")])
-def test_tile_kernels_read_a_strided_k_folded_stack_on_card(cuda_device, dt, kernel):
-    """A [4, 2, 16, 128, 256] stack's layer slice, 4 × 16 groups, through
-    the bf16 TMA maps and the fp32 cp.async tiles (≥ 16 rows per group)."""
-    R, L, E, Kd, F = 4, 2, 16, 128, 256
+@pytest.mark.parametrize("dt,kernel,Kd", [(torch.bfloat16, "gmm_wgmma", 128),
+                                         (torch.float32, "gmm_tf32x3", 128),
+                                         (torch.float32, "gmm_tiles", 126)])
+def test_tile_kernels_read_a_strided_k_folded_stack_on_card(cuda_device, dt, kernel, Kd):
+    """A [4, 2, 16, Kd, 256] stack's layer slice, 4 × 16 groups, through
+    the bf16 and fp32 TMA maps and the fp32 cp.async tiles (≥ 16 rows per
+    group; Kd = 126 puts x's rows off 16 bytes, which TMA cannot read)."""
+    R, L, E, F = 4, 2, 16, 256
     g = torch.Generator().manual_seed(9)
     stack = (torch.randn((R, L, E, Kd, F), generator=g) * Kd ** -0.5).to(cuda_device, dt)
     sizes = torch.randint(16, 40, (R * E,), generator=g).to(cuda_device)
     x = torch.randn((int(sizes.sum()), Kd), generator=g).to(cuda_device, dt)
+    assert md.launch_geometry(x.shape[0], Kd, R * E, F, dt,
+                              md.tma_aligned(x, stack[:, 1]))["kernel"] == kernel
     before = md.variant_launches[kernel]
     got = md.grouped_matmul(x, stack[:, 1], sizes)
     torch.cuda.synchronize()
@@ -762,7 +887,8 @@ def test_kernel_tiles_are_the_wrappers_geometry_on_card(cuda_device):
     """The CUDA source's tile constants are the ones ``launch_geometry``
     computes the grid from."""
     import ctypes
-    got = (ctypes.c_int * 9)()
+    got = (ctypes.c_int * 12)()
     _build.load().grouped_matmul_geometry(ctypes.addressof(got))
     assert list(got) == [md.ROWS_BM, md.ROWS_BN, md.TILE_BM, md.TILE_BN, md.MAX_GROUPS,
-                         md.TILE_SMEM, md.WG_BM, md.wgmma_smem(128), md.wgmma_smem(256)]
+                         md.TILE_SMEM, md.WG_BM, md.wgmma_smem(128), md.wgmma_smem(256),
+                         md.TF_BM, md.TF_BN, md.TF_SMEM]
