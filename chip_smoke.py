@@ -124,12 +124,16 @@ last line):
  11. K5 grouped_matmul against its plain version (``ref.grouped_matmul_ref``)
      on the card, fp32 within atol = rtol = 5e-5 and bf16 within one bf16
      ulp + atol 1e-4, at dbrx-132b's decode (N=16, gmm_rows) and prefill
-     (N=8192, gmm_tf32x3) expert shapes in fp32 and its prefill and decode
-     (N=16) shapes, gate and down, in bf16 (gmm_wgmma), arctic-480b's (128
-     experts, N=8 and 4096, gate and down) in bf16 (gmm_wgmma),
-     K-folded strided weights in both dtypes, the reference's edge tables,
+     (N=8192, gmm_tf32x3) expert shapes in fp32 and its prefill
+     (gmm_wgmma_m128) and decode (N=16, gmm_wgmma) shapes, gate and down, in
+     bf16, arctic-480b's (128 experts, N=8 and 4096, gate and down) in bf16
+     (gmm_wgmma), K-folded strided weights in both dtypes (and in bf16 at
+     128-200 rows a group, gmm_wgmma_m128), the reference's edge tables,
      N = 1, ragged groups with empty ones and short tails (gmm_tf32x3,
-     gmm_wgmma), and fp32 and bf16 that TMA cannot read (gmm_tiles); each
+     gmm_wgmma; gmm_wgmma_m128 with 1-, 127-, 128- and 129-row groups, Kd
+     off 64 and F off 256), and fp32 and bf16 that TMA cannot read
+     (gmm_tiles); at every gmm_wgmma_m128 case gmm_wgmma on the same values,
+     timed and held bitwise equal; each
      case's kernel checked against the one ``launch_geometry`` names; group
      sizes from a seeded top-k routing; each timed beside its bound (the hit
      experts' bytes or the operations: fp32 FFMA's and 3xTF32's), the plain
@@ -151,7 +155,7 @@ last line):
      per prefill and decode tick, tokens/s, TTFT and latency, a profiled
      decode tick against K5's bound; then the same in bf16 with 4 of 40
      layers (14,269,532,161 parameters, 28.5 GB): the prefill (4 K4
-     flash_fwd_wgmma, 12 K5 gmm_wgmma launches, under the bf16 rule, the
+     flash_fwd_wgmma, 12 K5 gmm_wgmma_m128 launches, under the bf16 rule, the
      caches at the positions no routing flip reached) and the engine
      (every K5 launch gmm_wgmma at 1-4 rows an expert; a token
      flip allowed where impl="ref"'s top-2 logit gap is within the bf16
@@ -267,7 +271,7 @@ last line):
      state's) and the bf16 dbrx-132b engine on the 4-layer weights of
      phase 12 (R3, R4's two chunk shapes, R5's gmm_wgmma records against
      the query), and R5 at every shape of ``analysis.audit.PATH_SHAPES``
-     (every K4 and K5 variant, the four K5 ones included) against the
+     (every K4 and K5 variant, the five K5 ones included) against the
      kernels' own queries; a finding fails the run.  With it, the dry run's parameter
      bytes of the bf16 stablelm-1.6b weights on a 1 × 1 mesh against the
      bytes the card holds for them (phase 9's weights), and the dry run's
@@ -1545,6 +1549,7 @@ DBRX_PREFILL = PrefillPath(
     "d_ff 10752, vocab 100,352), one replica (K=1); " + PREFILL_32K,
     n_layers=DBRX_LAYERS)
 # the bf16 paths: every K4 launch flash_fwd_wgmma, every K5 launch gmm_wgmma
+# but the bf16 dbrx prefill's (~512 rows an expert: gmm_wgmma_m128)
 BF16_STABLELM_PREFILL = dataclasses.replace(
     STABLELM_PREFILL, label="bf16_stablelm_prefill", dtype=BF16, k4="flash_fwd_wgmma",
     k5="gmm_wgmma", reduced=STABLELM_PREFILL.reduced + "; bf16 weights")
@@ -1558,7 +1563,7 @@ BF16_DBRX_PREFILL = PrefillPath(
     "bf16_dbrx_prefill", "dbrx-132b", 14_269_532_161, 2, 1024,
     f"{BF16_DBRX_LAYERS} of 40 layers (full width, as dbrx_prefill; bf16 weights, 28.5 GB, "
     "where fp32 fits 2), one replica (K=1); " + PREFILL_32K,
-    n_layers=BF16_DBRX_LAYERS, dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma")
+    n_layers=BF16_DBRX_LAYERS, dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma_m128")
 
 
 # the vlm, hybrid and audio families at full width
@@ -2084,7 +2089,9 @@ def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
     peak, torch._grouped_mm's time, and the row tiles the geometry
     launches beside those holding rows; in fp32 both bounds and the error
     against a float64 product, and with ``tiles_beside`` gmm_tiles on the
-    same values (``unaligned_copy``) timed and held to the same references.
+    same values (``unaligned_copy``) timed and held to the same references;
+    at a gmm_wgmma_m128 case gmm_wgmma on the same values, timed and held
+    bitwise equal to it (``wgmma_beside``).
     ``sizes``: the group sizes (a list, an array or a tensor on the card).
     Appends the record to ``rows`` and returns it."""
     from repro_torch.kernels import moe_dispatch as md
@@ -2163,6 +2170,8 @@ def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
                             "bound_by": both["bound_ffma_by"]}
             del xu, tgot, twant, tdiff
         del exact
+    if kernel == "gmm_wgmma_m128":
+        f64["wgmma"] = wgmma_beside(label, x, w, sizes, iters, fn)
     hit = int((sizes_np > 0).sum())
     # row tiles: the grid's bound against the tiles that hold a row
     bm = geo["bm"]
@@ -2193,6 +2202,11 @@ def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
                          f"({dev_txt(t['device_ms'], t['device_ms_source'])}), error "
                          f"against float64 {t['err_vs_f64']:.3g}, against the plain version "
                          f"{t['max_abs_err']:.3g}")
+    if "wgmma" in f64:
+        t = f64["wgmma"]
+        fp32_txt += (f"; gmm_wgmma on the same values: {t['ms']:.4f} ms "
+                     f"({dev_txt(t['device_ms'], t['device_ms_source'])}), bitwise equal: "
+                     f"{t['bitwise']}")
     print(f"grouped_matmul {label} [N={x.shape[0]}, Kd={x.shape[1]}, F={w.shape[-1]}, "
           f"G={G}, {hit} hit] {dname} {kernel}: max_abs_err={err:.3g} (atol {atol:g}, "
           f"rtol {rtol:g}); kernel {ms:.4f} ms ({dev_txt(dev_ms, dev_src)}), plain "
@@ -2202,6 +2216,42 @@ def gmm_case(rows: list, label: str, x, w, sizes, iters: int, rates, bf16_rate,
           f"of {bm} launched, {busy} hold rows, {100 * rec['row_share']:.1f} % of their "
           f"rows real{fp32_txt}")
     return rec
+
+
+@contextlib.contextmanager
+def no_m128():
+    """K5 calls inside pick gmm_wgmma where they would pick gmm_wgmma_m128
+    (``ROWS_PER_GROUP_M128`` raised past any call), so a check can run both
+    kernels on the same values."""
+    from repro_torch.kernels import moe_dispatch as md
+    threshold, md.ROWS_PER_GROUP_M128 = md.ROWS_PER_GROUP_M128, 1 << 30
+    try:
+        yield
+    finally:
+        md.ROWS_PER_GROUP_M128 = threshold
+
+
+def wgmma_beside(label: str, x, w, sizes, iters: int, fn) -> dict:
+    """gmm_wgmma on the values a gmm_wgmma_m128 case ran (``no_m128``):
+    launched, bitwise the 128-row kernel's output (the same products in the
+    same order), timed beside it."""
+    from repro_torch.kernels import moe_dispatch as md
+    got = fn()
+    wfn = lambda: md.grouped_matmul(x, w, sizes)
+    with no_m128():
+        before = md.variant_launches["gmm_wgmma"]
+        base = wfn()
+        torch.cuda.synchronize()
+        if md.variant_launches["gmm_wgmma"] != before + 1:
+            raise SystemExit(f"grouped_matmul {label}: gmm_wgmma was not launched")
+        if not torch.equal(got, base):
+            raise SystemExit(f"grouped_matmul {label}: gmm_wgmma_m128 is not bitwise "
+                             "gmm_wgmma")
+        ms = cuda_ms(wfn, iters=iters, warmup=1)
+        dev_ms, src = kernel_device_ms(wfn, "gmm_", md, calls=max(2, iters // 4),
+                                       kernels_per_launch=2)
+    return {"kernel": "gmm_wgmma", "bitwise": True, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": src}
 
 
 def check_grouped_matmul(dev, rates, bf16_rate) -> list:
@@ -2226,7 +2276,8 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     # dtype: gmm_tf32x3 at the prefill's ~512 rows per expert, with
     # gmm_tiles — the FFMA kernel it replaced there — on the same values
     # beside it), then its prefill shape in bf16: ~512 rows per expert, where
-    # the tensor cores and not the weight bytes bound gmm_wgmma
+    # the tensor cores and not the weight bytes bound the call
+    # (gmm_wgmma_m128, gmm_wgmma on the same values beside it)
     d, ff, E = 6144, 10752, 16
     w_up, w_down = randn((E, d, ff), scale=d ** -0.5), randn((E, ff, d), scale=ff ** -0.5)
     for label, T, iters, kern in (("dbrx_decode", 4, 20, "gmm_rows"),
@@ -2237,9 +2288,9 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
         case(f"{label}_down", randn((T * 4, ff)), w_down, sizes, iters, kern, beside)
     w_up, w_down = w_up.to(BF16), w_down.to(BF16)
     case("dbrx_prefill_gate_bf16", randn((8192, d), BF16), w_up, routed_sizes(1, 2048, E, 4),
-         5, "gmm_wgmma")
+         5, "gmm_wgmma_m128")
     case("dbrx_prefill_down_bf16", randn((8192, ff), BF16), w_down,
-         routed_sizes(1, 2048, E, 4), 5, "gmm_wgmma")
+         routed_sizes(1, 2048, E, 4), 5, "gmm_wgmma_m128")
     # the bf16 serving path: every serve step, prefill ticks' included,
     # feeds one token a slot, so 4 slots × top-4 = 16 rows, 1-4 an expert
     case("dbrx_decode_gate_bf16", randn((16, d), BF16), w_up, routed_sizes(1, 4, E, 4), 20,
@@ -2270,6 +2321,12 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
         stack = randn((4, 2, 16, dd, 256), dt, dd ** -0.5)
         case(f"kfold_4x16_strided_{str(dt)[6:]}{tag}", randn((int(sizes.sum()), dd), dt),
              stack[:, 1], sizes, 20, kern)
+    # the same stack in bf16 at 128-200 rows a group: gmm_wgmma_m128
+    stack = randn((4, 2, 16, 128, 512), BF16, 128 ** -0.5)
+    ks = np.random.default_rng(29).integers(128, 200, 64)
+    case("kfold_4x16_strided_bfloat16_m128", randn((int(ks.sum()), 128), BF16), stack[:, 1],
+         ks, 20, "gmm_wgmma_m128")
+    del stack
     # edges: the reference's group tables with Kd and F off the tiles, N = 1,
     # the 128-row kernels on ragged segments; gmm_wgmma on aligned ragged
     # groups with empty ones (Kd 136, F 520) and at N = 1
@@ -2295,6 +2352,16 @@ def check_grouped_matmul(dev, rates, bf16_rate) -> list:
     case("aligned_ragged_bf16", randn((sum(gs), 136), BF16), randn((5, 136, 520), BF16,
                                                                     136 ** -0.5), gs, 10,
          "gmm_wgmma")
+    # gmm_wgmma_m128 on ragged groups: 1-, 127-, 128- and 129-row groups, a
+    # 385-row one (a 1-row tail), empty ones, Kd off 64, F off 256; and at
+    # dbrx's d (96 stages through the ring)
+    gs = [1, 0, 127, 128, 129, 385, 640]
+    case("m128_ragged_bf16", randn((sum(gs), 136), BF16), randn((7, 136, 520), BF16,
+                                                                 136 ** -0.5), gs, 10,
+         "gmm_wgmma_m128")
+    gs = [300, 0, 260]
+    case("m128_ragged_d6144_bf16", randn((sum(gs), 6144), BF16),
+         randn((3, 6144, 1000), BF16, 6144 ** -0.5), gs, 10, "gmm_wgmma_m128")
     return rows
 
 
@@ -4046,8 +4113,8 @@ def run_audit(dev, dbrx_cfg, dbrx_params, param_check: dict, prefill_ms: float) 
     variants = sorted({r.variant for r in recs})
     print(f"audit R5 at the paths' shapes: {len(recs)} records, each the kernel's own "
           f"geometry query: {rep.ok}; variants {variants}")
-    need = {"gmm_rows", "gmm_tiles", "gmm_wgmma", "gmm_tf32x3", "flash_fwd",
-            "flash_fwd_wgmma", "flash_fwd_tf32x3"}
+    need = {"gmm_rows", "gmm_tiles", "gmm_wgmma", "gmm_tf32x3", "gmm_wgmma_m128",
+            "flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3"}
     if not rep.ok or not need <= set(variants):
         raise SystemExit(f"audit R5 at the paths' shapes: {[str(f) for f in rep.findings]}, "
                          f"variants {variants}")
@@ -4439,7 +4506,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         its headline cases' numbers (the first is ``head``)."""
         keys = ("ms", "device_ms", "device_ms_source", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "bound_ffma_ms", "bound_tf32x3_ms", "err_vs_f64", "tiles",
-                "shape")
+                "wgmma", "shape")
         out = {}
         for variant, cases in heads.items():
             by_path = {label: v[name][variant] for label, v in variants.items()}
@@ -4524,9 +4591,12 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                                   "gmm_tiles": ["tiles_ragged_float32", "tiles_f302_float32",
                                                 "kfold_4x16_strided_float32_d126",
                                                 "tiles_ragged_bfloat16"],
-                                  "gmm_wgmma": ["dbrx_prefill_gate_bf16",
-                                                "dbrx_prefill_down_bf16",
-                                                "dbrx_decode_gate_bf16",
+                                  "gmm_wgmma_m128": ["dbrx_prefill_gate_bf16",
+                                                     "dbrx_prefill_down_bf16",
+                                                     "kfold_4x16_strided_bfloat16_m128",
+                                                     "m128_ragged_bf16",
+                                                     "m128_ragged_d6144_bf16"],
+                                  "gmm_wgmma": ["dbrx_decode_gate_bf16",
                                                 "dbrx_decode_down_bf16",
                                                 "arctic_prefill_bf16",
                                                 "arctic_prefill_down_bf16",

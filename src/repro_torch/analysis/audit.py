@@ -803,9 +803,12 @@ def launch_record(kernel: str, shape: dict, *, impl: str = "auto", device: str =
         grid = (r, c, 1) if g["kernel"] == "gmm_rows" else (r * c, 1, 1)
         tiles, boxes, strides = {}, (), ()
         q = {"bm": g["bm"], "bn": g["bn"]}
-        if g["kernel"] in ("gmm_wgmma", "gmm_tf32x3"):
+        if g["kernel"] in ("gmm_wgmma", "gmm_wgmma_m128", "gmm_tf32x3"):
             if g["kernel"] == "gmm_wgmma":
                 tiles = {"wgmma M (rows a tile)": (g["bm"], 64, None),
+                         "wgmma N (columns a tile)": (g["bn"], 8, 256)}
+            elif g["kernel"] == "gmm_wgmma_m128":     # two consumer warpgroups of 64 rows
+                tiles = {"wgmma M (rows a consumer warpgroup)": (g["bm"] // 2, 64, 64),
                          "wgmma N (columns a tile)": (g["bn"], 8, 256)}
             else:        # the transposed product: columns on M, x rows on N
                 tiles = {"wgmma M (columns a tile, 64 a consumer warpgroup)":
@@ -857,14 +860,15 @@ def kernel_query(rec: KernelLaunch) -> dict:
             g["tma_box"] = tuple(out[8:12])
         return g
     out = (ctypes.c_int * 13)()
-    kid = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2, "gmm_tf32x3": 3}[rec.variant]
+    kid = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2, "gmm_tf32x3": 3,
+           "gmm_wgmma_m128": 4}[rec.variant]
     bn = s["_query_keys"]["bn"]
     if lib.grouped_matmul_launch_geometry(kid, bn, s["N"], s["G"], s["F"],
                                           ctypes.addressof(out)) != 0:
         raise RuntimeError(f"grouped_matmul_launch_geometry refused {rec.name}")
     g = {"grid": tuple(out[:3]), "threads": out[3], "smem_bytes": out[4], "bm": out[5],
          "bn": out[6]}
-    if rec.variant in ("gmm_wgmma", "gmm_tf32x3"):
+    if rec.variant in ("gmm_wgmma", "gmm_wgmma_m128", "gmm_tf32x3"):
         g["tma_boxes"] = (tuple(out[7:9]), tuple(out[9:13]))
     return g
 
@@ -1456,6 +1460,7 @@ PATH_SHAPES = [
     ("grouped_matmul", {"N": 273, "Kd": 98, "G": 4, "F": 300, "tma_ok": False}),
     ("grouped_matmul", {"N": 273, "Kd": 96, "G": 4, "F": 302}),
     ("grouped_matmul", {"N": 8192, "Kd": 6144, "G": 16, "F": 10752, "dtype": torch.bfloat16}),
+    ("grouped_matmul", {"N": 8192, "Kd": 10752, "G": 16, "F": 6144, "dtype": torch.bfloat16}),
     ("grouped_matmul", {"N": 16, "Kd": 6144, "G": 16, "F": 10752, "dtype": torch.bfloat16}),
     ("grouped_matmul", {"N": 8, "Kd": 7168, "G": 128, "F": 4864, "dtype": torch.bfloat16}),
     ("grouped_matmul", {"N": 4096, "Kd": 7168, "G": 128, "F": 4864, "dtype": torch.bfloat16}),

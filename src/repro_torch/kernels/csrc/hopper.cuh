@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
 // flash_attention.cu (flash_fwd_wgmma, flash_fwd_tf32x3) and moe_dispatch.cu
-// (gmm_wgmma, gmm_tf32x3):
+// (gmm_wgmma, gmm_wgmma_m128, gmm_tf32x3):
 //
 //   * mbarriers: init, arrive, arrive with expected bytes, parity wait;
 //   * TMA: tile loads (cp.async.bulk.tensor, 2-D to 4-D) into shared memory,
 //     completing on an mbarrier; out-of-range elements of a box are zeros;
+//     a 4-D load multicast to several blocks of a cluster;
+//   * thread block clusters: a block's rank, the cluster-wide barrier, and
+//     an arrival on the mbarrier at the same offset in another block;
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled tiles, fence,
 //     commit and wait, and bf16 m64nNk16 products with fp32 accumulators
 //     (A from shared memory or from registers); tf32 m64nNk8 products (N =
@@ -97,6 +100,47 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// the same box delivered to the same offset of every cluster block in
+// `mask` (bit r: rank r), each completing on its own mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      int c3, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "h"(mask)
+      : "memory");
+}
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster (none may have exited)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// where `pred`, one arrival on the mbarrier at `bar`'s offset in cluster
+// block `rank` (this block's own included).  The predicate is in the
+// instructions, not a branch: a branch inside a wgmma loop makes ptxas
+// serialize the chain (C7518).  The arrival keeps the default CTA-scope
+// release, as CUTLASS's cluster barriers do: a cluster-scope release
+// (.release.cluster) made a 2-block kernel of moe_dispatch.cu twice as slow.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 ra;\nsetp.ne.u32 p, %2, 0;\n"
+      "@p mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank), "r"(static_cast<uint32_t>(pred))
       : "memory");
 }
 

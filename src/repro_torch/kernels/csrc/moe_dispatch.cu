@@ -30,12 +30,13 @@
 //     (the reference's grouped_layout bound, ref.py:138), y = F tiles.  A
 //     block finds its group by a binary search over the tile starts; tiles
 //     past the last group exit; no tile mixes two groups.
-//  3. Four kernels, chosen on the host from static facts only — dtype,
+//  3. Five kernels, chosen on the host from static facts only — dtype,
 //     alignment and the average rows per group
-//     (kernels/moe_dispatch.py::launch_geometry): gmm_wgmma for aligned
-//     bf16; else gmm_rows under 16 rows per group; else gmm_tf32x3 for
-//     aligned fp32 (4, below) and gmm_tiles for what TMA cannot read (fp32
-//     or bf16 with Kd, F or a stride off 16 bytes, or a base off 16).
+//     (kernels/moe_dispatch.py::launch_geometry): for aligned bf16
+//     gmm_wgmma_m128 at 64 rows per group or more and gmm_wgmma below;
+//     else gmm_rows under 16 rows per group; else gmm_tf32x3 for aligned
+//     fp32 (4, below) and gmm_tiles for what TMA cannot read (fp32 or bf16
+//     with Kd, F or a stride off 16 bytes, or a base off 16).
 //     - gmm_wgmma (bf16 x and w, Kd and F multiples of 8, every base and
 //       stride 16-byte aligned; any N): bf16 tensor cores.  A block owns one
 //       64-row tile inside one group and BN = 128 (decode) or 256 (prefill)
@@ -54,6 +55,32 @@
 //       16 KB of weights in flight each, so every SM keeps ~128 KB of loads
 //       in flight without split-K; at prefill the 256-column tile halves the
 //       x re-reads and the block count.
+//     - gmm_wgmma_m128 (what gmm_wgmma takes, at ≥ 64 rows per group on
+//       average: the bf16 dbrx prefill, ~512 rows an expert).  There the
+//       tensor cores could bound the call (~1.1 ms at dbrx's shapes), but a
+//       64-row tile re-reads the whole w column block from L2 every 64 rows:
+//       ~22.5 GB a call from L2 into shared memory, more than L2 feeds at
+//       the tensor-core rate, so gmm_wgmma ran at a third of the bound.  A
+//       block owns 128 rows × 256 columns: two consumer warpgroups run
+//       m64n256k16 on 64 rows each with one shared w stage (~14.3 GB a
+//       call), a 4-stage ring of 48 KB stages (16 KB of x through a
+//       128-row box, 32 KB of w through gmm_wgmma's 4-D map; 197,696 B), a
+//       stage released when both warpgroups are done with it; a producer
+//       warpgroup (setmaxnreg 40, the consumers 232 for their 128
+//       accumulators) whose one thread issues the loads.  Two blocks form a
+//       cluster over row tiles 2p and 2p + 1 of one column tile: where both
+//       lie in one group they need the same w, so each loads half of it and
+//       multicasts it to both (~9.5 GB a call where every pair shares), and a
+//       stage is free when both blocks' consumers are done with it; a pair
+//       that straddles a group boundary loads its own w.  Each consumer's
+//       products and their order are gmm_wgmma<256>'s, so the outputs are
+//       bitwise gmm_wgmma's.  A warpgroup whose 64 rows all lie past the
+//       group's end only releases the stages (in a loop of its own: a
+//       branch inside the product loop serializes the wgmma chain).
+//       Measured against the one-block form and the other candidates in
+//       scripts/gmm_wgmma_variants.py (PERF.md); there, below 64 rows per
+//       group most groups fit one 64-row tile, w is read once either way,
+//       and gmm_wgmma is 1-2 % faster; from 64 rows this kernel is ahead.
 //     - gmm_rows (the other decode calls: under 16 rows per group on
 //       average): 8-row tiles, the x tile in shared memory, each thread
 //       streaming one output column's weights straight from device memory
@@ -158,6 +185,22 @@ constexpr int kRasterGroup = 8;  // column tiles walked together
 // columns × 64 k-rows of one group
 constexpr uint32_t kWgXBox[2] = {kWgBK, kWgBM};
 constexpr uint32_t kWgWBox[4] = {64, kWgBK, 1, 1};
+// gmm_wgmma_m128: 128-row tiles × 256 columns, K tiles of 64, two consumer
+// warpgroups of 64 rows sharing each w stage, a producer warpgroup; a
+// 4-stage ring of 48 KB stages (16 KB of x, 32 KB of w)
+constexpr int kM128BM = 128;
+constexpr int kM128BN = 256;
+constexpr int kM128Stages = 4;
+constexpr int kM128Threads = 384;
+constexpr int kM128Consumers = 256;
+constexpr int kM128XBytes = kM128BM * kWgBK * 2;
+constexpr int kM128WBytes = kWgBK * kM128BN * 2;
+constexpr int kM128StageBytes = kM128XBytes + kM128WBytes;
+// the ring, a full and an empty barrier per stage, 1 KB of alignment slack
+constexpr int kM128SmemBytes = kM128Stages * (kM128StageBytes + 16) + 1024;
+// x's box: 64 columns (one 128-byte row) × 128 rows; w's is gmm_wgmma's
+constexpr uint32_t kM128XBox[2] = {kWgBK, kM128BM};
+static_assert(kM128SmemBytes <= 232448, "a block's shared memory on Hopper");
 // gmm_tf32x3: 128 x rows (wgmma's N) × 128 output columns (two consumer
 // warpgroups of 64: wgmma's M) a tile, K stages of 32 (one 128-byte swizzle
 // row of fp32), a 4-stage ring; warpgroup 2 loads (warp 8) and splits x (9-11)
@@ -605,6 +648,136 @@ gmm_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
   }
 }
 
+// bf16 grouped GEMM on tensor cores, 128-row tiles (see the header, 3):
+// block = 128 rows of one group × 256 columns; warpgroups 0-1 consume 64
+// rows each with the same w stage, warp 8 produces (TMA).  The two blocks
+// of a cluster take row tiles 2p and 2p + 1 of one column tile; where both
+// lie in one group, each loads two of w's four 64-column regions and
+// multicasts them to both.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kM128Threads, 1)
+gmm_wgmma_m128(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+               __nv_bfloat16* __restrict__ out, const int* __restrict__ offs, int G, int Kd,
+               int F, int e_in, int row_tiles, int col_tiles) {
+  constexpr int S = kM128Stages;
+  constexpr int kWRegion = kWgBK * 128;
+  const uint32_t rank = hopper::cluster_ctarank(), peer = rank ^ 1u;
+  int p, c;
+  raster(blockIdx.x / 2, (row_tiles + 1) / 2, col_tiles, p, c);
+  const int t = 2 * p + static_cast<int>(rank);
+  int g = 0, r0 = 0, m = 0, pg = 0, pr0 = 0, pm = 0;
+  const bool valid = find_tile(offs, G, kM128BM, t, g, r0, m);
+  const bool peer_valid = find_tile(offs, G, kM128BM, t ^ 1, pg, pr0, pm);
+  if (!valid && !peer_valid) return;  // both blocks of the pair leave
+  // both tiles in one group: w's column tile is the same for both blocks
+  const bool share = valid && peer_valid && pg == g;
+  extern __shared__ __align__(1024) uint8_t msmem_raw[];
+  uint8_t* smem = hopper::align_smem_1024(msmem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * kM128StageBytes);
+  // one arrival a consumer warpgroup of this block (and of the peer, when
+  // it shares: the peer's multicast also writes this block's stage)
+  uint64_t* empty = full + S;
+  const int f0 = c * kM128BN;
+  const int nk = (Kd + kWgBK - 1) / kWgBK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], share ? 4 : 2);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  hopper::cluster_sync();  // the peer's barriers exist before its multicast lands here
+
+  if (valid && warp >= 8) {  // producer warpgroup: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      hopper::prefetch_tensormap(&xmap);
+      hopper::prefetch_tensormap(&wmap);
+      const int e = g % e_in, r = g / e_in;
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % S;
+        if (i >= S) hopper::mbar_wait(&empty[s], ((i / S) - 1) & 1);
+        uint8_t* xs = smem + s * kM128StageBytes;
+        uint8_t* ws = xs + kM128XBytes;
+        hopper::mbar_expect_tx(&full[s], kM128StageBytes);
+        hopper::tma_load_2d(xs, &xmap, &full[s], i * kWgBK, r0);
+        if (share) {
+#pragma unroll
+          for (int j = 2 * rank; j < 2 * rank + 2; ++j)
+            hopper::tma_load_4d_multicast(ws + j * kWRegion, &wmap, &full[s], f0 + 64 * j,
+                                          i * kWgBK, e, r, 0x3);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kM128BN / 64; ++j)
+            hopper::tma_load_4d(ws + j * kWRegion, &wmap, &full[s], f0 + 64 * j, i * kWgBK, e, r);
+        }
+      }
+    }
+  } else if (valid) {
+    // consumers take the registers the producer gave back (40 → 232 a thread)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp / 4;  // rows 64·wg .. of the tile
+    const bool signal = threadIdx.x % 128 == 0;
+    auto release = [&](int s) {
+      hopper::mbar_arrive_cluster(&empty[s], rank, signal);
+      hopper::mbar_arrive_cluster(&empty[s], peer, signal && share);
+    };
+    if (64 * wg >= m) {
+      // no rows (a group's last tile of ≤ 64 rows): only release the
+      // stages, in a loop of its own (a branch around the products inside
+      // their loop makes ptxas serialize the wgmma chain, C7518)
+      for (int i = 0; i < nk; ++i) {
+        hopper::mbar_wait(&full[i % S], (i / S) & 1);
+        release(i % S);
+      }
+    } else {
+      // acc[64 × 256] in the wgmma accumulator layout; the products and
+      // their order are gmm_wgmma<256>'s, so each output is bitwise gmm_wgmma's
+      float acc[kM128BN / 2];
+#pragma unroll
+      for (int i = 0; i < kM128BN / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % S;
+        hopper::mbar_wait(&full[s], (i / S) & 1);
+        const uint8_t* xs = smem + s * kM128StageBytes;
+        const uint64_t da = hopper::desc_sw128(xs + wg * (kM128XBytes / 2), 0, 1024);  // K-major
+        const uint64_t db = hopper::desc_sw128(xs + kM128XBytes, kWRegion, 1024);       // MN-major
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk)
+          hopper::wgmma_ss_n256<1>(acc, hopper::desc_add(da, 32 * kk),
+                                   hopper::desc_add(db, 2048 * kk), 1);
+        hopper::wgmma_commit();
+        hopper::fence_regs(acc);
+        hopper::wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (i > 0) release((i - 1) % S);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      // rows 64·wg + 16·(warp % 4) + lane/4 (+8), columns 8j + 2·(lane % 4)
+      // (+1); F % 8 == 0, so a column pair is in or out together; rows ≥ m
+      // belong to the next group
+      const int cc = 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * h;
+        if (row >= m) continue;
+        __nv_bfloat16* orow = out + (long long)(r0 + row) * F + f0 + cc;
+#pragma unroll
+        for (int j = 0; j < kM128BN / 8; ++j)
+          if (f0 + 8 * j + cc < F)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+  // no block leaves while its peer may still multicast into it or arrive on
+  // its barriers (every thread of both blocks reaches this: none returned)
+  hopper::cluster_sync();
+}
+
 // fp32 → tf32, round to nearest with ties away from zero (cvt.rna.tf32.f32's
 // result): half a tf32 ulp added to the magnitude's bits, the 13 low bits
 // cleared — two integer operations (hopper::tf32_rna's cvt measured 1–6 %
@@ -868,6 +1041,39 @@ int launch_wgmma(const void* x, const void* w, void* out, const int* sizes, int*
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_wgmma_m128(const void* x, const void* w, void* out, const int* sizes, int* offs,
+                      int N, int Kd, int F, int G, int e_in, long long s_outer,
+                      long long s_inner, long long s_k, cudaStream_t stream) {
+  const int R = G / e_in;
+  if (R == 1) s_outer = static_cast<long long>(e_in) * s_inner;  // a [G, Kd, F] weight
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(Kd), static_cast<uint64_t>(N)};
+  const uint64_t xstr[1] = {static_cast<uint64_t>(Kd) * 2};
+  int err = hopper::encode_bf16_map(&xmap, x, 2, xdims, xstr, kM128XBox);
+  if (err != 0) return err;
+  const uint64_t wdims[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(Kd),
+                             static_cast<uint64_t>(e_in), static_cast<uint64_t>(R)};
+  const uint64_t wstr[3] = {static_cast<uint64_t>(s_k) * 2, static_cast<uint64_t>(s_inner) * 2,
+                            static_cast<uint64_t>(s_outer) * 2};
+  err = hopper::encode_bf16_map(&wmap, w, 4, wdims, wstr, kWgWBox);
+  if (err != 0) return err;
+  gmm_offsets<<<1, kScanThreads, 0, stream>>>(sizes, G, N, kM128BM, offs);
+  cudaError_t cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  static bool attr_set = false;  // once per process
+  if (!attr_set) {
+    err = set_smem(gmm_wgmma_m128, kM128SmemBytes);
+    if (err != 0) return err;
+    attr_set = true;
+  }
+  const int row_tiles = gmm_row_tiles(N, G, kM128BM);
+  const int col_tiles = (F + kM128BN - 1) / kM128BN;
+  // two-block clusters over pairs of row tiles: the row tiles rounded up to even
+  gmm_wgmma_m128<<<(row_tiles + 1) / 2 * 2 * col_tiles, kM128Threads, kM128SmemBytes, stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(out), offs, G, Kd, F, e_in, row_tiles, col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_tf32x3(const void* x, const void* w, void* out, const int* sizes, int* offs, int N,
                   int Kd, int F, int G, int e_in, long long s_outer, long long s_inner,
                   long long s_k, cudaStream_t stream) {
@@ -913,15 +1119,24 @@ extern "C" {
 // multiples of 4 and w 16-byte aligned), 2 gmm_wgmma (bf16 only, 64-row
 // tiles of bn = 128 or 256 columns; Kd, F and the strides multiples of 8,
 // x and w 16-byte aligned), 3 gmm_tf32x3 (fp32 only, 128 × 128 tiles; Kd,
-// F and the strides multiples of 4, x and w 16-byte aligned).
+// F and the strides multiples of 4, x and w 16-byte aligned), 4
+// gmm_wgmma_m128 (bf16 only, 128-row tiles of bn = 256 columns; what
+// gmm_wgmma takes).
 int grouped_matmul(int bf16, int kernel, int bn, const void* x, const void* w, void* out,
                    const int* sizes, int* offs, int N, int Kd, int F, int G, int e_in,
                    long long s_outer, long long s_inner, long long s_k, int vec, void* stream) {
   if (N <= 0 || Kd <= 0 || F <= 0 || G <= 0 || G > kMaxGroups || e_in <= 0 ||
-      G % e_in != 0 || kernel < 0 || kernel > 3 ||
+      G % e_in != 0 || kernel < 0 || kernel > 4 ||
       (kernel == 0 && (F + kRowsThreads * kRowsTN - 1) / (kRowsThreads * kRowsTN) > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == 4) {
+    if (!bf16 || Kd % 8 || F % 8 || s_k % 8 || s_inner % 8 || s_outer % 8 || bn != kM128BN ||
+        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma_m128(x, w, out, sizes, offs, N, Kd, F, G, e_in, s_outer, s_inner, s_k,
+                             s);
+  }
   if (kernel == 3) {
     if (bf16 || Kd % 4 || F % 4 || s_k % 4 || s_inner % 4 || s_outer % 4 ||
         reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
@@ -947,7 +1162,7 @@ int grouped_matmul(int bf16, int kernel, int bn, const void* x, const void* w, v
 // the static tile geometry, for the wrapper's launch_geometry to check
 // against: [rows BM, rows BN, tiles BM, tiles BN, max groups, tiles smem
 // bytes, wgmma BM, wgmma smem bytes at BN 128, at BN 256, tf32x3 BM,
-// tf32x3 BN, tf32x3 smem bytes]
+// tf32x3 BN, tf32x3 smem bytes, wgmma_m128 BM, BN, smem bytes]
 void grouped_matmul_geometry(int* out) {
   out[0] = kRowsBM;
   out[1] = kRowsThreads * kRowsTN;
@@ -961,11 +1176,15 @@ void grouped_matmul_geometry(int* out) {
   out[9] = kTfBM;
   out[10] = kTfBN;
   out[11] = kTfSmemBytes;
+  out[12] = kM128BM;
+  out[13] = kM128BN;
+  out[14] = kM128SmemBytes;
 }
 
 // The launch geometry of one call as the launchers above make it, for the
 // wrapper's launch_geometry to be held against: kernel 0 gmm_rows, 1
-// gmm_tiles, 2 gmm_wgmma at bn 128 or 256 columns, 3 gmm_tf32x3.  out:
+// gmm_tiles, 2 gmm_wgmma at bn 128 or 256 columns, 3 gmm_tf32x3, 4
+// gmm_wgmma_m128 at bn 256.  out:
 // grid x, y, z, threads a block, dynamic shared memory bytes, rows a tile,
 // columns a tile, then the x and w tensor maps' boxes (2 + 4 dims; zeros
 // for gmm_rows and gmm_tiles).  The offsets scan before it is one block of
@@ -1005,6 +1224,15 @@ int grouped_matmul_launch_geometry(int kernel, int bn, int N, int G, int F, int*
     out[6] = kTfBN;
     for (int i = 0; i < 2; ++i) out[7 + i] = static_cast<int>(kTfXBox[i]);
     for (int i = 0; i < 4; ++i) out[9 + i] = static_cast<int>(kTfWBox[i]);
+  } else if (kernel == 4 && bn == kM128BN) {
+    out[0] = (gmm_row_tiles(N, G, kM128BM) + 1) / 2 * 2 * ((F + kM128BN - 1) / kM128BN);
+    out[1] = 1;
+    out[3] = kM128Threads;
+    out[4] = kM128SmemBytes;
+    out[5] = kM128BM;
+    out[6] = kM128BN;
+    for (int i = 0; i < 2; ++i) out[7 + i] = static_cast<int>(kM128XBox[i]);
+    for (int i = 0; i < 4; ++i) out[9 + i] = static_cast<int>(kWgWBox[i]);
   } else {
     return -1;
   }

@@ -9,15 +9,19 @@ segments, fp32 sums, the output in x's dtype.
 What bounds it on the card, and the design: see ``csrc/moe_dispatch.cu``.
 Decode (a few rows per expert) is bound by the bytes of the experts the
 rows hit, fp32 prefill (hundreds of rows per expert) by arithmetic.
-``launch_geometry`` picks one of four kernels from static facts — dtype,
-alignment and the average rows per group: ``gmm_wgmma`` (bf16 tensor
-cores fed by TMA, 64-row tiles, 128 columns below 16 rows per group, else
-256) for bf16 when Kd, F and every stride are multiples of 8 elements and
-x and w 16-byte aligned; otherwise ``gmm_rows`` (8-row tiles) below 16 rows
-per group; above it ``gmm_tf32x3`` (fp32 as split TF32 on the tensor
-cores, TMA-fed 128×128 tiles) for fp32 when Kd, F and every stride are
-multiples of 4 elements and x and w 16-byte aligned, and ``gmm_tiles``
-(128×128 FFMA tiles, cp.async ring) for what TMA cannot read.
+``launch_geometry`` picks one of five kernels from static facts — dtype,
+alignment and the average rows per group: for bf16 when Kd, F and every
+stride are multiples of 8 elements and x and w 16-byte aligned,
+``gmm_wgmma_m128`` (bf16 tensor cores fed by TMA, 128-row tiles of 256
+columns, two consumer warpgroups sharing each weight stage, two-block
+clusters that multicast the weights to two row tiles of one group) at 64
+rows per group or more and ``gmm_wgmma`` (64-row tiles, 128 columns below 16
+rows per group, else 256) below; otherwise ``gmm_rows`` (8-row tiles)
+below 16 rows per group; above it ``gmm_tf32x3`` (fp32 as split TF32 on
+the tensor cores, TMA-fed 128×128 tiles) for fp32 when Kd, F and every
+stride are multiples of 4 elements and x and w 16-byte aligned, and
+``gmm_tiles`` (128×128 FFMA tiles, cp.async ring) for what TMA cannot
+read.
 The segment offsets are computed on the card from ``group_sizes``: the
 wrapper never reads them on the host.
 
@@ -41,7 +45,8 @@ from repro_torch.kernels import _build, ref
 # Kernel launches through this wrapper (one per call that reaches the card),
 # in all and by kernel.
 launches = 0
-variant_launches = {"gmm_rows": 0, "gmm_tiles": 0, "gmm_wgmma": 0, "gmm_tf32x3": 0}
+variant_launches = {"gmm_rows": 0, "gmm_tiles": 0, "gmm_wgmma": 0, "gmm_tf32x3": 0,
+                    "gmm_wgmma_m128": 0}
 
 # tile geometry, as csrc/moe_dispatch.cu's constants
 ROWS_BM, ROWS_BN, ROWS_THREADS = 8, 128, 128       # gmm_rows (decode)
@@ -50,6 +55,9 @@ TILE_STAGES, TILE_BK = 3, 16
 TILE_SMEM = TILE_STAGES * (TILE_BK * (TILE_BM + 4) + TILE_BK * TILE_BN) * 4
 WG_BM, WG_BK, WG_THREADS = 64, 64, 160             # gmm_wgmma (bf16)
 WG_STAGES = {128: 4, 256: 5}                       # by BN
+M128_BM, M128_BN, M128_THREADS, M128_STAGES = 128, 256, 384, 4  # gmm_wgmma_m128 (bf16)
+# x and w tiles a stage, two barriers a stage, 1 KB of alignment slack
+M128_SMEM = M128_STAGES * (M128_BM * WG_BK * 2 + WG_BK * M128_BN * 2 + 16) + 1024
 TF_BM, TF_BN, TF_BK, TF_THREADS = 128, 128, 32, 384  # gmm_tf32x3 (fp32, TMA)
 TF_STAGES = 4
 # x, x_small and w tiles a stage, three barriers a stage, 1 KB of alignment slack
@@ -58,7 +66,12 @@ SCAN_THREADS = 1024
 MAX_GROUPS = 4 * SCAN_THREADS
 # below this many rows per group on average, the decode kernels run
 ROWS_PER_GROUP_SMALL = 16
-_KERNEL_IDS = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2, "gmm_tf32x3": 3}
+# from this many rows per group on average, aligned bf16 runs gmm_wgmma_m128
+# (scripts/gmm_wgmma_variants.py: 1-2 % behind gmm_wgmma at 16-48 rows a
+# group, where a group's rows fit one 64-row tile; 9-11 % ahead at 64)
+ROWS_PER_GROUP_M128 = 64
+_KERNEL_IDS = {"gmm_rows": 0, "gmm_tiles": 1, "gmm_wgmma": 2, "gmm_tf32x3": 3,
+               "gmm_wgmma_m128": 4}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -75,22 +88,30 @@ def launch_geometry(N: int, Kd: int, G: int, F: int, dtype=torch.float32,
     and the grid — ``round_up(N, bm)/bm + min(G, N)`` row tiles (the
     reference's ``grouped_layout`` bound) by ``ceil(F/bn)`` column tiles
     (the tile kernels launch it flattened and walk it in groups of 8 column
-    tiles).  ``tma_ok``: TMA can read x and w (every stride of w a multiple
-    of 16 bytes, x and w 16-byte aligned: ``tma_aligned``).  ``gmm_wgmma``
-    for bf16 when Kd and F are multiples of 8 and ``tma_ok``; else
-    ``gmm_rows`` below 16 rows per group on average; above it
-    ``gmm_tf32x3`` for fp32 when Kd and F are multiples of 4 and
-    ``tma_ok``, else ``gmm_tiles``.  Unlike the Pallas kernel, Kd and F
-    need not be padded: the edges are masked (or zero-filled by TMA), and
-    Kd is a loop inside the block.  ``tma_boxes``: the TMA kernels' x and w
-    tensor-map boxes."""
+    tiles; ``gmm_wgmma_m128`` in two-block clusters over pairs of row
+    tiles, ``cluster``, its row tiles rounded up to even).  ``tma_ok``: TMA
+    can read x and w (every stride of w a multiple of 16 bytes, x and w
+    16-byte aligned: ``tma_aligned``).  For bf16 when Kd and F are
+    multiples of 8 and ``tma_ok``: ``gmm_wgmma_m128`` at
+    ``ROWS_PER_GROUP_M128`` rows per group on average or more, else
+    ``gmm_wgmma``; otherwise ``gmm_rows`` below 16 rows per group on
+    average; above it ``gmm_tf32x3`` for fp32 when Kd and F are multiples
+    of 4 and ``tma_ok``, else ``gmm_tiles``.  Unlike the Pallas kernel, Kd
+    and F need not be padded: the edges are masked (or zero-filled by TMA),
+    and Kd is a loop inside the block.  ``tma_boxes``: the TMA kernels' x
+    and w tensor-map boxes."""
     small = N < ROWS_PER_GROUP_SMALL * G
     n = max(N, 1)
     if dtype == torch.bfloat16 and tma_ok and Kd % 8 == 0 and F % 8 == 0:
-        bn = 128 if small else 256
-        geo = {"kernel": "gmm_wgmma", "bm": WG_BM, "bn": bn, "threads": WG_THREADS,
-               "stages": WG_STAGES[bn], "smem_bytes": wgmma_smem(bn),
-               "tma_boxes": ((WG_BK, WG_BM), (64, WG_BK, 1, 1))}
+        if N >= ROWS_PER_GROUP_M128 * G:
+            geo = {"kernel": "gmm_wgmma_m128", "bm": M128_BM, "bn": M128_BN,
+                   "threads": M128_THREADS, "stages": M128_STAGES, "smem_bytes": M128_SMEM,
+                   "tma_boxes": ((WG_BK, M128_BM), (64, WG_BK, 1, 1)), "cluster": 2}
+        else:
+            bn = 128 if small else 256
+            geo = {"kernel": "gmm_wgmma", "bm": WG_BM, "bn": bn, "threads": WG_THREADS,
+                   "stages": WG_STAGES[bn], "smem_bytes": wgmma_smem(bn),
+                   "tma_boxes": ((WG_BK, WG_BM), (64, WG_BK, 1, 1))}
     elif small:
         geo = {"kernel": "gmm_rows", "bm": ROWS_BM, "bn": ROWS_BN,
                "threads": ROWS_THREADS, "smem_bytes": 0}
@@ -101,7 +122,9 @@ def launch_geometry(N: int, Kd: int, G: int, F: int, dtype=torch.float32,
     else:
         geo = {"kernel": "gmm_tiles", "bm": TILE_BM, "bn": TILE_BN,
                "threads": TILE_THREADS, "stages": TILE_STAGES, "smem_bytes": TILE_SMEM}
-    geo["grid"] = (-(-n // geo["bm"]) + min(G, n), -(-F // geo["bn"]))
+    rows = -(-n // geo["bm"]) + min(G, n)
+    # gmm_wgmma_m128's two-block clusters take pairs of row tiles
+    geo["grid"] = (rows + rows % geo.get("cluster", 1), -(-F // geo["bn"]))
     return geo
 
 

@@ -378,9 +378,28 @@ def test_r5_every_path_shape_fits_the_card():
                                          "opt_update_multi_kernel", "flash_fwd",
                                          "flash_fwd_wgmma",
                                          "flash_fwd_tf32x3", "gmm_rows", "gmm_tiles",
-                                         "gmm_wgmma", "gmm_tf32x3"}
+                                         "gmm_wgmma", "gmm_tf32x3", "gmm_wgmma_m128"}
     tf = next(r for r in recs if r.variant == "flash_fwd_tf32x3" and r.shape["hd"] == 128)
     assert tf.smem_bytes == 230_512                     # 1,936 B under the opt-in limit
+
+
+def test_r5_records_the_128_row_kernel_at_dbrxs_bf16_prefill():
+    """R5's record of the bf16 dbrx prefill's K5 calls: gmm_wgmma_m128's
+    flattened grid of 128-row × 256-column tiles, two consumer warpgroups
+    of 64 rows, its TMA boxes and w's strided view."""
+    for Kd, F in ((6144, 10752), (10752, 6144)):
+        rec = A.launch_record("grouped_matmul", {"N": 8192, "Kd": Kd, "G": 16, "F": F,
+                                                 "dtype": torch.bfloat16})
+        assert rec.variant == "gmm_wgmma_m128"
+        assert rec.grid == ((8192 // 128 + 16) * (F // 256), 1, 1)
+        assert (rec.threads, rec.smem_bytes) == (384, 197_696)
+        assert rec.tiles == {"wgmma M (rows a consumer warpgroup)": (64, 64, 64),
+                             "wgmma N (columns a tile)": (256, 8, 256)}
+        assert rec.boxes == ((64, 128), (64, 64, 1, 1))
+        assert rec.strides == (Kd * 2, F * 2, Kd * F * 2, 16 * Kd * F * 2)
+        assert rec.shape["_query_keys"] == {"bm": 128, "bn": 256,
+                                            "tma_boxes": ((64, 128), (64, 64, 1, 1))}
+        assert not A.launch_problems(rec)
 
 
 def test_r5_dispatch_seam():

@@ -22,7 +22,8 @@ Tolerances (fp32; sums taken in another order than the reference's):
     most 3·2^-22 of each product, emulated here at dbrx's d_ff), bf16 one
     bf16 ulp (rtol 2⁻⁷) + atol 1e-4 — every kernel, gmm_wgmma included:
     bf16 products are exact in the fp32 accumulator and the result is
-    rounded once.
+    rounded once; gmm_wgmma_m128 bitwise gmm_wgmma on the same values (the
+    same products in the same order).
 
 The card cases need no jax: ``PYTHONPATH=src python -m pytest --noconftest
 -q -m cuda tests/test_torch_moe.py``.
@@ -238,7 +239,13 @@ def test_launch_geometry(N, Kd, G, F, kernel, grid):
     # bf16, aligned: the tensor-core kernel, 128 columns below 16 rows per group
     (8, 7168, 128, 4864, torch.bfloat16, True, "gmm_wgmma", 128),      # arctic decode
     (4096, 7168, 128, 4864, torch.bfloat16, True, "gmm_wgmma", 256),   # arctic prefill
-    (8192, 6144, 16, 10752, torch.bfloat16, True, "gmm_wgmma", 256),   # dbrx in bf16
+    (8192, 6144, 16, 10752, torch.bfloat16, True, "gmm_wgmma_m128", 256),  # dbrx in bf16
+    (8192, 10752, 16, 6144, torch.bfloat16, True, "gmm_wgmma_m128", 256),  # dbrx down
+    # the 128-row kernel from 64 rows per group on average
+    (1024, 64, 16, 256, torch.bfloat16, True, "gmm_wgmma_m128", 256),
+    (1023, 64, 16, 256, torch.bfloat16, True, "gmm_wgmma", 256),
+    (1410, 136, 7, 520, torch.bfloat16, True, "gmm_wgmma_m128", 256),  # ragged, off the tiles
+    (8192, 6144, 16, 10752, torch.bfloat16, False, "gmm_tiles", 128),  # not for TMA
     (1, 6144, 4, 1000, torch.bfloat16, True, "gmm_wgmma", 128),        # N = 1
     (273, 136, 5, 520, torch.bfloat16, True, "gmm_wgmma", 256),        # aligned ragged
     # bf16 that TMA cannot read keeps the FFMA kernels
@@ -261,11 +268,21 @@ def test_launch_geometry(N, Kd, G, F, kernel, grid):
 def test_launch_geometry_picks_the_variant(N, Kd, G, F, dtype, tma_ok, kernel, bn):
     geo = md.launch_geometry(N, Kd, G, F, dtype, tma_ok)
     assert (geo["kernel"], geo["bn"]) == (kernel, bn)
-    assert geo["grid"] == (-(-N // geo["bm"]) + min(G, N), -(-F // bn))
+    rows = -(-N // geo["bm"]) + min(G, N)
+    if kernel == "gmm_wgmma_m128":      # two-block clusters over pairs of row tiles
+        assert geo["cluster"] == 2
+        rows += rows % 2
+    assert geo["grid"] == (rows, -(-F // bn))
     assert geo["smem_bytes"] <= 232_448        # a block's shared memory on Hopper
     if kernel == "gmm_wgmma":
         assert geo["bm"] == 64 and geo["threads"] == 160
         assert geo["smem_bytes"] == md.wgmma_smem(bn) and geo["stages"] == md.WG_STAGES[bn]
+    if kernel == "gmm_wgmma_m128":
+        # two consumer warpgroups of 64 rows and a producer warpgroup; a
+        # 4-stage ring of 16 KB of x and 32 KB of w a stage
+        assert (geo["bm"], geo["threads"], geo["stages"]) == (128, 384, 4)
+        assert geo["smem_bytes"] == md.M128_SMEM == 197_696
+        assert geo["tma_boxes"] == ((64, 128), (64, 64, 1, 1))
     if kernel == "gmm_tiles":
         assert (geo["bm"], geo["bn"], geo["threads"]) == (128, 128, 256)
     if kernel == "gmm_tf32x3":
@@ -274,6 +291,54 @@ def test_launch_geometry_picks_the_variant(N, Kd, G, F, dtype, tma_ok, kernel, b
         assert (geo["bm"], geo["bn"], geo["threads"], geo["stages"]) == (128, 128, 384, 4)
         assert geo["smem_bytes"] == md.TF_SMEM == 197_728
         assert geo["tma_boxes"] == ((32, 128), (32, 32, 1, 1))
+
+
+# ROWS_PER_GROUP_M128 set so that no call reaches gmm_wgmma_m128
+M128_NEVER = 1 << 30
+
+
+@pytest.mark.parametrize("N,Kd,G,F,dtype,tma_ok,threshold,kernel,bn", [
+    # raised: gmm_wgmma at the 128-row kernel's shapes (a check runs both)
+    (8192, 6144, 16, 10752, torch.bfloat16, True, M128_NEVER, "gmm_wgmma", 256),
+    (8192, 10752, 16, 6144, torch.bfloat16, True, M128_NEVER, "gmm_wgmma", 256),
+    # lowered: the 128-row kernel at a decode shape (a crossover runs it there)
+    (16, 6144, 16, 10752, torch.bfloat16, True, 1, "gmm_wgmma_m128", 256),
+    # what TMA cannot read, and fp32, never reach it
+    (8192, 6144, 16, 10752, torch.bfloat16, False, 0, "gmm_tiles", 128),
+    (273, 100, 5, 300, torch.float32, True, 0, "gmm_tf32x3", 128),
+])
+def test_launch_geometry_follows_the_m128_threshold(monkeypatch, N, Kd, G, F, dtype, tma_ok,
+                                                    threshold, kernel, bn):
+    monkeypatch.setattr(md, "ROWS_PER_GROUP_M128", threshold)
+    geo = md.launch_geometry(N, Kd, G, F, dtype, tma_ok)
+    assert (geo["kernel"], geo["bn"]) == (kernel, bn)
+    rows = -(-N // geo["bm"]) + min(G, N)
+    assert geo["grid"] == (rows + rows % geo.get("cluster", 1), -(-F // bn))
+
+
+@pytest.mark.parametrize("N,G,rows", [(1410, 7, 20), (2048, 16, 32), (129, 1, 4)])
+def test_m128_grid_pairs_row_tiles_in_clusters(monkeypatch, N, G, rows):
+    """gmm_wgmma_m128's two-block clusters take row tiles 2p and 2p + 1, so
+    its grid's row tiles are the grouped_layout bound rounded up to even."""
+    geo = md.launch_geometry(N, 136, G, 520, torch.bfloat16)
+    assert geo["kernel"] == "gmm_wgmma_m128" and geo["cluster"] == 2
+    assert geo["grid"] == (rows, 3)
+    monkeypatch.setattr(md, "ROWS_PER_GROUP_M128", M128_NEVER)
+    assert "cluster" not in md.launch_geometry(N, 136, G, 520, torch.bfloat16)
+
+
+def test_the_m128_threshold_moves_only_aligned_bf16(monkeypatch):
+    """At any threshold, fp32 and bf16 that TMA cannot read (F off 8, a
+    base off 16 bytes) keep their kernels."""
+    shapes = [(8192, 6144, 16, 10752, torch.float32, True),
+              (273, 96, 4, 302, torch.bfloat16, True),
+              (8192, 6144, 16, 10752, torch.bfloat16, False),
+              (16, 6144, 16, 10752, torch.float32, True)]
+    picks = [md.launch_geometry(*s)["kernel"] for s in shapes]
+    assert picks == ["gmm_tf32x3", "gmm_tiles", "gmm_tiles", "gmm_rows"]
+    for threshold in (0, 16, M128_NEVER):
+        monkeypatch.setattr(md, "ROWS_PER_GROUP_M128", threshold)
+        assert [md.launch_geometry(*s)["kernel"] for s in shapes] == picks
 
 
 def test_tma_and_vec_alignment_are_read_from_the_tensors():
@@ -296,13 +361,24 @@ def test_tma_and_vec_alignment_are_read_from_the_tensors():
     assert not md.tma_aligned(torch.zeros(81)[1:].view(5, 16), f)  # x base off 16 bytes
 
 
-def test_variant_counters_start_at_zero_and_the_cpu_never_counts():
-    assert set(md.variant_launches) == {"gmm_rows", "gmm_tiles", "gmm_wgmma", "gmm_tf32x3"}
+def test_variant_counters_start_at_zero_and_the_cpu_never_counts(monkeypatch):
+    assert set(md.variant_launches) == {"gmm_rows", "gmm_tiles", "gmm_wgmma", "gmm_tf32x3",
+                                        "gmm_wgmma_m128"}
     assert set(md._KERNEL_IDS) == set(md.variant_launches)
     x, w, g = (torch.from_numpy(a) for a in _gmm_inputs(3, [2, 3], Kd=8, F=8))
     md.launches = 5
-    md.variant_launches.update(gmm_rows=1, gmm_tiles=3, gmm_wgmma=2, gmm_tf32x3=4)
+    md.variant_launches.update(gmm_rows=1, gmm_tiles=3, gmm_wgmma=2, gmm_tf32x3=4,
+                               gmm_wgmma_m128=6)
     md.grouped_matmul(x.bfloat16(), w.bfloat16(), g)
+    # a bf16 call of 128 rows a group: gmm_wgmma_m128's shape, on the CPU,
+    # and the same values at gmm_wgmma's: the plain version both times
+    xb, wb = torch.randn((256, 8)).bfloat16(), torch.randn((2, 8, 8)).bfloat16()
+    gb = torch.tensor([128, 128], dtype=torch.int32)
+    assert md.launch_geometry(256, 8, 2, 8, torch.bfloat16,
+                              md.tma_aligned(xb, wb))["kernel"] == "gmm_wgmma_m128"
+    m128 = md.grouped_matmul(xb, wb, gb)
+    monkeypatch.setattr(md, "ROWS_PER_GROUP_M128", M128_NEVER)
+    assert torch.equal(m128, md.grouped_matmul(xb, wb, gb))
     # an fp32 call past 16 rows a group: gmm_tf32x3's shape, on the CPU
     x32, w32 = torch.randn((40, 8)), torch.randn((2, 8, 8))
     g32 = torch.tensor([20, 20], dtype=torch.int32)
@@ -311,7 +387,7 @@ def test_variant_counters_start_at_zero_and_the_cpu_never_counts():
     md.grouped_matmul(x32, w32, g32)
     assert md.launches == 5
     assert md.variant_launches == {"gmm_rows": 1, "gmm_tiles": 3, "gmm_wgmma": 2,
-                                   "gmm_tf32x3": 4}
+                                   "gmm_tf32x3": 4, "gmm_wgmma_m128": 6}
     md.zero_launches()
     assert md.launches == 0 and set(md.variant_launches.values()) == {0}
 
@@ -753,6 +829,17 @@ WGMMA_CASES = [
 ]
 
 
+# gmm_wgmma_m128 (bf16, Kd and F multiples of 8, ≥ 64 rows per group on
+# average): group sizes, Kd, F
+M128_CASES = [
+    ([1, 0, 127, 128, 129, 385, 640], 136, 520),  # 1-, 127-, 128- and 129-row groups, empty
+                                                   # groups, Kd off 64, F off 256
+    ([128, 128], 64, 256),                         # one full tile a group
+    ([129, 255, 0, 200], 512, 768),                # tails of 1, 127 and 72 rows
+    ([300, 0, 260], 6144, 1000),                   # dbrx's d: 96 stages through the ring
+]
+
+
 # gmm_tf32x3 (fp32, ≥ 16 rows per group, Kd and F multiples of 4): group
 # sizes, Kd, F
 TF32X3_CASES = [
@@ -807,6 +894,64 @@ def test_wgmma_kernel_matches_plain_on_card(cuda_device, gs, Kd, F):
     assert md.variant_launches["gmm_wgmma"] == before + 1
     want = ref.grouped_matmul_ref(x, w, sizes)
     torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2 ** -7)
+
+
+def _m128_against_wgmma(monkeypatch, x, w, sizes):
+    """gmm_wgmma_m128 (the wrapper's pick) and gmm_wgmma on the same values
+    (the threshold raised): the plain version's tolerance, and bitwise equal
+    to each other."""
+    N, Kd = x.shape
+    assert md.launch_geometry(N, Kd, sizes.numel(), w.shape[-1], torch.bfloat16,
+                              md.tma_aligned(x, w))["kernel"] == "gmm_wgmma_m128"
+    before = dict(md.variant_launches)
+    got = md.grouped_matmul(x, w, sizes)
+    monkeypatch.setattr(md, "ROWS_PER_GROUP_M128", M128_NEVER)
+    base = md.grouped_matmul(x, w, sizes)
+    torch.cuda.synchronize()
+    assert md.variant_launches["gmm_wgmma_m128"] == before["gmm_wgmma_m128"] + 1
+    assert md.variant_launches["gmm_wgmma"] == before["gmm_wgmma"] + 1
+    want = ref.grouped_matmul_ref(x, w, sizes)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2 ** -7)
+    assert torch.equal(got, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs,Kd,F", M128_CASES)
+def test_m128_kernel_matches_plain_and_wgmma_on_card(cuda_device, monkeypatch, gs, Kd, F):
+    g = torch.Generator().manual_seed(sum(gs) + Kd + F)
+    x = torch.randn((sum(gs), Kd), generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn((len(gs), Kd, F), generator=g) * Kd ** -0.5).to(cuda_device, torch.bfloat16)
+    _m128_against_wgmma(monkeypatch, x, w,
+                        torch.tensor(gs, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_m128_kernel_reads_a_strided_k_folded_stack_on_card(cuda_device, monkeypatch):
+    """A [4, 2, 16, 128, 512] bf16 stack's layer slice, 4 × 16 groups of
+    128-200 rows, through the TMA maps of the 128-row kernel."""
+    R, L, E, Kd, F = 4, 2, 16, 128, 512
+    g = torch.Generator().manual_seed(29)
+    stack = (torch.randn((R, L, E, Kd, F), generator=g) * Kd ** -0.5).to(cuda_device,
+                                                                         torch.bfloat16)
+    sizes = torch.randint(128, 200, (R * E,), generator=g).to(cuda_device)
+    x = torch.randn((int(sizes.sum()), Kd), generator=g).to(cuda_device, torch.bfloat16)
+    _m128_against_wgmma(monkeypatch, x, stack[:, 1], sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gate", "down"])
+def test_m128_kernel_at_dbrxs_prefill_shapes_on_card(cuda_device, monkeypatch, which):
+    """dbrx-132b's bf16 prefill expert shapes, [8192, 6144] → 10752 and
+    [8192, 10752] → 6144 over 16 experts (~512 rows an expert)."""
+    d, ff, E = 6144, 10752, 16
+    Kd, F = (d, ff) if which == "gate" else (ff, d)
+    g = torch.Generator(device=cuda_device).manual_seed(Kd)
+    sizes = torch.bincount(torch.rand((2048, E), generator=g, device=cuda_device)
+                           .argsort(dim=-1)[:, :4].flatten(), minlength=E)
+    x = torch.randn((8192, Kd), generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((E, Kd, F), generator=g, device=cuda_device) * Kd ** -0.5).to(
+        torch.bfloat16)
+    _m128_against_wgmma(monkeypatch, x, w, sizes)
 
 
 @pytest.mark.cuda
@@ -887,8 +1032,9 @@ def test_kernel_tiles_are_the_wrappers_geometry_on_card(cuda_device):
     """The CUDA source's tile constants are the ones ``launch_geometry``
     computes the grid from."""
     import ctypes
-    got = (ctypes.c_int * 12)()
+    got = (ctypes.c_int * 15)()
     _build.load().grouped_matmul_geometry(ctypes.addressof(got))
     assert list(got) == [md.ROWS_BM, md.ROWS_BN, md.TILE_BM, md.TILE_BN, md.MAX_GROUPS,
                          md.TILE_SMEM, md.WG_BM, md.wgmma_smem(128), md.wgmma_smem(256),
-                         md.TF_BM, md.TF_BN, md.TF_SMEM]
+                         md.TF_BM, md.TF_BN, md.TF_SMEM, md.M128_BM, md.M128_BN,
+                         md.M128_SMEM]
