@@ -75,9 +75,12 @@ last line):
      beside SDPA's, its bound 3× the operations at the TF32 rate beside the
      fp32 FFMA bound; through flash_fwd at head_dim 32), bf16 through
      flash_fwd (head_dim 16/32) within one bf16 ulp (rtol 2^-7) + atol
-     1e-4, bf16 through flash_fwd_wgmma (head_dim 64/128) within rtol 2^-7
+     1e-4, bf16 through flash_fwd_pingpong (head_dim 64/128) within rtol 2^-7
      + atol 2^-9·max|v| + 1e-4 (P rounded to bf16 before P·V) and within
-     2× SDPA's max and 1.5× its mean error against the fp32 plain version,
+     2× SDPA's max and 1.5× its mean error against the fp32 plain version
+     (flash_fwd_wgmma on the same values beside it, through the C entry
+     point's variant id: held to the same tolerance, timed, and its largest
+     difference from flash_fwd_pingpong printed),
      at stablelm-1.6b's training shape [128, 64, 32, 64] and prefill shape
      [4, 2048, 32, 64] (causal, and with window 256), qwen2.5-14b's GQA
      [1, 2048, 40/8, 128] (and with window 256) and its bf16 prefill shape
@@ -101,7 +104,7 @@ last line):
      GEMMs' shares); then the bf16 prefills: stablelm-1.6b at full depth
      and qwen2.5-14b at full width and depth (48 layers, 14,770,038,785
      parameters, 29.5 GB in bf16, a model no fp32 path could hold), every
-     K4 launch flash_fwd_wgmma (24 and 48), held to ``impl="ref"`` under
+     K4 launch flash_fwd_pingpong (24 and 48), held to ``impl="ref"`` under
      the bf16 rule (BF16_NOISE_FACTOR: the distance from ``impl="ref"`` at
      most twice impl="ref"'s own from the same prefill in fp32, each layer's
      weights widened as it runs, plus one bf16 ulp);
@@ -112,7 +115,7 @@ last line):
      window; the same CoDA path with ``param_dtype=bfloat16`` through
      ``coda.init_state`` and ``coda.fit`` (one local step's losses and every
      gradient leaf held to impl="ref" under the bf16 rule against the fp32
-     step; every K4 launch flash_fwd_wgmma, K2 on bf16 leaves); the same
+     step; every K4 launch flash_fwd_pingpong, K2 on bf16 leaves); the same
      in bf16 with CODASCA under faults (participation 0.75, stragglers 0.2,
      max_staleness 1: the mixed bf16/f32 buckets, 2 × model_bytes + 8; one
      local step's losses and one masked window's merged parameters held to
@@ -155,7 +158,7 @@ last line):
      per prefill and decode tick, tokens/s, TTFT and latency, a profiled
      decode tick against K5's bound; then the same in bf16 with 4 of 40
      layers (14,269,532,161 parameters, 28.5 GB): the prefill (4 K4
-     flash_fwd_wgmma, 12 K5 gmm_wgmma_m128 launches, under the bf16 rule, the
+     flash_fwd_pingpong, 12 K5 gmm_wgmma_m128 launches, under the bf16 rule, the
      caches at the positions no routing flip reached) and the engine
      (every K5 launch gmm_wgmma at 1-4 rows an expert; a token
      flip allowed where impl="ref"'s top-2 logit gap is within the bf16
@@ -171,14 +174,14 @@ last line):
  13b. arctic-480b in bf16 at full width with 2 of 35 layers (27,681,138,689
      parameters, 55.36 GB, drawn a matrix at a time; 128 experts top-2
      beside the dense residual MLP): the prefill on [B=2, S=1024] (2 K4
-     flash_fwd_wgmma at 56/8 heads, 6 K5 gmm_wgmma launches) as in phase
+     flash_fwd_pingpong at 56/8 heads, 6 K5 gmm_wgmma launches) as in phase
      12's bf16 prefill, its fp32 baseline widening the experts one block at
      a time; K5 held to its plain version at the inputs the path's own
      router gives it, in the prefill (~32 rows an expert) and in a serve
      tick (8 rows); the engine as phase 12's bf16 one (6 K5 launches a
      serve step); then phi3-medium-14b in bf16 at full depth and width
      (14,659,512,321 parameters): the prefill on [B=4, S=2048] (40 K4
-     flash_fwd_wgmma at 40/10 heads) and the engine (no kernel in decode:
+     flash_fwd_pingpong at 40/10 heads) and the engine (no kernel in decode:
      tokens equal impl='ref''s); each phase's peak memory beside the card's;
  14. the distributed executor (``--executor shard_map``: NCCL over R =
      torch.cuda.device_count() ranks, one a card; R = 1 on one card, so one
@@ -213,7 +216,7 @@ last line):
      stablelm-1.6b CoDA path (2 layers, full width) through ``coda.fit`` on
      the sharded executor: its window against the batched executor's as
      above, two all_reduces a window (the bf16 and the f32 bucket) of
-     window_payload_by_dtype bytes, every K4 launch flash_fwd_wgmma, exact
+     window_payload_by_dtype bytes, every K4 launch flash_fwd_pingpong, exact
      K1/K2/K4 launches, its ms per local step the median of 5 steady
      windows beside the batched fit's on the same windows (run after phase
      10's bf16 paths);
@@ -266,7 +269,7 @@ last line):
      the batched and the sharded executor on NCCL at R = 1, serving, the
      kernels through the seam), the bf16 stablelm-1.6b CoDA window and stage
      at full width with 2 of 24 layers (K=4, B=32, S=64; R1–R3, R5's
-     auc_loss, prox_update and flash_fwd_wgmma records equal to the
+     auc_loss, prox_update and flash_fwd_pingpong records equal to the
      kernels' own geometry queries, R2's allocated bytes against the new
      state's) and the bf16 dbrx-132b engine on the 4-layer weights of
      phase 12 (R3, R4's two chunk shapes, R5's gmm_wgmma records against
@@ -834,9 +837,10 @@ F32, BF16 = torch.float32, torch.bfloat16
 # training shape (K·B = 128 sequences of 64 tokens) and prefill shape,
 # qwen2.5-14b's GQA, chatglm3-6b's and dbrx-132b's prefill shapes, the dbrx
 # smoke training shape, MQA, cross-shaped, windowed and ragged cases, and a
-# smoke width; the bf16 cases at head_dim 64/128 run flash_fwd_wgmma, the
-# fp32 cases at head_dim 64/128 flash_fwd_tf32x3 (two heads a block where S,
-# Skv <= 64), head_dim 32 flash_fwd
+# smoke width; the bf16 cases at head_dim 64/128 run flash_fwd_pingpong (two
+# heads a block where S, Skv <= 64) with flash_fwd_wgmma beside it on the
+# same values, the fp32 cases at head_dim 64/128 flash_fwd_tf32x3 (two heads
+# a block where S, Skv <= 64), head_dim 32 flash_fwd
 ATTN_CASES = [
     ("stablelm_train", 128, 64, 32, 32, 64, 64, True, None, F32),
     ("stablelm_train_bf16", 128, 64, 32, 32, 64, 64, True, None, BF16),
@@ -891,7 +895,8 @@ ATTN_CASES = [
 # 16/32): kernel and plain version both compute in fp32 and round once, so
 # one bf16 ulp (≤ 2^-7 of the value) plus fp32 noise near zero
 ATTN_TOL = {F32: (2e-5, 2e-5), BF16: (1e-4, 2 ** -7)}
-# bf16 through flash_fwd_wgmma: it rounds each probability to bf16 before
+# bf16 through flash_fwd_pingpong (and flash_fwd_wgmma beside it): each
+# rounds each probability to bf16 before
 # P·V (relative error ≤ 2^-9), as every tensor-core attention does; the
 # weights sum to 1, so an output moves by at most 2^-9·max|v|; then the one
 # ulp of the final rounding: atol = ATTN_P_ROUND·max|v| + 1e-4, rtol 2^-7.
@@ -926,11 +931,42 @@ def sdpa_fn(q, k, v, causal: bool, window):
                                                   enable_gqa=gqa)
 
 
+def wgmma_attention_beside(label: str, q, k, v, kw: dict, o, want, want_lse, atol: float,
+                           rtol: float) -> dict:
+    """flash_fwd_wgmma on the values a flash_fwd_pingpong case ran, through
+    the C entry point's variant id (``fa._launch``, uncounted): held to the
+    plain version under the same tolerance, its largest difference from
+    flash_fwd_pingpong's output, CUDA-event and device time."""
+    import types
+
+    from repro_torch.kernels import flash_attention as fa
+    ow, lw = fa._launch("flash_fwd_wgmma", q, k, v, kw["causal"], kw["window"])
+    diff = (ow.float() - want.float()).abs()
+    lse_err = float((lw - want_lse).abs().max())
+    if not (bool((diff <= atol + rtol * want.float().abs()).all()) and lse_err <= LSE_ATOL):
+        raise SystemExit(f"flash_attention {label}: flash_fwd_wgmma disagrees with the plain "
+                         f"version: max_abs_err={float(diff.max())}, lse err {lse_err}")
+    counted = types.SimpleNamespace(launches=0)
+
+    def call():
+        counted.launches += 1
+        return fa._launch("flash_fwd_wgmma", q, k, v, kw["causal"], kw["window"])
+
+    ms = cuda_ms(call, iters=20)
+    dev_ms, src = kernel_device_ms(call, "flash_fwd_wgmma", counted, calls=5)
+    return {"kernel": "flash_fwd_wgmma", "max_abs_err": float(diff.max()),
+            "lse_max_abs_err": lse_err, "max_abs_diff_vs_pingpong":
+            float((ow.float() - o.float()).abs().max()), "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": src}
+
+
 def check_flash_attention(dev, rates, bf16_rate, gen):
     """K4 against its plain version at each case: output within ATTN_TOL,
     log-sum-exp within LSE_ATOL; CUDA-event time, device time, bound, the
-    plain version's time and SDPA's.  Then the backward at the training
-    shape against autograd through the plain version."""
+    plain version's time and SDPA's; at each flash_fwd_pingpong case
+    flash_fwd_wgmma on the same values beside it (``wgmma_attention_beside``).
+    Then the backward at the training shape against autograd through the
+    plain version."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     rows = []
@@ -946,7 +982,7 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         if fa.variant_launches[variant] != before + 1:
             raise SystemExit(f"flash_attention {label}: {variant} was not launched")
         atol, rtol = ATTN_TOL[dt]
-        if variant == "flash_fwd_wgmma":
+        if variant == "flash_fwd_pingpong":
             atol = ATTN_P_ROUND * float(v.float().abs().max()) + ATTN_TOL[BF16][0]
         diff = (o.float() - want.float()).abs()
         err = float(diff.max())
@@ -954,6 +990,10 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         if not (bool((diff <= atol + rtol * want.float().abs()).all()) and lse_err <= LSE_ATOL):
             raise SystemExit(f"flash_attention {label} disagrees with its plain version: "
                              f"max_abs_err={err} (atol {atol}, rtol {rtol}), lse err {lse_err}")
+        beside = {}
+        if variant == "flash_fwd_pingpong":
+            beside = {"wgmma": wgmma_attention_beside(label, q, k, v, kw, o, want, want_lse,
+                                                      atol, rtol)}
         lib = sdpa_fn(q, k, v, causal, window)
         if dt == BF16:
             # kernel and SDPA against the fp32 plain version on the same bf16 inputs
@@ -971,7 +1011,7 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         print(f"flash_attention {label} vs the fp32 plain version: max/mean err "
               f"{vs_sdpa['max_err_vs_fp32']:.3g}/{vs_sdpa['mean_err_vs_fp32']:.3g}, SDPA "
               f"{vs_sdpa['sdpa_max_err_vs_fp32']:.3g}/{vs_sdpa['sdpa_mean_err_vs_fp32']:.3g}")
-        if variant == "flash_fwd_wgmma" and not (
+        if variant == "flash_fwd_pingpong" and not (
                 vs_sdpa["max_err_vs_fp32"] <= ATTN_SDPA_MAX * vs_sdpa["sdpa_max_err_vs_fp32"]
                 and vs_sdpa["mean_err_vs_fp32"]
                 <= ATTN_SDPA_MEAN * vs_sdpa["sdpa_mean_err_vs_fp32"]):
@@ -1000,7 +1040,7 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
                      "device_ms": dev_ms, "device_ms_source": dev_src,
                      "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bnd,
                      "bound_by": by, **tf32, "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
-                     **vs_sdpa})
+                     **vs_sdpa, **beside})
         print(f"flash_attention {label} [B={B}, S={S}, H={H}, KV={KV}, Skv={Skv}, hd={hd}] "
               f"{'causal' if causal else 'full'} window={window} {dname} {variant}: "
               f"max_abs_err={err:.3g} (atol {atol:.3g}, rtol {rtol:g}), lse err {lse_err:.3g}; "
@@ -1008,7 +1048,12 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
               f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}: {n_ops / 1e9:.2f} GFLOP, "
               f"{n_bytes / 1e6:.1f} MB)"
               + (f"; 3xTF32 at {TF32_PER_BF16 * bf16_rate / 1e12:.0f} TFLOP/s, fp32 FFMA bound "
-                 f"{tf32['bound_ffma_ms']:.4f} ms ({tf32['bound_ffma_by']})" if tf32 else ""))
+                 f"{tf32['bound_ffma_ms']:.4f} ms ({tf32['bound_ffma_by']})" if tf32 else "")
+              + (f"; flash_fwd_wgmma on the same values {beside['wgmma']['ms']:.4f} ms "
+                 f"({dev_txt(beside['wgmma']['device_ms'], beside['wgmma']['device_ms_source'])}"
+                 f"), max_abs_err {beside['wgmma']['max_abs_err']:.3g}, largest difference "
+                 f"from flash_fwd_pingpong {beside['wgmma']['max_abs_diff_vs_pingpong']:.3g}"
+                 if beside else ""))
         del q, k, v, o, lse, want_lse
     # the backward (plain tensor code over the kernel's saved log-sum-exp) at
     # the training shape, against autograd through the plain version
@@ -1498,7 +1543,7 @@ def profile_window(label: str, mcfg, state, dev, *, consume: bool = False,
 # bf16 ulp, 2⁻⁷ relative, on top of the fp32 noise)
 PREFILL_TOL = {"scores": 1e-5, "logits": 1e-4, "cache_rtol": 2 ** -7, "cache_atol": 1e-4}
 # bf16 weights: the kernels and impl="ref" are two bf16 computations of one
-# fp32 function, rounding in different places (flash_fwd_wgmma rounds each
+# fp32 function, rounding in different places (flash_fwd_pingpong rounds each
 # probability to bf16 before P·V where the plain attention rounds its output
 # once; gmm_wgmma and the plain grouped GEMM sum in fp32 in another order), so
 # after a few layers they differ by bf16 noise, not by an fp32 tolerance.
@@ -1548,22 +1593,22 @@ DBRX_PREFILL = PrefillPath(
     f"{DBRX_LAYERS} of 40 layers (full width: d=6144, 48/8 heads of 128, 16 experts top-4, "
     "d_ff 10752, vocab 100,352), one replica (K=1); " + PREFILL_32K,
     n_layers=DBRX_LAYERS)
-# the bf16 paths: every K4 launch flash_fwd_wgmma, every K5 launch gmm_wgmma
+# the bf16 paths: every K4 launch flash_fwd_pingpong, every K5 launch gmm_wgmma
 # but the bf16 dbrx prefill's (~512 rows an expert: gmm_wgmma_m128)
 BF16_STABLELM_PREFILL = dataclasses.replace(
-    STABLELM_PREFILL, label="bf16_stablelm_prefill", dtype=BF16, k4="flash_fwd_wgmma",
+    STABLELM_PREFILL, label="bf16_stablelm_prefill", dtype=BF16, k4="flash_fwd_pingpong",
     k5="gmm_wgmma", reduced=STABLELM_PREFILL.reduced + "; bf16 weights")
 BF16_QWEN_PREFILL = PrefillPath(
     "bf16_qwen_prefill", "qwen2.5-14b", 14_770_038_785, 4, 2048,
     PREFILL_32K + ", one replica (K=1); full width and depth (48 layers: d=5120, 40/8 heads "
     "of 128, d_ff 13824, vocab 152,064, qkv bias); bf16 weights (29.5 GB; 59 GB in fp32)",
-    dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma")
+    dtype=BF16, k4="flash_fwd_pingpong", k5="gmm_wgmma")
 BF16_DBRX_LAYERS = 4
 BF16_DBRX_PREFILL = PrefillPath(
     "bf16_dbrx_prefill", "dbrx-132b", 14_269_532_161, 2, 1024,
     f"{BF16_DBRX_LAYERS} of 40 layers (full width, as dbrx_prefill; bf16 weights, 28.5 GB, "
     "where fp32 fits 2), one replica (K=1); " + PREFILL_32K,
-    n_layers=BF16_DBRX_LAYERS, dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma_m128")
+    n_layers=BF16_DBRX_LAYERS, dtype=BF16, k4="flash_fwd_pingpong", k5="gmm_wgmma_m128")
 
 
 # the vlm, hybrid and audio families at full width
@@ -1573,7 +1618,7 @@ INTERNVL_PREFILL = PrefillPath(
     "replica (K=1); full width and depth (24 layers: d=2048, 16/8 heads of 128, d_ff 8192, "
     "vocab 92,553)")
 BF16_INTERNVL_PREFILL = dataclasses.replace(
-    INTERNVL_PREFILL, label="bf16_internvl_prefill", dtype=BF16, k4="flash_fwd_wgmma",
+    INTERNVL_PREFILL, label="bf16_internvl_prefill", dtype=BF16, k4="flash_fwd_pingpong",
     reduced=INTERNVL_PREFILL.reduced + "; bf16 weights (the fp32 patches project in fp32)")
 HYMBA_PREFILL = PrefillPath(
     "hymba_prefill", "hymba-1.5b", 1_662_214_401, 2, 4096,
@@ -1581,7 +1626,7 @@ HYMBA_PREFILL = PrefillPath(
     "depth (32 layers: d=1600, 25/5 heads of 64, d_ff 5504, vocab 32,001, an SSM branch "
     "of d_inner 3200 and state 16 in every layer, a 2048 window but on layers 0, 16 and 31)")
 BF16_HYMBA_PREFILL = dataclasses.replace(
-    HYMBA_PREFILL, label="bf16_hymba_prefill", dtype=BF16, k4="flash_fwd_wgmma",
+    HYMBA_PREFILL, label="bf16_hymba_prefill", dtype=BF16, k4="flash_fwd_pingpong",
     reduced=HYMBA_PREFILL.reduced + "; bf16 weights (A_log, D and the scan in fp32)")
 SEAMLESS_PREFILL = PrefillPath(
     "seamless_prefill", "seamless-m4t-medium", 878_208_001, 4, 2048,
@@ -1598,12 +1643,12 @@ BF16_ARCTIC_PREFILL = PrefillPath(
     f"{ARCTIC_LAYERS} of 35 layers (full width: d=7168, 56/8 heads of 128, 128 experts "
     "top-2 of d_ff 4864 beside a dense residual MLP of d_ff 4864, vocab 32,000; bf16 "
     "weights, 55.36 GB, where 3 layers would be ~83 GB), one replica (K=1); " + PREFILL_32K,
-    n_layers=ARCTIC_LAYERS, dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma")
+    n_layers=ARCTIC_LAYERS, dtype=BF16, k4="flash_fwd_pingpong", k5="gmm_wgmma")
 BF16_PHI3_PREFILL = PrefillPath(
     "bf16_phi3_prefill", "phi3-medium-14b", 14_659_512_321, 4, 2048,
     PREFILL_32K + ", one replica (K=1); full width and depth (40 layers: d=5120, 40/10 heads "
     "of 128, d_ff 17920, vocab 100,352); bf16 weights (29.32 GB; 58.6 GB in fp32)",
-    dtype=BF16, k4="flash_fwd_wgmma", k5="gmm_wgmma")
+    dtype=BF16, k4="flash_fwd_pingpong", k5="gmm_wgmma")
 
 
 def hidden_fp32(cfg, params, batch):
@@ -1891,11 +1936,11 @@ def run_prefill(dev, path: PrefillPath, k5_checked: set, k5_inputs: list | None 
         want = dict.fromkeys(counts, 0) | {"flash_attention": n_attn,
                                            "grouped_matmul": 3 * moe_layers}
         k4, k5 = variants["flash_attention"], variants["grouped_matmul"]
-        if (counts != want or k4[path.k4] != n_attn
-                or k5[path.k5] != 3 * moe_layers):
+        if counts != want or k5[path.k5] != 3 * moe_layers:
             raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
-                             f"every K4 launch {path.k4}, every K5 launch {path.k5}")
+                             f"every K5 launch {path.k5}")
         print(f"{label}: launches {counts}; K4 variants {k4}; K5 variants {k5}")
+        require_k4_variant(label, {"variant_launches": variants}, path.k4, str(path.dtype))
         require_k5_checked(label, k5_shapes, k5_checked)
         times = []
         for _ in range(3):
@@ -2630,7 +2675,7 @@ def run_bf16_big(dev, rates, bf16_rate, k5_checked: set, gmm_rows: list, prefill
                  counts: dict) -> dict:
     """arctic-480b (2 of 35 layers) and phi3-medium-14b (all 40) in bf16 at
     full width: each prefill (``run_prefill``: every K4 launch
-    flash_fwd_wgmma, every K5 launch gmm_wgmma, against impl="ref" and
+    flash_fwd_pingpong, every K5 launch gmm_wgmma, against impl="ref" and
     under the bf16 rule against fp32, whose baseline widens arctic's
     experts one block at a time) and the same weights through the engine
     (``run_engine_serve``); arctic's K5 also at the inputs its own router
@@ -2675,7 +2720,7 @@ def run_bf16_coda(dev) -> tuple[dict, dict]:
     (the bf16 rule); then ``coda.fit`` (one stage, 16 local steps) with
     every counter set to 0 just before and read just after: auc_loss once a
     local step, prox_update once a local step (step_launches), flash_attention once a
-    layer a forward, every K4 launch flash_fwd_wgmma; the test AUC of the
+    layer a forward, every K4 launch flash_fwd_pingpong; the test AUC of the
     held-out split; one profiled window."""
     from repro_torch.configs import get_config
     from repro_torch.core import coda, objective, schedules
@@ -2736,9 +2781,10 @@ def run_bf16_coda(dev) -> tuple[dict, dict]:
         "flash_attention": TRAIN_LAYERS * (steps + stages)}
     k4 = variants["flash_attention"]
     print(f"main path {label}: {steps} local steps, launches {counts}, K4 variants {k4}")
-    if counts != want or k4["flash_fwd_wgmma"] != want["flash_attention"]:
-        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
-                         "every K4 launch flash_fwd_wgmma")
+    if counts != want:
+        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}")
+    require_k4_variant(label, {"variant_launches": variants}, "flash_fwd_pingpong",
+                       "bf16, head_dim 64")
     losses = [h[2] for h in res.history]
     ms = 1e3 * statistics.median(res.step_seconds[1:] or res.step_seconds)
     test = ds.full(2048)
@@ -2863,7 +2909,7 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
     local steps) with every counter set to 0 just before and read just
     after: auc_loss once a local step, prox_update once a local step,
     flash_attention once a layer a forward, every K4 launch
-    flash_fwd_wgmma; peak memory, ms per local step, the mixed bf16/f32
+    flash_fwd_pingpong; peak memory, ms per local step, the mixed bf16/f32
     buckets, the test AUC, one profiled window."""
     from repro_torch.configs import get_config
     from repro_torch.core import bucketing, coda, objective, schedules
@@ -2993,9 +3039,10 @@ def run_bf16_codasca(dev) -> tuple[dict, dict]:
         "flash_attention": TRAIN_LAYERS * (steps + stages)}
     k4 = variants["flash_attention"]
     print(f"main path {label}: {steps} local steps, launches {counts}, K4 variants {k4}")
-    if counts != want or k4["flash_fwd_wgmma"] != want["flash_attention"]:
-        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
-                         "every K4 launch flash_fwd_wgmma")
+    if counts != want:
+        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}")
+    require_k4_variant(label, {"variant_launches": variants}, "flash_fwd_pingpong",
+                       "bf16, head_dim 64")
     losses = [h[2] for h in res.history]
     ms = 1e3 * statistics.median(res.step_seconds[1:] or res.step_seconds)
     test = ds.full(2048)
@@ -3464,7 +3511,7 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
     or the stated tolerance), then the fit with every counter set to 0 just
     before and read just after: auc_loss once a local step, prox_update
     once a local step, flash_attention once a layer a forward, every
-    K4 launch flash_fwd_wgmma; two all_reduces a window (the bf16 and the
+    K4 launch flash_fwd_pingpong; two all_reduces a window (the bf16 and the
     f32 bucket) of ``window_payload_by_dtype`` bytes and one a stage end;
     then the same fit on the batched executor, for its ms per local step
     and peak memory beside them.  The fits run one stage of BF16_SHARD_T0
@@ -3547,9 +3594,10 @@ def run_bf16_sharded(dev) -> tuple[dict, dict]:
           f"{twin_ms:.3f}), peak memory {peak / 2**30:.3f} GiB (batched "
           f"{twin_peak / 2**30:.3f}), window losses {[round(x, 5) for x in losses]}, "
           f"bitwise the batched fit's: {losses == twin_losses}")
-    if counts != want or k4["flash_fwd_wgmma"] != want["flash_attention"]:
-        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}, "
-                         "every K4 launch flash_fwd_wgmma")
+    if counts != want:
+        raise SystemExit(f"{label}: launch counts {counts} ({variants}), expected {want}")
+    require_k4_variant(label, {"variant_launches": variants}, "flash_fwd_pingpong",
+                       "bf16, head_dim 64")
     if set(by_dtype) != {"bf16", "f32"} or comms["all_reduce"] != want_ar \
             or comms["all_gather"]["calls"] or comms["p2p"]["calls"]:
         raise SystemExit(f"{label}: collectives {comms}, expected all_reduce {want_ar} over "
@@ -4114,7 +4162,7 @@ def run_audit(dev, dbrx_cfg, dbrx_params, param_check: dict, prefill_ms: float) 
     print(f"audit R5 at the paths' shapes: {len(recs)} records, each the kernel's own "
           f"geometry query: {rep.ok}; variants {variants}")
     need = {"gmm_rows", "gmm_tiles", "gmm_wgmma", "gmm_tf32x3", "gmm_wgmma_m128",
-            "flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3"}
+            "flash_fwd", "flash_fwd_pingpong", "flash_fwd_tf32x3"}
     if not rep.ok or not need <= set(variants):
         raise SystemExit(f"audit R5 at the paths' shapes: {[str(f) for f in rep.findings]}, "
                          f"variants {variants}")
@@ -4135,7 +4183,7 @@ def run_audit(dev, dbrx_cfg, dbrx_params, param_check: dict, prefill_ms: float) 
               f"state and outputs {m['new_bytes']:,} B (excess {m['excess']:,} B, slack "
               f"{A.R2_SLACK_BYTES:,}); peak {m['peak_above_state']:,} B above the state")
     print(f"audit full/bf16_stablelm_coda: variants (calls, launches, query equal) {var}")
-    need = {"auc_loss_kernel", "prox_update_multi_kernel", "flash_fwd_wgmma"}
+    need = {"auc_loss_kernel", "prox_update_multi_kernel", "flash_fwd_pingpong"}
     if not rep.ok or not need <= set(var) or not all(v[2] and v[0] == v[1] for v in var.values()):
         raise SystemExit(f"audit full/bf16_stablelm_coda: {[str(f) for f in rep.findings]}, "
                          f"variants {var}")
@@ -4307,7 +4355,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     # (head_dim 128), every K4 launch flash_fwd_tf32x3
     # and the bf16 prefills: stablelm-1.6b beside its fp32 twin, qwen2.5-14b at
     # full depth (a model no fp32 path could hold), every K4 launch
-    # flash_fwd_wgmma
+    # flash_fwd_pingpong
     prefills = {}
     for path in (STABLELM_PREFILL, CHATGLM_PREFILL, BF16_STABLELM_PREFILL,
                  BF16_QWEN_PREFILL):
@@ -4545,7 +4593,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
         "bound_us": h["bound_ms"] * 1e3, "shapes": attn_rows, "backward": attn_bwd,
         "variants": variant_rows("flash_attention", attn_rows,
                                  {"flash_fwd": ["smoke_hd32"],
-                                  "flash_fwd_wgmma": ["stablelm_prefill_bf16",
+                                  "flash_fwd_pingpong": ["stablelm_prefill_bf16",
                                                       "qwen_prefill_bf16", "dbrx_prefill_bf16",
                                                       "stablelm_train_bf16",
                                                       "internvl_prefill_bf16",

@@ -781,9 +781,10 @@ def launch_record(kernel: str, shape: dict, *, impl: str = "auto", device: str =
         if g["kernel"] == "flash_fwd":
             tiles = {"rows a block (16 thread rows × 4)": (g["bq"], 16, None)}
         else:
-            tiles = {"wgmma M (rows a consumer warpgroup)": (g["bq"] // 2, 64, None),
+            tiles = {"wgmma M (rows a consumer warpgroup)":
+                     (g["bq"] // g.get("consumers", 2), 64, None),
                      "wgmma N (keys of q·kᵀ)": (g["bk"], 8, 256)}
-            if g["kernel"] == "flash_fwd_wgmma":
+            if g["kernel"] in ("flash_fwd_wgmma", "flash_fwd_pingpong"):
                 tiles["wgmma N (dims of P·V)"] = (hd, 8, 256)
                 boxes = ((64, 1, 64, 1), g["tma_box"])
                 strides = (hd * e, H * hd * e, S * H * hd * e)
@@ -850,7 +851,8 @@ def kernel_query(rec: KernelLaunch) -> dict:
                 "launches": out[5]}
     if rec.kernel == "flash_attention":
         out = (ctypes.c_int * 12)()
-        vid = {"flash_fwd": 0, "flash_fwd_wgmma": 1, "flash_fwd_tf32x3": 2}[rec.variant]
+        vid = {"flash_fwd": 0, "flash_fwd_wgmma": 1, "flash_fwd_tf32x3": 2,
+               "flash_fwd_pingpong": 3}[rec.variant]
         if lib.flash_attention_geometry(vid, s["hd"], s["B"], s["S"], s["H"], s["Skv"],
                                         ctypes.addressof(out)) != 0:
             raise RuntimeError(f"flash_attention_geometry refused {rec.name}")

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "flash_attention_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "flash_attention_wgmma_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "flash_attention_tf32x3_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
+    "flash_attention_pingpong_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "flash_attention_geometry": (ctypes.c_int, [ctypes.c_int] * 6 + [_P]),
     "grouped_matmul": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,

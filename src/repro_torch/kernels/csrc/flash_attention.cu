@@ -36,11 +36,12 @@
 // Shared-memory traffic per FFMA is what keeps this simple kernel below
 // the arithmetic bound; the two variants below take the tensor cores.
 //
-// flash_fwd_wgmma: the variant for bf16 q/k/v with head_dim 64 or 128 (the
-// head_dims of every full-width config), chosen on the host from the dtype
-// and head_dim (kernels/flash_attention.py::launch_geometry); bf16 at
-// head_dim 16/32 keeps flash_fwd, as does fp32 there (fp32 at head_dim 64
-// and 128 takes flash_fwd_tf32x3, below).  bf16 attention at the prefill
+// flash_fwd_wgmma: the first tensor-core form for bf16 q/k/v with head_dim
+// 64 or 128 (the head_dims of every full-width config); flash_fwd_pingpong
+// (below) now takes those calls, and flash_fwd_wgmma stays as its yardstick,
+// reached through the entry point's variant id.  bf16 at head_dim 16/32
+// keeps flash_fwd, as does fp32 there (fp32 at head_dim 64 and 128 takes
+// flash_fwd_tf32x3, below).  bf16 attention at the prefill
 // shape does ~69 GFLOP against 67 MB, over the tensor cores' ridge: the
 // bound is bf16 tensor-core arithmetic (0.07 ms at 989 TFLOP/s), which
 // FFMA cannot approach.  Design:
@@ -140,6 +141,59 @@
 //   * the pipeline of flash_fwd_wgmma (next tile's q·kᵀ before this tile's
 //     P·V — at HD 128 before its first half — last tile peeled); o stored
 //     in fp32 and lse as flash_fwd's.
+//
+// flash_fwd_pingpong: the variant for bf16 q/k/v with head_dim 64 or 128
+// and 16-byte-aligned bases, chosen on the host (kernels/flash_attention.py::
+// launch_geometry).  flash_fwd_wgmma reaches 25-38 % of its bound: both its
+// consumer warpgroups wait on the same K/V barriers, so they issue their
+// products together and then run their softmaxes together, and at head_dim
+// 64 one score's softmax (an exp2 at the SFU's 16 a clock an SM, plus the
+// scale, max, sum and bf16 pack) costs about as much as its 256 FLOP of
+// products (4,096 bf16 FLOP a clock an SM): the tensor cores idle about
+// half of each tile.  The name is FA3's ping-pong schedule (Shah et al.
+// 2024, §3.1), in which the consumer warpgroups take turns on the tensor
+// cores at named barriers; measured against this kernel (the script's
+// `turns` candidate, 10 turns a shape), the turns gain 0-1 % at head_dim 64
+// and cost 1.8-3.1 % at 128, so the warpgroups share each K/V stage in
+// phase as flash_fwd_wgmma's do.  Design:
+//   * consumer warpgroups of 64 query rows and a producer warpgroup whose
+//     one thread issues every TMA load over the same 4-D maps as
+//     flash_fwd_wgmma's ([B, S|Skv, heads, HD]; GQA through the
+//     coordinates): three consumers at head_dim 64 (192 rows a block,
+//     setmaxnreg 24 / 160: a consumer holds 64 + 32 + 32 score, output and
+//     P registers), two at head_dim 128 (128 rows, 40 / 232; three would
+//     spill and pass the shared memory a block may use); in each warpgroup
+//     the pipeline of flash_fwd_wgmma (next tile's q·kᵀ before this tile's
+//     P·V, last tile peeled, no branch around the products);
+//   * one ex2 a score: the scores stay raw, the max is taken on them, and
+//     p = ex2.approx(s·c − m·c) with c = log2(e)·hd^-½ is one FFMA and one
+//     MUFU.EX2 (about 2 ulp, far below P's 2^-9 rounding); a row whose keys
+//     are all masked so far takes 0 as its base, so its sentinel scores give
+//     0 and l stays 0;
+//   * K and V stages released separately (K once q·kᵀ is done, V once P·V
+//     is), K loaded one tile ahead of V as the consumers read them; 4 stages
+//     at HD 64 (6 measured 1.5-2 % slower), 2 at HD 128 (3 measured 2-2.5 %
+//     slower, in 9-10 of 10 turns at each head_dim-128 prefill shape; why is
+//     not read);
+//   * S, Skv ≤ 64 (the training shapes): two heads an item, one per
+//     consumer warpgroup, with 64-key tiles (a 128-key tile would be half
+//     padding); the producer interleaves the two heads' tiles (each may read
+//     another KV head), and an odd H leaves the last item one head;
+//   * persistent blocks at head_dim 128 and when packed: one block an SM
+//     walks the items longest causal rows first, and the producer loads the
+//     next item's q and first K/V tiles while the consumers finish the last
+//     P·V and store the item (each item's own prologue and epilogue were
+//     exposed otherwise: 2,048 blocks of ~8.5 tiles at stablelm's prefill,
+//     4,096 one-tile blocks at its training shape).  At head_dim 64
+//     unpacked the three-warpgroup block runs one item a block: at 160
+//     registers the persistent walk spills and serializes the wgmma chain;
+//   * o = O / max(l, 1e-30) in bf16 stored from registers; lse = m·hd^-½ +
+//     log l in fp32.  A row with no valid key at all (a window that closes
+//     before the keys begin, S > Skv + window) keeps l = 0 and gets o = 0,
+//     as the Pallas kernel's rows whose every KV block it skips do.
+// The candidates and diagnostics behind these choices (turns or none,
+// ex2 on or off, V's loads on or off, persistent or not, two or three
+// consumer warpgroups) are scripts/k4_bf16_variants.py's.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
@@ -1143,6 +1197,487 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* l
       window, scale, packed);
   return static_cast<int>(cudaGetLastError());
 }
+
+// --------------------------------------------------------- flash_fwd_pingpong
+constexpr int kPpBK = 128;         // keys a K/V tile
+constexpr int kPpPackBK = 64;      // keys a K/V tile when a block packs two heads
+constexpr int kPpPack = 64;        // two heads a block when S, Skv ≤ this
+constexpr int kPpConsumers64 = 3;  // consumer warpgroups of 64 query rows at head_dim 64
+constexpr int kPpConsumers128 = 2; // the same at head_dim 128, and in a packed block
+// the K and V tensor maps' box: 64 dims (one 128-byte row) × the tile's keys
+constexpr uint32_t kPpKBox[4] = {64, 1, kPpBK, 1};
+constexpr uint32_t kPpPackKBox[4] = {64, 1, kPpPackBK, 1};
+
+__host__ __device__ inline bool pp_packed(int S, int Skv) { return S <= kPpPack && Skv <= kPpPack; }
+// the consumer warpgroups of a block (64 query rows each, or one head each
+// when packed), and whether its blocks are persistent: head_dim 64 unpacked
+// runs three warpgroups, a block an item; head_dim 128, and every packed
+// call, two, with a persistent block an SM walking the items
+__host__ __device__ constexpr int pp_consumers(int hd, bool packed) {
+  return hd == 64 && !packed ? kPpConsumers64 : kPpConsumers128;
+}
+__host__ __device__ constexpr bool pp_persistent(int hd, bool packed) {
+  return !(hd == 64 && !packed);
+}
+template <int HD>
+__host__ __device__ constexpr int pp_stages() { return HD == 64 ? 4 : 2; }
+template <int HD>
+__host__ __device__ constexpr int pp_smem_bytes() {
+  // q [64 rows a consumer warpgroup × HD], K and V [kPpBK keys × HD] per
+  // stage (bf16; a packed call's 64-key tiles and two warpgroups use less
+  // of it), 4 barriers a stage, a q-full and a q-empty barrier a consumer
+  // warpgroup, 1024 bytes of alignment slack.  HD 64: 156,848 B; HD 128:
+  // 164,960 B
+  return 64 * pp_consumers(HD, false) * HD * 2 + pp_stages<HD>() * 2 * kPpBK * HD * 2 +
+         (4 * pp_stages<HD>() + 2 * pp_consumers(HD, false)) * 8 + 1024;
+}
+// a call's items: (query tile, head, batch row), or (head pair, batch row)
+// when packed; and its blocks: one an item, or one an SM (at most) when
+// persistent
+__host__ __device__ inline int pp_items(int hd, int S, int Skv, int H, int B) {
+  const bool packed = pp_packed(S, Skv);
+  const int bq = 64 * pp_consumers(hd, packed);
+  return packed ? (H + 1) / 2 * B : (S + bq - 1) / bq * H * B;
+}
+inline int pp_blocks(int hd, int S, int Skv, int H, int B) {
+  const int items = pp_items(hd, S, Skv, H, B);
+  if (!pp_persistent(hd, pp_packed(S, Skv))) return items;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return items < sms ? items : sms;
+}
+
+// issue S = q·kᵀ for a BK-key tile over HD / 16 slices of 16 (committed, not
+// waited); both operands K-major, 128-byte swizzle
+template <int HD, int BK>
+__device__ __forceinline__ void pp_issue_scores(float (&sacc)[BK / 2], const uint8_t* qw_s,
+                                                const uint8_t* k_stage) {
+  constexpr int kQRegion = 64 * 128, kKVRegion = BK * 128;
+  hopper::fence_regs(sacc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da = hopper::desc_sw128(qw_s + (kk / 4) * kQRegion + 32 * (kk % 4), 0, 1024);
+    const uint64_t db = hopper::desc_sw128(k_stage + (kk / 4) * kKVRegion + 32 * (kk % 4), 0, 1024);
+    if constexpr (BK == 128)
+      hopper::wgmma_ss_n128<0>(sacc, da, db, kk > 0);
+    else
+      hopper::wgmma_ss_n64<0>(sacc, da, db, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// issue O += P·V for a BK-key V tile (committed, not waited; the caller has
+// fenced O and P): P from registers, V MN-major (hd contiguous)
+template <int HD, int BK>
+__device__ __forceinline__ void pp_issue_pv(float (&oacc)[HD / 2], const uint32_t (&pa)[BK / 16][4],
+                                            const uint8_t* v_stage) {
+  const uint64_t dv = hopper::desc_sw128(v_stage, BK * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if constexpr (HD == 128)
+      hopper::wgmma_rs_n128<1>(oacc, pa[kk], hopper::desc_add(dv, 2048 * kk), 1);
+    else
+      hopper::wgmma_rs_n64<1>(oacc, pa[kk], hopper::desc_add(dv, 2048 * kk), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// the online softmax of a BK-key tile of raw scores at k0: masked with the
+// −1e30 sentinel where the mask reaches the tile, m (raw units) and l
+// updated, O's rescale in corr and the probabilities in sacc, each one
+// ex2(s·c − m·c) with c = log2(e)·hd^-½: one FFMA and one MUFU.EX2 a score.
+// A row with no valid key yet (m = −1e30) takes 0 as its base, so its masked
+// scores give ex2(−1e30·c) = 0 and l stays 0 until a valid key arrives.
+template <int BK>
+__device__ __forceinline__ void pp_softmax(float (&sacc)[BK / 2], float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], int k0, const WgRows& w) {
+  const bool edge = k0 + BK > w.Skv || (w.causal && k0 + BK - 1 > w.qw) ||
+                    (w.window >= 0 && k0 <= w.qw + 63 - w.window);
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + w.cc + (e & 1), qp = w.row0 + 8 * (e >> 1);
+        bool ok = kp < w.Skv;
+        if (w.causal) ok = ok && kp <= qp;
+        if (w.window >= 0) ok = ok && kp > qp - w.window;
+        if (!ok) sacc[4 * j + e] = kNegInf;
+      }
+  }
+  const float c = w.scale_log2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sacc[4 * j + 2 * r], sacc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    const float mc = m_new == kNegInf ? 0.f : m_new * c;
+    corr[r] = hopper::ex2((m[r] - m_new) * c);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = hopper::ex2(fmaf(sacc[4 * j + 2 * r], c, -mc));
+      const float p1 = hopper::ex2(fmaf(sacc[4 * j + 2 * r + 1], c, -mc));
+      sacc[4 * j + 2 * r] = p0;
+      sacc[4 * j + 2 * r + 1] = p1;
+      sum += p0 + p1;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l[r] = l[r] * corr[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+// P rounded to bf16 as wgmma's A fragments: slice kk holds keys 16kk .. +15
+template <int BK>
+__device__ __forceinline__ void pp_pack(const float (&sacc)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = hopper::pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+    pa[kk][1] = hopper::pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pa[kk][2] = hopper::pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pa[kk][3] = hopper::pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+// one item of a call: its first query row and head, batch row, band of KV
+// tiles, consumer warpgroups with rows (or heads), and heads whose tiles the
+// producer loads
+struct PpItem {
+  int q0, h0, b, kv_lo, ntiles, n_wg, heads;
+};
+// item t, longest causal rows first: unpacked, t → query tile n_qt − 1 −
+// t / (H·B) of head t % H, batch row t % (H·B) / H; packed, t → heads 2p,
+// 2p + 1 (p = t % ⌈H/2⌉) of batch row t / ⌈H/2⌉
+template <int BK, int NC, bool Packed>
+__device__ __forceinline__ PpItem pp_item(int t, int S, int H, int B, int Skv, int causal,
+                                          int window) {
+  PpItem it;
+  if constexpr (Packed) {
+    const int pairs = (H + 1) / 2;
+    it.q0 = 0;
+    it.h0 = 2 * (t % pairs);
+    it.b = t / pairs;
+  } else {
+    const int n_qt = (S + 64 * NC - 1) / (64 * NC), hb = t % (H * B);
+    it.q0 = (n_qt - 1 - t / (H * B)) * 64 * NC;
+    it.h0 = hb % H;
+    it.b = hb / H;
+  }
+  // KV tiles inside the band of the item's rows (pl.when(needed) in Pallas)
+  const int kv_hi = causal ? min(Skv, it.q0 + 64 * NC) : Skv;
+  const int kv_lo = window >= 0 ? max(0, it.q0 - window + 1) : 0;
+  it.kv_lo = (kv_lo / BK) * BK;
+  it.ntiles = kv_hi > it.kv_lo ? (kv_hi - it.kv_lo + BK - 1) / BK : 0;
+  it.n_wg = Packed ? min(NC, H - it.h0) : min(NC, (S - it.q0 + 63) / 64);
+  it.heads = Packed ? it.n_wg : 1;
+  return it;
+}
+
+// Unpacked: an item is 64·NC query rows of one (head, batch row), its
+// consumer warpgroups sharing each K/V tile.  Packed (S, Skv ≤ 64): an item
+// is heads h0 and h0 + 1 of a batch row, one per consumer warpgroup, and
+// the producer interleaves their tiles (load i of an item is tile i / heads
+// of head h0 + i % heads).  Persistent: each block walks items blockIdx.x +
+// k·gridDim.x; the K/V ring and its barriers' phases run on across items,
+// and the producer loads an item's q (once the consumer warpgroup's last
+// q·kᵀ of the previous item is done: qempty) and first K/V tiles while the
+// consumers finish the previous item's last P·V and store it.  An item with
+// no K/V tile (its rows have no valid key) issues no product.
+template <int HD, bool Packed>
+__global__ void __launch_bounds__(128 * (pp_consumers(HD, Packed) + 1), 1)
+flash_fwd_pingpong(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int B, int S, int H, int Skv, int KV, int causal,
+                   int window, float scale_log2) {
+  constexpr int NC = pp_consumers(HD, Packed);
+  constexpr bool kPersistent = pp_persistent(HD, Packed);
+  constexpr int BK = Packed ? kPpPackBK : kPpBK;
+  constexpr int NST = pp_stages<HD>();
+  constexpr int NHB = HD / 64;                   // 64-wide column regions of a row
+  constexpr int kQRegion = 64 * 128;             // 64 rows × 128 bytes
+  constexpr int kKVRegion = BK * 128;            // BK keys × 128 bytes
+  constexpr int kTileBytes = BK * HD * 2;        // one K (or V) tile
+  constexpr int kStageBytes = kPpBK * HD * 2;    // a stage's room (packed tiles use half)
+  // registers: NC = 3, 24 / 160 a thread; NC = 2, 40 / 232 (65,536 at most)
+  constexpr int kProducerRegs = NC == 3 ? 24 : 40;
+  constexpr int kConsumerRegs = NC == 3 ? 160 : 232;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_smem_1024(smem_raw);
+  uint8_t* qs = smem;                                  // [consumer wg][NHB][64 × 128 B]
+  uint8_t* ks = qs + 64 * NC * HD * 2;                 // [NST][NHB][BK × 128 B]
+  uint8_t* vs = ks + NST * kStageBytes;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(vs + NST * kStageBytes);
+  uint64_t* vfull = kfull + NST;
+  uint64_t* kempty = vfull + NST;  // the consumers' q·kᵀ has read the K stage
+  uint64_t* vempty = kempty + NST; // the consumers' P·V has read the V stage
+  uint64_t* qfull = vempty + NST;  // [consumer wg]
+  uint64_t* qempty = qfull + NC;   // [consumer wg]: its last q·kᵀ of an item is done
+
+  const int G = H / KV;
+  const int items = pp_items(HD, S, Skv, H, B);
+  // unpacked, every consumer warpgroup releases every stage (one with no
+  // rows in an item waits for the item's stages and releases them too, so
+  // the count holds across items); packed, a stage is read by its head's
+  const int readers = Packed ? 128 : 128 * NC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&kempty[s], readers);
+      hopper::mbar_init(&vempty[s], readers);
+    }
+    for (int w = 0; w < NC; ++w) {
+      hopper::mbar_init(&qfull[w], 1);
+      hopper::mbar_init(&qempty[w], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NC) {  // producer warpgroup: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (warp == 4 * NC && lane == 0) {
+      hopper::prefetch_tensormap(&qmap);
+      hopper::prefetch_tensormap(&kmap);
+      hopper::prefetch_tensormap(&vmap);
+      int base = 0;            // the block's loads before this item's
+      int qloads[NC] = {};     // q loads of each consumer warpgroup so far
+      auto produce = [&](int t) {
+        const PpItem it = pp_item<BK, NC, Packed>(t, S, H, B, Skv, causal, window);
+        for (int w = 0; w < it.n_wg; ++w) {
+          if (qloads[w] > 0) hopper::mbar_wait(&qempty[w], (qloads[w] - 1) & 1);
+          ++qloads[w];
+          hopper::mbar_expect_tx(&qfull[w], 64 * HD * 2);
+#pragma unroll
+          for (int j = 0; j < NHB; ++j)
+            hopper::tma_load_4d(qs + (w * NHB + j) * kQRegion, &qmap, &qfull[w], 64 * j,
+                                Packed ? it.h0 + w : it.h0, Packed ? 0 : it.q0 + 64 * w, it.b);
+        }
+        // K runs one load ahead of V, as the consumers read them: K_{i+1}
+        // (for q·kᵀ of the next tile) before V_i (for P·V of this one)
+        const int nloads = it.ntiles * it.heads;
+        for (int i = 0; i <= nloads; ++i) {
+          if (i < nloads) {
+            const int g = base + i, s = g % NST;
+            const int k0 = it.kv_lo + (i / it.heads) * BK, kvh = (it.h0 + i % it.heads) / G;
+            if (g >= NST) hopper::mbar_wait(&kempty[s], ((g / NST) - 1) & 1);
+            hopper::mbar_expect_tx(&kfull[s], kTileBytes);
+#pragma unroll
+            for (int j = 0; j < NHB; ++j)
+              hopper::tma_load_4d(ks + s * kStageBytes + j * kKVRegion, &kmap, &kfull[s], 64 * j,
+                                  kvh, k0, it.b);
+          }
+          if (i > 0) {
+            const int l = i - 1, g = base + l, s = g % NST;
+            const int k0 = it.kv_lo + (l / it.heads) * BK, kvh = (it.h0 + l % it.heads) / G;
+            if (g >= NST) hopper::mbar_wait(&vempty[s], ((g / NST) - 1) & 1);
+            hopper::mbar_expect_tx(&vfull[s], kTileBytes);
+#pragma unroll
+            for (int j = 0; j < NHB; ++j)
+              hopper::tma_load_4d(vs + s * kStageBytes + j * kKVRegion, &vmap, &vfull[s], 64 * j,
+                                  kvh, k0, it.b);
+          }
+        }
+        base += nloads;
+      };
+      if constexpr (kPersistent) {
+        for (int t = blockIdx.x; t < items; t += gridDim.x) produce(t);
+      } else {
+        produce(blockIdx.x);
+      }
+    }
+    return;
+  }
+  // consumers take the registers the producer gave back
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+  const int wg = warp / 4;
+  const bool last_wg = wg == NC - 1;
+  const int cc = 2 * (lane % 4);
+  const long long q_row = static_cast<long long>(H) * HD;
+  const float lse_scale = scale_log2 * kLn2;
+  const uint8_t* qw_s = qs + wg * NHB * kQRegion;
+  int base = 0;   // the block's loads before this item's
+  int qwaits = 0; // this warpgroup's q loads so far
+
+  auto consume = [&](int t) {
+    const PpItem it = pp_item<BK, NC, Packed>(t, S, H, B, Skv, causal, window);
+    const int ntiles = it.ntiles, heads = it.heads, kv_lo = it.kv_lo;
+    if (wg >= it.n_wg) {  // no rows (or no head) in this item
+      if (!Packed)          // unpacked, release the item's stages all the same
+        for (int i = 0; i < ntiles; ++i) {
+          const int g = base + i, s = g % NST;
+          hopper::mbar_wait(&kfull[s], (g / NST) & 1);
+          hopper::mbar_arrive(&kempty[s]);
+          hopper::mbar_wait(&vfull[s], (g / NST) & 1);
+          hopper::mbar_arrive(&vempty[s]);
+        }
+      base += ntiles * heads;
+      return;
+    }
+
+    // this thread's head and two rows (accumulator layout): 16·(warp % 4) +
+    // lane / 4 (+8); its tile i is the block's load base + i·heads + sb
+    const int h = Packed ? it.h0 + wg : it.h0;
+    const int sb = base + (Packed ? wg : 0);
+    const int qw = Packed ? 0 : it.q0 + 64 * wg;
+    const int row0 = qw + 16 * (warp % 4) + lane / 4;
+    // causal, unpacked: a warpgroup other than the last stops its products at
+    // the last K/V tile its rows reach (with 192-row items and 128-key tiles,
+    // up to one tile and a half fewer a warpgroup)
+    int ntw = ntiles;
+    if (!Packed && causal && !last_wg)
+      ntw = min(ntiles, (min(min(S, qw + 64), Skv) - kv_lo + BK - 1) / BK);
+    float sacc[BK / 2], oacc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+    uint32_t pa[BK / 16][4];
+    const WgRows rows{row0, qw, cc, Skv, causal, window, scale_log2};
+    hopper::mbar_wait(&qfull[wg], qwaits & 1);
+    ++qwaits;
+
+    // The pipeline of flash_fwd_wgmma: q·kᵀ of tile i + 1 issued before P·V
+    // of tile i, the last tile peeled, no branch around the products.
+    if (ntiles > 0) {
+      const int s = sb % NST;
+      hopper::mbar_wait(&kfull[s], (sb / NST) & 1);
+      pp_issue_scores<HD, BK>(sacc, qw_s, ks + s * kStageBytes);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sacc);
+      hopper::mbar_arrive(&kempty[s]);
+      pp_softmax<BK>(sacc, m, l, corr, kv_lo, rows);  // O is 0: corr unused
+      pp_pack<BK>(sacc, pa);
+    }
+    for (int i = 0; i + 1 < ntw; ++i) {
+      const int j = sb + i * heads, j1 = j + heads, s = j % NST, s1 = j1 % NST;
+      hopper::mbar_wait(&kfull[s1], (j1 / NST) & 1);
+      hopper::mbar_wait(&vfull[s], (j / NST) & 1);
+      pp_issue_scores<HD, BK>(sacc, qw_s, ks + s1 * kStageBytes);
+      hopper::fence_regs(oacc);
+      hopper::wgmma_fence();
+      pp_issue_pv<HD, BK>(oacc, pa, vs + s * kStageBytes);
+      hopper::wgmma_wait<1>();  // q·kᵀ of tile i + 1 is done; P·V of tile i may run on
+      hopper::fence_regs(sacc);
+      hopper::mbar_arrive(&kempty[s1]);
+      pp_softmax<BK>(sacc, m, l, corr, kv_lo + (i + 1) * BK, rows);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+      hopper::fence_regs(pa);
+      hopper::mbar_arrive(&vempty[s]);
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        oacc[4 * c] *= corr[0];
+        oacc[4 * c + 1] *= corr[0];
+        oacc[4 * c + 2] *= corr[1];
+        oacc[4 * c + 3] *= corr[1];
+      }
+      pp_pack<BK>(sacc, pa);
+    }
+    // every q·kᵀ of the item is done: the producer may load the next q
+    if constexpr (kPersistent) hopper::mbar_arrive(&qempty[wg]);
+    if (ntw > 0) {  // the last tile's P·V
+      const int j = sb + (ntw - 1) * heads, s = j % NST;
+      hopper::mbar_wait(&vfull[s], (j / NST) & 1);
+      hopper::fence_regs(oacc);
+      hopper::wgmma_fence();
+      pp_issue_pv<HD, BK>(oacc, pa, vs + s * kStageBytes);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+      hopper::fence_regs(pa);
+      hopper::mbar_arrive(&vempty[s]);
+    }
+    // the item's tiles past this warpgroup's rows: wait for them and release
+    // them (every consumer warpgroup releases every stage)
+    for (int i = ntw; i < ntiles; ++i) {
+      const int g = sb + i, s = g % NST;
+      hopper::mbar_wait(&kfull[s], (g / NST) & 1);
+      hopper::mbar_arrive(&kempty[s]);
+      hopper::mbar_wait(&vfull[s], (g / NST) & 1);
+      hopper::mbar_arrive(&vempty[s]);
+    }
+    base += ntiles * heads;
+
+    // o = O / max(l, 1e-30) in bf16; lse = m·hd^-½ + log l
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      if (qp >= S) continue;
+      const float li = fmaxf(l[r], 1e-30f);
+      const float inv = 1.f / li;
+      __nv_bfloat16* orow = o + (static_cast<long long>(it.b) * S + qp) * q_row +
+                            static_cast<long long>(h) * HD + cc;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+            __floats2bfloat162_rn(oacc[4 * c + 2 * r] * inv, oacc[4 * c + 2 * r + 1] * inv);
+      if (lane % 4 == 0)
+        lse[(static_cast<long long>(it.b) * H + h) * S + qp] = m[r] * lse_scale + logf(li);
+    }
+  };
+  if constexpr (kPersistent) {
+    for (int t = blockIdx.x; t < items; t += gridDim.x) consume(t);
+  } else {
+    consume(blockIdx.x);
+  }
+}
+
+template <int HD, bool Packed>
+int launch_pp(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
+              float* lse, int B, int S, int H, int Skv, int KV, int causal, int window,
+              float scale_log2, cudaStream_t stream) {
+  constexpr int bytes = pp_smem_bytes<HD>();
+  static bool attr_set = false;  // per instantiation, once per process
+  if (!attr_set) {
+    const cudaError_t cerr = cudaFuncSetAttribute(
+        flash_fwd_pingpong<HD, Packed>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    attr_set = true;
+  }
+  flash_fwd_pingpong<HD, Packed>
+      <<<pp_blocks(HD, S, Skv, H, B), 128 * (pp_consumers(HD, Packed) + 1), bytes, stream>>>(
+          qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, S, H, Skv, KV, causal, window,
+          scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_pingpong(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                    int S, int H, int Skv, int KV, int causal, int window, float scale,
+                    cudaStream_t stream) {
+  const bool packed = pp_packed(S, Skv);
+  CUtensorMap qm, km, vm;
+  const uint64_t e = 2;  // bytes per bf16
+  const uint64_t qdims[4] = {HD, static_cast<uint64_t>(H), static_cast<uint64_t>(S),
+                             static_cast<uint64_t>(B)};
+  const uint64_t qstr[3] = {HD * e, static_cast<uint64_t>(H) * HD * e,
+                            static_cast<uint64_t>(S) * H * HD * e};
+  const uint32_t qbox[4] = {64, 1, 64, 1};
+  const uint64_t kdims[4] = {HD, static_cast<uint64_t>(KV), static_cast<uint64_t>(Skv),
+                             static_cast<uint64_t>(B)};
+  const uint64_t kstr[3] = {HD * e, static_cast<uint64_t>(KV) * HD * e,
+                            static_cast<uint64_t>(Skv) * KV * HD * e};
+  const uint32_t* kbox = packed ? kPpPackKBox : kPpKBox;
+  int err = hopper::encode_bf16_map(&qm, q, 4, qdims, qstr, qbox);
+  if (err == 0) err = hopper::encode_bf16_map(&km, k, 4, kdims, kstr, kbox);
+  if (err == 0) err = hopper::encode_bf16_map(&vm, v, 4, kdims, kstr, kbox);
+  if (err != 0) return err;
+  return packed ? launch_pp<HD, true>(qm, km, vm, o, lse, B, S, H, Skv, KV, causal, window,
+                                      scale * kLog2e, stream)
+                : launch_pp<HD, false>(qm, km, vm, o, lse, B, S, H, Skv, KV, causal, window,
+                                       scale * kLog2e, stream);
+}
 }  // namespace
 
 extern "C" {
@@ -1151,7 +1686,8 @@ extern "C" {
 // dtype: bf16 = 0 → fp32, 1 → bf16); lse [B, H, S] fp32.  window < 0 means
 // no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.  variant: 0 flash_fwd,
 // 1 flash_fwd_wgmma (bf16, hd 64 or 128, q/k/v 16-byte aligned), 2
-// flash_fwd_tf32x3 (fp32, hd 64 or 128, q/k/v 16-byte aligned).
+// flash_fwd_tf32x3 (fp32, hd 64 or 128, q/k/v 16-byte aligned), 3
+// flash_fwd_pingpong (bf16, hd 64 or 128, q/k/v 16-byte aligned).
 int flash_attention_forward(int bf16, int hd, int variant, const void* q, const void* k,
                             const void* v, void* o, float* lse, int B, int S,
                             int H, int Skv, int KV, int causal, int window,
@@ -1160,6 +1696,14 @@ int flash_attention_forward(int bf16, int hd, int variant, const void* q, const 
       B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 3) {
+    if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+      case 64: return launch_pingpong<64>(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+      case 128: return launch_pingpong<128>(q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (variant == 2) {
     if (bf16) return static_cast<int>(cudaErrorInvalidValue);
     switch (hd) {
@@ -1207,9 +1751,17 @@ int flash_attention_tf32x3_smem_bytes(int hd) {
   }
 }
 
+int flash_attention_pingpong_smem_bytes(int hd) {
+  switch (hd) {
+    case 64: return pp_smem_bytes<64>();
+    case 128: return pp_smem_bytes<128>();
+    default: return -1;
+  }
+}
+
 // The launch geometry of one call as the launchers above make it, for the
 // wrapper's launch_geometry to be held against.  variant: 0 flash_fwd, 1
-// flash_fwd_wgmma, 2 flash_fwd_tf32x3.  out: grid x, y, z, threads a block,
+// flash_fwd_wgmma, 2 flash_fwd_tf32x3, 3 flash_fwd_pingpong.  out: grid x, y, z, threads a block,
 // dynamic shared memory bytes, query rows a block, keys a K/V tile, stages,
 // then the K/V tensor maps' box (4 dims; zeros for flash_fwd).  Returns 0,
 // or -1 for a variant and head_dim with no kernel.
@@ -1239,6 +1791,15 @@ int flash_attention_geometry(int variant, int hd, int B, int S, int H, int Skv, 
     out[6] = hd == 64 ? TfTile<64>::BK : TfTile<128>::BK;
     out[7] = kTfStages;
     box = hd == 64 ? TfTile<64>::kKBox : TfTile<128>::kKBox;
+  } else if (variant == 3 && (hd == 64 || hd == 128)) {
+    const bool packed = pp_packed(S, Skv);
+    grid = dim3(pp_blocks(hd, S, Skv, H, B), 1, 1);
+    out[3] = 128 * (pp_consumers(hd, packed) + 1);
+    out[4] = flash_attention_pingpong_smem_bytes(hd);
+    out[5] = 64 * pp_consumers(hd, packed);
+    out[6] = packed ? kPpPackBK : kPpBK;
+    out[7] = hd == 64 ? pp_stages<64>() : pp_stages<128>();
+    box = packed ? kPpPackKBox : kPpKBox;
   } else {
     return -1;
   }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels of
-// flash_attention.cu (flash_fwd_wgmma, flash_fwd_tf32x3) and moe_dispatch.cu
-// (gmm_wgmma, gmm_wgmma_m128, gmm_tf32x3):
+// flash_attention.cu (flash_fwd_wgmma, flash_fwd_tf32x3, flash_fwd_pingpong)
+// and moe_dispatch.cu (gmm_wgmma, gmm_wgmma_m128, gmm_tf32x3):
 //
 //   * mbarriers: init, arrive, arrive with expected bytes, parity wait;
 //   * TMA: tile loads (cp.async.bulk.tensor, 2-D to 4-D) into shared memory,
@@ -10,11 +10,13 @@
 //     an arrival on the mbarrier at the same offset in another block;
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled tiles, fence,
 //     commit and wait, and bf16 m64nNk16 products with fp32 accumulators
-//     (A from shared memory or from registers); tf32 m64nNk8 products (N =
-//     32 or 64 with A from registers or shared memory, N = 128 with A from
-//     registers) and fp32 → tf32 rounding, for split-TF32 kernels;
+//     (N = 64, 128 or 256; A from shared memory or from registers); tf32
+//     m64nNk8 products (N = 32 or 64 with A from registers or shared memory,
+//     N = 128 with A from registers) and fp32 → tf32 rounding, for
+//     split-TF32 kernels;
 //   * the proxy fence that makes threads' shared-memory stores visible to
 //     wgmma, and named barriers;
+//   * ex2.approx: 2^x in one MUFU.EX2;
 //   * host: CUtensorMap encoding through cuTensorMapEncodeTiled, reached with
 //     cudaGetDriverEntryPoint, so the library needs no -lcuda at link time.
 //
@@ -325,9 +327,27 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64×64] += A·B, A and B in shared memory (descriptors); TB = 1: B MN-major
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // wait at named barrier `id` (1..15; 0 is __syncthreads') for `threads` threads
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 2^x in one MUFU.EX2 (about 2 ulp; subnormal results flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ------------------------------------------------------------------ host side

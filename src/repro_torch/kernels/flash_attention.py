@@ -11,9 +11,11 @@ skipped, query head h reading KV head ``h // G``.  Output in q's dtype
 
 What bounds it on the card, and the design: see ``csrc/flash_attention.cu``.
 Three variants, chosen on the host from static facts (``launch_geometry``):
-``flash_fwd_wgmma`` for bf16 q/k/v with head_dim 64 or 128 and 16-byte
+``flash_fwd_pingpong`` for bf16 q/k/v with head_dim 64 or 128 and 16-byte
 aligned bases — 128-row query tiles, TMA-fed K/V ring, q·kᵀ and P·V on the
-bf16 tensor cores (wgmma) with P rounded to bf16; ``flash_fwd_tf32x3`` for
+bf16 tensor cores (wgmma) with P rounded to bf16, three consumer
+warpgroups at head_dim 64 and persistent blocks at 128, one ex2 a score,
+two heads a block when S and Skv are at most 64; ``flash_fwd_tf32x3`` for
 fp32 q/k/v with head_dim 64 or 128 and 16-byte aligned bases — the same structure
 with q·kᵀ and P·V as split TF32 (each operand x = big + small, both tf32,
 and big·big + big·small + small·big on the tf32 tensor cores, fp32
@@ -22,7 +24,10 @@ fp32 version at fp32's tolerance); and ``flash_fwd`` for every other call (fp32
 or bf16 at head_dim 16/32, or an unaligned base) — 64-row query tiles, fp32
 FFMA.  At the prefill shape arithmetic bounds them (bf16 or
 TF32 tensor-core, or fp32 rates), at the training shape (64-token
-sequences) bytes.
+sequences) bytes.  ``flash_fwd_wgmma``, the first bf16 tensor-core form
+(its warpgroups in phase), takes no call of the wrapper's: it stays as
+``flash_fwd_pingpong``'s yardstick, launched on the same values through the
+C entry point's variant id (``_launch``), uncounted.
 
 The Pallas kernel has no VJP: the reference differentiates attention by
 XLA autodiff outside any kernel.  Here ``FlashAttention`` is a
@@ -45,9 +50,11 @@ from repro_torch.kernels import _build, ref
 # Kernel launches through this wrapper (one per call that reaches the card),
 # in all and by variant.
 launches = 0
-variant_launches = {"flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_fwd_tf32x3": 0}
+variant_launches = {"flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_fwd_tf32x3": 0,
+                    "flash_fwd_pingpong": 0}
 # the C entry point's variant argument
-_VARIANT_ID = {"flash_fwd": 0, "flash_fwd_wgmma": 1, "flash_fwd_tf32x3": 2}
+_VARIANT_ID = {"flash_fwd": 0, "flash_fwd_wgmma": 1, "flash_fwd_tf32x3": 2,
+               "flash_fwd_pingpong": 3}
 
 BLOCK_Q = BLOCK_K = 64
 THREADS = 256
@@ -64,6 +71,14 @@ TF_THREADS = 384                  # two consumer warpgroups + a load-and-split w
 TF_HEAD_DIMS = (64, 128)
 TF_STAGES = 2                     # depth of each of the K, V and Vᵀ rings
 TF_PACK = 64                      # two heads a block when S and Skv are at most this
+# flash_fwd_pingpong (csrc/flash_attention.cu's kPp* constants)
+PP_BLOCK_K = 128                  # keys a K/V tile
+PP_PACK_BLOCK_K = 64              # keys a K/V tile when an item packs two heads
+PP_CONSUMERS = {64: 3, 128: 2}    # consumer warpgroups of 64 query rows, by head_dim
+PP_PACK_CONSUMERS = 2             # one per head when packed
+PP_HEAD_DIMS = (64, 128)
+PP_STAGES = {64: 4, 128: 2}
+PP_PACK = 64                      # two heads an item when S and Skv are at most this
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -72,14 +87,23 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
     """Static launch geometry of one call (the counterpart of the Pallas
     kernel's ``launch_geometry``), and the variant, from the dtype, head_dim
     and whether q, k and v are 16-byte aligned (``aligned``, which TMA
-    needs): ``flash_fwd_wgmma`` for bf16 at head_dim 64/128,
+    needs): ``flash_fwd_pingpong`` for bf16 at head_dim 64/128,
     ``flash_fwd_tf32x3`` for fp32 at head_dim 64/128, ``flash_fwd`` for
     every other call.  grid = (query tiles, H, B).
     flash_fwd: 64-row tiles, 256 threads, dynamic shared memory for the
     transposed q tile, one K and one V tile and the probability tile.
-    flash_fwd_wgmma: 128-row tiles, 384 threads, the q tile and a ring of
-    K/V stages of 128 keys in bf16, their barriers and 1 KB of alignment
-    slack.  flash_fwd_tf32x3: 128-row tiles, 384 threads, q_small of the
+    flash_fwd_pingpong: consumer warpgroups of 64 query rows (three at
+    head_dim 64: 192-row items, 512 threads; two at 128: 128-row items, 384
+    threads) and a producer warpgroup; the q tile and a ring of K/V stages
+    of 128 keys in bf16 (4 at head_dim 64, 2 at 128), their barriers and
+    1 KB of alignment slack; when S and Skv are both at most 64 an item
+    packs two heads, one per consumer warpgroup of two, with 64-key tiles in
+    the same shared memory.  Items are (query tile, head, batch row), or
+    (head pair, batch row) when packed; grid = (items, 1, 1) at head_dim 64
+    unpacked, else min(items, SMs) persistent blocks that walk them, the
+    SMs of the current CUDA device as the kernel's launch reads them
+    (``_sm_count``; a host without a card reports a block an item).
+    flash_fwd_tf32x3: 128-row tiles, 384 threads, q_small of the
     tile and rings of fp32 stages of 64 keys at head_dim 64, 32 at 128
     (q_big lives in registers); when S and Skv are both at most 64 (one
     warpgroup's rows; one K/V tile at head_dim 64, two at 128) it packs two
@@ -90,13 +114,24 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
     Unlike the Pallas kernel, S and Skv need not divide by the tiles: the
     ragged edge is masked (or zero-filled by TMA), and the KV tiles are a
     loop inside the block, so Skv does not enter the grid otherwise."""
-    if dtype == torch.bfloat16 and hd in WG_HEAD_DIMS and aligned:
-        stages = WG_STAGES[hd]
-        smem = WG_BLOCK_Q * hd * 2 + stages * (2 * WG_BLOCK_K * hd * 2 + 24) + 8 + 1024
-        return {"kernel": "flash_fwd_wgmma", "bq": WG_BLOCK_Q, "bk": WG_BLOCK_K,
-                "G": H // KV, "threads": WG_THREADS, "stages": stages,
-                "grid": (math.ceil(S / WG_BLOCK_Q), H, B), "smem_bytes": smem,
-                "tma_box": (64, 1, WG_BLOCK_K, 1)}
+    if dtype == torch.bfloat16 and hd in PP_HEAD_DIMS and aligned:
+        # q of the unpacked form's warpgroups; per stage a K and a V tile of
+        # 128 keys; 4 barriers a stage, a q-full and a q-empty barrier a
+        # consumer warpgroup; 1 KB of slack
+        stages, most = PP_STAGES[hd], PP_CONSUMERS[hd]
+        smem = 64 * most * hd * 2 + stages * 2 * PP_BLOCK_K * hd * 2 \
+            + (4 * stages + 2 * most) * 8 + 1024
+        packed = S <= PP_PACK and Skv <= PP_PACK
+        nc = PP_PACK_CONSUMERS if packed else PP_CONSUMERS[hd]
+        bq, bk = 64 * nc, PP_PACK_BLOCK_K if packed else PP_BLOCK_K
+        persistent = packed or hd != 64
+        items = math.ceil(H / 2) * B if packed else math.ceil(S / bq) * H * B
+        return {"kernel": "flash_fwd_pingpong", "bq": bq, "bk": bk, "G": H // KV,
+                "consumers": nc, "threads": 128 * (nc + 1), "stages": stages,
+                "packed": packed, "persistent": persistent, "items": items,
+                "grid": (min(items, _sm_count()) if persistent else items, 1, 1),
+                "smem_bytes": smem,
+                "tma_box": (64, 1, bk, 1)}
     if dtype == torch.float32 and hd in TF_HEAD_DIMS and aligned:
         # q_small of the 128 rows; per stage five fp32 tiles of bk keys (K
         # rounded in place, K_small, V as loaded, Vᵀ_big, Vᵀ_small) and 7
@@ -113,6 +148,31 @@ def launch_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int,
     return {"kernel": "flash_fwd", "bq": BLOCK_Q, "bk": BLOCK_K, "G": H // KV,
             "threads": THREADS, "grid": (math.ceil(S / BLOCK_Q), H, B),
             "smem_bytes": 4 * smem_floats}
+
+
+def _sm_count() -> float:
+    """The current CUDA device's SMs, which bound a persistent launch's
+    blocks (the kernel's launch reads the same attribute); unbounded on a
+    host without a card."""
+    if not torch.cuda.is_available():
+        return math.inf
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def wgmma_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int) -> dict:
+    """``flash_fwd_wgmma``'s launch geometry (bf16, head_dim 64/128,
+    aligned bases): 128-row tiles, 384 threads, the q tile and a ring of K/V
+    stages of 128 keys in bf16, their barriers and 1 KB of alignment slack;
+    grid = (query tiles, H, B).  No call of the wrapper's takes it: it is
+    ``flash_fwd_pingpong``'s yardstick (``_launch``)."""
+    if hd not in WG_HEAD_DIMS:
+        raise ValueError(f"flash_fwd_wgmma is built for head_dim in {WG_HEAD_DIMS}, got {hd}")
+    stages = WG_STAGES[hd]
+    smem = WG_BLOCK_Q * hd * 2 + stages * (2 * WG_BLOCK_K * hd * 2 + 24) + 8 + 1024
+    return {"kernel": "flash_fwd_wgmma", "bq": WG_BLOCK_Q, "bk": WG_BLOCK_K,
+            "G": H // KV, "threads": WG_THREADS, "stages": stages,
+            "grid": (math.ceil(S / WG_BLOCK_Q), H, B), "smem_bytes": smem,
+            "tma_box": (64, 1, WG_BLOCK_K, 1)}
 
 
 def zero_launches() -> None:
@@ -163,21 +223,32 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention's grid takes B, H <= 65535; got {B}, {H}")
     global launches
-    lib = _build.load()
     q, k, v = (t.contiguous() for t in (q, k, v))
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    geo = launch_geometry(B, S, H, KV, Skv, hd, q.dtype, aligned)
+    kernel = launch_geometry(B, S, H, KV, Skv, hd, q.dtype, aligned)["kernel"]
+    o, lse = _launch(kernel, q, k, v, causal, window)
+    launches += 1
+    variant_launches[kernel] += 1
+    return o, lse
+
+
+def _launch(kernel: str, q, k, v, causal: bool, window):
+    """One launch of variant ``kernel`` through the C entry point's variant
+    id on contiguous CUDA tensors (the entry point refuses a dtype or
+    head_dim the variant lacks); counts nothing.  The wrapper calls it with
+    ``launch_geometry``'s pick; a check may call it with another variant on
+    the same values."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_forward(
-        int(q.dtype == torch.bfloat16), hd, _VARIANT_ID[geo["kernel"]],
+    err = _build.load().flash_attention_forward(
+        int(q.dtype == torch.bfloat16), hd, _VARIANT_ID[kernel],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S,
         H, Skv, KV, int(bool(causal)), -1 if window is None else window, hd ** -0.5,
         stream)
-    _build.check(err, f"flash_attention launch ({geo['kernel']})")
-    launches += 1
-    variant_launches[geo["kernel"]] += 1
+    _build.check(err, f"flash_attention launch ({kernel})")
     return o, lse
 
 

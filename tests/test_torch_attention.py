@@ -13,11 +13,14 @@ Tolerances:
     same atol 2e-5, rtol 2e-5 — split TF32 drops ~2^-21 of each product,
     which the CPU emulation below (the kernel's tiles, product order and
     online softmax) holds to that tolerance before the card does;
-  * on the card, bf16 through flash_fwd_wgmma (head_dim 64/128): rtol 2^-7
-    plus atol 2^-9·max|v| + 1e-4 — the kernel rounds each probability to
-    bf16 (relative error ≤ 2^-9) before P·V, as every tensor-core attention
-    does, and the weights sum to 1, so that rounding moves an output by at
-    most 2^-9·max|v|; the final rounding is the one ulp;
+  * on the card, bf16 through flash_fwd_pingpong and flash_fwd_wgmma
+    (head_dim 64/128): rtol 2^-7 plus atol 2^-9·max|v| + 1e-4 — the kernel
+    rounds each probability to bf16 (relative error ≤ 2^-9) before P·V, as
+    every tensor-core attention does, and the weights sum to 1, so that
+    rounding moves an output by at most 2^-9·max|v|; the final rounding is
+    the one ulp (flash_fwd_pingpong's ex2.approx adds ~2^-22 to each
+    probability, far inside it); the CPU model of flash_fwd_pingpong's
+    arithmetic below is held to the same tolerance;
   * the log-sum-exp vs ``jax.nn.logsumexp`` of the reference's masked
     scores: atol 2e-5;
   * ``attention_bwd`` vs ``jax.vjp`` of ``ref.attention_full``: atol 5e-5,
@@ -27,6 +30,8 @@ Tolerances:
 The card cases need no jax: ``PYTHONPATH=src python -m pytest --noconftest
 -q -m cuda tests/test_torch_attention.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -43,8 +48,8 @@ BF16_TOL = {"atol": 1e-4, "rtol": 2 ** -7}
 
 
 def wgmma_tol(v) -> dict:
-    """flash_fwd_wgmma's bf16 tolerance (see the module docstring): one ulp
-    of the output plus P's rounding, 2^-9 of the largest |v|."""
+    """The bf16 tensor-core variants' tolerance (see the module docstring):
+    one ulp of the output plus P's rounding, 2^-9 of the largest |v|."""
     return {"atol": 2 ** -9 * float(v.float().abs().max()) + 1e-4, "rtol": 2 ** -7}
 
 # the reference's shape table (tests/test_kernels_attention.py:22-28):
@@ -284,8 +289,8 @@ def test_launch_geometry(B, S, H, KV, Skv, hd, kernel, grid, smem):
 
 
 @pytest.mark.parametrize("hd,dtype,aligned,kernel", [
-    (64, torch.bfloat16, True, "flash_fwd_wgmma"),     # stablelm
-    (128, torch.bfloat16, True, "flash_fwd_wgmma"),    # qwen, phi3, chatglm, dbrx, arctic
+    (64, torch.bfloat16, True, "flash_fwd_pingpong"),     # stablelm, hymba
+    (128, torch.bfloat16, True, "flash_fwd_pingpong"),    # qwen, phi3, internvl, dbrx, arctic
     (16, torch.bfloat16, True, "flash_fwd"),           # the smoke configs' widths
     (32, torch.bfloat16, True, "flash_fwd"),
     (64, torch.bfloat16, False, "flash_fwd"),          # a base TMA cannot read
@@ -296,13 +301,44 @@ def test_launch_geometry(B, S, H, KV, Skv, hd, kernel, grid, smem):
     (32, torch.float32, True, "flash_fwd"),
     (64, torch.float32, False, "flash_fwd"),
 ])
-def test_launch_geometry_picks_the_variant(hd, dtype, aligned, kernel):
+def test_launch_geometry_picks_the_variant(monkeypatch, hd, dtype, aligned, kernel):
+    monkeypatch.setattr(fa, "_sm_count", lambda: 132)      # an H100 SXM's SMs
     geo = fa.launch_geometry(4, 2048, 32, 8, 2048, hd, dtype, aligned)
     assert geo["kernel"] == kernel and geo["G"] == 4
     assert geo["smem_bytes"] <= 232_448
-    if kernel == "flash_fwd_wgmma":
-        assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 128, 384)
-        assert geo["grid"] == (16, 32, 4) and geo["stages"] == fa.WG_STAGES[hd]
+    if kernel == "flash_fwd_pingpong":
+        # head_dim 64: three consumer warpgroups, 192-row items, a block an
+        # item; 128: two, 128-row items, a persistent block an SM
+        nc = {64: 3, 128: 2}[hd]
+        assert (geo["consumers"], geo["bq"], geo["bk"], geo["threads"]) == (
+            nc, 64 * nc, 128, 128 * (nc + 1))
+        assert geo["items"] == math.ceil(2048 / (64 * nc)) * 32 * 4
+        assert geo["persistent"] == (hd == 128)
+        assert geo["grid"] == ((1408, 1, 1) if hd == 64 else (132, 1, 1))
+        monkeypatch.setattr(fa, "_sm_count", lambda: 114)  # an H100 PCIe's
+        assert fa.launch_geometry(4, 2048, 32, 8, 2048, hd, dtype, aligned)["grid"] \
+            == ((1408, 1, 1) if hd == 64 else (114, 1, 1))
+        monkeypatch.setattr(fa, "_sm_count", lambda: 132)
+        assert geo["stages"] == fa.PP_STAGES[hd]
+        assert not geo["packed"] and geo["tma_box"] == (64, 1, 128, 1)
+        assert geo["smem_bytes"] == {64: 156_848, 128: 164_960}[hd]
+        # the training shape (S = Skv = 64): two heads an item, 64-key tiles,
+        # two consumer warpgroups, persistent blocks, in the same shared
+        # memory; an odd H leaves the last item one head
+        for H, KV, items in ((32, 32, 16 * 128), (25, 5, 13 * 128), (5, 1, 3 * 2)):
+            B = 2 if H == 5 else 128
+            packed = fa.launch_geometry(B, 64, H, KV, 64, hd, dtype, aligned)
+            assert packed["kernel"] == kernel and packed["packed"] and packed["persistent"]
+            assert packed["items"] == items and packed["grid"] == (min(items, 132), 1, 1)
+            assert (packed["bq"], packed["bk"], packed["threads"]) == (128, 64, 384)
+            assert packed["tma_box"] == (64, 1, 64, 1)
+            assert packed["smem_bytes"] == geo["smem_bytes"]
+        for S, Skv in ((64, 65), (65, 64)):       # past 64 on either side: unpacked
+            assert not fa.launch_geometry(2, S, 4, 4, Skv, hd, dtype, aligned)["packed"]
+        # flash_fwd_wgmma, the yardstick no call takes
+        old = fa.wgmma_geometry(4, 2048, 32, 8, 2048, hd)
+        assert old["kernel"] == "flash_fwd_wgmma" and old["grid"] == (16, 32, 4)
+        assert old["stages"] == fa.WG_STAGES[hd] and old["smem_bytes"] <= 232_448
     elif kernel == "flash_fwd_tf32x3":
         # 16 KB fp32 K/V tiles: 64 keys at head_dim 64, 32 at 128
         assert (geo["bq"], geo["bk"], geo["threads"]) == (128, 4096 // hd, 384)
@@ -332,6 +368,22 @@ def test_kernel_constants_are_the_wrappers_geometry():
     assert re.search(r"flash_attention_tf32x3_smem_bytes\(int hd\) \{\s*switch \(hd\) \{\s*"
                      r"case 64: return tf_smem_bytes<64>\(\);\s*"
                      r"case 128: return tf_smem_bytes<128>\(\);", src)
+    # flash_fwd_pingpong: its consumer warpgroups by head_dim, its tiles, the
+    # packing threshold, its stages by head_dim, and variant 3 at hd 64/128
+    assert (const["kPpBK"], const["kPpPackBK"], const["kPpPack"]) == (
+        fa.PP_BLOCK_K, fa.PP_PACK_BLOCK_K, fa.PP_PACK)
+    assert {64: const["kPpConsumers64"], 128: const["kPpConsumers128"]} == fa.PP_CONSUMERS
+    assert const["kPpConsumers128"] == fa.PP_PACK_CONSUMERS
+    assert "return HD == 64 ? {} : {};".format(fa.PP_STAGES[64], fa.PP_STAGES[128]) in src
+    assert "return hd == 64 && !packed ? kPpConsumers64 : kPpConsumers128;" in src
+    assert "return !(hd == 64 && !packed);" in src          # persistent: not hd 64 unpacked
+    assert tuple(fa.PP_STAGES) == fa.PP_HEAD_DIMS
+    assert re.search(r"if \(variant == 3\) \{\s*if \(!bf16\) return[^;]*;\s*switch \(hd\) "
+                     r"\{\s*case 64: return launch_pingpong<64>[^;]*;\s*"
+                     r"case 128: return launch_pingpong<128>", src)
+    assert re.search(r"flash_attention_pingpong_smem_bytes\(int hd\) \{\s*switch \(hd\) \{\s*"
+                     r"case 64: return pp_smem_bytes<64>\(\);\s*"
+                     r"case 128: return pp_smem_bytes<128>\(\);", src)
 
 
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
@@ -345,6 +397,14 @@ def test_every_variant_fits_a_blocks_shared_memory(hd, dtype, aligned, S, Skv):
     assert 0 < geo["smem_bytes"] <= 232_448
     if geo["kernel"] == "flash_fwd_tf32x3":
         assert geo["packed"] == (S <= fa.TF_PACK and Skv <= fa.TF_PACK)
+    if geo["kernel"] == "flash_fwd_pingpong":
+        assert geo["packed"] == (S <= fa.PP_PACK and Skv <= fa.PP_PACK)
+        assert geo["items"] == (4 * 2 if geo["packed"] else math.ceil(S / geo["bq"]) * 8 * 2)
+        assert geo["grid"] == (geo["items"] if not geo["persistent"]
+                               else min(geo["items"], fa._sm_count()), 1, 1)
+    if dtype == torch.bfloat16 and hd in fa.WG_HEAD_DIMS:
+        assert geo["kernel"] == ("flash_fwd_pingpong" if aligned else "flash_fwd")
+        assert 0 < fa.wgmma_geometry(2, S, 8, 2, Skv, hd)["smem_bytes"] <= 232_448
 
 
 # ---------------------------------------------------------------------------
@@ -472,12 +532,129 @@ def test_3xtf32_attention_meets_the_fp32_tolerance(jref, B, S, H, KV, Skv, hd, c
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# ---------------------------------------------------------------------------
+# flash_fwd_pingpong's arithmetic, modelled on the CPU
+# ---------------------------------------------------------------------------
+def attention_pingpong(q, k, v, causal, window):
+    """Attention as flash_fwd_pingpong computes it from bf16 q, k, v, tile by
+    tile (``fa.PP_BLOCK_K`` keys, ``fa.PP_PACK_BLOCK_K`` where S, Skv ≤
+    ``fa.PP_PACK``): raw fp32 scores masked with the −1e30 sentinel, the
+    running max m on them, each probability ex2(s·c − m·c) with c =
+    log2(e)·hd^-½ as one fused multiply-add (s·c exact, m·c rounded; a row
+    with no valid key yet takes 0 for m·c), the rescale ex2((m_old − m)·c),
+    l summed in fp32 from the fp32 probabilities, P rounded to bf16 before
+    P·V into an fp32 O that is rescaled as each tile arrives; o = O /
+    max(l, 1e-30) rounded to bf16, lse = m·c·ln2 + log l (fp32)."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    bk = fa.PP_PACK_BLOCK_K if S <= fa.PP_PACK and Skv <= fa.PP_PACK else fa.PP_BLOCK_K
+    f32 = torch.float32
+    c = torch.tensor(1.4426950408889634 * hd ** -0.5, dtype=f32)
+    qh = q.float().reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    kh = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vh = v.float().permute(0, 2, 1, 3)[:, :, None]
+    valid = ref._mask(torch.arange(S), torch.arange(Skv), causal, window)
+    m = torch.full(qh.shape[:-1] + (1,), ref.NEG_INF)
+    l = torch.zeros_like(m)
+    o = torch.zeros(qh.shape)
+    for k0 in range(0, Skv, bk):
+        s = qh @ kh[..., k0:k0 + bk, :].transpose(-1, -2)
+        s = torch.where(valid[:, k0:k0 + bk], s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        mc = torch.where(m_new == ref.NEG_INF, 0.0, m_new * c)
+        corr = torch.exp2((m - m_new) * c)
+        p = torch.exp2((s.double() * c.double() - mc.double()).float())
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        o = o * corr + p.bfloat16().float() @ vh[..., k0:k0 + bk, :]
+    lse = m * c * torch.tensor(0.6931471805599453, dtype=f32) + torch.log(l.clamp_min(1e-30))
+    o = (o / l.clamp_min(1e-30)).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return o.bfloat16(), lse[..., 0].permute(0, 3, 1, 2).reshape(B, S, H).transpose(1, 2)
+
+
+# flash_fwd_pingpong's card shapes (the bf16 path shapes of chip_smoke.py's
+# ATTN_CASES and the card tests' edges) cut to a few heads:
+# B, S, H, KV, Skv, hd, causal, window
+PINGPONG_CASES = [
+    (4, 64, 2, 2, 64, 64, True, None),         # stablelm training, packed
+    (4, 64, 5, 1, 64, 64, True, None),         # hymba training: odd H, packed
+    (2, 64, 6, 3, 64, 128, True, None),        # packed pairs straddle KV groups
+    (2, 33, 4, 4, 50, 64, False, None),        # packed, S < Skv
+    (2, 64, 4, 4, 64, 64, True, 16),           # packed, window at S = 64
+    (1, 2048, 2, 2, 2048, 64, True, None),     # stablelm prefill
+    (1, 4096, 5, 1, 4096, 64, True, 2048),     # hymba's windowed layers
+    (1, 2048, 5, 1, 2048, 128, True, None),    # qwen prefill (G = 5)
+    (1, 2048, 4, 1, 2048, 128, True, None),    # phi3 prefill (G = 4)
+    (1, 1024, 7, 1, 1024, 128, True, None),    # arctic prefill (G = 7)
+    (2, 1000, 2, 2, 1000, 128, True, 256),     # ragged S, window
+    (1, 200, 4, 4, 333, 64, False, None),      # Skv != S, both ragged
+    (2, 130, 2, 2, 130, 64, False, 50),        # window without causal
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,causal,window", PINGPONG_CASES)
+def test_pingpong_model_meets_the_bf16_tolerance(jref, B, S, H, KV, Skv, hd, causal,
+                                                 window):
+    """flash_fwd_pingpong's arithmetic, modelled on the CPU, holds the
+    reference's ``attention_full`` (and at up to 256 positions the Pallas
+    kernel in interpret mode, where its 64-row blocks tile S and Skv) on
+    the same bf16 values under the bf16
+    tensor-core tolerance (``wgmma_tol``), and its log-sum-exp the plain
+    version's within 1e-4."""
+    _, jnp, jax_ref, pallas_flash = jref
+    qn, kn, vn = (x.astype(jnp.bfloat16).astype(np.float32)
+                  for x in _qkv(S + Skv + H + hd, B, S, H, KV, hd, Skv))
+    tq, tk, tv = (t.bfloat16() for t in _t(qn, kn, vn))
+    got, lse = attention_pingpong(tq, tk, tv, causal, window)
+    want = np.asarray(jax_ref.attention_full(jnp.asarray(qn), jnp.asarray(kn),
+                                             jnp.asarray(vn), causal=causal, window=window))
+    tol = wgmma_tol(tv)
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    _, want_lse = ref.attention_full(*_t(qn, kn, vn), causal=causal, window=window,
+                                     return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    if max(S, Skv) <= 256 and all(n <= 64 or n % 64 == 0 for n in (S, Skv)):
+        pal = pallas_flash(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), causal=causal,
+                           window=window, block_q=64, block_k=64, interpret=True)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(pal), **tol)
+
+
+def test_pingpong_model_sentinel_rows():
+    """A row whose first tile holds no valid key (a window's band starts
+    inside a tile) keeps l = 0 there and gets its weights from the later
+    tiles alone: the model equals the plain version's softmax."""
+    q, k, v = (t.bfloat16() for t in _t(*_qkv(41, 1, 400, 2, 2, 64)))
+    got, lse = attention_pingpong(q, k, v, True, 100)     # rows ≥ 228 skip keys 0..127
+    want, want_lse = ref.attention_full(q.float(), k.float(), v.float(), causal=True,
+                                        window=100, return_lse=True)
+    torch.testing.assert_close(got.float(), want, **wgmma_tol(v))
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+def test_pingpong_model_rows_with_no_key():
+    """Past S = Skv + window a row has no valid key: the model keeps l = 0
+    there, so o = 0 and lse ≤ −1e20 (the backward's P then is 0), and every
+    other row equals the plain version's softmax."""
+    q, k, v = (t.bfloat16() for t in _t(*_qkv(43, 1, 200, 2, 2, 64, 64)))
+    got, lse = attention_pingpong(q, k, v, False, 16)
+    want, want_lse = ref.attention_full(q.float(), k.float(), v.float(), causal=False,
+                                        window=16, return_lse=True)
+    keyed = ref._mask(torch.arange(200), torch.arange(64), False, 16).any(-1)
+    assert int(keyed.sum()) == 79                         # rows 0..78 reach key 63
+    torch.testing.assert_close(got[:, keyed].float(), want[:, keyed], **wgmma_tol(v))
+    torch.testing.assert_close(lse[:, :, keyed], want_lse[:, :, keyed], atol=1e-4, rtol=1e-5)
+    assert not got[:, ~keyed].any() and bool((lse[:, :, ~keyed] < -1e20).all())
+
+
 def test_variant_counters_and_the_cpu_never_counts():
-    assert set(fa.variant_launches) == {"flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3"}
+    assert set(fa.variant_launches) == {"flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3",
+                                        "flash_fwd_pingpong"}
+    assert set(fa._VARIANT_ID) == set(fa.variant_launches)
+    assert fa._VARIANT_ID["flash_fwd_pingpong"] == 3
     q, k, v = (t.bfloat16() for t in _t(*_qkv(5, 1, 16, 2, 2, 64)))
-    fa.launches, fa.variant_launches["flash_fwd_wgmma"] = 3, 1
+    fa.launches, fa.variant_launches["flash_fwd_pingpong"] = 3, 1
     fa.flash_attention_fwd(q, k, v)
-    assert fa.launches == 3 and fa.variant_launches["flash_fwd_wgmma"] == 1
+    assert fa.launches == 3 and fa.variant_launches["flash_fwd_pingpong"] == 1
     fa.zero_launches()
     assert fa.launches == 0 and set(fa.variant_launches.values()) == {0}
 
@@ -497,7 +674,8 @@ def test_build_knows_both_libraries(tmp_path, monkeypatch):
     assert len({first, second, _build.library_path()}) == 3
     assert first.name.startswith("libcoda_") and first.suffix == ".so"
     assert {"coda_error_string", "flash_attention_forward", "flash_attention_smem_bytes",
-            "flash_attention_tf32x3_smem_bytes"} <= set(_build._SIGNATURES)
+            "flash_attention_tf32x3_smem_bytes",
+            "flash_attention_pingpong_smem_bytes"} <= set(_build._SIGNATURES)
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +711,7 @@ def test_kernel_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
     assert fa.launches == n0 + 1 and fa.variant_launches[kernel] == v0 + 1
     assert o.dtype == dtype
     tol = (TOL if dtype == torch.float32 else
-           wgmma_tol(v) if kernel == "flash_fwd_wgmma" else BF16_TOL)
+           wgmma_tol(v) if kernel in ("flash_fwd_wgmma", "flash_fwd_pingpong") else BF16_TOL)
     torch.testing.assert_close(o.float(), want.float(), **tol)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
@@ -585,15 +763,64 @@ WGMMA_SHAPES = [
 @pytest.mark.parametrize("B,S,H,KV,Skv,hd,causal,window", WGMMA_SHAPES)
 def test_wgmma_variant_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
                                              window):
+    """flash_fwd_wgmma, which no call of the wrapper's takes any more, run
+    through the C entry point's variant id (uncounted) as chip_smoke.py runs
+    it beside flash_fwd_pingpong."""
     q, k, v = (t.to(cuda_device, torch.bfloat16)
                for t in _t(*_qkv(S + hd + 1, B, S, H, KV, hd, Skv)))
-    n0 = fa.variant_launches["flash_fwd_wgmma"]
+    n0 = dict(fa.variant_launches)
+    o, lse = fa._launch("flash_fwd_wgmma", q, k, v, causal, window)
+    want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    assert fa.variant_launches == n0
+    torch.testing.assert_close(o.float(), want.float(), **wgmma_tol(v))
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+# flash_fwd_pingpong: flash_fwd_wgmma's edges, then the packed form's (two
+# heads a block at S, Skv <= 64): odd H (the last block one head), GQA pairs
+# that straddle a KV group, S < Skv <= 64, a window at S = 64, the training
+# shapes; B, S, H, KV, Skv, hd, causal, window
+PINGPONG_SHAPES = WGMMA_SHAPES + [
+    pytest.param(2, 64, 5, 5, 64, 64, True, None, id="packed_odd_h"),
+    pytest.param(2, 64, 6, 3, 64, 64, True, None, id="packed_pairs_straddle_kv_groups"),
+    pytest.param(2, 64, 6, 3, 64, 128, False, None, id="packed_straddle_hd128"),
+    pytest.param(2, 40, 4, 2, 56, 64, False, None, id="packed_s_lt_skv"),
+    pytest.param(2, 48, 7, 7, 64, 128, True, None, id="packed_s_lt_skv_causal_odd_h"),
+    pytest.param(2, 64, 8, 8, 64, 64, True, 16, id="packed_window_s64"),
+    pytest.param(2, 64, 4, 1, 64, 128, False, 20, id="packed_mqa_window_hd128"),
+    pytest.param(128, 64, 32, 32, 64, 64, True, None, id="stablelm_train"),
+    pytest.param(128, 64, 25, 5, 64, 64, True, None, id="hymba_train"),
+    pytest.param(2, 65, 4, 4, 64, 64, True, None, id="s65_unpacked"),
+    pytest.param(4, 2048, 32, 32, 2048, 64, True, None, id="stablelm_prefill"),
+    pytest.param(2, 4096, 25, 5, 4096, 64, True, 2048, id="hymba_window2048"),
+    # S > Skv + window: the last item has no K/V tile and fewer rows than
+    # consumer warpgroups, and its rows have no valid key
+    pytest.param(1, 200, 2, 2, 64, 64, False, 16, id="no_key_rows_window"),
+    pytest.param(1, 300, 2, 2, 64, 128, True, 16, id="no_key_rows_causal_hd128"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,causal,window", PINGPONG_SHAPES)
+def test_pingpong_variant_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, hd, causal,
+                                                window):
+    q, k, v = (t.to(cuda_device, torch.bfloat16)
+               for t in _t(*_qkv(S + hd + 1, B, S, H, KV, hd, Skv)))
+    geo = fa.launch_geometry(B, S, H, KV, Skv, hd, torch.bfloat16)
+    assert geo["kernel"] == "flash_fwd_pingpong"
+    assert geo["packed"] == (S <= 64 and Skv <= 64)
+    n0, v0 = fa.launches, fa.variant_launches["flash_fwd_pingpong"]
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
                                         return_lse=True)
-    assert fa.variant_launches["flash_fwd_wgmma"] == n0 + 1
-    torch.testing.assert_close(o.float(), want.float(), **wgmma_tol(v))
-    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    assert fa.launches == n0 + 1 and fa.variant_launches["flash_fwd_pingpong"] == v0 + 1
+    # a row with no valid key gets o = 0 and an lse far below any score's
+    keyed = ref._mask(torch.arange(S, device=o.device), torch.arange(Skv, device=o.device),
+                      causal, window).any(-1)
+    torch.testing.assert_close(o[:, keyed].float(), want[:, keyed].float(), **wgmma_tol(v))
+    torch.testing.assert_close(lse[:, :, keyed], want_lse[:, :, keyed], atol=1e-4, rtol=1e-5)
+    assert not o[:, ~keyed].any() and bool((lse[:, :, ~keyed] < -1e20).all())
 
 
 @pytest.mark.cuda
@@ -605,8 +832,21 @@ def test_launch_geometry_matches_the_kernel_on_card(cuda_device, hd):
     geo = fa.launch_geometry(1, 64, 1, 1, 64, hd, aligned=False)
     assert lib.flash_attention_smem_bytes(hd) == geo["smem_bytes"]
     if hd in fa.WG_HEAD_DIMS:
-        geo = fa.launch_geometry(1, 64, 1, 1, 64, hd, torch.bfloat16)
-        assert lib.flash_attention_wgmma_smem_bytes(hd) == geo["smem_bytes"]
+        assert lib.flash_attention_wgmma_smem_bytes(hd) == fa.wgmma_geometry(
+            1, 64, 1, 1, 64, hd)["smem_bytes"]
+    if hd in fa.PP_HEAD_DIMS:
+        import ctypes
+        out = (ctypes.c_int * 12)()
+        for B, S, H, Skv in ((128, 64, 25, 64), (4, 2048, 32, 2048), (2, 40, 6, 56),
+                             (2, 130, 3, 130)):
+            geo = fa.launch_geometry(B, S, H, 1, Skv, hd, torch.bfloat16)
+            assert lib.flash_attention_pingpong_smem_bytes(hd) == geo["smem_bytes"]
+            assert lib.flash_attention_geometry(3, hd, B, S, H, Skv, ctypes.addressof(out)) == 0
+            assert (tuple(out[:3]), out[3], out[4], out[5], out[6], out[7], tuple(out[8:])) == (
+                geo["grid"], geo["threads"], geo["smem_bytes"], geo["bq"], geo["bk"],
+                geo["stages"], geo["tma_box"])
+    else:
+        assert lib.flash_attention_pingpong_smem_bytes(hd) == -1
     if hd in fa.TF_HEAD_DIMS:
         geo = fa.launch_geometry(1, 64, 1, 1, 64, hd, torch.float32)
         assert lib.flash_attention_tf32x3_smem_bytes(hd) == geo["smem_bytes"]

@@ -376,7 +376,7 @@ def test_r5_every_path_shape_fits_the_card():
     assert rep.ok, [str(f) for f in rep.findings]
     assert {r.variant for r in recs} == {"auc_loss_kernel", "prox_update_multi_kernel",
                                          "opt_update_multi_kernel", "flash_fwd",
-                                         "flash_fwd_wgmma",
+                                         "flash_fwd_pingpong",
                                          "flash_fwd_tf32x3", "gmm_rows", "gmm_tiles",
                                          "gmm_wgmma", "gmm_tf32x3", "gmm_wgmma_m128"}
     tf = next(r for r in recs if r.variant == "flash_fwd_tf32x3" and r.shape["hd"] == 128)
@@ -400,6 +400,35 @@ def test_r5_records_the_128_row_kernel_at_dbrxs_bf16_prefill():
         assert rec.shape["_query_keys"] == {"bm": 128, "bn": 256,
                                             "tma_boxes": ((64, 128), (64, 64, 1, 1))}
         assert not A.launch_problems(rec)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,grid,threads,bk", [
+    (4, 2048, 32, 32, 64, (11 * 32 * 4, 1, 1), 512, 128),   # stablelm prefill: a block an item
+    (4, 2048, 40, 10, 128, (132, 1, 1), 384, 128),          # phi3 prefill: persistent
+    (128, 64, 32, 32, 64, (132, 1, 1), 384, 64),            # stablelm training: two heads an item
+    (128, 64, 25, 5, 64, (132, 1, 1), 384, 64),             # hymba training: odd H
+])
+def test_r5_records_the_pingpong_attention(monkeypatch, B, S, H, KV, hd, grid, threads, bk):
+    """R5's record of a bf16 K4 call at a path shape: flash_fwd_pingpong's
+    grid (a block a 192-row item at head_dim 64, else a persistent block an
+    SM of the card's, here an H100 SXM's 132), consumer warpgroups of 64
+    rows, its q and K/V boxes and the tensors' strides."""
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "_sm_count", lambda: 132)
+    rec = A.launch_record("flash_attention", {"B": B, "S": S, "H": H, "KV": KV, "Skv": S,
+                                              "hd": hd, "dtype": torch.bfloat16})
+    assert rec.variant == "flash_fwd_pingpong"
+    assert rec.grid == grid and rec.threads == threads
+    assert rec.smem_bytes == {64: 156_848, 128: 164_960}[hd]
+    assert rec.tiles == {"wgmma M (rows a consumer warpgroup)": (64, 64, None),
+                         "wgmma N (keys of q·kᵀ)": (bk, 8, 256),
+                         "wgmma N (dims of P·V)": (hd, 8, 256)}
+    assert rec.boxes == ((64, 1, 64, 1), (64, 1, bk, 1))
+    assert rec.strides == (hd * 2, H * hd * 2, S * H * hd * 2, hd * 2, KV * hd * 2,
+                           S * KV * hd * 2)
+    assert rec.shape["_query_keys"] == {"bq": 64 * (threads // 128 - 1), "bk": bk,
+                                        "stages": {64: 4, 128: 2}[hd], "tma_box": (64, 1, bk, 1)}
+    assert not A.launch_problems(rec)
 
 
 def test_r5_dispatch_seam():
