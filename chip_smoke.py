@@ -93,7 +93,16 @@ last line):
      with CUDA events and the profiler (the profiler's time only when it
      recorded every launch the wrapper counted, else CUDA events, marked)
      beside its bound, the plain version and SDPA; the backward against
-     autograd through the plain version at the training shape;
+     autograd through the plain version at the training shape; then K4 at
+     rows with no valid key (NO_KEY_CASES: every variant — flash_fwd at
+     head_dim 16/32 and an unaligned base, flash_fwd_tf32x3 and
+     flash_fwd_pingpong at 64/128, flash_fwd_wgmma beside the latter —
+     followed by flash_fill_no_key): every row against the plain version
+     under the variant's tolerance, the keyless rows' lse −1e30f bitwise,
+     one fill counted a case; the backward there in fp32 and bf16; the fill
+     alone at bf16 [4, 4096, 32/8, Skv 1024, 128], window 256, timed beside
+     its byte bound and its plain version (0 fills on every path, checked
+     at the end);
   9. full-depth fp32 prefills at full width, one replica each:
      stablelm-1.6b (24 layers, 1,644,369,921 parameters, head_dim 64) and
      chatglm3-6b (28 layers, 6,243,588,097 parameters, head_dim 128):
@@ -281,7 +290,8 @@ last line):
      FLOPs of that prefill beside its measured time;
 then the ``{"sharded": {...}}``, ``{"zoo": {...}}``, ``{"ssm": {...}}`` and
 ``{"audit": {...}}`` lines, the
-``{"kernels": [...]}`` line (all five kernels), nvidia-smi's line, and the
+``{"kernels": [...]}`` line (all five kernels and K4's flash_fill_no_key),
+nvidia-smi's line, and the
 ``{"ok": true, ...}`` line.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -1081,6 +1091,182 @@ def check_flash_attention(dev, rates, bf16_rate, gen):
         raise SystemExit("flash_attention's backward disagrees with autograd through "
                          "the plain version")
     return rows, bwd
+
+
+# rows with no valid key (a window that closes before the keys begin, or
+# every row of a causal mask with window 0): (label, B, S, H, KV, Skv,
+# causal, window) at head_dim 64 and 128 for flash_fwd_tf32x3 (fp32) and
+# flash_fwd_pingpong (bf16, flash_fwd_wgmma beside it); flash_fwd at head_dim
+# 32 (fp32), 16 (bf16) and at bf16 bases 8 bytes past a 16-byte boundary
+# (head_dim 64: TMA cannot read them, flash_fwd's 8-byte loads can)
+NO_KEY_SHAPES = [("window16", 1, 200, 2, 2, 64, False, 16),
+                 ("causal_window16", 1, 300, 4, 2, 64, True, 16),
+                 ("packed_window4", 2, 64, 4, 1, 16, True, 4),
+                 ("causal_window0", 1, 130, 4, 2, 130, True, 0)]
+# (label, B, S, H, KV, Skv, hd, causal, window, dtype, 16-byte aligned)
+NO_KEY_CASES = [
+    ("no_key_window16_hd32", 1, 200, 2, 2, 64, 32, False, 16, F32, True),
+    ("no_key_causal_window16_hd16_bf16", 1, 300, 4, 2, 64, 16, True, 16, BF16, True),
+    ("no_key_packed_window4_hd64_bf16_unaligned", 2, 64, 4, 1, 16, 64, True, 4, BF16, False),
+] + [(f"no_key_{label}_hd{hd}{'_bf16' if dt == BF16 else ''}", B, S, H, KV, Skv, hd, causal,
+      window, dt, True)
+     for dt in (F32, BF16) for hd in (64, 128)
+     for label, B, S, H, KV, Skv, causal, window in NO_KEY_SHAPES]
+# the backward at one such shape (fp32 and bf16): B, S, H, KV, Skv, hd, causal, window
+NO_KEY_BWD = (1, 200, 2, 2, 64, 64, False, 16)
+# flash_fill_no_key alone, timed: bf16 [4, 4096, 32/8, Skv 1024, 128],
+# non-causal, window 256 (rows 1279 … 4095 have no valid key)
+FILL_TIMED = (4, 4096, 32, 8, 1024, 128, False, 256, BF16)
+
+
+def off8(t):
+    """A copy of bf16 ``t`` whose base lies 8 bytes past a 16-byte boundary
+    (so the wrapper picks flash_fwd)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    return buf[4:].view(t.shape).copy_(t)
+
+
+def check_no_key_rows(dev, rates, gen) -> dict:
+    """K4 at rows with no valid key (NO_KEY_CASES): the variant
+    ``launch_geometry`` names, then flash_fill_no_key, against the plain
+    version at every row under the variant's tolerance (ATTN_TOL; P's
+    rounding for the bf16 tensor-core variants), the keyed rows' lse within
+    LSE_ATOL and the keyless rows' fp32(−1e30) bitwise; one variant launch
+    and one fill counted per case; flash_fwd_wgmma on the same values beside
+    each flash_fwd_pingpong case (``fa._launch``: uncounted, the same
+    contract).  Then the backward at NO_KEY_BWD in fp32 (ATTN_BWD_TOL) and
+    bf16 (the bf16 rule) against autograd through the plain version, and the
+    fill alone at FILL_TIMED (``fa._fill``, uncounted) against
+    ``fill_no_key_ref``, timed beside its byte bound and the plain version.
+    Every fill the wrapper counted here is one case's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    sentinel = torch.tensor(ref.NEG_INF, dtype=F32)
+    fills0, rows = fa.no_key_fills, []
+    for label, B, S, H, KV, Skv, hd, causal, window, dt, aligned in NO_KEY_CASES:
+        q = torch.randn((B, S, H, hd), generator=gen).to(dev, dt)
+        k, v = (torch.randn((B, Skv, KV, hd), generator=gen).to(dev, dt) for _ in range(2))
+        if not aligned:
+            q, k, v = (off8(t) for t in (q, k, v))
+        kw = dict(causal=causal, window=window)
+        first = fa.no_key_rows(S, Skv, causal, window)
+        variant = fa.launch_geometry(B, S, H, KV, Skv, hd, dt, aligned)["kernel"]
+        before, f0 = dict(fa.variant_launches), fa.no_key_fills
+        outs = {variant: fa.flash_attention_fwd(q, k, v, **kw)}
+        if (fa.variant_launches != before | {variant: before[variant] + 1}
+                or fa.no_key_fills != f0 + 1):
+            raise SystemExit(f"flash_attention {label}: expected one {variant} launch and "
+                             f"one flash_fill_no_key; variants {fa.variant_launches} (before "
+                             f"{before}), fills {fa.no_key_fills} (before {f0})")
+        if variant == "flash_fwd_pingpong":
+            outs["flash_fwd_wgmma"] = fa._launch("flash_fwd_wgmma", q, k, v, causal, window)
+        want, want_lse = ref.attention_full(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        row = {"case": label, "shape": [B, S, H, KV, Skv, hd], "causal": causal,
+               "window": window, "dtype": str(dt).replace("torch.", ""), "aligned": aligned,
+               "first_keyless_row": first, "kernel": variant}
+        for name, (o, lse) in outs.items():
+            atol, rtol = ATTN_TOL[dt]
+            if name in ("flash_fwd_pingpong", "flash_fwd_wgmma"):
+                atol = ATTN_P_ROUND * float(v.float().abs().max()) + ATTN_TOL[BF16][0]
+            diff = (o.float() - want.float()).abs()
+            lse_err = float((lse[:, :, :first] - want_lse[:, :, :first]).abs().max()) \
+                if first else 0.0
+            bitwise = (torch.equal(lse[:, :, first:].cpu(), sentinel.expand(B, H, S - first))
+                       and torch.equal(want_lse[:, :, first:].cpu(),
+                                       sentinel.expand(B, H, S - first)))
+            row[name] = {"max_abs_err": float(diff.max()),
+                         "max_abs_err_keyless": float(diff[:, first:].max()),
+                         "lse_max_abs_err_keyed": lse_err, "lse_keyless_bitwise": bitwise,
+                         "atol": atol, "rtol": rtol}
+            print(f"flash_attention {label} [B={B}, S={S}, H={H}, KV={KV}, Skv={Skv}, "
+                  f"hd={hd}] {'causal' if causal else 'full'} window={window} {row['dtype']}"
+                  f"{'' if aligned else ' unaligned'} {name} + flash_fill_no_key (rows "
+                  f"{first}-{S - 1} keyless): max_abs_err {row[name]['max_abs_err']:.3g}, "
+                  f"keyless rows {row[name]['max_abs_err_keyless']:.3g} (atol {atol:.3g}, "
+                  f"rtol {rtol:g}), keyed lse err {lse_err:.3g}, keyless lse -1e30f bitwise "
+                  f"{bitwise}")
+            if not (bool((diff <= atol + rtol * want.float().abs()).all())
+                    and lse_err <= LSE_ATOL and bitwise):
+                raise SystemExit(f"flash_attention {label}: {name} + flash_fill_no_key "
+                                 f"disagrees with the plain version: {row[name]}")
+        rows.append(row)
+        del q, k, v, outs, want, want_lse
+    # the backward (attention_bwd on the kernel's o and lse) at rows with no key
+    B, S, H, KV, Skv, hd, causal, window = NO_KEY_BWD
+    kw = dict(causal=causal, window=window)
+    inputs = [torch.randn(shape, generator=gen).to(dev)
+              for shape in ((B, S, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd), (B, S, H, hd))]
+    bwd = {}
+    for dt in (F32, BF16):
+        q, k, v = (t.to(dt).requires_grad_() for t in inputs[:3])
+        do = inputs[3].to(dt)
+        grads = {"kernels": torch.autograd.grad(fa.flash_attention(q, k, v, **kw),
+                                                (q, k, v), do),
+                 "plain": torch.autograd.grad(ref.attention_full(q, k, v, **kw), (q, k, v), do)}
+        names = ("dq", "dk", "dv")
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(grads["kernels"], grads["plain"])]
+        label = f"flash_attention backward at rows with no key {str(dt)[6:]}"
+        if dt == F32:
+            ok = all(bool(((g - w).abs() <= ATTN_BWD_TOL * (1 + w.abs())).all())
+                     for g, w in zip(grads["kernels"], grads["plain"]))
+            bwd["float32"] = {"max_abs_err": max(errs), "errs_dq_dk_dv": errs,
+                              "tol": ATTN_BWD_TOL}
+            print(f"{label}: dq/dk/dv max_abs_err {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} "
+                  f"(atol=rtol={ATTN_BWD_TOL})")
+            if not ok:
+                raise SystemExit(f"{label} disagrees with autograd through the plain version")
+        else:
+            q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+            exact = torch.autograd.grad(ref.attention_full(q32, k32, v32, **kw),
+                                        (q32, k32, v32), do.float())
+            bwd["bfloat16"] = {"errs_dq_dk_dv": errs, "bf16_rule": bf16_noise_check(
+                label, dict(zip(names, grads["kernels"])), dict(zip(names, grads["plain"])),
+                dict(zip(names, exact)))}
+    bwd["shape"], bwd["causal"], bwd["window"] = [B, S, H, KV, Skv, hd], causal, window
+    fills = fa.no_key_fills - fills0
+    if fills != len(NO_KEY_CASES) + 2:
+        raise SystemExit(f"flash_fill_no_key: {fills} launches counted in the check, expected "
+                         f"{len(NO_KEY_CASES)} cases + 2 backward forwards")
+    # the fill alone at a larger shape, beside its byte bound and plain version
+    import types
+    B, S, H, KV, Skv, hd, causal, window, dt = FILL_TIMED
+    first = fa.no_key_rows(S, Skv, causal, window)
+    v = torch.randn((B, Skv, KV, hd), generator=gen).to(dev, dt)
+    o, lse = torch.zeros((B, S, H, hd), dtype=dt, device=dev), torch.zeros((B, H, S), device=dev)
+    o_ref, lse_ref = o.clone(), lse.clone()
+    fa._fill(o, lse, v, first)
+    fa.fill_no_key_ref(o_ref, lse_ref, v, first)
+    err = float((o.float() - o_ref.float()).abs().max())
+    if not (err <= ATTN_TOL[BF16][0] + ATTN_TOL[BF16][1] * float(o_ref.float().abs().max())
+            and torch.equal(lse, lse_ref)):
+        raise SystemExit(f"flash_fill_no_key alone disagrees with fill_no_key_ref: {err}")
+    counted = types.SimpleNamespace(launches=0)
+
+    def call():
+        counted.launches += 1
+        fa._fill(o, lse, v, first)
+
+    ms = cuda_ms(call, iters=50)
+    dev_ms, dev_src = kernel_device_ms(call, "flash_fill_no_key", counted, calls=20)
+    plain = cuda_ms(lambda: fa.fill_no_key_ref(o_ref, lse_ref, v, first), iters=20)
+    n_bytes = v.numel() * v.element_size() + B * (S - first) * H * hd * o.element_size() \
+        + B * H * (S - first) * 4
+    n_ops = v.numel() + B * KV * hd          # the sums' adds, one scale a column
+    bnd, by = bound_ms(n_bytes, n_ops, rates)
+    timed = {"case": "fill_timed", "shape": [B, S, H, KV, Skv, hd], "causal": causal,
+             "window": window, "dtype": "bfloat16", "first_keyless_row": first,
+             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "device_ms_source": dev_src,
+             "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+             "mbytes": n_bytes / 1e6}
+    print(f"flash_fill_no_key alone [B={B}, S={S}, H={H}, KV={KV}, Skv={Skv}, hd={hd}] bf16, "
+          f"rows {first}-{S - 1}: max_abs_err {err:.3g} vs fill_no_key_ref; {ms:.4f} ms "
+          f"({dev_txt(dev_ms, dev_src)}), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}: "
+          f"{n_bytes / 1e6:.1f} MB); {fills} fills counted in the check "
+          f"({len(NO_KEY_CASES)} cases + 2 backward forwards)")
+    del v, o, lse, o_ref, lse_ref
+    return {"rows": rows, "backward": bwd, "timed": timed, "fills": fills}
 
 
 STEP_OPTIMIZERS = [("sgd", torch.float32), ("momentum", torch.bfloat16),
@@ -2429,10 +2615,13 @@ def tree_dtype(params):
 
 def read_variants() -> dict:
     """Launches of each kernel variant since the counters were last set to
-    0: {kernel: {variant: launches}} for the kernels that have variants."""
+    0: {kernel: {variant: launches}} for the kernels that have variants,
+    and K4's flash_fill_no_key launches (counted apart from its variants)
+    under "flash_fill_no_key"."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train
     return {k: dict(mod.variant_launches) for k, mod in train.KERNELS.items()
-            if hasattr(mod, "variant_launches")}
+            if hasattr(mod, "variant_launches")} | {"flash_fill_no_key": fa.no_key_fills}
 
 
 def _top2_gap(cfg, params, prompt, generated, j):
@@ -4268,6 +4457,7 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
     prox_rows += [r for r in inplace_rows if r["kernel"] == "prox_update"]
     opt_rows += [r for r in inplace_rows if r["kernel"] == "opt_update"]
     attn_rows, attn_bwd = check_flash_attention(dev, rates, bf16_rate, gen)
+    no_key = check_no_key_rows(dev, rates, gen)
     gmm_rows = check_grouped_matmul(dev, rates, bf16_rate)
     stamp("kernel checks done")
     k5_checked = {(r["N"], r["Kd"], r["F"], r["dtype"]) for r in gmm_rows}
@@ -4611,6 +4801,30 @@ def run_phases(dev, rates, bf16_rate, twins) -> int:
                           BF16_STABLELM_PREFILL.label, BF16_QWEN_PREFILL.label,
                           BF16_ARCTIC_PREFILL.label, BF16_PHI3_PREFILL.label)
             + tuple(p.label for p in ZOO_PREFILLS)}})
+    # flash_fill_no_key: K4's rows with no valid key, after any variant; no
+    # path has such rows, so 0 launches on every path (checked), and its
+    # headline is the fill alone at FILL_TIMED
+    fills_by_path = {label: v["flash_fill_no_key"] for label, v in variants.items()}
+    if any(fills_by_path.values()):
+        raise SystemExit(f"flash_fill_no_key launched on a path: {fills_by_path}")
+    print(f"flash_fill_no_key: 0 launches on each of {len(fills_by_path)} paths, "
+          f"{no_key['fills']} in the K4 check")
+    h = no_key["timed"]
+    kernels.append({
+        "name": "flash_fill_no_key", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "wrapper": "src/repro_torch/kernels/flash_attention.py",
+        "replaces": "src/repro/kernels/flash_attention.py:94",
+        "launches": sum(fills_by_path.values()), "launches_by_path": fills_by_path,
+        "launches_in_check": no_key["fills"],
+        "max_abs_err": max(max(r[k]["max_abs_err_keyless"] for k in r
+                               if isinstance(r[k], dict)) for r in no_key["rows"]),
+        "tol": "each variant's flash_attention tolerance at every row; keyless lse "
+               "-1e30f bitwise",
+        "shape": h["shape"], "ms": h["ms"], "device_ms": h["device_ms"],
+        "device_ms_source": h["device_ms_source"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": None,
+        "cases": no_key["rows"], "backward": no_key["backward"], "timed": h})
     # grouped_matmul: headline at dbrx-132b's decode gate/up shape in fp32,
     # the call every moe layer of every served token makes twice
     h = next(r for r in gmm_rows if r["case"] == "dbrx_decode_gate")

@@ -49,6 +49,9 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, _P]),
+    "flash_attention_fill_no_key": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, _P, _P, _P]
+                                    + [ctypes.c_int] * 6 + [_P]),
+    "flash_attention_no_key_first": (ctypes.c_int, [ctypes.c_int] * 4),
     "flash_attention_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "flash_attention_wgmma_smem_bytes": (ctypes.c_int, [ctypes.c_int]),
     "flash_attention_tf32x3_smem_bytes": (ctypes.c_int, [ctypes.c_int]),

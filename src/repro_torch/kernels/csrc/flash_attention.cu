@@ -3,7 +3,9 @@
 // coda_kernels.cu into one library; coda_error_string names its errors).
 //
 //   flash_attention_forward  replaces repro/kernels/flash_attention.py::
-//                            flash_attention (Pallas, pallas_call at :120)
+//                            flash_attention (Pallas, pallas_call at :120);
+//                            one of four variants, then, at rows with no
+//                            valid key, flash_fill_no_key
 //
 // What it computes: GQA attention o = softmax(q·kᵀ/√hd + mask)·v per
 // (batch, query head), query head h reading KV head h / G, with causal and
@@ -12,6 +14,18 @@
 // The mask sentinel is -1e30, not -inf, as the Pallas kernel's: a row whose
 // first visited tile holds no valid key then gets exp(0) = 1 weights there,
 // which the rescale exp(-1e30 − m) = 0 wipes once a valid key arrives.
+// A row with no valid key at all (a window that closes before the keys
+// begin: row q ≥ Skv + window − 1, or every row of a causal mask with
+// window 0) is the fill's: the reference (repro/kernels/ref.py::
+// attention_full) softmaxes Skv equal sentinels, so such a row's o is the
+// mean of its KV head's V over all Skv keys and its lse is −1e30 (−1e30 +
+// log Skv rounds to it in fp32).  Whatever a variant writes there (flash_fwd
+// the mean over the tiles it visits, flash_fwd_pingpong o = 0) is
+// overwritten by flash_fill_no_key (at the end of the file), which
+// flash_attention_forward launches after the variant when such rows exist.
+// The Pallas kernel itself gives the mean over the blocks its early-out
+// visits there, which depends on its block size; the port follows the
+// reference function.
 //
 // Design.  The TPU kernel runs a sequential KV grid axis with m, l and acc
 // in VMEM scratch; here a block owns one 64-row query tile of one head of
@@ -189,8 +203,10 @@
 //     registers the persistent walk spills and serializes the wgmma chain;
 //   * o = O / max(l, 1e-30) in bf16 stored from registers; lse = m·hd^-½ +
 //     log l in fp32.  A row with no valid key at all (a window that closes
-//     before the keys begin, S > Skv + window) keeps l = 0 and gets o = 0,
-//     as the Pallas kernel's rows whose every KV block it skips do.
+//     before the keys begin, S ≥ Skv + window) keeps l = 0 and the kernel
+//     writes o = 0 there, as the Pallas kernel's rows whose every KV block
+//     it skips get; flash_fill_no_key then overwrites those rows with the
+//     reference's mean of V and lse = −1e30 (see the header).
 // The candidates and diagnostics behind these choices (turns or none,
 // ex2 on or off, V's loads on or off, persistent or not, two or three
 // consumer warpgroups) are scripts/k4_bf16_variants.py's.
@@ -1678,24 +1694,12 @@ int launch_pingpong(const void* q, const void* k, const void* v, void* o, float*
                 : launch_pp<HD, false>(qm, km, vm, o, lse, B, S, H, Skv, KV, causal, window,
                                        scale * kLog2e, stream);
 }
-}  // namespace
 
-extern "C" {
-
-// q [B, S, H, hd], k/v [B, Skv, KV, hd], o [B, S, H, hd] (contiguous, one
-// dtype: bf16 = 0 → fp32, 1 → bf16); lse [B, H, S] fp32.  window < 0 means
-// no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.  variant: 0 flash_fwd,
-// 1 flash_fwd_wgmma (bf16, hd 64 or 128, q/k/v 16-byte aligned), 2
-// flash_fwd_tf32x3 (fp32, hd 64 or 128, q/k/v 16-byte aligned), 3
-// flash_fwd_pingpong (bf16, hd 64 or 128, q/k/v 16-byte aligned).
-int flash_attention_forward(int bf16, int hd, int variant, const void* q, const void* k,
-                            const void* v, void* o, float* lse, int B, int S,
-                            int H, int Skv, int KV, int causal, int window,
-                            float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      B > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// One launch of the variant the caller names (the wrapper's pick, or a
+// check's yardstick); see flash_attention_forward.
+int launch_variant(int bf16, int hd, int variant, const void* q, const void* k, const void* v,
+                   void* o, float* lse, int B, int S, int H, int Skv, int KV, int causal,
+                   int window, float scale, cudaStream_t s) {
   if (variant == 3) {
     if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
     switch (hd) {
@@ -1723,6 +1727,173 @@ int flash_attention_forward(int bf16, int hd, int variant, const void* q, const 
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   return bf16 ? dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s)
               : dispatch_hd<float>(hd, q, k, v, o, lse, B, S, H, Skv, KV, causal, window, scale, s);
+}
+
+// The first query row with no valid key, or S if every row has one
+// (kernels/flash_attention.py::no_key_rows is the same arithmetic).  Row q
+// keeps the keys kv > q − window (and kv ≤ q when causal); the last key is
+// Skv − 1, so with a window every row q ≥ Skv + window − 1 has none, and a
+// causal mask with window 0 (kv ≤ q and kv > q) leaves no row a key.
+// Without a window key 0 is valid for every row.
+int no_key_first(int S, int Skv, int causal, int window) {
+  if (window < 0) return S;
+  if (causal && window == 0) return 0;
+  const long long first = static_cast<long long>(Skv) + window - 1;
+  return first < S ? static_cast<int>(first) : S;
+}
+
+// flash_fill_no_key: the reference's value at rows with no valid key (see
+// the header).  It replaces no Pallas kernel of its own: it completes K4's
+// contract after whichever variant ran.  A block per (KV head, batch row).
+// Sum: a key's row of the head is kChunks 16-byte pieces of kVec values;
+// thread (p, j) adds piece j of the keys p, p + kStripes, … in order, in
+// fp32 (16-byte loads where v is 16-byte aligned, else the same values one
+// by one: the same sums either way); the kStripes partial sums of a column
+// are then added in order p = 0, 1, …, scaled by 1/Skv and rounded once to
+// o's dtype.  Write: that row goes into rows first … S − 1 of the G query
+// heads that read this KV head (G·HD contiguous elements a row, 16-byte
+// stores), and lse = −1e30f there.  Bytes bind it: V read once, those rows
+// of o and lse written once.
+constexpr int kFillThreads = 512;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T, int HD, bool Vec>
+__global__ void __launch_bounds__(kFillThreads)
+flash_fill_no_key(const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, int S,
+                  int H, int Skv, int KV, int first) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // values a 16-byte piece
+  constexpr int kChunks = HD / kVec;                      // pieces a head's row
+  constexpr int kStripes = kFillThreads / kChunks;        // keys summed side by side
+  __shared__ float part[kStripes][HD];
+  __shared__ uint4 mean[kChunks];                         // the mean in o's dtype
+  const int kvh = blockIdx.x, b = blockIdx.y, G = H / KV;
+  const int j = threadIdx.x % kChunks, p = threadIdx.x / kChunks;
+  const long long kv_row = static_cast<long long>(KV) * HD;  // stride of a key
+  const T* vb = v + static_cast<long long>(b) * Skv * kv_row + static_cast<long long>(kvh) * HD +
+                j * kVec;
+  float acc[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+#pragma unroll 4
+  for (int c = p; c < Skv; c += kStripes) {
+    const T* src = vb + c * kv_row;
+    uint4 raw;
+    T* x = reinterpret_cast<T*>(&raw);
+    if constexpr (Vec) {
+      raw = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) x[e] = src[e];
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] += to_f32(x[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) part[p][j * kVec + e] = acc[e];
+  __syncthreads();
+  if (threadIdx.x < HD) {
+    float sum = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < kStripes; ++i) sum += part[i][threadIdx.x];
+    store1(reinterpret_cast<T*>(mean) + threadIdx.x, sum * (1.f / static_cast<float>(Skv)));
+  }
+  __syncthreads();
+
+  // o: a row of this KV head's query heads is per_row 16-byte stores;
+  // rstep rows a pass of the block (one row, looped, when per_row passes
+  // the block's threads)
+  const int per_row = G * kChunks;
+  const int rstep = max(1, kFillThreads / per_row);
+  const int r0 = threadIdx.x / per_row;
+  const long long row = static_cast<long long>(H) * kChunks;  // stride of a query row
+  uint4* ob = reinterpret_cast<uint4*>(o) + static_cast<long long>(b) * S * row +
+              static_cast<long long>(kvh) * per_row;
+  if (r0 < rstep)
+    for (int r = first + r0; r < S; r += rstep)
+      for (int i = threadIdx.x % per_row; i < per_row; i += kFillThreads)
+        ob[r * row + i] = mean[i % kChunks];
+  // lse [B, H, S]: rows first … S − 1 of the G heads
+  float* lb = lse + (static_cast<long long>(b) * H + static_cast<long long>(kvh) * G) * S;
+  for (int g = 0; g < G; ++g)
+    for (int r = first + threadIdx.x; r < S; r += kFillThreads)
+      lb[static_cast<long long>(g) * S + r] = kNegInf;
+}
+
+template <typename T, int HD>
+int launch_fill(const void* v, void* o, float* lse, int B, int S, int H, int Skv, int KV,
+                int first, cudaStream_t stream) {
+  const dim3 grid(KV, B);
+  if (reinterpret_cast<uintptr_t>(v) % 16 == 0)
+    flash_fill_no_key<T, HD, true><<<grid, kFillThreads, 0, stream>>>(
+        static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Skv, KV, first);
+  else
+    flash_fill_no_key<T, HD, false><<<grid, kFillThreads, 0, stream>>>(
+        static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Skv, KV, first);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows first … S − 1 of o [B, S, H, hd] (16-byte aligned) and lse [B, H, S]
+int fill_no_key(int bf16, int hd, const void* v, void* o, float* lse, int B, int S, int H,
+                int Skv, int KV, int first, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(o) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  switch (hd) {
+    case 16: return bf16 ? launch_fill<__nv_bfloat16, 16>(v, o, lse, B, S, H, Skv, KV, first, s)
+                         : launch_fill<float, 16>(v, o, lse, B, S, H, Skv, KV, first, s);
+    case 32: return bf16 ? launch_fill<__nv_bfloat16, 32>(v, o, lse, B, S, H, Skv, KV, first, s)
+                         : launch_fill<float, 32>(v, o, lse, B, S, H, Skv, KV, first, s);
+    case 64: return bf16 ? launch_fill<__nv_bfloat16, 64>(v, o, lse, B, S, H, Skv, KV, first, s)
+                         : launch_fill<float, 64>(v, o, lse, B, S, H, Skv, KV, first, s);
+    case 128: return bf16 ? launch_fill<__nv_bfloat16, 128>(v, o, lse, B, S, H, Skv, KV, first, s)
+                          : launch_fill<float, 128>(v, o, lse, B, S, H, Skv, KV, first, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+}  // namespace
+
+extern "C" {
+
+// q [B, S, H, hd], k/v [B, Skv, KV, hd], o [B, S, H, hd] (contiguous, one
+// dtype: bf16 = 0 → fp32, 1 → bf16); lse [B, H, S] fp32.  window < 0 means
+// no window.  hd ∈ {16, 32, 64, 128}; H % KV == 0.  variant: 0 flash_fwd,
+// 1 flash_fwd_wgmma (bf16, hd 64 or 128, q/k/v 16-byte aligned), 2
+// flash_fwd_tf32x3 (fp32, hd 64 or 128, q/k/v 16-byte aligned), 3
+// flash_fwd_pingpong (bf16, hd 64 or 128, q/k/v 16-byte aligned).  When
+// some rows have no valid key (no_key_first < S), flash_fill_no_key then
+// writes the reference's o and lse there, on the same stream, whichever
+// variant ran.
+int flash_attention_forward(int bf16, int hd, int variant, const void* q, const void* k,
+                            const void* v, void* o, float* lse, int B, int S,
+                            int H, int Skv, int KV, int causal, int window,
+                            float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_variant(bf16, hd, variant, q, k, v, o, lse, B, S, H, Skv, KV, causal,
+                                 window, scale, s);
+  if (err != 0) return err;
+  const int first = no_key_first(S, Skv, causal, window);
+  return first < S ? fill_no_key(bf16, hd, v, o, lse, B, S, H, Skv, KV, first, s) : 0;
+}
+
+// flash_fill_no_key alone on rows first … S − 1 (0 ≤ first < S), as
+// flash_attention_forward launches it: for a check to time it and hold it
+// against its plain version.  o must be 16-byte aligned.
+int flash_attention_fill_no_key(int bf16, int hd, const void* v, void* o, float* lse, int B,
+                                int S, int H, int Skv, int KV, int first, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
+      first < 0 || first >= S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fill_no_key(bf16, hd, v, o, lse, B, S, H, Skv, KV, first,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// no_key_first, for the wrapper's arithmetic to be held against.
+int flash_attention_no_key_first(int S, int Skv, int causal, int window) {
+  return no_key_first(S, Skv, causal, window);
 }
 
 int flash_attention_smem_bytes(int hd) {

@@ -29,12 +29,23 @@ sequences) bytes.  ``flash_fwd_wgmma``, the first bf16 tensor-core form
 ``flash_fwd_pingpong``'s yardstick, launched on the same values through the
 C entry point's variant id (``_launch``), uncounted.
 
+Rows with no valid key (a window that closes before the keys begin, or
+every row of a causal mask with window 0: ``no_key_rows``) get the
+reference function's value, whatever the variant wrote there: the
+reference (``repro.kernels.ref.attention_full``) softmaxes Skv equal −1e30
+sentinels, so o is the fp32 mean of the KV head's V over all Skv keys,
+rounded to q's dtype, and lse is fp32(−1e30) (−1e30 + log Skv rounds to
+it).  On the card the C entry point launches ``flash_fill_no_key`` after
+the variant for those rows (counted apart, ``no_key_fills``); the Pallas
+kernel's own value there, a mean over the blocks its early-out visits,
+depends on its block size and is not followed.
+
 The Pallas kernel has no VJP: the reference differentiates attention by
 XLA autodiff outside any kernel.  Here ``FlashAttention`` is a
 ``torch.autograd.Function`` whose forward is K4 and whose backward is plain
 tensor code (``attention_bwd``): P recomputed from the saved log-sum-exp,
-then D = rowsum(dO∘O), dS = P∘(dP − D), and dQ, dK, dV with dK and dV
-summed over the G query heads of each KV head.
+then D = rowsum(dO∘O), dS = P∘(dP − D) cut to 0 outside the mask, and dQ,
+dK, dV with dK and dV summed over the G query heads of each KV head.
 
 The wrapper computes the plain version (``ref.attention_full``) for CPU
 tensors, and launches the kernel or raises for CUDA tensors.
@@ -52,6 +63,9 @@ from repro_torch.kernels import _build, ref
 launches = 0
 variant_launches = {"flash_fwd": 0, "flash_fwd_wgmma": 0, "flash_fwd_tf32x3": 0,
                     "flash_fwd_pingpong": 0}
+# launches of flash_fill_no_key through this wrapper (one per call that
+# reaches the card with rows that have no valid key), apart from the variants
+no_key_fills = 0
 # the C entry point's variant argument
 _VARIANT_ID = {"flash_fwd": 0, "flash_fwd_wgmma": 1, "flash_fwd_tf32x3": 2,
                "flash_fwd_pingpong": 3}
@@ -176,9 +190,10 @@ def wgmma_geometry(B: int, S: int, H: int, KV: int, Skv: int, hd: int) -> dict:
 
 
 def zero_launches() -> None:
-    """Set the launch counters (the total and each variant's) to 0."""
-    global launches
-    launches = 0
+    """Set the launch counters (the total, each variant's and the fill's)
+    to 0."""
+    global launches, no_key_fills
+    launches = no_key_fills = 0
     for name in variant_launches:
         variant_launches[name] = 0
 
@@ -189,6 +204,21 @@ def normalize_window(window):
     if window is None or int(window) < 0:
         return None
     return int(window)
+
+
+def no_key_rows(S: int, Skv: int, causal: bool, window) -> int | None:
+    """The first query row with no valid key (its row of ``ref._mask`` all
+    false), or None when every row has one; the rows from it to S − 1 have
+    none.  Row q keeps the keys kv > q − window (and kv ≤ q when causal);
+    the last key is Skv − 1, so with a window w every row q ≥ Skv + w − 1
+    has none, and causal with w = 0 leaves no row a key.  Without a window
+    key 0 is valid for every row.  (The C entry point's ``no_key_first``
+    is the same arithmetic.)"""
+    window = normalize_window(window)
+    if window is None:
+        return None
+    first = 0 if causal and window == 0 else Skv + window - 1
+    return first if first < S else None
 
 
 def _check(q, k, v):
@@ -204,6 +234,15 @@ def _check(q, k, v):
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention inputs lie on several devices")
+
+
+def _readable(t):
+    """``t``, or a copy in a fresh (aligned) allocation when its base is one
+    ``flash_fwd`` cannot read: that kernel loads four values at a time (16
+    bytes in fp32, 8 in bf16), and a base off that alignment faults with a
+    misaligned address.  A base that is 8-byte but not 16-byte aligned in
+    bf16 stays, and routes to ``flash_fwd`` (TMA needs 16)."""
+    return t if t.data_ptr() % (4 * t.element_size()) == 0 else t.clone()
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
@@ -222,20 +261,23 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None):
                          f"got {hd}")
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention's grid takes B, H <= 65535; got {B}, {H}")
-    global launches
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    global launches, no_key_fills
+    q, k, v = (_readable(t.contiguous()) for t in (q, k, v))
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     kernel = launch_geometry(B, S, H, KV, Skv, hd, q.dtype, aligned)["kernel"]
     o, lse = _launch(kernel, q, k, v, causal, window)
     launches += 1
     variant_launches[kernel] += 1
+    if no_key_rows(S, Skv, causal, window) is not None:
+        no_key_fills += 1           # the entry point's flash_fill_no_key after the variant
     return o, lse
 
 
 def _launch(kernel: str, q, k, v, causal: bool, window):
     """One launch of variant ``kernel`` through the C entry point's variant
     id on contiguous CUDA tensors (the entry point refuses a dtype or
-    head_dim the variant lacks); counts nothing.  The wrapper calls it with
+    head_dim the variant lacks), then ``flash_fill_no_key`` where rows have
+    no valid key; counts nothing.  The wrapper calls it with
     ``launch_geometry``'s pick; a check may call it with another variant on
     the same values."""
     B, S, H, hd = q.shape
@@ -252,13 +294,55 @@ def _launch(kernel: str, q, k, v, causal: bool, window):
     return o, lse
 
 
+def fill_no_key_ref(o, lse, v, first: int) -> None:
+    """``flash_fill_no_key``'s plain version, in place: rows ``first`` … S − 1
+    of o [B, S, H, hd] get the fp32 mean of their KV head's V [B, Skv, KV,
+    hd] over all Skv keys, rounded to o's dtype, and those rows of lse
+    [B, H, S] get fp32(−1e30)."""
+    B, S, H, hd = o.shape
+    KV = v.shape[2]
+    mean = v.to(torch.float32).sum(dim=1) * (1.0 / v.shape[1])         # [B, KV, hd]
+    o[:, first:] = mean.repeat_interleave(H // KV, dim=1)[:, None].to(o.dtype)
+    lse[:, :, first:] = ref.NEG_INF
+
+
+def _fill(o, lse, v, first: int) -> None:
+    """``flash_fill_no_key`` alone on rows ``first`` … S − 1 of o and lse, in
+    place, as the C entry point launches it after a variant; counts
+    nothing (a check times it and holds it against ``fill_no_key_ref``).
+    CPU tensors take the plain version; CUDA tensors (contiguous, o 16-byte
+    aligned) launch the kernel or raise."""
+    if o.device.type == "cpu":
+        fill_no_key_ref(o, lse, v, first)
+        return
+    B, S, H, hd = o.shape
+    Skv, KV = v.shape[1], v.shape[2]
+    if not (o.is_contiguous() and v.is_contiguous() and lse.is_contiguous()) \
+            or o.dtype != v.dtype or lse.dtype != torch.float32 or lse.shape != (B, H, S) \
+            or v.shape[0] != B or v.shape[3] != hd or H % KV:
+        raise ValueError(f"flash_fill_no_key wants contiguous o [B, S, H, hd], fp32 lse "
+                         f"[B, H, S] and v [B, Skv, KV, hd] of o's dtype; got "
+                         f"{tuple(o.shape)}, {tuple(lse.shape)}, {tuple(v.shape)}")
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    err = _build.load().flash_attention_fill_no_key(
+        int(o.dtype == torch.bfloat16), hd, v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S,
+        H, Skv, KV, first, stream)
+    _build.check(err, "flash_fill_no_key launch")
+
+
 def attention_bwd(q, k, v, o, lse, do, causal: bool, window):
     """Gradients (dq, dk, dv) of attention given the forward's output o and
     per-row log-sum-exp ``lse [B, H, S]``, in plain tensor code: P =
     exp(s − lse) with the forward's masked scores s, D = rowsum(dO∘O),
-    dS = P∘(dP − D), dq = dS·k·hd^-½, dk = dSᵀ·q·hd^-½, dv = Pᵀ·dO — dk and
-    dv summed over the G query heads that share a KV head.  fp32
-    throughout, each result in its input's dtype."""
+    dS = P∘(dP − D), 0 where the mask is false (``jnp.where``'s gradient
+    in the reference: a row with a valid key has P = exp(−1e30 − lse) = 0
+    exactly there, a row without one is cut), dq = dS·k·hd^-½, dk =
+    dSᵀ·q·hd^-½, dv =
+    Pᵀ·dO — dk and dv summed over the G query heads that share a KV head.
+    At a row with no valid key P is 1/Skv on every key (the reference's
+    softmax of equal sentinels; exp(s − lse) would give 1, since lse =
+    −1e30 there), so such a row adds dO/Skv to every key's dv and nothing
+    to dq or dk.  fp32 throughout, each result in its input's dtype."""
     window = normalize_window(window)
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -274,10 +358,15 @@ def attention_bwd(q, k, v, o, lse, do, causal: bool, window):
     s = torch.where(valid[None, :, None, None, :], s, ref.NEG_INF)
     lse_g = lse.transpose(1, 2).reshape(B, S, KV, G)
     p = torch.exp(s - lse_g[..., None])
+    first = no_key_rows(S, Skv, causal, window)
+    if first is not None:           # the softmax of Skv equal sentinels
+        p[:, first:] = 1.0 / Skv
     dv = torch.einsum("bskgc,bskgh->bckh", p, dog)
     dp = torch.einsum("bskgh,bckh->bskgc", dog, vf)
     D = (dog * og).sum(dim=-1, keepdim=True)
     ds = p * (dp - D)
+    if first is not None:           # every key of these rows lies outside the mask
+        ds[:, first:] = 0.0
     scale = hd ** -0.5
     dq = torch.einsum("bskgc,bckh->bskgh", ds, kf) * scale
     dk = torch.einsum("bskgc,bskgh->bckh", ds, qg)

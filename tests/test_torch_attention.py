@@ -632,9 +632,11 @@ def test_pingpong_model_sentinel_rows():
 
 
 def test_pingpong_model_rows_with_no_key():
-    """Past S = Skv + window a row has no valid key: the model keeps l = 0
-    there, so o = 0 and lse ≤ −1e20 (the backward's P then is 0), and every
-    other row equals the plain version's softmax."""
+    """Past S = Skv + window a row has no valid key: the model of the kernel
+    alone keeps l = 0 there, so o = 0 and lse ≤ −1e20, and every other row
+    equals the plain version's softmax.  On the card ``flash_fill_no_key``
+    follows the kernel and writes the reference's value at those rows (the
+    card cases below)."""
     q, k, v = (t.bfloat16() for t in _t(*_qkv(43, 1, 200, 2, 2, 64, 64)))
     got, lse = attention_pingpong(q, k, v, False, 16)
     want, want_lse = ref.attention_full(q.float(), k.float(), v.float(), causal=False,
@@ -674,8 +676,9 @@ def test_build_knows_both_libraries(tmp_path, monkeypatch):
     assert len({first, second, _build.library_path()}) == 3
     assert first.name.startswith("libcoda_") and first.suffix == ".so"
     assert {"coda_error_string", "flash_attention_forward", "flash_attention_smem_bytes",
-            "flash_attention_tf32x3_smem_bytes",
-            "flash_attention_pingpong_smem_bytes"} <= set(_build._SIGNATURES)
+            "flash_attention_tf32x3_smem_bytes", "flash_attention_pingpong_smem_bytes",
+            "flash_attention_fill_no_key",
+            "flash_attention_no_key_first"} <= set(_build._SIGNATURES)
 
 
 # ---------------------------------------------------------------------------
@@ -810,17 +813,184 @@ def test_pingpong_variant_matches_plain_on_card(cuda_device, B, S, H, KV, Skv, h
     geo = fa.launch_geometry(B, S, H, KV, Skv, hd, torch.bfloat16)
     assert geo["kernel"] == "flash_fwd_pingpong"
     assert geo["packed"] == (S <= 64 and Skv <= 64)
-    n0, v0 = fa.launches, fa.variant_launches["flash_fwd_pingpong"]
+    n0, v0, f0 = fa.launches, fa.variant_launches["flash_fwd_pingpong"], fa.no_key_fills
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
                                         return_lse=True)
     assert fa.launches == n0 + 1 and fa.variant_launches["flash_fwd_pingpong"] == v0 + 1
-    # a row with no valid key gets o = 0 and an lse far below any score's
-    keyed = ref._mask(torch.arange(S, device=o.device), torch.arange(Skv, device=o.device),
-                      causal, window).any(-1)
-    torch.testing.assert_close(o[:, keyed].float(), want[:, keyed].float(), **wgmma_tol(v))
-    torch.testing.assert_close(lse[:, :, keyed], want_lse[:, :, keyed], atol=1e-4, rtol=1e-5)
-    assert not o[:, ~keyed].any() and bool((lse[:, :, ~keyed] < -1e20).all())
+    assert fa.no_key_fills == f0 + (fa.no_key_rows(S, Skv, causal, window) is not None)
+    # every row equals the plain version, those with no valid key included
+    # (flash_fill_no_key's mean of V and lse = −1e30 there)
+    torch.testing.assert_close(o.float(), want.float(), **wgmma_tol(v))
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+def _off(t, nbytes: int):
+    """A copy of ``t`` whose base lies ``nbytes`` past a 16-byte boundary
+    (8 in bf16: the wrapper cannot pick a TMA variant, and flash_fwd's
+    8-byte loads read it)."""
+    n = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    out = buf[n:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+# rows with no valid key, for every variant: B, S, H, KV, Skv, causal, window
+NO_KEY_SHAPES = [
+    pytest.param(1, 200, 2, 2, 64, False, 16, id="window16_rows79on"),
+    pytest.param(1, 300, 4, 2, 64, True, 16, id="causal_window16_gqa_rows79on"),
+    pytest.param(2, 64, 4, 1, 16, True, 4, id="packed_mqa_window4_rows19on"),
+    pytest.param(1, 130, 4, 2, 130, True, 0, id="causal_window0_every_row"),
+]
+# variant, head_dim, dtype, 16-byte aligned bases (else 8 bytes past)
+NO_KEY_VARIANTS = [
+    ("flash_fwd", 32, torch.float32, True),
+    ("flash_fwd", 16, torch.bfloat16, True),
+    ("flash_fwd", 64, torch.bfloat16, False),
+    ("flash_fwd", 128, torch.bfloat16, False),
+    ("flash_fwd_tf32x3", 64, torch.float32, True),
+    ("flash_fwd_tf32x3", 128, torch.float32, True),
+    ("flash_fwd_pingpong", 64, torch.bfloat16, True),
+    ("flash_fwd_pingpong", 128, torch.bfloat16, True),
+    ("flash_fwd_wgmma", 64, torch.bfloat16, True),     # through _launch, uncounted
+    ("flash_fwd_wgmma", 128, torch.bfloat16, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,hd,dtype,aligned", NO_KEY_VARIANTS)
+@pytest.mark.parametrize("B,S,H,KV,Skv,causal,window", NO_KEY_SHAPES)
+def test_every_variant_matches_plain_at_rows_with_no_key_on_card(
+        cuda_device, variant, hd, dtype, aligned, B, S, H, KV, Skv, causal, window):
+    """Each variant, then ``flash_fill_no_key``, at shapes with rows that
+    have no valid key: every row's o within the variant's tolerance of the
+    plain version, the keyed rows' lse within 1e-4, the keyless rows' lse
+    fp32(−1e30) bitwise; through the wrapper one variant launch and one fill
+    counted, through ``_launch`` (``flash_fwd_wgmma``, the yardstick)
+    none."""
+    q, k, v = (t.to(cuda_device, dtype)
+               for t in _t(*_qkv(S + Skv + hd, B, S, H, KV, hd, Skv)))
+    if not aligned:
+        q, k, v = (_off(t, 8) for t in (q, k, v))
+    first = fa.no_key_rows(S, Skv, causal, window)
+    assert first is not None
+    counted = variant != "flash_fwd_wgmma"
+    n0, f0 = dict(fa.variant_launches), fa.no_key_fills
+    if counted:
+        assert fa.launch_geometry(B, S, H, KV, Skv, hd, dtype, aligned)["kernel"] == variant
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    else:
+        o, lse = fa._launch(variant, q, k, v, causal, window)
+    want, want_lse = ref.attention_full(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    assert fa.no_key_fills == f0 + counted
+    assert fa.variant_launches == (n0 | {variant: n0[variant] + 1} if counted else n0)
+    tol = (TOL if dtype == torch.float32 else
+           wgmma_tol(v) if variant in ("flash_fwd_wgmma", "flash_fwd_pingpong") else BF16_TOL)
+    torch.testing.assert_close(o.float(), want.float(), **tol)
+    torch.testing.assert_close(lse[:, :, :first], want_lse[:, :, :first], atol=1e-4,
+                               rtol=1e-5)
+    sentinel = torch.tensor(-1e30, dtype=torch.float32)
+    assert torch.equal(lse[:, :, first:].cpu(), sentinel.expand(B, H, S - first))
+    assert torch.equal(want_lse[:, :, first:].cpu(), sentinel.expand(B, H, S - first))
+
+
+# flash_fill_no_key alone: B, S, H, KV, Skv, hd, dtype, first, v's base in
+# bytes past a 16-byte boundary (a row of the KV head's query heads is G·hd
+# elements: 7 heads, one, and 32 heads of 128 fp32 — 1,024 16-byte stores,
+# more than the block's threads; v off 16 bytes is read one value at a time)
+FILL_SHAPES = [
+    (2, 300, 56, 8, 1024, 128, torch.bfloat16, 17, 0),
+    (3, 40, 2, 2, 5, 16, torch.bfloat16, 0, 0),
+    (2, 50, 32, 1, 37, 128, torch.float32, 49, 0),
+    (1, 64, 6, 3, 64, 32, torch.float32, 20, 0),
+    (1, 64, 4, 2, 64, 64, torch.bfloat16, 63, 0),
+    (2, 70, 6, 3, 33, 32, torch.float32, 3, 4),
+    (2, 70, 8, 2, 33, 64, torch.bfloat16, 5, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,Skv,hd,dtype,first,off", FILL_SHAPES)
+def test_fill_kernel_alone_matches_its_plain_version_on_card(cuda_device, B, S, H, KV, Skv, hd,
+                                                            dtype, first, off):
+    """``_fill`` writes rows first … S − 1 of o and lse as ``fill_no_key_ref``
+    does (fp32 atol = rtol = 1e-6: the sums' order; bf16 one ulp) and leaves
+    every other row as it was; a misaligned o is refused."""
+    v = torch.randn((B, Skv, KV, hd), generator=torch.Generator().manual_seed(Skv)).to(
+        cuda_device, dtype)
+    if off:
+        v = _off(v, off)
+    got_o = torch.full((B, S, H, hd), 7.0, dtype=dtype, device=cuda_device)
+    got_lse = torch.full((B, H, S), 7.0, device=cuda_device)
+    want_o, want_lse = got_o.clone(), got_lse.clone()
+    fa._fill(got_o, got_lse, v, first)
+    fa.fill_no_key_ref(want_o, want_lse, v, first)
+    torch.testing.assert_close(got_o.float(), want_o.float(), atol=1e-6,
+                               rtol=1e-6 if dtype == torch.float32 else 2 ** -7)
+    assert torch.equal(got_lse, want_lse)
+    assert bool((got_o[:, :first] == 7.0).all())
+    with pytest.raises(RuntimeError, match="flash_fill_no_key"):
+        fa._fill(_off(got_o, 8), got_lse, v, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,off,kernel", [
+    (torch.float32, 4, "flash_fwd_tf32x3"),      # copied: flash_fwd's float4 loads need 16
+    (torch.float32, 8, "flash_fwd_tf32x3"),
+    (torch.bfloat16, 2, "flash_fwd_pingpong"),   # copied: its 8-byte loads need 8
+    (torch.bfloat16, 8, "flash_fwd"),            # read as it is
+])
+def test_wrapper_reads_every_base_on_card(cuda_device, dtype, off, kernel):
+    """A base ``flash_fwd`` cannot read is copied to a fresh allocation
+    first (then aligned: a TMA variant takes it); a bf16 base 8 bytes past
+    a 16-byte boundary goes to ``flash_fwd`` as it is; every output equals
+    the plain version's."""
+    q, k, v = (_off(t.to(cuda_device, dtype), off)
+               for t in _t(*_qkv(off, 2, 96, 4, 2, 64, 80)))
+    n0 = fa.variant_launches[kernel]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=None)
+    want, want_lse = ref.attention_full(q, k, v, causal=True, return_lse=True)
+    assert fa.variant_launches[kernel] == n0 + 1
+    tol = (TOL if dtype == torch.float32 else
+           wgmma_tol(v) if kernel == "flash_fwd_pingpong" else BF16_TOL)
+    torch.testing.assert_close(o.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_no_key_first_is_the_wrappers_arithmetic_on_card(cuda_device):
+    """The C entry point's first keyless row equals ``no_key_rows`` (S for
+    None) over a grid of S, Skv, window and causal."""
+    lib = _build.load()
+    for S in (1, 17, 64, 300):
+        for Skv in (1, 16, 64, 299):
+            for window in (None, 0, 1, 16, 300):
+                for causal in (True, False):
+                    first = fa.no_key_rows(S, Skv, causal, window)
+                    assert lib.flash_attention_no_key_first(
+                        S, Skv, int(causal), -1 if window is None else window) == (
+                        S if first is None else first), (S, Skv, window, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,Skv,causal,window", NO_KEY_SHAPES)
+def test_backward_at_rows_with_no_key_matches_autograd_on_card(cuda_device, B, S, H, KV, Skv,
+                                                               causal, window):
+    """fp32 ``flash_attention`` (``flash_fwd_tf32x3``, the fill, then
+    ``attention_bwd`` on the kernel's o and lse) against autograd through
+    the plain version, at rows with no valid key."""
+    q, k, v = (t.to(cuda_device).requires_grad_()
+               for t in _t(*_qkv(S + Skv, B, S, H, KV, 64, Skv)))
+    do = torch.randn_like(q)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, causal=causal, window=window),
+                              (q, k, v), do)
+    want = torch.autograd.grad(ref.attention_full(q, k, v, causal=causal, window=window),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
 
 
 @pytest.mark.cuda
